@@ -1,0 +1,357 @@
+"""The ACCL facade of the PyTorch/CUDA port.
+
+Counterpart of accl_tpu/accl.py. One controller drives a communicator of
+`world` virtual ranks on one card: buffers are stacked (world, n)
+tensors, and one call runs the collective for every rank.
+`from_device`/`to_device` skip the host<->device syncs so chained calls
+stay on the card, as in the reference.
+
+The facade runs on the card unless the caller asks for the CPU:
+`ACCL(world=8)` needs a CUDA device and raises without one;
+`ACCL(world=8, torch_device="cpu")` runs every schedule's plain PyTorch
+form on the CPU (what the tests use). This slice ports allreduce; the
+other collectives arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .arithconfig import DEFAULT_ARITH_CONFIG, validate_arith_config
+from .buffers import BaseBuffer, DummyBuffer, GPUBuffer
+from .communicator import Communicator, Rank
+from .constants import (
+    DEFAULT_EAGER_RX_BUF_SIZE,
+    DEFAULT_MAX_EAGER_SIZE,
+    DEFAULT_MAX_RENDEZVOUS_SIZE,
+    DEFAULT_NUM_EAGER_RX_BUFS,
+    CfgFunc,
+    CompressionFlags,
+    DataType,
+    HostFlags,
+    Operation,
+    StreamFlags,
+    TAG_ANY,
+    TuningParams,
+    to_torch_dtype,
+)
+from .descriptor import CallOptions
+from .device.base import CCLOAddr
+from .device.gpu_device import GPUDevice
+from .errors import DtypeMismatchError, InvalidRootError, ZeroLengthBufferError
+from .interop import tensor_from_numpy
+from .request import BaseRequest
+from .utils.logging import Log
+
+
+class ACCL:
+    """Driver facade over a device backend (reference ACCL class)."""
+
+    def __init__(
+        self,
+        world: int | None = None,
+        torch_device: torch.device | str | None = None,
+        device=None,
+        n_egr_rx_bufs: int = DEFAULT_NUM_EAGER_RX_BUFS,
+        egr_rx_buf_size: int = DEFAULT_EAGER_RX_BUF_SIZE,
+        max_eager_size: int = DEFAULT_MAX_EAGER_SIZE,
+        max_rendezvous_size: int = DEFAULT_MAX_RENDEZVOUS_SIZE,
+        arith_config: dict | None = None,
+    ):
+        if device is None:
+            if world is None:
+                raise ValueError("provide a world size or an explicit device backend")
+            if torch_device is None:
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        "ACCL runs on a CUDA device and none is available; "
+                        "pass torch_device='cpu' to run on the CPU")
+                torch_device = "cuda"
+            device = GPUDevice(world, torch_device)
+        self.cclo = device
+        self.arith_config = validate_arith_config(arith_config or DEFAULT_ARITH_CONFIG)
+        self._config = dict(
+            n_egr_rx_bufs=n_egr_rx_bufs,
+            egr_rx_buf_size=egr_rx_buf_size,
+            max_eager_size=max_eager_size,
+            max_rendezvous_size=max_rendezvous_size,
+        )
+        self.communicators: list[Communicator] = []
+        self._initialized = False
+        self._last_request: BaseRequest | None = None
+        self.initialize()
+
+    # ------------------------------------------------------------------ #
+    # bring-up
+    # ------------------------------------------------------------------ #
+
+    def initialize(self):
+        if self._initialized:
+            raise RuntimeError("ACCL already initialized (CFGRDY set)")
+        cfg = self._config
+        dev = self.cclo
+        # rx-ring + threshold config words
+        dev.write(CCLOAddr.EGR_RX_BUF_SIZE, cfg["egr_rx_buf_size"])
+        dev.write(CCLOAddr.NUM_EGR_RX_BUFS, cfg["n_egr_rx_bufs"])
+        dev.eager_rx_buf_size = cfg["egr_rx_buf_size"]
+        # default communicator over the whole world
+        self.communicators.clear()
+        world = dev.world
+        ranks = [Rank(device_index=i, session_id=i) for i in range(world)]
+        self.communicators.append(Communicator(ranks, 0, CCLOAddr.DYNAMIC_BASE))
+        self._write_communicator(self.communicators[0])
+        # arithmetic configs -> exchange memory
+        addr = CCLOAddr.DYNAMIC_BASE + 4 * (2 + world * Communicator.WORDS_PER_RANK)
+        for ac in self.arith_config.values():
+            ac.set_exchmem(addr)
+            for i, w in enumerate(ac.exchmem_words()):
+                dev.write(addr + 4 * i, w)
+            addr += 4 * ac.WORDS_PER_ROW
+        self.configure_tuning_parameters(
+            TuningParams.default(cfg["max_rendezvous_size"]))
+        # thresholds via config calls
+        self._config_call(CfgFunc.set_max_eager_msg_size, cfg["max_eager_size"])
+        self._config_call(CfgFunc.set_max_rendezvous_msg_size, cfg["max_rendezvous_size"])
+        self._config_call(CfgFunc.enable_pkt, 0)
+        dev.write(CCLOAddr.CFGRDY, 1)
+        self._initialized = True
+
+    def _config_call(self, fn: CfgFunc, value: int):
+        req = self.cclo.call(
+            CallOptions(scenario=Operation.config, function=int(fn), count=value)
+        )
+        req.check()
+
+    def deinit(self):
+        self._config_call(CfgFunc.reset_periph, 0)
+        self.cclo.write(CCLOAddr.CFGRDY, 0)
+        self._initialized = False
+
+    def _write_communicator(self, comm: Communicator):
+        for i, w in enumerate(comm.exchmem_words()):
+            self.cclo.write(comm.exchmem_addr + 4 * i, w)
+
+    def configure_tuning_parameters(self, tuning: TuningParams):
+        """Write the algorithm-tuning registers to exchange memory; the
+        device reads them back per call."""
+        dev = self.cclo
+        dev.write(CCLOAddr.GATHER_FLAT_TREE_MAX_FANIN,
+                  tuning.gather_flat_tree_max_fanin)
+        dev.write(CCLOAddr.GATHER_FLAT_TREE_MAX_COUNT,
+                  tuning.gather_flat_tree_max_count)
+        dev.write(CCLOAddr.BCAST_FLAT_TREE_MAX_RANKS,
+                  tuning.bcast_flat_tree_max_ranks)
+        dev.write(CCLOAddr.REDUCE_FLAT_TREE_MAX_RANKS,
+                  tuning.reduce_flat_tree_max_ranks)
+        dev.write(CCLOAddr.REDUCE_FLAT_TREE_MAX_COUNT,
+                  tuning.reduce_flat_tree_max_count)
+        dev.write(CCLOAddr.ALLREDUCE_COMPOSITION_MAX_COUNT,
+                  tuning.allreduce_composition_max_count)
+        dev.write(CCLOAddr.SYNTH_ALLREDUCE_MAX_COUNT,
+                  tuning.synth_allreduce_max_count)
+        dev.write(CCLOAddr.SYNTH_ALLGATHER_MAX_COUNT,
+                  tuning.synth_allgather_max_count)
+        dev.write(CCLOAddr.SYNTH_REDUCE_SCATTER_MAX_COUNT,
+                  tuning.synth_reduce_scatter_max_count)
+        dev.write(CCLOAddr.HIER_ALLREDUCE_MIN_COUNT,
+                  tuning.hier_allreduce_min_count)
+        dev.write(CCLOAddr.ALLTOALL_COMPRESS_MIN_COUNT,
+                  tuning.alltoall_compress_min_count)
+        dev.write(CCLOAddr.OVERLAP_MIN_COUNT, tuning.overlap_min_count)
+        dev.write(CCLOAddr.SYNTH_LATENCY_MAX_COUNT,
+                  tuning.synth_latency_max_count)
+
+    # ------------------------------------------------------------------ #
+    # buffers
+    # ------------------------------------------------------------------ #
+
+    @property
+    def world(self) -> int:
+        return self.cclo.world
+
+    def create_buffer(
+        self, count: int, dtype: torch.dtype | DataType = torch.float32,
+        data: torch.Tensor | np.ndarray | None = None, host_only: bool = False,
+    ) -> GPUBuffer:
+        """Allocate a stacked (world, count) rank buffer on the device.
+        `data` (a tensor, or a numpy array as the reference's callers pass)
+        is copied into the host mirror. host_only buffers live in host
+        memory and are staged to the device around each call."""
+        if isinstance(dtype, DataType):
+            dtype = to_torch_dtype(dtype)
+        if data is None:
+            host = torch.zeros((self.world, count), dtype=dtype)
+        else:
+            if isinstance(data, np.ndarray):
+                data = tensor_from_numpy(data)
+            # always copy: the buffer owns its memory
+            host = data.to("cpu", dtype).reshape(self.world, count).clone()
+        buf = GPUBuffer(host, self.cclo.torch_device, host_only=host_only)
+        self.cclo.register_buffer(buf)
+        return buf
+
+    def free_buffer(self, buf: BaseBuffer):
+        self.cclo.unregister_buffer(buf)
+
+    # ------------------------------------------------------------------ #
+    # prepare_call: dtype/compression resolution
+    # ------------------------------------------------------------------ #
+
+    def _prepare(
+        self,
+        scenario: Operation,
+        op0: BaseBuffer | None,
+        op1: BaseBuffer | None,
+        res: BaseBuffer | None,
+        count: int,
+        root_src_dst: int = 0,
+        function: int = 0,
+        tag: int = TAG_ANY,
+        compress_dtype: DataType | None = None,
+        comm: Communicator | None = None,
+    ) -> CallOptions:
+        if comm is None:
+            comm = self.communicators[0]
+        elif comm not in self.communicators:
+            raise ValueError("communicator does not belong to this ACCL")
+        # roots and src/dst ranks are communicator-relative
+        if scenario in (Operation.bcast, Operation.scatter, Operation.gather,
+                        Operation.reduce):
+            if not 0 <= root_src_dst < comm.size:
+                raise InvalidRootError(
+                    f"root {root_src_dst} outside communicator of {comm.size}")
+        elif scenario in (Operation.send, Operation.recv):
+            src, dst = root_src_dst & 0xFFFF, (root_src_dst >> 16) & 0xFFFF
+            if src >= comm.size or dst >= comm.size:
+                raise InvalidRootError(
+                    f"src/dst ({src},{dst}) outside communicator of {comm.size}")
+        if count <= 0 and scenario not in (Operation.barrier,
+                                           Operation.config, Operation.nop):
+            raise ZeroLengthBufferError(
+                f"{scenario.name} with count {count}: data-plane calls "
+                "need a positive element count")
+        dtype = None
+        for b in (op0, op1, res):
+            if b is not None and not isinstance(b, DummyBuffer):
+                if dtype is None:
+                    dtype = b.data_type
+                elif b.data_type != dtype:
+                    raise DtypeMismatchError(
+                        "mixed-dtype operands: use compress_dtype for wire "
+                        "compression instead"
+                    )
+        comp = CompressionFlags.NO_COMPRESSION
+        host = HostFlags.NO_HOST
+        for b, flag in ((op0, HostFlags.OP0_HOST), (op1, HostFlags.OP1_HOST),
+                        (res, HostFlags.RES_HOST)):
+            if b is not None and getattr(b, "host_only", False):
+                host |= flag
+        arithcfg_addr = 0
+        if dtype is not None:
+            pair = (dtype, compress_dtype or dtype)
+            if pair not in self.arith_config:
+                raise ValueError(f"no arithmetic configuration for {pair}")
+            if compress_dtype is not None and compress_dtype != dtype:
+                from .ops.compression import is_quantized
+
+                # a backend without the quantized lanes would degrade the
+                # request to a cast, so refuse it host-side
+                if is_quantized(self.arith_config[pair]) and not getattr(
+                        self.cclo, "supports_quantized_wire", False):
+                    raise NotImplementedError(
+                        f"{type(self.cclo).__name__} has no blockwise-"
+                        f"quantized wire lanes ({pair[0].name} -> "
+                        f"{pair[1].name}); the quantized wire is a later "
+                        "slice of the PyTorch port")
+                comp |= CompressionFlags.ETH_COMPRESSED
+            arithcfg_addr = self.arith_config[pair].addr()
+        return CallOptions(
+            scenario=scenario,
+            count=count,
+            comm_addr=comm.exchmem_addr,
+            root_src_dst=root_src_dst,
+            function=function,
+            tag=tag,
+            arithcfg_addr=arithcfg_addr,
+            compression_flags=comp,
+            stream_flags=StreamFlags.NO_STREAM,
+            host_flags=host,
+            addr_0=0 if op0 is None else op0.address,
+            addr_1=0 if op1 is None else op1.address,
+            addr_2=0 if res is None else res.address,
+            data_type=dtype or DataType.none,
+            compress_dtype=compress_dtype or DataType.none,
+        )
+
+    def _stage_in(self, sync_in: list[BaseBuffer], from_device: bool):
+        """Pre-launch host->device staging: host-only operands always
+        stage; device buffers only without from_device residence."""
+        for b in sync_in:
+            if not from_device or getattr(b, "host_only", False):
+                b.sync_to_device()
+
+    def _complete(self, req, sync_out: list[BaseBuffer], to_device: bool,
+                  run_async: bool):
+        """Post-launch completion: async defers sync-out to wait()
+        (host-only results still copy back under to_device); sync waits,
+        checks and pulls results."""
+        self._last_request = req
+        if run_async:
+            if to_device:
+                req._accl_sync_out = [
+                    b for b in sync_out if getattr(b, "host_only", False)
+                ]
+            else:
+                req._accl_sync_out = sync_out
+            return req
+        req.wait()
+        req.check()
+        for b in sync_out:
+            if not to_device or getattr(b, "host_only", False):
+                b.sync_from_device()
+        return req
+
+    def _execute(
+        self,
+        opts: CallOptions,
+        sync_in: list[BaseBuffer],
+        sync_out: list[BaseBuffer],
+        from_device: bool,
+        to_device: bool,
+        run_async: bool,
+    ):
+        self._stage_in(sync_in, from_device)
+        Log.debug("call %s count=%d flags=c%x/s%x", opts.scenario.name,
+                  opts.count, int(opts.compression_flags),
+                  int(opts.stream_flags))
+        req = self.cclo.start(opts)
+        return self._complete(req, sync_out, to_device, run_async)
+
+    def wait(self, req: BaseRequest):
+        """Complete an async request (sync-out deferred at start time)."""
+        req.wait()
+        req.check()
+        for b in getattr(req, "_accl_sync_out", []):
+            b.sync_from_device()
+        return req
+
+    def get_duration_ns(self, req: BaseRequest | None = None) -> int:
+        req = req or self._last_request
+        return 0 if req is None else req.get_duration_ns()
+
+    # ------------------------------------------------------------------ #
+    # collectives
+    # ------------------------------------------------------------------ #
+
+    def allreduce(self, sendbuf, recvbuf, count, function, *,
+                  from_device=False, to_device=False, run_async=False,
+                  compress_dtype=None, comm=None):
+        """Every rank's recvbuf receives the elementwise reduction
+        (ReduceFunction SUM/MAX) of all ranks' sendbufs. compress_dtype
+        names a wire dtype (fp16/bf16 cast lanes)."""
+        opts = self._prepare(Operation.allreduce, sendbuf, None, recvbuf,
+                             count, function=int(function),
+                             compress_dtype=compress_dtype, comm=comm)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)

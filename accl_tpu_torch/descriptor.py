@@ -1,0 +1,122 @@
+"""Call descriptors: the host <-> sequencer contract.
+
+Counterpart of accl_tpu/descriptor.py. A call is a fixed 15-word
+descriptor; the same words key the port's compiled-schedule cache
+through `signature()`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from .constants import (
+    CompressionFlags,
+    DataType,
+    HostFlags,
+    Operation,
+    ReduceFunction,
+    StreamFlags,
+    TAG_ANY,
+)
+
+DESCRIPTOR_WORDS = 15
+
+
+@dataclasses.dataclass
+class CallOptions:
+    """Host-side form of a call descriptor."""
+
+    scenario: Operation = Operation.nop
+    count: int = 0
+    comm_addr: int = 0
+    root_src_dst: int = 0
+    function: int = 0  # ReduceFunction for reductions, CfgFunc for config
+    tag: int = TAG_ANY
+    arithcfg_addr: int = 0
+    compression_flags: CompressionFlags = CompressionFlags.NO_COMPRESSION
+    stream_flags: StreamFlags = StreamFlags.NO_STREAM
+    host_flags: HostFlags = HostFlags.NO_HOST
+    op0_stream_id: int = 0
+    res_stream_id: int = 0
+    addr_0: int = 0  # operand 0 (send buffer)
+    addr_1: int = 0  # operand 1 (second reduction operand)
+    addr_2: int = 0  # result buffer
+    # not serialized into the 15-word form: static dtypes (so compiled
+    # schedules cache per signature), the alltoallv capacity vector and
+    # the degraded live-subset set — each changes the compiled program
+    data_type: DataType = DataType.none
+    compress_dtype: DataType = DataType.none
+    peer_counts: tuple[int, ...] = ()
+    live_ranks: tuple[int, ...] = ()
+
+    def to_words(self) -> list[int]:
+        """Serialize into the 15-word call stream layout: scenario, count,
+        comm, root_src_dst, function, tag, arithcfg, compression,
+        stream|host<<8|op0_stream<<16|res_stream<<24, then three 64-bit
+        addresses as lo/hi word pairs."""
+        words = [
+            int(self.scenario),
+            self.count,
+            self.comm_addr,
+            self.root_src_dst,
+            int(self.function),
+            self.tag,
+            self.arithcfg_addr,
+            int(self.compression_flags),
+            int(self.stream_flags) | (int(self.host_flags) << 8)
+            | ((self.op0_stream_id & 0xFF) << 16)
+            | ((self.res_stream_id & 0xFF) << 24),
+        ]
+        for addr in (self.addr_0, self.addr_1, self.addr_2):
+            words.append(addr & 0xFFFFFFFF)
+            words.append((addr >> 32) & 0xFFFFFFFF)
+        if len(words) != DESCRIPTOR_WORDS:
+            raise AssertionError(f"descriptor encoded to {len(words)} words")
+        return words
+
+    @classmethod
+    def from_words(cls, words: list[int]) -> "CallOptions":
+        if len(words) != DESCRIPTOR_WORDS:
+            raise ValueError(f"descriptor must be {DESCRIPTOR_WORDS} words")
+        return cls(
+            scenario=Operation(words[0]),
+            count=words[1],
+            comm_addr=words[2],
+            root_src_dst=words[3],
+            function=words[4],
+            tag=words[5],
+            arithcfg_addr=words[6],
+            compression_flags=CompressionFlags(words[7]),
+            stream_flags=StreamFlags(words[8] & 0xFF),
+            host_flags=HostFlags((words[8] >> 8) & 0xFF),
+            op0_stream_id=(words[8] >> 16) & 0xFF,
+            res_stream_id=(words[8] >> 24) & 0xFF,
+            addr_0=words[9] | (words[10] << 32),
+            addr_1=words[11] | (words[12] << 32),
+            addr_2=words[13] | (words[14] << 32),
+        )
+
+    @property
+    def reduce_function(self) -> ReduceFunction:
+        return ReduceFunction(self.function)
+
+    def signature(self) -> tuple:
+        """Static compilation signature for the schedule cache: every field
+        that changes the compiled program but not the runtime-variable
+        buffer addresses."""
+        return (
+            self.scenario,
+            self.count,
+            self.comm_addr,
+            self.root_src_dst,
+            self.function,
+            self.data_type,
+            self.compress_dtype,
+            int(self.compression_flags),
+            int(self.stream_flags),
+            int(self.host_flags),
+            self.op0_stream_id,
+            self.res_stream_id,
+            tuple(self.peer_counts),
+            tuple(self.live_ranks),
+        )

@@ -1,0 +1,53 @@
+"""Typed host-side errors: the facade's validation contract.
+
+Counterpart of accl_tpu/errors.py. Every host-side precondition failure
+raises a typed error whose `lint_code` names the static-analysis
+diagnostic for the same defect, so callers and tests can pin the failure
+class.
+"""
+
+from __future__ import annotations
+
+
+class ACCLValidationError(ValueError):
+    """Base class for host-side call/descriptor validation failures."""
+
+    lint_code: str | None = None
+
+
+class InvalidRootError(ACCLValidationError):
+    """Root / src / dst rank outside the addressed communicator."""
+
+    lint_code = "ACCL402"
+
+
+class ZeroLengthBufferError(ACCLValidationError):
+    """A data-plane call with a non-positive element count."""
+
+    lint_code = "ACCL401"
+
+
+class DtypeMismatchError(ACCLValidationError, NotImplementedError):
+    """Operand/result dtypes disagree within one call (use compress_dtype
+    for wire compression instead)."""
+
+    lint_code = "ACCL401"
+
+
+def not_ported(what: str, slice_name: str) -> NotImplementedError:
+    """The error for a feature of the reference whose slice of the port
+    has not landed: raised where the reference would run it, so nothing
+    silently takes another path."""
+    return NotImplementedError(
+        f"{what} is not ported yet (the {slice_name} slice of the PyTorch "
+        "port)")
+
+
+def notify_sticky_retcode(function_name: str, retcode: int, *,
+                          detail: int = 0, rank: int | None = None,
+                          count: int | None = None):
+    """The dump-on-error seam of the sticky-retcode contract: every path
+    that materializes a nonzero sticky error word reports it here before
+    raising. The port has no flight recorder yet (it arrives with the
+    telemetry slice), so the seam records nothing and never raises."""
+    return None

@@ -1,0 +1,191 @@
+"""Fused ring allreduce: the Hopper kernel and its plain PyTorch version.
+
+Counterpart of accl_tpu/ops/ring_allreduce.py. The TPU kernels run one
+rank per chip under shard_map and move chunks between chips with remote
+DMAs; here the W ranks are virtual ranks on one card, the operand is the
+stacked (W, n) tensor, and one launch runs the ring for every rank.
+
+  ring_allreduce_bidir  replaces ring_allreduce_pallas_bidir
+                        (_kernel_bidir): two ring directions, each over
+                        half the payload — the default body of
+                        ACCL.allreduce on the card
+  ring_allreduce        replaces ring_allreduce_pallas (_kernel): the
+                        unidirectional twin, kept as its A/B baseline
+
+Both are one CUDA source, csrc/ring_allreduce.cu, templated over the
+element type, SUM/MAX and the direction count; its header states the
+design and the bound (bytes: 2*W*n*itemsize). A wrapper launches the
+kernel for a CUDA tensor and runs the plain version (`*_ref`, the same
+fold in torch ops on the same padded chunk geometry) only for a CPU
+tensor. Each wrapper counts its launches in a plain integer attribute,
+`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..constants import ReduceFunction, from_torch_dtype
+from .reduce_ops import combine_op
+
+# Per-call segment slots of the reference (two independent resource sets
+# so consecutive segments double-buffer). Kernels on one CUDA stream are
+# already ordered, so a slot here selects nothing; it is validated so the
+# compiler's segmented body calls the kernel exactly as the reference's.
+NUM_RING_SLOTS = 2
+
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64,
+                    torch.float16, torch.bfloat16)
+
+
+def _sublane(dtype: torch.dtype) -> int:
+    """Rows of the dtype's TPU VMEM tile (fp32 (8,128), bf16 (16,128)).
+    Hopper has no such tile, but the rounding decides the chunk geometry
+    and with it which rank starts each element's fold — part of the
+    numeric contract with the TPU kernel."""
+    return max(8, 32 // dtype.itemsize)
+
+
+def chunk_elems(n: int, world: int, dtype: torch.dtype, dirs: int) -> int:
+    """Elements per chunk: n split into dirs*world chunks of whole
+    (sublane, 128) tiles."""
+    tile = _sublane(dtype) * 128
+    chunk = -(-n // (dirs * world))
+    return -(-chunk // tile) * tile
+
+
+def _check_slot(slot: int) -> None:
+    if not 0 <= slot < NUM_RING_SLOTS:
+        raise ValueError(f"ring slot {slot} outside 0..{NUM_RING_SLOTS - 1}")
+
+
+def _ring_ref(x: torch.Tensor, world: int, func: ReduceFunction,
+              dirs: int) -> torch.Tensor:
+    """The TPU kernels' ring, rank by rank, in torch ops: rank r's buffer
+    is padded to dirs*world chunks; per direction the accumulator travels
+    W-1 hops (combine(arrival, local chunk)), then the reduced chunks
+    relay W-1 hops."""
+    n = x.shape[1]
+    chunk = chunk_elems(n, world, x.dtype, dirs)
+    padded = x.new_zeros((world, dirs * world * chunk))
+    padded[:, :n] = x
+    regions = padded.view(world, dirs, world, chunk)
+    out = torch.empty_like(regions)
+    me = torch.arange(world, device=x.device)
+    for d in range(dirs):
+        # forward sends to rank+1 (step 1), backward to rank-1 (step -1)
+        step = 1 if d == 0 else -1
+        local, dst = regions[:, d], out[:, d]
+        v = local[me, (me - step) % world]
+        for s in range(world - 1):
+            arrival = torch.roll(v, step, 0)
+            v = combine_op(func, arrival, local[me, (me - step * (2 + s)) % world])
+        dst[me, me] = v
+        for s in range(world - 1):
+            v = torch.roll(v, step, 0)
+            dst[me, (me - step * (1 + s)) % world] = v
+    return out.view(world, -1)[:, :n]
+
+
+def ring_allreduce_bidir_ref(x: torch.Tensor, world: int,
+                             func: ReduceFunction = ReduceFunction.SUM):
+    """Plain version of the bidirectional kernel."""
+    return _ring_ref(x, world, func, dirs=2)
+
+
+def ring_allreduce_ref(x: torch.Tensor, world: int,
+                       func: ReduceFunction = ReduceFunction.SUM):
+    """Plain version of the unidirectional kernel."""
+    return _ring_ref(x, world, func, dirs=1)
+
+
+def _library() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("ring_allreduce")
+    fn = lib.accl_ring_allreduce
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, op, dirs
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, out, comm
+            ctypes.c_longlong, ctypes.c_longlong,  # row strides in, out
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,  # n, W, chunk
+            ctypes.c_void_p,  # stream
+        ]
+        lib.accl_ring_error_string.restype = ctypes.c_char_p
+        lib.accl_ring_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _launch(x: torch.Tensor, world: int, func: ReduceFunction,
+            dirs: int) -> torch.Tensor:
+    if x.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"ring allreduce kernel has no {x.dtype} lane")
+    if x.stride(1) != 1:
+        raise ValueError("ring allreduce kernel needs unit-stride rows")
+    n = x.shape[1]
+    chunk = chunk_elems(n, world, x.dtype, dirs)
+    out = torch.empty((world, n), dtype=x.dtype, device=x.device)
+    # the two hop comm slots of every rank and direction
+    comm = torch.empty((2, dirs, world, chunk), dtype=x.dtype,
+                       device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.accl_ring_allreduce(
+            int(from_torch_dtype(x.dtype)), int(func), dirs,
+            x.data_ptr(), out.data_ptr(), comm.data_ptr(),
+            x.stride(0), out.stride(0), n, world, chunk,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        msg = lib.accl_ring_error_string(err).decode()
+        raise RuntimeError(f"ring allreduce kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+    return out
+
+
+def _plain_on_cpu(x: torch.Tensor, world: int, slot: int) -> bool:
+    """Check a wrapper's arguments; True when x lies on the CPU (the plain
+    version runs), False for a CUDA tensor (the kernel launches)."""
+    _check_slot(slot)
+    if x.dim() != 2 or x.shape[0] != world:
+        raise ValueError(
+            f"ring allreduce takes a stacked ({world}, n) tensor, got "
+            f"{tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ring allreduce runs on cuda or cpu, not {x.device}")
+    return x.device.type == "cpu"
+
+
+def ring_allreduce_bidir(x: torch.Tensor, world: int,
+                         func: ReduceFunction = ReduceFunction.SUM,
+                         slot: int = 0) -> torch.Tensor:
+    """Bidirectional fused ring allreduce of a stacked (world, n) tensor
+    (rows may be a column slice of a wider buffer: only unit stride
+    within a row is required). Launches the Hopper kernel for a CUDA
+    tensor; a CPU tensor takes the plain version."""
+    func = ReduceFunction(func)
+    if _plain_on_cpu(x, world, slot):
+        return _ring_ref(x, world, func, dirs=2)
+    out = _launch(x, world, func, dirs=2)
+    ring_allreduce_bidir.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+def ring_allreduce(x: torch.Tensor, world: int,
+                   func: ReduceFunction = ReduceFunction.SUM,
+                   slot: int = 0) -> torch.Tensor:
+    """Unidirectional fused ring allreduce (the A/B baseline of
+    ring_allreduce_bidir); same contract."""
+    func = ReduceFunction(func)
+    if _plain_on_cpu(x, world, slot):
+        return _ring_ref(x, world, func, dirs=1)
+    out = _launch(x, world, func, dirs=1)
+    ring_allreduce.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+ring_allreduce_bidir.launches = 0  # type: ignore[attr-defined]
+ring_allreduce.launches = 0  # type: ignore[attr-defined]

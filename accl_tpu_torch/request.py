@@ -1,0 +1,130 @@
+"""Asynchronous request handles.
+
+Counterpart of accl_tpu/request.py. A request owns its status, the call's
+sticky return code and its duration. On the card a launch returns before
+the work is done, so a GPURequest's completion is a CUDA event recorded
+after the call's kernels on the current stream, and its duration is the
+elapsed time of an event pair around them. On the CPU PyTorch runs
+eagerly: the work is done when the request is made, and the duration is
+the host clock's.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable
+
+import torch
+
+from .constants import ACCLError, ErrorCode, OperationStatus
+
+
+class BaseRequest:
+    """One in-flight collective call."""
+
+    _next_id = iter(range(1, 1 << 62))
+
+    def __init__(self, function_name: str = "call"):
+        self.request_id = next(self._next_id)
+        self.function_name = function_name
+        self.status = OperationStatus.QUEUED
+        self.retcode = 0
+        self.duration_ns = 0
+        self._done = threading.Event()
+        # facade rider (ACCL._complete / ACCL.wait): buffers whose
+        # device->host sync was deferred to wait()
+        self._accl_sync_out: list = []
+
+    def running(self):
+        self.status = OperationStatus.EXECUTING
+        self._start_time = time.perf_counter_ns()
+
+    def complete(self, retcode: int = 0):
+        self.retcode = retcode
+        self.duration_ns = time.perf_counter_ns() - getattr(
+            self, "_start_time", time.perf_counter_ns()
+        )
+        self.status = OperationStatus.COMPLETED
+        self._done.set()
+        if retcode:
+            from .errors import notify_sticky_retcode
+
+            notify_sticky_retcode(self.function_name, int(retcode))
+
+    def wait(self, timeout: float | None = None) -> bool:
+        """Block until completion; returns False on timeout."""
+        return self._done.wait(timeout)
+
+    def test(self) -> bool:
+        """Non-blocking completion probe."""
+        return self.status == OperationStatus.COMPLETED
+
+    def check(self):
+        """Raise if the call returned a sticky error word."""
+        if self.retcode:
+            raise ACCLError(self.function_name, self.retcode)
+
+    def get_duration_ns(self) -> int:
+        return self.duration_ns
+
+
+class GPURequest(BaseRequest):
+    """Request for one launched call. `events` is the (start, end) CUDA
+    event pair recorded around the call's kernels, or None for a call
+    that ran on the CPU (complete on return)."""
+
+    def __init__(self, function_name: str, outputs: list[torch.Tensor],
+                 events: tuple[torch.cuda.Event, torch.cuda.Event] | None,
+                 on_complete: Callable[["GPURequest"], Any] | None = None):
+        super().__init__(function_name)
+        self.outputs = outputs
+        self._events = events
+        self._on_complete = on_complete
+        # set by the device after plan selection: the resolved Plan
+        self.plan: Any = None
+        self.running()
+
+    def wait(self, timeout: float | None = None) -> bool:
+        if self.status == OperationStatus.COMPLETED:
+            return True
+        try:
+            if self._events is not None:
+                start, end = self._events
+                if timeout is not None:
+                    deadline = time.monotonic() + timeout
+                    while not end.query():
+                        if time.monotonic() >= deadline:
+                            return False
+                        time.sleep(0.0001)
+                end.synchronize()
+            self.complete(0)
+            if self._events is not None:
+                self.duration_ns = int(start.elapsed_time(end) * 1e6)
+        except RuntimeError as e:
+            # surface device failures through the sticky-error-word
+            # contract; the original exception still propagates
+            self.complete(_classify_runtime_error(e))
+            raise
+        if self._on_complete is not None:
+            self._on_complete(self)
+        return True
+
+    def test(self) -> bool:
+        if self.status == OperationStatus.COMPLETED:
+            return True
+        if self._events is None or self._events[1].query():
+            self.wait()
+            return True
+        return False
+
+
+def _classify_runtime_error(e: Exception) -> int:
+    """Map a device/runtime exception onto the closest sticky error bits."""
+    msg = str(e).lower()
+    if "out of memory" in msg:
+        return int(ErrorCode.DMA_SIZE_ERROR)
+    if "timeout" in msg or "timed out" in msg:
+        return int(ErrorCode.DMA_TIMEOUT_ERROR
+                   | ErrorCode.RECEIVE_TIMEOUT_ERROR)
+    return int(ErrorCode.DMA_INTERNAL_ERROR)

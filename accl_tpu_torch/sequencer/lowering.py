@@ -1,0 +1,175 @@
+"""Lowering: call descriptor + plan -> a callable schedule body.
+
+Counterpart of accl_tpu/sequencer/lowering.py. Where the reference
+traces a schedule once per descriptor signature and compiles it with XLA
+into one device program over the mesh, the port builds the schedule
+closure once per signature and runs it eagerly on the stacked (world, n)
+operand: row r is rank r's buffer. The allreduce branch picks one of the
+reference's two bodies: the torch-op ring over `Wire`
+(schedules.allreduce_ring_schedule), or — on the card — the fused ring
+kernel per 4 MiB segment, double-slotted like the reference's.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+
+from ..arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
+from ..constants import (
+    CompressionFlags,
+    DataType,
+    Operation,
+    ReduceFunction,
+    dtype_nbytes,
+)
+from ..descriptor import CallOptions
+from ..errors import not_ported
+from ..ops.compression import wire_dtype
+from . import schedules
+from .plan import Algorithm, Plan
+
+
+class ScheduleCompiler:
+    """Builds and caches collective bodies for one world of virtual ranks.
+
+    The cache key is the descriptor's static signature + the plan (+ the
+    kernel switch), as in the reference. `use_ring_kernel` defaults to
+    whether the ranks live on a CUDA device: the fused Hopper ring there,
+    the torch-op ring on the CPU."""
+
+    # Per-launch payload ceiling (bytes per rank) of the fused ring kernel;
+    # larger buffers run it per segment.
+    RING_KERNEL_MAX_BYTES = 4 * 1024 * 1024
+
+    def __init__(self, world: int, torch_device: torch.device,
+                 arith_table: dict | None = None,
+                 use_ring_kernel: bool | None = None):
+        self.world = world
+        self.torch_device = torch_device
+        self.arith_table = arith_table or DEFAULT_ARITH_CONFIG
+        if use_ring_kernel is None:
+            use_ring_kernel = torch_device.type == "cuda"
+        self.use_ring_kernel = use_ring_kernel
+        self._cache: dict = {}
+
+    def _wire(
+        self,
+        options: CallOptions,
+        arithcfg: ArithConfig | None,
+        func: ReduceFunction | None,
+        compressed_domain: bool,
+    ) -> schedules.Wire:
+        """Resolve the datapath config: which compression lanes wrap each
+        hop and which arith lane reductions use."""
+        arith_lane = None
+        if arithcfg is not None and func is not None:
+            arith_lane = arithcfg.arith_lanes[int(func)]
+        eth = (
+            arithcfg is not None
+            and options.compression_flags & CompressionFlags.ETH_COMPRESSED
+            and wire_dtype(arithcfg) is not None
+        )
+        # in compressed-domain execution the operand is cast once up
+        # front, so per-hop lanes are disabled
+        cfg = arithcfg if (eth and not compressed_domain) else None
+        return schedules.Wire(cfg, arith_lane)
+
+    def compile(
+        self,
+        options: CallOptions,
+        plan: Plan,
+        arithcfg: ArithConfig | None = None,
+    ) -> Callable:
+        key = (options.signature(), plan, self.use_ring_kernel)
+        fn = self._cache.get(key)
+        if fn is None:
+            from ..utils.logging import Log
+
+            Log.info("building %s: %s/%s world=%d count=%d",
+                     options.scenario.name, plan.protocol.name,
+                     plan.algorithm.name, self.world, options.count)
+            fn = self._body(options, plan, arithcfg)
+            self._cache[key] = fn
+        return fn
+
+    def _body(self, options: CallOptions, plan: Plan, arithcfg) -> Callable:
+        op = options.scenario
+        world = self.world
+        if op != Operation.allreduce:
+            raise not_ported(op.name, "remaining collectives")
+        if plan.algorithm not in (Algorithm.EAGER_RING_RS_AG, Algorithm.NONE):
+            raise not_ported(f"the {plan.algorithm.name} allreduce",
+                             "remaining collectives")
+        func = ReduceFunction(options.function)
+        # reductions whose arithconfig reduces in the compressed domain cast
+        # the operand to the wire dtype once and run the whole schedule there
+        compressed_domain = bool(
+            arithcfg is not None
+            and options.compression_flags & CompressionFlags.ETH_COMPRESSED
+            and arithcfg.arith_is_compressed
+            and wire_dtype(arithcfg) is not None
+        )
+        wire = self._wire(options, arithcfg, func, compressed_domain)
+        eth_active = bool(
+            arithcfg is not None
+            and options.compression_flags & CompressionFlags.ETH_COMPRESSED
+            and wire_dtype(arithcfg) is not None
+        )
+
+        body: Callable
+        # per-hop compression with uncompressed-domain arithmetic cannot be
+        # fused into the single-dtype ring kernel
+        if self.use_ring_kernel and (not eth_active or compressed_domain):
+            from ..ops.ring_allreduce import NUM_RING_SLOTS, ring_allreduce_bidir
+
+            # elements per segment in the dtype the kernel runs in (the
+            # descriptor's: the compressed domain keeps the segmentation of
+            # the uncompressed payload, as in the reference)
+            elem_bytes = (dtype_nbytes(options.data_type)
+                          if options.data_type != DataType.none else 1)
+            seg_elems = max(self.RING_KERNEL_MAX_BYTES // elem_bytes, 1)
+
+            def one_seg(y, slot=0):
+                return ring_allreduce_bidir(y, world, func, slot=slot)
+
+            def _ring_kernel_body(x, _wire=wire, _seg=seg_elems):
+                y = _wire.send(x)
+                out = schedules.segmented_apply(
+                    one_seg, y, _seg, overlap_slots=NUM_RING_SLOTS)
+                return _wire.recv(out, x.dtype)
+
+            body = _ring_kernel_body
+        else:
+            body = functools.partial(
+                schedules.allreduce_ring_schedule,
+                func=func, world=world, wire=wire, seg_count=plan.seg_count)
+
+        if compressed_domain:
+            inner, wd = body, wire_dtype(arithcfg)
+
+            def _domain_cast_body(x, _inner=inner, _wd=wd):
+                return _inner(x.to(_wd)).to(x.dtype)
+
+            body = _domain_cast_body
+        return body
+
+    def lower(self, options: CallOptions, plan: Plan) -> Callable:
+        arithcfg = None
+        if options.data_type != DataType.none:
+            arithcfg = _arithcfg_for(self.arith_table, options)
+        return self.compile(options, plan, arithcfg)
+
+
+def _arithcfg_for(table, options: CallOptions):
+    dt = options.data_type
+    if options.compress_dtype != DataType.none:
+        # the caller named a wire dtype: the row must match exactly
+        return table.get((dt, options.compress_dtype))
+    if options.compression_flags & CompressionFlags.ETH_COMPRESSED:
+        for (unc, cmp_), cfg in table.items():
+            if unc == dt and unc != cmp_:
+                return cfg
+    return table.get((dt, dt))
