@@ -257,8 +257,8 @@ def logp_allgather_max_bytes(world: int) -> int:
 
 # ---------------------------------------------------------------------------
 # Blockwise int8 wire quantization: int8 blocks with one fp32 scale per
-# block. The quantized wire itself is a later slice of the port; the
-# constants are part of the shared numeric contract.
+# block (ops/compression.py, csrc/quant_wire.cu); the constants are part
+# of the numeric contract shared with the JAX package.
 # ---------------------------------------------------------------------------
 
 QUANT_BLOCK_ELEMS = 256  # elements per scale block

@@ -40,9 +40,9 @@ from .base import CCLOAddr, CCLODevice
 
 
 class GPUDevice(CCLODevice):
-    # the blockwise int8 wire is a later slice: the facade rejects a
-    # quantized request up front instead of letting it degrade
-    supports_quantized_wire = False
+    # the blockwise int8 wire runs the quantized torch-op ring, whose
+    # per-hop steps are the kernels of ops/quant_kernels.py on the card
+    supports_quantized_wire = True
 
     def __init__(self, world: int, torch_device: torch.device | str = "cuda"):
         super().__init__()

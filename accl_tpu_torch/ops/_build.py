@@ -60,28 +60,39 @@ def library_path(name: str) -> Path:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its library is missing, then load it."""
+    return load_libraries([name])[name]
+
+
+def load_libraries(names: list[str]) -> dict[str, ctypes.CDLL]:
+    """Compile every missing library of `names` at once (one nvcc each,
+    all started together), then load them all."""
     with _lock:
-        lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        path = library_path(name)
-        if path.exists():
-            build_seconds[name] = 0.0
-        else:
+        todo = [n for n in names if n not in _loaded]
+        builds = {}
+        for name in todo:
+            path = library_path(name)
+            if path.exists():
+                build_seconds[name] = 0.0
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
-                capture_output=True, text=True, check=False)
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            builds[name] = (proc, tmp, path, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, path, t0) in builds.items():
+            build_log[name] = proc.communicate()[0]
             build_seconds[name] = time.perf_counter() - t0
-            build_log[name] = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed on csrc/{name}.cu:\n{build_log[name]}")
-            os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-        return lib
+                failed.append(name)
+            else:
+                os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(
+                f"csrc/{n}.cu:\n{build_log[n]}" for n in failed))
+        for name in todo:
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return {n: _loaded[n] for n in names}

@@ -1,22 +1,59 @@
-"""Compression lanes: the fp16/bf16 cast lanes (hp_compression analog).
+"""Compression lanes: the fp16/bf16 cast lanes (hp_compression analog) and
+the blockwise int8 quantized lanes (EQuARX-style).
 
-Counterpart of the cast half of accl_tpu/ops/compression.py. The
-blockwise int8 lanes (compressor lanes 4/5) are a later slice of the
-port: a quantized arithmetic row is recognized here so callers can
-refuse it up front, but it is never executed.
+Counterpart of accl_tpu/ops/compression.py. Cast lanes wrap a hop as a
+dtype cast. The quantized lanes carry a payload as int8 codes with one
+fp32 scale per QUANT_BLOCK_ELEMS-element block (~3.94x fewer wire bytes
+than fp32): scale = max|x_b| * fp32(1/127), q = clip(rint(x / scale),
+-127, 127), a zero-scale block encodes as zeros.
+
+Every quantized function works on the last dimension with one rank per
+leading row, as the stacked (world, n) rank buffers need: blocks never
+straddle rows, codes keep the row's own length and scales are
+ceil(n/256) per row. The four transforms (quantize, dequantize, the
+fused dequantize->combine and dequantize->combine->requantize ring
+steps) dispatch through ops/quant_kernels.py: a CUDA tensor launches the
+Hopper kernel of csrc/quant_wire.cu, a CPU tensor runs the plain
+versions below (`_*_impl`), which are the numeric contract.
+
+The contract is what the JAX package's jitted functions give, which is
+what its facade runs (the ring is jitted under shard_map):
+
+  - Subnormals flush (FTZ/DAZ): every fp32 input (payload, scales, local
+    operand) and every fp32 result smaller in magnitude than FLT_MIN
+    counts as a zero of the same sign, as XLA on the CPU and a TPU do.
+    The CUDA kernels apply the same rule in code (a branch per value)
+    rather than -ftz=true, so what the source says is what runs.
+  - SUM decode+combine rounds once: XLA contracts q*scale + local into a
+    fused multiply-add under jit, so the contract is fmaf(q, scale,
+    local). The plain version computes it in float64: q*scale is exact
+    there (8 x 24 bits), and the add rounds to odd (round to nearest,
+    then one step to the odd neighbour when the TwoSum error is nonzero
+    and the last bit is even) before the one rounding to float32. Round
+    to odd at 53 bits makes that second rounding correct, so the rare
+    double-rounding case (a float64 sum landing exactly on a float32
+    midpoint) is handled, not just unlikely.
+  - MAX decodes with one multiply and takes the IEEE maximum of the
+    flushed operands: NaN propagates and +0 is above -0, as jnp.maximum.
+  - A NaN block encodes as codes 0 with scale NaN, an Inf block as codes
+    0 with scale Inf; both decode to NaN.
 
 Compressor lane numbering (referenced from ArithConfig rows):
   0: fp32 -> fp16     1: fp16 -> fp32
   2: fp32 -> bf16     3: bf16 -> fp32
-  4: fp32 -> int8 blockwise quantize   5: int8 -> fp32 dequantize
+  4: fp32 -> int8 blockwise quantize   5: int8 -> fp32 blockwise dequantize
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..arithconfig import QUANT_COMPRESSOR_LANE, ArithConfig
-from ..errors import not_ported
+from ..arithconfig import (
+    QUANT_COMPRESSOR_LANE,
+    QUANT_DECOMPRESSOR_LANE,
+    ArithConfig,
+)
+from ..constants import QUANT_BLOCK_ELEMS, QUANT_INV_QMAX, QUANT_QMAX
 
 _COMPRESS_TARGET = {
     0: torch.float16,
@@ -26,11 +63,16 @@ _COMPRESS_TARGET = {
 _DECOMPRESS_TARGET = {
     1: torch.float32,
     3: torch.float32,
+    QUANT_DECOMPRESSOR_LANE: torch.float32,
 }
+
+FLT_MIN = torch.finfo(torch.float32).tiny
 
 
 def is_quantized(cfg: ArithConfig) -> bool:
-    """True when cfg's wire is the blockwise int8 lane pair."""
+    """True when cfg's wire is the blockwise int8 lane pair: payloads then
+    travel as (int8 codes, per-block fp32 scales) instead of a plain
+    cast, and hops ride Wire.encode/hop/decode."""
     return cfg.compressor_lane == QUANT_COMPRESSOR_LANE
 
 
@@ -43,14 +85,16 @@ def wire_dtype(cfg: ArithConfig) -> torch.dtype | None:
     return _COMPRESS_TARGET.get(cfg.compressor_lane, torch.bfloat16)
 
 
-def _refuse_quantized(cfg: ArithConfig) -> None:
+def _refuse_pairs(cfg: ArithConfig, fn: str) -> None:
     if is_quantized(cfg):
-        raise not_ported("the blockwise-quantized int8 wire", "quantized wire")
+        raise ValueError(
+            "blockwise-quantized lanes carry (payload, scales) pairs; hops "
+            f"must go through Wire.encode/hop/decode, not {fn}()")
 
 
 def compress(x: torch.Tensor, cfg: ArithConfig) -> torch.Tensor:
     """Run the compressor lane of cfg over a payload."""
-    _refuse_quantized(cfg)
+    _refuse_pairs(cfg, "compress")
     wd = wire_dtype(cfg)
     return x if wd is None else x.to(wd)
 
@@ -59,7 +103,7 @@ def decompress(x: torch.Tensor, cfg: ArithConfig,
                out_dtype: torch.dtype) -> torch.Tensor:
     """Run the decompressor lane of cfg; the lane's target must agree with
     the caller's uncompressed dtype."""
-    _refuse_quantized(cfg)
+    _refuse_pairs(cfg, "decompress")
     target = _DECOMPRESS_TARGET.get(cfg.decompressor_lane)
     if target is not None and target != out_dtype:
         raise ValueError(
@@ -67,3 +111,145 @@ def decompress(x: torch.Tensor, cfg: ArithConfig,
             f"caller expects {out_dtype}"
         )
     return x.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# blockwise int8 quantization core (compressor lanes 4/5)
+# ---------------------------------------------------------------------------
+
+
+def quant_num_blocks(n: int, block: int = QUANT_BLOCK_ELEMS) -> int:
+    return -(-n // block)
+
+
+def quantize_blockwise(x: torch.Tensor):
+    """Encode rows of fp32 as (int8 codes, per-block fp32 scales). The
+    codes keep the row's own length: the tail block is zero-padded only
+    for the scale reduction, never on the wire."""
+    from .quant_kernels import quantize
+
+    return quantize(x)
+
+
+def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor, n: int,
+                         out_dtype: torch.dtype = torch.float32):
+    """Decode (codes, scales) back to n elements per row of out_dtype."""
+    from .quant_kernels import dequantize
+
+    return dequantize(q[..., :n], scales).to(out_dtype)
+
+
+def dequant_combine(q, scales, local, func_op: str):
+    """Fused dequantize -> reduce: decode an arriving quantized partial and
+    combine it with the local fp32 operand (the terminal ring hop). The
+    element count is local's."""
+    from .quant_kernels import dequant_combine as kernel
+
+    return kernel(q[..., :local.shape[-1]], scales, local, func_op)
+
+
+def dequant_combine_requant(q, scales, local, func_op: str):
+    """The fused ring step: dequantize -> reduce (fp32) -> requantize, so
+    only (codes, scales) leave for the next hop while the accumulation
+    never drops below fp32."""
+    from .quant_kernels import dequant_combine_requant as kernel
+
+    return kernel(q[..., :local.shape[-1]], scales, local, func_op)
+
+
+def pack_wire(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(codes, scales) -> one int8 wire payload per row: the fp32 scales'
+    raw bytes appended after the codes, so a hop is one message of
+    n + 4*ceil(n/256) bytes. Exact: the bytes round-trip bitwise."""
+    raw = scales.to(torch.float32).contiguous().view(torch.int8)
+    return torch.cat([q, raw], dim=-1)
+
+
+def unpack_wire(packed: torch.Tensor, n: int):
+    """Split packed rows back into (codes, per-block fp32 scales) for n
+    payload elements: the exact inverse of pack_wire."""
+    nb = quant_num_blocks(n)
+    raw = packed[..., n:n + 4 * nb].clone(memory_format=torch.contiguous_format)
+    return packed[..., :n], raw.view(torch.float32)
+
+
+# -- the plain versions: the numeric contract of the four kernels ----------
+
+
+def _flush(t: torch.Tensor) -> torch.Tensor:
+    """FTZ/DAZ: a value smaller in magnitude than FLT_MIN becomes a zero
+    of its own sign; NaN, Inf and normal values pass."""
+    return torch.where(t.abs() < FLT_MIN, t * 0.0, t)
+
+
+def _per_elem(scales: torch.Tensor, n: int) -> torch.Tensor:
+    """Each block's scale repeated over its elements, cut to n."""
+    nb = scales.shape[-1]
+    wide = scales.unsqueeze(-1).expand(*scales.shape, QUANT_BLOCK_ELEMS)
+    return wide.reshape(*scales.shape[:-1], nb * QUANT_BLOCK_ELEMS)[..., :n]
+
+
+def _encode_rule(xf: torch.Tensor):
+    """The wire format's encode rule over flushed fp32 rows -> (codes,
+    scales): one definition for the quantize kernel's plain version and
+    the fused ring step's requantize tail."""
+    n = xf.shape[-1]
+    nb = quant_num_blocks(n)
+    pad = nb * QUANT_BLOCK_ELEMS - n
+    xp = torch.nn.functional.pad(xf, (0, pad)) if pad else xf
+    amax = xp.abs().reshape(*xp.shape[:-1], nb, QUANT_BLOCK_ELEMS).amax(-1)
+    scales = _flush(amax * QUANT_INV_QMAX)  # NaN-propagating amax
+    live = scales > 0  # False for 0 and NaN
+    safe = torch.where(live, scales, torch.ones_like(scales))
+    q = torch.round(xf / _per_elem(safe, n)).clamp(-QUANT_QMAX, QUANT_QMAX)
+    keep = _per_elem(live, n) & ~torch.isnan(q)
+    return torch.where(keep, q, torch.zeros_like(q)).to(torch.int8), scales
+
+
+def _quantize_impl(x: torch.Tensor):
+    return _encode_rule(_flush(x.to(torch.float32)))
+
+
+def _dequantize_impl(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    s = _per_elem(_flush(scales.to(torch.float32)), q.shape[-1])
+    return q.to(torch.float32) * s
+
+
+def _fma_f32(q: torch.Tensor, s: torch.Tensor,
+             local: torch.Tensor) -> torch.Tensor:
+    """fmaf(q, s, local), rounded once to float32: exact product in
+    float64, the sum rounded to odd at 53 bits, then to float32."""
+    a = q.to(torch.float64) * s.to(torch.float64)
+    b = local.to(torch.float64)
+    d = a + b
+    bb = d - a
+    err = (a - (d - bb)) + (b - bb)  # TwoSum: d + err == a + b exactly
+    even = (d.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(d)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(d.dtype)
+    return torch.where(fix, torch.nextafter(d, toward), d).to(torch.float32)
+
+
+def _max_ieee(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IEEE maximum: NaN propagates and +0 is above -0 (jnp.maximum on
+    XLA; torch.maximum leaves the zero tie to operand order)."""
+    both_zero = (a == 0) & (b == 0)
+    return torch.where(both_zero, a + b, torch.maximum(a, b))
+
+
+def _dequant_combine_impl(q, scales, local, func_op: str) -> torch.Tensor:
+    n = local.shape[-1]
+    s = _per_elem(_flush(scales.to(torch.float32)), n)
+    loc = _flush(local.to(torch.float32))
+    if func_op == "sum":
+        out = _flush(_fma_f32(q[..., :n], s, loc))
+    elif func_op == "max":
+        out = _max_ieee(q[..., :n].to(torch.float32) * s, loc)
+    else:
+        raise ValueError(f"unsupported quantized combine {func_op!r}")
+    return out.to(local.dtype)
+
+
+def _dequant_combine_requant_impl(q, scales, local, func_op: str):
+    return _encode_rule(
+        _dequant_combine_impl(q, scales, local.to(torch.float32), func_op))

@@ -1,0 +1,208 @@
+"""Blockwise int8 wire kernels: the Hopper kernels and their dispatch.
+
+Counterpart of the quantized half of accl_tpu/ops/pallas_kernels.py:
+
+  quantize                 replaces quantize_pallas
+  dequantize               replaces dequantize_pallas
+  dequant_combine          replaces fused_dequant_combine_pallas
+  dequant_combine_requant  replaces fused_dequant_combine_quant_pallas
+
+All four are one CUDA source, csrc/quant_wire.cu, whose header states the
+design and the bound (bytes). Each takes a stacked (rows, n) operand, one
+virtual rank per row (any leading shape is flattened into rows; rows may
+be a column slice of a wider buffer: only unit stride within a row is
+required), and computes per row. A wrapper launches the kernel for a
+CUDA tensor and runs the plain version (`_*_impl` in ops/compression.py,
+the numeric contract) only for a CPU tensor. Each wrapper counts its
+launches in a plain integer attribute, `launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .compression import (
+    _dequant_combine_impl,
+    _dequant_combine_requant_impl,
+    _dequantize_impl,
+    _quantize_impl,
+    quant_num_blocks,
+)
+
+_OPS = {"sum": 0, "max": 1}
+
+
+def _library() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("quant_wire")
+    if lib.accl_quantize.argtypes is None:
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        sigs = {
+            # x, ld, q, ld, s, ld, rows, n, stream
+            "accl_quantize": [p, ll, p, ll, p, ll, ll, ll, p],
+            # q, ld, s, ld, out, ld, rows, n, stream
+            "accl_dequantize": [p, ll, p, ll, p, ll, ll, ll, p],
+            # op, q, ld, s, ld, local, ld, out, ld, rows, n, stream
+            "accl_dequant_combine": [ctypes.c_int, p, ll, p, ll, p, ll,
+                                     p, ll, ll, ll, p],
+            # op, q, ld, s, ld, local, ld, q_out, ld, s_out, ld, rows, n,
+            # stream
+            "accl_dequant_combine_requant": [ctypes.c_int, p, ll, p, ll, p,
+                                             ll, p, ll, p, ll, ll, ll, p],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        lib.accl_quant_error_string.restype = ctypes.c_char_p
+        lib.accl_quant_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when the operands lie on the CPU (the plain version runs),
+    False on a CUDA device (the kernel launches); mixed or other devices
+    raise."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("quantized wire operands on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"quantized wire kernels run on cuda or cpu, not {dev}")
+    return dev.type == "cpu"
+
+
+def _rows(t: torch.Tensor, dtype: torch.dtype, what: str) -> torch.Tensor:
+    """t as a (rows, n) view with unit stride within a row."""
+    if t.dtype != dtype:
+        raise TypeError(f"quantized wire kernel takes {what} as {dtype}, "
+                        f"got {t.dtype}")
+    t2 = t.reshape(-1, t.shape[-1]) if t.dim() != 2 else t
+    return t2 if t2.stride(-1) == 1 else t2.contiguous()
+
+
+def _check_scales(s: torch.Tensor, rows: int, n: int) -> None:
+    if tuple(s.shape) != (rows, quant_num_blocks(n)):
+        raise ValueError(f"scales of shape {tuple(s.shape)} for {rows} rows "
+                         f"of {n} codes")
+
+
+def _check(err: int, lib: ctypes.CDLL, name: str) -> None:
+    if err:
+        msg = lib.accl_quant_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+
+
+def _op(func_op: str) -> int:
+    try:
+        return _OPS[func_op]
+    except KeyError:
+        raise ValueError(f"unsupported quantized combine {func_op!r}") from None
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def quantize(x: torch.Tensor):
+    """fp32 (..., n) -> (int8 codes (..., n), fp32 scales (..., nb))."""
+    if _on_cpu(x):
+        return _quantize_impl(x)
+    lead, n = x.shape[:-1], x.shape[-1]
+    x2 = _rows(x, torch.float32, "the payload")
+    rows, nb = x2.shape[0], quant_num_blocks(n)
+    q = torch.empty((rows, n), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows, nb), dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.accl_quantize(x2.data_ptr(), x2.stride(0), q.data_ptr(),
+                                q.stride(0), s.data_ptr(), s.stride(0), rows,
+                                n, _stream(x))
+    _check(err, lib, "quantize")
+    quantize.launches += 1  # type: ignore[attr-defined]
+    return q.reshape(*lead, n), s.reshape(*lead, nb)
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(codes (..., n), scales (..., nb)) -> fp32 (..., n)."""
+    if _on_cpu(q, scales):
+        return _dequantize_impl(q, scales)
+    lead, n = q.shape[:-1], q.shape[-1]
+    q2 = _rows(q, torch.int8, "the codes")
+    s2 = _rows(scales, torch.float32, "the scales")
+    rows = q2.shape[0]
+    _check_scales(s2, rows, n)
+    out = torch.empty((rows, n), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.accl_dequantize(q2.data_ptr(), q2.stride(0), s2.data_ptr(),
+                                  s2.stride(0), out.data_ptr(), out.stride(0),
+                                  rows, n, _stream(q))
+    _check(err, lib, "dequantize")
+    dequantize.launches += 1  # type: ignore[attr-defined]
+    return out.reshape(*lead, n)
+
+
+def _combine_operands(q, scales, local):
+    lead, n = local.shape[:-1], local.shape[-1]
+    if q.shape != local.shape:
+        raise ValueError(f"codes {tuple(q.shape)} and local operand "
+                         f"{tuple(local.shape)} differ in shape")
+    q2 = _rows(q, torch.int8, "the codes")
+    s2 = _rows(scales, torch.float32, "the scales")
+    l2 = _rows(local, torch.float32, "the local operand")
+    _check_scales(s2, q2.shape[0], n)
+    return lead, n, q2, s2, l2
+
+
+def dequant_combine(q: torch.Tensor, scales: torch.Tensor,
+                    local: torch.Tensor, func_op: str) -> torch.Tensor:
+    """Decode (codes, scales) and combine (func_op "sum"/"max") with the
+    fp32 local operand -> fp32, the shape of local."""
+    if _on_cpu(q, scales, local):
+        return _dequant_combine_impl(q, scales, local, func_op)
+    op = _op(func_op)
+    lead, n, q2, s2, l2 = _combine_operands(q, scales, local)
+    rows = q2.shape[0]
+    out = torch.empty((rows, n), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.accl_dequant_combine(
+            op, q2.data_ptr(), q2.stride(0), s2.data_ptr(), s2.stride(0),
+            l2.data_ptr(), l2.stride(0), out.data_ptr(), out.stride(0), rows,
+            n, _stream(q))
+    _check(err, lib, "dequant_combine")
+    dequant_combine.launches += 1  # type: ignore[attr-defined]
+    return out.reshape(*lead, n)
+
+
+def dequant_combine_requant(q: torch.Tensor, scales: torch.Tensor,
+                            local: torch.Tensor, func_op: str):
+    """Decode, combine with the fp32 local operand, re-encode -> (codes,
+    scales) of local's shape."""
+    if _on_cpu(q, scales, local):
+        return _dequant_combine_requant_impl(q, scales, local, func_op)
+    op = _op(func_op)
+    lead, n, q2, s2, l2 = _combine_operands(q, scales, local)
+    rows, nb = q2.shape[0], quant_num_blocks(n)
+    q_out = torch.empty((rows, n), dtype=torch.int8, device=q.device)
+    s_out = torch.empty((rows, nb), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.accl_dequant_combine_requant(
+            op, q2.data_ptr(), q2.stride(0), s2.data_ptr(), s2.stride(0),
+            l2.data_ptr(), l2.stride(0), q_out.data_ptr(), q_out.stride(0),
+            s_out.data_ptr(), s_out.stride(0), rows, n, _stream(q))
+    _check(err, lib, "dequant_combine_requant")
+    dequant_combine_requant.launches += 1  # type: ignore[attr-defined]
+    return q_out.reshape(*lead, n), s_out.reshape(*lead, nb)
+
+
+quantize.launches = 0  # type: ignore[attr-defined]
+dequantize.launches = 0  # type: ignore[attr-defined]
+dequant_combine.launches = 0  # type: ignore[attr-defined]
+dequant_combine_requant.launches = 0  # type: ignore[attr-defined]

@@ -7,7 +7,9 @@ closure once per signature and runs it eagerly on the stacked (world, n)
 operand: row r is rank r's buffer. The allreduce branch picks one of the
 reference's two bodies: the torch-op ring over `Wire`
 (schedules.allreduce_ring_schedule), or — on the card — the fused ring
-kernel per 4 MiB segment, double-slotted like the reference's.
+kernel per 4 MiB segment, double-slotted like the reference's. The
+blockwise-int8 wire always takes the torch-op ring, per plan segment:
+its per-hop quantize / fused combine steps are kernels of their own.
 """
 
 from __future__ import annotations
@@ -121,7 +123,9 @@ class ScheduleCompiler:
 
         body: Callable
         # per-hop compression with uncompressed-domain arithmetic cannot be
-        # fused into the single-dtype ring kernel
+        # fused into the single-dtype ring kernel; this also routes the
+        # blockwise-int8 wire (whose hops carry a scale side-channel) to
+        # the quantized torch-op ring, where the quant_wire kernels run
         if self.use_ring_kernel and (not eth_active or compressed_domain):
             from ..ops.ring_allreduce import NUM_RING_SLOTS, ring_allreduce_bidir
 

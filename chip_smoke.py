@@ -20,13 +20,32 @@ What it does, in order, printing one JSON object per line:
      and 25 MiB results also bitwise against the port's plain kernel path
      on the CPU, and the bidirectional kernel's launch count against the
      expected segment count; one host-staged call timed on its own;
-  4. timings: per facade size, medians of 20 runs timed with CUDA events
+  4. quantized kernel phase: the four blockwise-int8 kernels against their
+     plain versions on the card, bitwise (NaN matches NaN), over rows
+     {1, 2, 5, 8} x n {1, 32, 255, 257, 4099, 131072}, SUM and MAX for the
+     fused pair, with all-zero, negative-rail, 1e-39, NaN and Inf blocks;
+  5. quantized facade phase (the int8-wire path):
+     ACCL.allreduce(..., compress_dtype=int8) on the card, from_device/
+     to_device: W=8 with a 4 MiB eager buffer, fp32 SUM at 1 MiB and
+     25 MiB and MAX at 1 MiB per rank, W=5 with 1000003 elements, and
+     W=8 at 64 KiB with the default 1 KiB buffer (64 segments); every rank
+     identical, each result within W quantization passes of the float64
+     reduction (W*M*(1+W/254)/254 + (W-1)*u*sum|x_i|, M the segment's
+     max of sum|x_i|), the 1 MiB and 25 MiB results bitwise against the
+     port's CPU run, each kernel's launch count against its expected
+     count per segment (2 quantize, W dequantize, W-2 requantize, 1
+     combine);
+  6. timings: per facade size, medians of 20 runs timed with CUDA events
      of the whole call, the kernel alone over the same segments, the plain
      version, and the one PyTorch call computing the same function
-     (a yardstick only, never called by the port), beside the bound; then
-     a breakdown of a kernel launch into fixed device cost (launch and
-     grid barriers), hop traffic and host-side wrapper cost;
-  5. the kernels line; last, the device line.
+     (a yardstick only, never called by the port), beside the bound; the
+     int8-wire facade at 25 MiB beside the exact wire, and one int8 call
+     under torch.profiler (device busy time and idle share, the costliest
+     host operations); then a breakdown of a ring launch into fixed
+     device cost (launch and grid barriers), hop traffic and host-side
+     wrapper cost, and of a quantized launch into device time and host
+     cost;
+  7. the kernels line; last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -44,6 +63,14 @@ import time
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 SEG_BYTES = 4 * MIB  # the compiler's per-launch cap of the ring kernel
+QUANT_BUF = 4 * MIB  # the eager buffer of the int8-wire facade cases
+# the four blockwise-int8 kernels and the TPU kernels they replace
+QUANT_KERNELS = {
+    "quantize": "accl_tpu/ops/pallas_kernels.py:246",
+    "dequantize": "accl_tpu/ops/pallas_kernels.py:279",
+    "dequant_combine": "accl_tpu/ops/pallas_kernels.py:353",
+    "dequant_combine_requant": "accl_tpu/ops/pallas_kernels.py:362",
+}
 
 
 def emit(obj) -> None:
@@ -111,6 +138,49 @@ def run_ms(fn, count: int = 20, repeats: int = 5) -> float:
         e1.synchronize()
         runs.append(e0.elapsed_time(e1) / count)
     return statistics.median(runs)
+
+
+def device_ms(fn, count: int = 50) -> float:
+    """Device time per call with the host out of the way: a spin kernel
+    holds the stream while the host enqueues `count` calls, so the events
+    around them time the card's work and the gaps between launches, not
+    the wrapper's host cost. Fails if the spin ended before the last call
+    was enqueued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int((3 * host_s + 1e-3) * spin_cycles_per_s())
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin)
+    e0.record()
+    for _ in range(count):
+        fn()
+    e1.record()
+    if e0.query():
+        raise AssertionError("spin ended before the calls were enqueued")
+    e1.synchronize()
+    return e0.elapsed_time(e1) / count
+
+
+def spin_cycles_per_s() -> float:
+    """The rate of torch.cuda._sleep's spin, timed over a ~10 ms spin."""
+    import torch
+
+    cycles = 20_000_000
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(cycles)
+    e1.record()
+    e1.synchronize()
+    return cycles / (e0.elapsed_time(e1) * 1e-3)
 
 
 def rank_data(world: int, count: int, dtype, gen):
@@ -352,11 +422,326 @@ def breakdown_phase(ring):
           "host_ms_per_launch": host_ms})
 
 
-def kernel_line(ring, errs, launches):
-    """Per kernel: device time per launch in steady state at the main
-    path's segment shape (W=8, fp32, 4 MiB per rank), its plain version
-    and the library yardstick, timed the same way."""
+def quant_payload(rows: int, n: int, case: str, gen):
+    """Rows of fp32 with one edge block (block 0 of every row), and a
+    local operand with subnormals, signed zeros and, for "nan", a NaN."""
     import torch
+
+    x = rank_data(rows, n, torch.float32, gen) * 3
+    local = rank_data(rows, n, torch.float32, gen)
+    local[:, ::7] = -1e-39
+    local[:, 3::11] = -0.0
+    m = min(n, 256)
+    if case == "zero":
+        x[:, :m] = 0.0
+    elif case == "negative_rail":
+        x[:, :m] = torch.linspace(-8.0, 3.0, 256, device="cuda")[:m]
+    elif case == "subnormal":
+        x[:, :m] = 1e-39
+    elif case == "nan":
+        x[:, m // 2] = float("nan")
+        local[0, n // 2] = float("nan")
+    elif case == "inf":
+        x[0, 0] = float("inf")
+        x[-1, n - 1] = float("-inf")
+    return x, local
+
+
+def quant_kernel_phase(qk):
+    import torch
+
+    from accl_tpu_torch.ops import compression as C
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    cases = {name: 0 for name in QUANT_KERNELS}
+    errs = {name: 0.0 for name in QUANT_KERNELS}
+
+    def check(name, got, want, where):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not same_bits(g, w):
+                raise AssertionError(
+                    f"{name} differs from its plain version: {where} "
+                    f"max|diff|={max_abs_err(g, w)}")
+            errs[name] = max(errs[name], max_abs_err(g, w))
+        cases[name] += 1
+
+    edge = ("random", "zero", "negative_rail", "subnormal", "nan", "inf")
+    for rows in (1, 2, 5, 8):
+        for n in (1, 32, 255, 257, 4099, 131072):
+            for case in edge:
+                where = f"rows={rows} n={n} case={case}"
+                x, local = quant_payload(rows, n, case, gen)
+                q, s = qk.quantize(x)
+                check("quantize", (q, s), C._quantize_impl(x), where)
+                check("dequantize", qk.dequantize(q, s),
+                      C._dequantize_impl(q, s), where)
+                for op in ("sum", "max"):
+                    check("dequant_combine",
+                          qk.dequant_combine(q, s, local, op),
+                          C._dequant_combine_impl(q, s, local, op),
+                          f"{where} {op}")
+                    check("dequant_combine_requant",
+                          qk.dequant_combine_requant(q, s, local, op),
+                          C._dequant_combine_requant_impl(q, s, local, op),
+                          f"{where} {op}")
+    for name in QUANT_KERNELS:
+        emit({"phase": "quant_kernel", "kernel": name, "cases": cases[name],
+              "bitwise_equal": True, "max_abs_err": errs[name]})
+    return errs
+
+
+def check_quant_bound(out, x, func, seg: int) -> float:
+    """Per segment: |out - reduce(x)| <= W*M*(1+W/254)/254 (+ (W-1)*u*
+    sum|x_i| for SUM), M the segment's max of sum|x_i|: W quantization
+    passes on each element's path (W-1 in the reduce-scatter, one in the
+    allgather), each within half a step of its block's scale."""
+    import torch
+
+    from accl_tpu_torch.constants import ReduceFunction
+
+    world, n = x.shape
+    worst = -math.inf
+    for lo in range(0, n, seg):
+        xs = x[:, lo:lo + seg].double()
+        got = out[:, lo:lo + seg].double()
+        absum = xs.abs().sum(0, keepdim=True)
+        quant = world * float(absum.max()) * (1 + world / 254) / 254
+        if func == ReduceFunction.MAX:
+            ref = xs.amax(0, keepdim=True)
+            bound = torch.full_like(ref, quant)
+        else:
+            ref = xs.sum(0, keepdim=True)
+            bound = quant + (world - 1) * 2.0 ** -24 * absum
+        worst = max(worst, float(((got - ref).abs() - bound).max()))
+        if worst > 0:
+            raise AssertionError(
+                f"int8-wire allreduce outside its bound by {worst}")
+    return worst
+
+
+def quant_facade_phase(qk, ring):
+    """The int8-wire path through the facade. Returns the kernels' launch
+    counts over this path's run and the W=8 facade with its 25 MiB
+    buffers."""
+    import torch
+
+    from accl_tpu_torch import ACCL, DataType
+    from accl_tpu_torch.constants import ReduceFunction
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    accls = {"w8": ACCL(world=8, egr_rx_buf_size=QUANT_BUF),
+             "w5": ACCL(world=5, egr_rx_buf_size=QUANT_BUF),
+             "w8_default_buf": ACCL(world=8)}
+    cpu_accl = ACCL(world=8, torch_device="cpu", egr_rx_buf_size=QUANT_BUF)
+    cases = [  # (facade, count per rank, func, bitwise vs CPU)
+        ("w8", MIB // 4, ReduceFunction.SUM, True),
+        ("w8", 25 * MIB // 4, ReduceFunction.SUM, True),
+        ("w8", MIB // 4, ReduceFunction.MAX, True),
+        ("w5", 1_000_003, ReduceFunction.SUM, False),
+        ("w8_default_buf", 64 * 1024 // 4, ReduceFunction.SUM, False),
+    ]
+    kernels = {name: getattr(qk, name) for name in QUANT_KERNELS}
+    for k in kernels.values():
+        k.launches = 0
+    ring.ring_allreduce_bidir.launches = 0
+    ring.ring_allreduce.launches = 0
+    expected = {name: 0 for name in kernels}
+    kept = None
+    for key, count, func, vs_cpu in cases:
+        accl = accls[key]
+        world = accl.world
+        buf = accl.cclo.eager_rx_buf_size
+        seg = buf // 4 - (buf // 4) % world
+        segs = math.ceil(count / seg)
+        x = rank_data(world, count, torch.float32, gen)
+        sb = accl.create_buffer(count)
+        rb = accl.create_buffer(count)
+        sb.device.copy_(x)
+        before = {name: k.launches for name, k in kernels.items()}
+        req = accl.allreduce(sb, rb, count, func, from_device=True,
+                             to_device=True, compress_dtype=DataType.int8)
+        torch.cuda.synchronize()
+        if req.plan.num_segments != segs:
+            raise AssertionError(f"plan has {req.plan.num_segments} segments,"
+                                 f" expected {segs}")
+        per_seg = {"quantize": 2, "dequantize": world,
+                   "dequant_combine_requant": world - 2,
+                   "dequant_combine": 1}
+        launched = {name: k.launches - before[name]
+                    for name, k in kernels.items()}
+        for name, n_per in per_seg.items():
+            if launched[name] != segs * n_per:
+                raise AssertionError(
+                    f"{name} launched {launched[name]} times, expected "
+                    f"{segs} segments x {n_per}")
+            expected[name] += segs * n_per
+        out = rb.device
+        if not torch.equal(out, out[:1].expand_as(out)):
+            raise AssertionError("int8-wire result differs between ranks")
+        excess = check_quant_bound(out, x, func, seg)
+        bitwise = None
+        if vs_cpu:
+            csb = cpu_accl.create_buffer(count, data=x.cpu())
+            crb = cpu_accl.create_buffer(count)
+            cpu_accl.allreduce(csb, crb, count, func,
+                               compress_dtype=DataType.int8)
+            bitwise = same_bits(out.cpu(), crb.host)
+            if not bitwise:
+                raise AssertionError("int8-wire card result differs from "
+                                     "the port's CPU run")
+            cpu_accl.free_buffer(csb)
+            cpu_accl.free_buffer(crb)
+        emit({"phase": "quant_facade", "world": world,
+              "eager_rx_buf_size": buf, "bytes_per_rank": count * 4,
+              "count": count, "func": func.name, "segments": segs,
+              "launches": launched, "within_bound": True,
+              "bound_margin": -excess, "ranks_identical": True,
+              "bitwise_vs_cpu_plain": bitwise,
+              "finite": bool(torch.isfinite(out).all())})
+        if key == "w8" and count == 25 * MIB // 4:
+            kept = (sb, rb, count)
+        else:
+            accl.free_buffer(sb)
+            accl.free_buffer(rb)
+    launches = {name: k.launches for name, k in kernels.items()}
+    if launches != expected or 0 in launches.values():
+        raise AssertionError(f"int8-wire path launched {launches}, expected "
+                             f"{expected}")
+    if ring.ring_allreduce_bidir.launches or ring.ring_allreduce.launches:
+        raise AssertionError("the int8-wire path launched a ring kernel")
+    return launches, accls["w8"], kept
+
+
+def quant_timing_phase(accl, kept):
+    """The int8-wire facade at 25 MiB per rank beside the exact wire on
+    the same buffers and facade."""
+    from accl_tpu_torch import DataType
+    from accl_tpu_torch.constants import ReduceFunction
+
+    sb, rb, count = kept
+
+    def call(wire):
+        return lambda: accl.allreduce(sb, rb, count, ReduceFunction.SUM,
+                                      from_device=True, to_device=True,
+                                      compress_dtype=wire)
+
+    t = {"exact_ms": median_ms(call(None)), "int8_ms": median_ms(call(DataType.int8))}
+    t["exact_ms_again"] = median_ms(call(None))
+    t["int8_ms_again"] = median_ms(call(DataType.int8))
+    emit({"phase": "quant_timing", "world": accl.world,
+          "bytes_per_rank": count * 4, "eager_rx_buf_size": QUANT_BUF,
+          "segments": math.ceil(count / (QUANT_BUF // 4)), **t,
+          "int8_over_exact": t["int8_ms"] / t["exact_ms"]})
+    emit({"phase": "quant_profile", **profile_call(call(DataType.int8))})
+
+
+def profile_call(fn) -> dict:
+    """One call under torch.profiler: its host-clock time (profiler on),
+    the device's busy time (the sum of its kernels' durations) and idle
+    share, and the host operations that cost the most CPU time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) * 1e-3
+    by_cpu = sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"wall_ms_profiled": wall_ms, "device_kernels": len(kernels),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "top_host_ops": [{"op": e.key, "count": e.count,
+                              "self_cpu_ms": e.self_cpu_time_total * 1e-3}
+                             for e in by_cpu]}
+
+
+def quant_shape_operands(qk, gen):
+    """The main path's launch shape: (8, 131072) fp32, one rank chunk of a
+    4 MiB segment at W=8."""
+    import torch
+
+    world, n = 8, QUANT_BUF // 4 // 8
+    x = rank_data(world, n, torch.float32, gen)
+    local = rank_data(world, n, torch.float32, gen)
+    q, s = qk.quantize(x)
+    return world, n, x, local, q, s
+
+
+def quant_bytes(name: str, rows: int, n: int) -> int:
+    """Bytes the function must move: each input read once, each output
+    written once."""
+    nb = -(-n // 256)
+    codes, scales, fp32 = n, 4 * nb, 4 * n
+    per_row = {"quantize": fp32 + codes + scales,
+               "dequantize": codes + scales + fp32,
+               "dequant_combine": codes + scales + fp32 + fp32,
+               "dequant_combine_requant": codes + scales + fp32 + codes + scales,
+               }[name]
+    return rows * per_row
+
+
+def quant_calls(qk, C, x, local, q, s):
+    """Per kernel: (kernel call, plain call) at the same inputs (SUM for
+    the fused pair)."""
+    return {
+        "quantize": (lambda: qk.quantize(x), lambda: C._quantize_impl(x)),
+        "dequantize": (lambda: qk.dequantize(q, s),
+                       lambda: C._dequantize_impl(q, s)),
+        "dequant_combine": (
+            lambda: qk.dequant_combine(q, s, local, "sum"),
+            lambda: C._dequant_combine_impl(q, s, local, "sum")),
+        "dequant_combine_requant": (
+            lambda: qk.dequant_combine_requant(q, s, local, "sum"),
+            lambda: C._dequant_combine_requant_impl(q, s, local, "sum")),
+    }
+
+
+def quant_breakdown_phase(qk):
+    """A quantized launch at the main path's shape: device time with the
+    host out of the way, beside events around back-to-back calls (which
+    the host bounds when its cost per launch exceeds the device's) and
+    the wrapper's host cost per launch on the host clock."""
+    import torch
+
+    from accl_tpu_torch.ops import compression as C
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    world, n, x, local, q, s = quant_shape_operands(qk, gen)
+    rows = {}
+    for name, (kernel, _) in quant_calls(qk, C, x, local, q, s).items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernel()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        rows[name] = {"device_ms": device_ms(kernel),
+                      "back_to_back_ms": run_ms(kernel),
+                      "host_ms_per_launch": host_ms}
+    emit({"phase": "quant_breakdown", "shape": [world, n], **rows})
+
+
+def kernel_line(ring, qk, errs, launches):
+    """Per kernel: device time per launch in steady state at the main
+    path's launch shape, its plain version and the library yardstick,
+    timed the same way. Ring kernels: W=8, fp32, 4 MiB per rank, events
+    around back-to-back launches (device-bound there). Quantized kernels:
+    (8, 131072) fp32, device time with the host held off (device_ms: at
+    this shape the wrapper's host cost exceeds the device's)."""
+    import torch
+
+    from accl_tpu_torch.ops import compression as C
 
     world, n = 8, SEG_BYTES // 4
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -380,6 +765,17 @@ def kernel_line(ring, errs, launches):
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": {"world": world, "n": n, "dtype": "float32"}})
+    rows, qn, qx, local, q, s = quant_shape_operands(qk, gen)
+    for name, (kernel, plain) in quant_calls(qk, C, qx, local, q, s).items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "accl_tpu_torch/csrc/quant_wire.cu",
+            "replaces": QUANT_KERNELS[name], "on_main_path": True,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain, count=10),
+            "bound_ms": quant_bytes(name, rows, qn) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "shape": {"rows": rows, "n": qn, "dtype": "float32"}})
     emit({"kernels": entries})
 
 
@@ -392,6 +788,7 @@ def main() -> int:
         return 2
     try:
         from accl_tpu_torch.ops import _build
+        from accl_tpu_torch.ops import quant_kernels as qk
         from accl_tpu_torch.ops import ring_allreduce as ring
     except ImportError as e:
         print(f"chip_smoke: run from the root of an accl-tpu checkout ({e})",
@@ -404,21 +801,27 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    _build.load_library("ring_allreduce")
-    ptxas = [line.split("info    : ")[-1]
-             for line in _build.build_log.get("ring_allreduce", "").splitlines()
-             if "registers" in line or "spill" in line]
+    sources = ("ring_allreduce", "quant_wire")
+    _build.load_libraries(list(sources))  # one nvcc each, started together
+    ptxas = {name: sorted(set(
+        line.split("info    : ")[-1].strip()
+        for line in _build.build_log.get(name, "").splitlines()
+        if "registers" in line or "spill" in line)) for name in sources}
     emit({"phase": "env", "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "build_s": _build.build_seconds["ring_allreduce"],
-          "load_s": time.perf_counter() - t0,
-          "ptxas": sorted(set(line.strip() for line in ptxas))})
+          "build_s": {name: _build.build_seconds[name] for name in sources},
+          "load_s": time.perf_counter() - t0, "ptxas": ptxas})
 
     errs = kernel_phase(ring)
-    accl, kept, launches = facade_phase(ring)
+    errs.update(quant_kernel_phase(qk))
+    accl, kept, launches = facade_phase(ring)  # counts: the exact wire path
+    qlaunches, qaccl, qkept = quant_facade_phase(qk, ring)  # the int8 path
+    launches.update(qlaunches)
     timing_phase(ring, accl, kept)
+    quant_timing_phase(qaccl, qkept)
     breakdown_phase(ring)
-    kernel_line(ring, errs, launches)
+    quant_breakdown_phase(qk)
+    kernel_line(ring, qk, errs, launches)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

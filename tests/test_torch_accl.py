@@ -1,8 +1,9 @@
 """The port's ACCL.allreduce end to end against the reference facade on
 the same numpy inputs: the torch-op ring against the lax ring, the plain
 ring-kernel body against the Pallas kernel body (segmented, both slots),
-the compressed-domain bf16 row, and the refusal of the quantized wire."""
+the compressed-domain bf16 row, and the blockwise-int8 wire."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -100,13 +101,29 @@ def test_allreduce_compressed_domain_bf16_row(mesh8):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_quantized_request_is_refused(mesh8):
-    port = ACCL(world=8, torch_device="cpu")
-    sb = port.create_buffer(512)
-    rb = port.create_buffer(512)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        port.allreduce(sb, rb, 512, ReduceFunction.SUM,
-                       compress_dtype=DataType.int8)
+@pytest.mark.parametrize("world,count,func,buf", [
+    (8, 3000, 0, 4096),  # 3 segments of 1024, chunks of 128
+    (8, 3000, 1, 4096),
+    (8, 600, 0, 1024),   # the default buffer: 256-element segments
+    (5, 329, 0, 1024),   # odd world, ragged count and chunk
+    (2, 700, 1, 1024),
+], ids=["w8-sum", "w8-max", "w8-default-buf", "w5-ragged", "w2-max"])
+def test_allreduce_int8_wire_bitwise(world, count, func, buf):
+    """The blockwise-int8 wire through both facades: the port's quantized
+    torch-op ring with the kernels' plain versions against the reference's
+    jitted lax ring, bitwise (codes, scales and every fused step), and
+    identical on every rank."""
+    from jax.sharding import Mesh
+
+    x = _data(world, count, np.float32, seed=world * 100 + count + func)
+    x[0, 5] = np.float32(1e-39)  # a subnormal operand is flushed by both
+    mesh = Mesh(np.array(jax.devices()[:world]), ("ccl",))
+    ref = _ref_allreduce(RefACCL(mesh, egr_rx_buf_size=buf), x, func,
+                         compress_dtype=RefDT.int8)
+    port = ACCL(world=world, torch_device="cpu", egr_rx_buf_size=buf)
+    got = _port_allreduce(port, x, func, compress_dtype=DataType.int8)
+    assert torch.equal(got, torch.from_numpy(ref))
+    assert torch.equal(got, got[:1].expand_as(got))
 
 
 def test_async_chained_and_host_only_calls():

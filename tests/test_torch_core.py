@@ -258,5 +258,9 @@ def test_quantized_row_is_recognized_and_refused():
     cfg = port_arith.DEFAULT_ARITH_CONFIG[(port_c.DataType.float32,
                                            port_c.DataType.int8)]
     assert port_comp.is_quantized(cfg)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    # the cast entry points refuse the (codes, scales) lanes, as the
+    # reference's do: quantized hops go through Wire.encode/hop/decode
+    with pytest.raises(ValueError, match="quantized"):
         port_comp.compress(torch.zeros(4), cfg)
+    with pytest.raises(ValueError, match="quantized"):
+        port_comp.decompress(torch.zeros(4), cfg, torch.float32)

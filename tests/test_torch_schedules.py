@@ -101,3 +101,48 @@ def test_segmented_apply_slots_and_tail():
     assert torch.equal(out, x * 2)
     assert seen == [(4, 0), (4, 1), (2, 0)]
     assert torch.equal(port_sched.segmented_apply(lambda s: s + 1, x, 16), x + 1)
+
+
+@pytest.mark.parametrize("world,count,func", [(8, 8 * 40, 0), (5, 5 * 300, 1),
+                                              (2, 2 * 257, 0)])
+def test_quantized_ring_primitives_bitwise(world, count, func):
+    """The int8-wire reduce-scatter (fused dequantize-combine-requantize
+    per interior hop, dequantize-combine at the terminal hop) and
+    allgather (encode once, relay the codes, decode every chunk) against
+    the reference's quantized lax rings under shard_map, and the packed
+    one-message ppermute with an unaddressed rank."""
+    from accl_tpu.arithconfig import DEFAULT_ARITH_CONFIG as REF_TABLE
+    from accl_tpu.constants import DataType as RefDT
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG
+    from accl_tpu_torch.constants import DataType
+
+    x = _data(world, count, "float32", seed=world + count)
+    mesh = Mesh(np.array(jax.devices()[:world]), ("ccl",))
+    ref_wire = ref_sched.Wire(REF_TABLE[(RefDT.float32, RefDT.int8)])
+    wire = port_sched.Wire(DEFAULT_ARITH_CONFIG[(DataType.float32,
+                                                 DataType.int8)])
+    assert ref_wire.quantized and wire.quantized
+
+    def run(body, a):
+        return np.array(jax.jit(jax.shard_map(
+            lambda v: body(v.reshape(-1)).reshape(1, -1), mesh=mesh,
+            in_specs=PartitionSpec("ccl"), out_specs=PartitionSpec("ccl"),
+            check_vma=False))(a))
+
+    rs_ref = run(functools.partial(
+        ref_sched.reduce_scatter_ring_schedule, func=RefF(func), axis="ccl",
+        world=world, wire=ref_wire), x)
+    rs = port_sched.reduce_scatter_ring_schedule(
+        torch.from_numpy(x), func=PortF(func), world=world, wire=wire)
+    assert torch.equal(rs, torch.from_numpy(rs_ref))
+    chunk = x[:, : count // world].copy()
+    ag_ref = run(functools.partial(
+        ref_sched.allgather_ring_schedule, axis="ccl", world=world,
+        wire=ref_wire), chunk)
+    ag = port_sched.allgather_ring_schedule(torch.from_numpy(chunk),
+                                            world=world, wire=wire)
+    assert torch.equal(ag, torch.from_numpy(ag_ref))
+    perm = [(0, world - 1), (world - 1, 0)] if world > 2 else [(0, 1)]
+    pp_ref = run(lambda a: ref_wire.ppermute(a, "ccl", perm), chunk)
+    assert torch.equal(wire.ppermute(torch.from_numpy(chunk), perm),
+                       torch.from_numpy(pp_ref))
