@@ -9,9 +9,11 @@ stay on the card, as in the reference.
 The facade runs on the card unless the caller asks for the CPU:
 `ACCL(world=8)` needs a CUDA device and raises without one;
 `ACCL(world=8, torch_device="cpu")` runs every schedule's plain PyTorch
-form on the CPU (what the tests use). Allreduce is ported, on the
-exact, fp16/bf16 and blockwise-int8 wires; the other collectives arrive
-with later slices.
+form on the CPU (what the tests use). The one-call collectives are
+ported — copy, combine, bcast, scatter, gather, allgather, reduce,
+allreduce, reduce_scatter and barrier — on the exact, fp16/bf16 and
+blockwise-int8 wires; send/recv, alltoall, streamed operands and call
+sequences arrive with later slices.
 """
 
 from __future__ import annotations
@@ -40,7 +42,12 @@ from .constants import (
 from .descriptor import CallOptions
 from .device.base import CCLOAddr
 from .device.gpu_device import GPUDevice
-from .errors import DtypeMismatchError, InvalidRootError, ZeroLengthBufferError
+from .errors import (
+    DtypeMismatchError,
+    InvalidRootError,
+    ZeroLengthBufferError,
+    not_ported,
+)
 from .interop import tensor_from_numpy
 from .request import BaseRequest
 from .utils.logging import Log
@@ -344,6 +351,87 @@ class ACCL:
     # collectives
     # ------------------------------------------------------------------ #
 
+    @staticmethod
+    def _no_streams(op0_stream, res_stream):
+        """Streamed operands (OP0_STREAM/RES_STREAM) keep the reference's
+        argument names and are refused until their slice."""
+        if op0_stream is not None or res_stream is not None:
+            raise not_ported("streamed operands", "streams")
+
+    def copy(self, srcbuf, dstbuf, count, *, from_device=False,
+             to_device=False, run_async=False):
+        """dstbuf receives srcbuf's first count elements, on every rank."""
+        opts = self._prepare(Operation.copy, srcbuf, None, dstbuf, count)
+        return self._execute(opts, [srcbuf], [dstbuf], from_device,
+                             to_device, run_async)
+
+    def combine(self, count, function, op0, op1, res, *, from_device=False,
+                to_device=False, run_async=False):
+        """res = op0 (SUM/MAX) op1 elementwise, on every rank."""
+        opts = self._prepare(Operation.combine, op0, op1, res, count,
+                             function=int(function))
+        return self._execute(opts, [op0, op1], [res], from_device,
+                             to_device, run_async)
+
+    def bcast(self, buf, count, root, *, from_device=False, to_device=False,
+              run_async=False, compress_dtype=None, comm=None,
+              op0_stream=None, res_stream=None):
+        """Every rank's buf receives root's."""
+        self._no_streams(op0_stream, res_stream)
+        opts = self._prepare(Operation.bcast, buf, None, buf, count,
+                             root_src_dst=root, compress_dtype=compress_dtype,
+                             comm=comm)
+        return self._execute(opts, [buf], [buf], from_device, to_device,
+                             run_async)
+
+    def scatter(self, sendbuf, recvbuf, count, root, *, from_device=False,
+                to_device=False, run_async=False, compress_dtype=None,
+                comm=None, op0_stream=None, res_stream=None):
+        """Rank j's recvbuf receives chunk j (count elements) of root's
+        sendbuf of world*count elements."""
+        self._no_streams(op0_stream, res_stream)
+        opts = self._prepare(Operation.scatter, sendbuf, None, recvbuf, count,
+                             root_src_dst=root, compress_dtype=compress_dtype,
+                             comm=comm)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)
+
+    def gather(self, sendbuf, recvbuf, count, root, *, from_device=False,
+               to_device=False, run_async=False, compress_dtype=None,
+               comm=None, op0_stream=None, res_stream=None):
+        """Root's recvbuf (world*count elements) receives every rank's
+        sendbuf, chunk j from rank j."""
+        self._no_streams(op0_stream, res_stream)
+        opts = self._prepare(Operation.gather, sendbuf, None, recvbuf, count,
+                             root_src_dst=root, compress_dtype=compress_dtype,
+                             comm=comm)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)
+
+    def allgather(self, sendbuf, recvbuf, count, *, from_device=False,
+                  to_device=False, run_async=False, compress_dtype=None,
+                  comm=None, op0_stream=None, res_stream=None):
+        """Every rank's recvbuf (world*count elements) receives every
+        rank's sendbuf, chunk j from rank j."""
+        self._no_streams(op0_stream, res_stream)
+        opts = self._prepare(Operation.allgather, sendbuf, None, recvbuf,
+                             count, compress_dtype=compress_dtype, comm=comm)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)
+
+    def reduce(self, sendbuf, recvbuf, count, root, function, *,
+               from_device=False, to_device=False, run_async=False,
+               compress_dtype=None, comm=None, op0_stream=None,
+               res_stream=None):
+        """Root's recvbuf receives the elementwise reduction (SUM/MAX) of
+        every rank's sendbuf."""
+        self._no_streams(op0_stream, res_stream)
+        opts = self._prepare(Operation.reduce, sendbuf, None, recvbuf, count,
+                             root_src_dst=root, function=int(function),
+                             compress_dtype=compress_dtype, comm=comm)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)
+
     def allreduce(self, sendbuf, recvbuf, count, function, *,
                   from_device=False, to_device=False, run_async=False,
                   compress_dtype=None, comm=None):
@@ -361,3 +449,24 @@ class ACCL:
                              compress_dtype=compress_dtype, comm=comm)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
+
+    def reduce_scatter(self, sendbuf, recvbuf, count, function, *,
+                       from_device=False, to_device=False, run_async=False,
+                       compress_dtype=None, comm=None, op0_stream=None,
+                       res_stream=None):
+        """Rank j's recvbuf (count elements) receives chunk j of the
+        elementwise reduction of every rank's sendbuf (world*count)."""
+        self._no_streams(op0_stream, res_stream)
+        opts = self._prepare(Operation.reduce_scatter, sendbuf, None, recvbuf,
+                             count, function=int(function),
+                             compress_dtype=compress_dtype, comm=comm)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)
+
+    def barrier(self, comm=None):
+        """Returns once every rank has entered the barrier."""
+        opts = self._prepare(Operation.barrier, None, None, None, 0, comm=comm)
+        req = self.cclo.start(opts)
+        req.wait()
+        req.check()
+        return req

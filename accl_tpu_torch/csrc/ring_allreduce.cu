@@ -41,10 +41,13 @@
 // and pays 2(W-1) grid barriers per launch; narrowing that gap (keeping a
 // chunk's whole fold in registers, vector loads) is later work.
 //
-// Numerics: signed integer SUM wraps (added as unsigned); fp16/bf16 SUM
-// adds in float and rounds once, the correctly rounded sum torch gives;
-// MAX propagates NaN and otherwise follows torch.maximum on the card
-// (NaN checks, then fmax).
+// Numerics, the lanes' contract (accl_tpu_torch/ops/lane_kernels.py), as
+// XLA computes the TPU kernel's combine: signed integer SUM wraps (added
+// as unsigned); in f32, f64 and bf16 every operand and every result
+// smaller in magnitude than FLT_MIN (DBL_MIN) is flushed to a zero of its
+// own sign, written out in code (flush()) with the source built without
+// -ftz; fp16/bf16 combine in float and round once; MAX is the IEEE
+// maximum: NaN propagates and +0 is above -0.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -71,26 +74,45 @@ enum : int {
   kBFloat16 = 7,
 };
 
+constexpr float kFltMin = 0x1.0p-126f;
+constexpr double kDblMin = 0x1.0p-1022;
+
+__device__ __forceinline__ float flush(float v) {
+  return fabsf(v) < kFltMin ? copysignf(0.0f, v) : v;
+}
+
+__device__ __forceinline__ double flush(double v) {
+  return fabs(v) < kDblMin ? copysign(0.0, v) : v;
+}
+
+template <typename T>
+__device__ __forceinline__ T max_ieee(T a, T b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a == T(0) && b == T(0)) return a + b;  // -0 only if both are -0
+  return a > b ? a : b;
+}
+
 template <typename T>
 struct Combine;
 
 template <>
 struct Combine<float> {
-  __device__ static float sum(float a, float b) { return __fadd_rn(a, b); }
+  __device__ static float sum(float a, float b) {
+    return flush(__fadd_rn(flush(a), flush(b)));
+  }
   __device__ static float max(float a, float b) {
-    if (a != a) return a;
-    if (b != b) return b;
-    return fmaxf(a, b);
+    return max_ieee(flush(a), flush(b));
   }
 };
 
 template <>
 struct Combine<double> {
-  __device__ static double sum(double a, double b) { return __dadd_rn(a, b); }
+  __device__ static double sum(double a, double b) {
+    return flush(__dadd_rn(flush(a), flush(b)));
+  }
   __device__ static double max(double a, double b) {
-    if (a != a) return a;
-    if (b != b) return b;
-    return fmax(a, b);
+    return max_ieee(flush(a), flush(b));
   }
 };
 
@@ -112,10 +134,13 @@ struct Combine<int64_t> {
   __device__ static int64_t max(int64_t a, int64_t b) { return a > b ? a : b; }
 };
 
+// fp16 values widen to normal floats and their sum is 0 or at least
+// 2^-24, so the float combine's flush never touches them.
 template <>
 struct Combine<__half> {
   __device__ static __half sum(__half a, __half b) {
-    return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
+    return __float2half_rn(
+        Combine<float>::sum(__half2float(a), __half2float(b)));
   }
   __device__ static __half max(__half a, __half b) {
     return __float2half_rn(
@@ -127,7 +152,7 @@ template <>
 struct Combine<__nv_bfloat16> {
   __device__ static __nv_bfloat16 sum(__nv_bfloat16 a, __nv_bfloat16 b) {
     return __float2bfloat16_rn(
-        __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+        Combine<float>::sum(__bfloat162float(a), __bfloat162float(b)));
   }
   __device__ static __nv_bfloat16 max(__nv_bfloat16 a, __nv_bfloat16 b) {
     return __float2bfloat16_rn(

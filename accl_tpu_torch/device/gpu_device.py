@@ -8,9 +8,11 @@ every buffer is a stacked (world, n) tensor, and one call executes the
 collective for every rank. Completion is a CUDA event recorded after the
 call's kernels instead of XLA's block_until_ready.
 
-The allreduce path is ported; point-to-point send/recv, streams, call
-sequences and sub-communicators raise NotImplementedError naming the
-slice of the port that brings them.
+Every one-call collective is ported (copy, combine, bcast, scatter,
+gather, allgather, reduce, allreduce, reduce_scatter, barrier);
+point-to-point send/recv, alltoall, streams, call sequences and
+sub-communicators raise NotImplementedError naming the slice of the port
+that brings them.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..errors import not_ported
 from ..request import BaseRequest, GPURequest
 from ..sequencer.lowering import ScheduleCompiler
 from ..sequencer.plan import Plan, select_algorithm
+from ..sequencer.sequence import step_in_elems
 from .base import CCLOAddr, CCLODevice
 
 
@@ -164,7 +167,7 @@ class GPUDevice(CCLODevice):
             req.complete(0)
             return req
         if options.scenario in (Operation.send, Operation.recv):
-            raise not_ported("send/recv matching", "remaining collectives")
+            raise not_ported("send/recv matching", "point-to-point")
         return self._launch(options)
 
     def _resolve_step(self, options: CallOptions,
@@ -192,9 +195,17 @@ class GPUDevice(CCLODevice):
         self._comm_ctx(options.comm_addr)
         plan = self._resolve_step(options, self.tuning())
         fn = self.compiler.lower(options, plan)
-        op0 = self._buf(options.addr_0)
+        scen = options.scenario
         res = self._buf(options.addr_2)
-        x = _slice_to(op0.device, options.count)
+        if scen == Operation.barrier:
+            # the zero-payload notifications ride a one-element token
+            args = [torch.ones((self.world, 1), dtype=torch.float32,
+                               device=self.torch_device)]
+        else:
+            in_n = step_in_elems(options, self.world)
+            args = [_slice_to(self._buf(options.addr_0).device, in_n)]
+            if scen == Operation.combine:
+                args.append(_slice_to(self._buf(options.addr_1).device, in_n))
 
         events = None
         with self._launch_mu:  # one collective in flight
@@ -203,13 +214,13 @@ class GPUDevice(CCLODevice):
                 events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                 events[0].record()
-                out = fn(x)
+                out = fn(*args)
                 events[1].record()
             else:
-                out = fn(x)
+                out = fn(*args)
 
         def place(req):
-            if res is not None:
+            if res is not None and scen != Operation.barrier:
                 if res.device is None:  # host-only result: materialize first
                     res.sync_to_device()
                 res.device = _place_into(res.device, out)

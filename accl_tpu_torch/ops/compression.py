@@ -2,10 +2,11 @@
 the blockwise int8 quantized lanes (EQuARX-style).
 
 Counterpart of accl_tpu/ops/compression.py. Cast lanes wrap a hop as a
-dtype cast. The quantized lanes carry a payload as int8 codes with one
-fp32 scale per QUANT_BLOCK_ELEMS-element block (~3.94x fewer wire bytes
-than fp32): scale = max|x_b| * fp32(1/127), q = clip(rint(x / scale),
--127, 127), a zero-scale block encodes as zeros.
+dtype cast, the `cast` kernel of ops/lane_kernels.py (round to nearest
+even, no flush). The quantized lanes carry a payload as int8 codes with
+one fp32 scale per QUANT_BLOCK_ELEMS-element block (~3.94x fewer wire
+bytes than fp32): scale = max|x_b| * fp32(1/127), q = clip(rint(x /
+scale), -127, 127), a zero-scale block encodes as zeros.
 
 Every quantized function works on the last dimension with one rank per
 leading row, as the stacked (world, n) rank buffers need: blocks never
@@ -21,7 +22,8 @@ what its facade runs (the ring is jitted under shard_map):
 
   - Subnormals flush (FTZ/DAZ): every fp32 input (payload, scales, local
     operand) and every fp32 result smaller in magnitude than FLT_MIN
-    counts as a zero of the same sign, as XLA on the CPU and a TPU do.
+    counts as a zero of the same sign, as XLA on the CPU and a TPU do
+    (`flush`, the rule the exact lanes share: ops/lane_kernels.py).
     The CUDA kernels apply the same rule in code (a branch per value)
     rather than -ftz=true, so what the source says is what runs.
   - SUM decode+combine rounds once: XLA contracts q*scale + local into a
@@ -34,7 +36,8 @@ what its facade runs (the ring is jitted under shard_map):
     double-rounding case (a float64 sum landing exactly on a float32
     midpoint) is handled, not just unlikely.
   - MAX decodes with one multiply and takes the IEEE maximum of the
-    flushed operands: NaN propagates and +0 is above -0, as jnp.maximum.
+    flushed operands (`max_ieee`): NaN propagates and +0 is above -0, as
+    jnp.maximum.
   - A NaN block encodes as codes 0 with scale NaN, an Inf block as codes
     0 with scale Inf; both decode to NaN.
 
@@ -54,6 +57,7 @@ from ..arithconfig import (
     ArithConfig,
 )
 from ..constants import QUANT_BLOCK_ELEMS, QUANT_INV_QMAX, QUANT_QMAX
+from .lane_kernels import cast, flush, max_ieee
 
 _COMPRESS_TARGET = {
     0: torch.float16,
@@ -65,8 +69,6 @@ _DECOMPRESS_TARGET = {
     3: torch.float32,
     QUANT_DECOMPRESSOR_LANE: torch.float32,
 }
-
-FLT_MIN = torch.finfo(torch.float32).tiny
 
 
 def is_quantized(cfg: ArithConfig) -> bool:
@@ -96,7 +98,7 @@ def compress(x: torch.Tensor, cfg: ArithConfig) -> torch.Tensor:
     """Run the compressor lane of cfg over a payload."""
     _refuse_pairs(cfg, "compress")
     wd = wire_dtype(cfg)
-    return x if wd is None else x.to(wd)
+    return x if wd is None else cast(x, wd)
 
 
 def decompress(x: torch.Tensor, cfg: ArithConfig,
@@ -110,7 +112,7 @@ def decompress(x: torch.Tensor, cfg: ArithConfig,
             f"decompressor lane {cfg.decompressor_lane} yields {target}, "
             f"caller expects {out_dtype}"
         )
-    return x.to(out_dtype)
+    return cast(x, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -176,12 +178,6 @@ def unpack_wire(packed: torch.Tensor, n: int):
 # -- the plain versions: the numeric contract of the four kernels ----------
 
 
-def _flush(t: torch.Tensor) -> torch.Tensor:
-    """FTZ/DAZ: a value smaller in magnitude than FLT_MIN becomes a zero
-    of its own sign; NaN, Inf and normal values pass."""
-    return torch.where(t.abs() < FLT_MIN, t * 0.0, t)
-
-
 def _per_elem(scales: torch.Tensor, n: int) -> torch.Tensor:
     """Each block's scale repeated over its elements, cut to n."""
     nb = scales.shape[-1]
@@ -198,7 +194,7 @@ def _encode_rule(xf: torch.Tensor):
     pad = nb * QUANT_BLOCK_ELEMS - n
     xp = torch.nn.functional.pad(xf, (0, pad)) if pad else xf
     amax = xp.abs().reshape(*xp.shape[:-1], nb, QUANT_BLOCK_ELEMS).amax(-1)
-    scales = _flush(amax * QUANT_INV_QMAX)  # NaN-propagating amax
+    scales = flush(amax * QUANT_INV_QMAX)  # NaN-propagating amax
     live = scales > 0  # False for 0 and NaN
     safe = torch.where(live, scales, torch.ones_like(scales))
     q = torch.round(xf / _per_elem(safe, n)).clamp(-QUANT_QMAX, QUANT_QMAX)
@@ -207,11 +203,11 @@ def _encode_rule(xf: torch.Tensor):
 
 
 def _quantize_impl(x: torch.Tensor):
-    return _encode_rule(_flush(x.to(torch.float32)))
+    return _encode_rule(flush(x.to(torch.float32)))
 
 
 def _dequantize_impl(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    s = _per_elem(_flush(scales.to(torch.float32)), q.shape[-1])
+    s = _per_elem(flush(scales.to(torch.float32)), q.shape[-1])
     return q.to(torch.float32) * s
 
 
@@ -230,21 +226,14 @@ def _fma_f32(q: torch.Tensor, s: torch.Tensor,
     return torch.where(fix, torch.nextafter(d, toward), d).to(torch.float32)
 
 
-def _max_ieee(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """IEEE maximum: NaN propagates and +0 is above -0 (jnp.maximum on
-    XLA; torch.maximum leaves the zero tie to operand order)."""
-    both_zero = (a == 0) & (b == 0)
-    return torch.where(both_zero, a + b, torch.maximum(a, b))
-
-
 def _dequant_combine_impl(q, scales, local, func_op: str) -> torch.Tensor:
     n = local.shape[-1]
-    s = _per_elem(_flush(scales.to(torch.float32)), n)
-    loc = _flush(local.to(torch.float32))
+    s = _per_elem(flush(scales.to(torch.float32)), n)
+    loc = flush(local.to(torch.float32))
     if func_op == "sum":
-        out = _flush(_fma_f32(q[..., :n], s, loc))
+        out = flush(_fma_f32(q[..., :n], s, loc))
     elif func_op == "max":
-        out = _max_ieee(q[..., :n].to(torch.float32) * s, loc)
+        out = max_ieee(q[..., :n].to(torch.float32) * s, loc)
     else:
         raise ValueError(f"unsupported quantized combine {func_op!r}")
     return out.to(local.dtype)

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from ..constants import ReduceFunction, from_torch_dtype
-from .reduce_ops import combine_op
+from .lane_kernels import _combine_impl
 
 # Per-call segment slots of the reference (two independent resource sets
 # so consecutive segments double-buffer). Kernels on one CUDA stream are
@@ -66,7 +66,9 @@ def _ring_ref(x: torch.Tensor, world: int, func: ReduceFunction,
     """The TPU kernels' ring, rank by rank, in torch ops: rank r's buffer
     is padded to dirs*world chunks; per direction the accumulator travels
     W-1 hops (combine(arrival, local chunk)), then the reduced chunks
-    relay W-1 hops."""
+    relay W-1 hops. The combines are the lane's plain version (flush,
+    IEEE max), so this stays plain on a CUDA tensor too."""
+    op = "sum" if func == ReduceFunction.SUM else "max"
     n = x.shape[1]
     chunk = chunk_elems(n, world, x.dtype, dirs)
     padded = x.new_zeros((world, dirs * world * chunk))
@@ -81,7 +83,8 @@ def _ring_ref(x: torch.Tensor, world: int, func: ReduceFunction,
         v = local[me, (me - step) % world]
         for s in range(world - 1):
             arrival = torch.roll(v, step, 0)
-            v = combine_op(func, arrival, local[me, (me - step * (2 + s)) % world])
+            v = _combine_impl(arrival, local[me, (me - step * (2 + s)) % world],
+                              op)
         dst[me, me] = v
         for s in range(world - 1):
             v = torch.roll(v, step, 0)

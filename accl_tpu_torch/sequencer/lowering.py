@@ -4,8 +4,9 @@ Counterpart of accl_tpu/sequencer/lowering.py. Where the reference
 traces a schedule once per descriptor signature and compiles it with XLA
 into one device program over the mesh, the port builds the schedule
 closure once per signature and runs it eagerly on the stacked (world, n)
-operand: row r is rank r's buffer. The allreduce branch picks one of the
-reference's two bodies: the torch-op ring over `Wire`
+operands: row r is rank r's buffer. Every one-call collective lowers to
+the reference's schedule for its plan. The allreduce branch picks one of
+the reference's two ring bodies: the torch-op ring over `Wire`
 (schedules.allreduce_ring_schedule), or — on the card — the fused ring
 kernel per 4 MiB segment, double-slotted like the reference's. The
 blockwise-int8 wire always takes the torch-op ring, per plan segment:
@@ -26,10 +27,12 @@ from ..constants import (
     Operation,
     ReduceFunction,
     dtype_nbytes,
+    to_torch_dtype,
 )
 from ..descriptor import CallOptions
 from ..errors import not_ported
 from ..ops.compression import wire_dtype
+from ..ops.lane_kernels import cast
 from . import schedules
 from .plan import Algorithm, Plan
 
@@ -100,65 +103,163 @@ class ScheduleCompiler:
     def _body(self, options: CallOptions, plan: Plan, arithcfg) -> Callable:
         op = options.scenario
         world = self.world
-        if op != Operation.allreduce:
-            raise not_ported(op.name, "remaining collectives")
-        if plan.algorithm not in (Algorithm.EAGER_RING_RS_AG, Algorithm.NONE):
-            raise not_ported(f"the {plan.algorithm.name} allreduce",
-                             "remaining collectives")
-        func = ReduceFunction(options.function)
+        root = options.root_src_dst
+        if plan.algorithm in (Algorithm.SYNTHESIZED, Algorithm.HIER_RS_AR_AG):
+            raise not_ported(f"the {plan.algorithm.name} schedule",
+                             "synthesized schedules"
+                             if plan.algorithm == Algorithm.SYNTHESIZED
+                             else "hierarchical schedules")
+        func = ReduceFunction(options.function) if op in (
+            Operation.combine,
+            Operation.reduce,
+            Operation.allreduce,
+            Operation.reduce_scatter,
+        ) else None
         # reductions whose arithconfig reduces in the compressed domain cast
         # the operand to the wire dtype once and run the whole schedule there
         compressed_domain = bool(
-            arithcfg is not None
+            func is not None
+            and arithcfg is not None
             and options.compression_flags & CompressionFlags.ETH_COMPRESSED
             and arithcfg.arith_is_compressed
             and wire_dtype(arithcfg) is not None
         )
         wire = self._wire(options, arithcfg, func, compressed_domain)
+        common = dict(world=world, wire=wire)
+
+        body: Callable
+        if op == Operation.copy:
+            body = functools.partial(schedules.copy_schedule, **common)
+        elif op == Operation.combine:
+            body = functools.partial(schedules.combine_schedule, func=func,
+                                     **common)
+        elif op in (Operation.send, Operation.recv):
+            raise not_ported("send/recv matching", "point-to-point")
+        elif op == Operation.bcast:
+            if plan.algorithm == Algorithm.RNDZV_BIN_TREE:
+                body = functools.partial(schedules.bcast_bin_tree_schedule,
+                                         root=root, **common)
+            else:
+                body = functools.partial(schedules.bcast_flat_schedule,
+                                         root=root, **common)
+        elif op == Operation.scatter:
+            body = functools.partial(schedules.scatter_schedule, root=root,
+                                     **common)
+        elif op == Operation.gather:
+            if plan.algorithm == Algorithm.EAGER_RING:
+                body = functools.partial(schedules.gather_ring_schedule,
+                                         root=root, **common)
+            else:
+                body = functools.partial(schedules.gather_flat_schedule,
+                                         root=root, fanin=plan.tree_fanin,
+                                         **common)
+        elif op == Operation.allgather:
+            body = functools.partial(schedules.allgather_ring_schedule,
+                                     **common)
+        elif op == Operation.reduce:
+            body = self._reduce_body(plan, root, func, common)
+        elif op == Operation.reduce_scatter:
+            if plan.algorithm == Algorithm.RNDZV_REDUCE_SCATTER:
+                # composition: reduce(count*world) to rank 0, then scatter;
+                # the reduce stage's tree shape comes from plan.stages
+                reduce_body = self._reduce_body(plan.stages[0], 0, func,
+                                                common)
+
+                def _rs_composed(x, _c=common, _rb=reduce_body):
+                    return schedules.scatter_schedule(_rb(x), root=0, **_c)
+
+                body = _rs_composed
+            else:
+                # XLA keeps the reference's last bf16 fold in float32 when
+                # the compressed-domain result is cast straight back (its
+                # excess-precision rule drops the bf16 round trip), so the
+                # port's last fold emits the uncompressed dtype directly;
+                # XLA computes fp16 natively and rounds it
+                last = None
+                if compressed_domain and wire_dtype(arithcfg) == torch.bfloat16:
+                    last = to_torch_dtype(options.data_type)
+                body = functools.partial(
+                    schedules.reduce_scatter_ring_schedule, func=func,
+                    out_dtype=last, **common)
+        elif op == Operation.allreduce:
+            body = self._allreduce_body(options, plan, arithcfg, func, wire,
+                                        compressed_domain)
+        elif op == Operation.alltoall:
+            raise not_ported("alltoall", "alltoall")
+        elif op == Operation.barrier:
+            body = functools.partial(schedules.barrier_schedule, **common)
+        else:
+            raise ValueError(f"cannot lower scenario {op!r}")
+
+        if compressed_domain:
+            inner, wd = body, wire_dtype(arithcfg)
+
+            def _domain_cast_body(*args, _inner=inner, _wd=wd):
+                orig = args[0].dtype
+                return cast(_inner(*(cast(a, _wd) for a in args)), orig)
+
+            body = _domain_cast_body
+        return body
+
+    def _reduce_body(self, stage_plan: Plan, root: int, func, common):
+        """The reduce schedule of a plan (a reduce call or the reduce stage
+        of a composition): flat tree, binomial tree or eager ring."""
+        if stage_plan.algorithm == Algorithm.RNDZV_BIN_TREE:
+            schedule = schedules.reduce_bin_tree_schedule
+        elif stage_plan.algorithm == Algorithm.EAGER_RING:
+            schedule = schedules.reduce_ring_schedule
+        else:
+            schedule = schedules.reduce_flat_schedule
+        return functools.partial(schedule, root=root, func=func, **common)
+
+    def _allreduce_body(self, options: CallOptions, plan: Plan, arithcfg,
+                        func, wire, compressed_domain: bool) -> Callable:
+        world = self.world
+        if plan.algorithm == Algorithm.RNDZV_REDUCE_BCAST:
+            # composition: reduce to rank 0, then broadcast; both stage
+            # shapes were re-selected by plan.py with the live registers
+            common = dict(world=world, wire=wire)
+            reduce_body = self._reduce_body(plan.stages[0], 0, func, common)
+            bcast = (schedules.bcast_bin_tree_schedule
+                     if plan.stages[1].algorithm == Algorithm.RNDZV_BIN_TREE
+                     else schedules.bcast_flat_schedule)
+
+            def _ar_composed(x, _c=common, _rb=reduce_body, _bc=bcast):
+                return _bc(_rb(x), root=0, **_c)
+
+            return _ar_composed
         eth_active = bool(
             arithcfg is not None
             and options.compression_flags & CompressionFlags.ETH_COMPRESSED
             and wire_dtype(arithcfg) is not None
         )
-
-        body: Callable
         # per-hop compression with uncompressed-domain arithmetic cannot be
         # fused into the single-dtype ring kernel; this also routes the
         # blockwise-int8 wire (whose hops carry a scale side-channel) to
         # the quantized torch-op ring, where the quant_wire kernels run
-        if self.use_ring_kernel and (not eth_active or compressed_domain):
-            from ..ops.ring_allreduce import NUM_RING_SLOTS, ring_allreduce_bidir
-
-            # elements per segment in the dtype the kernel runs in (the
-            # descriptor's: the compressed domain keeps the segmentation of
-            # the uncompressed payload, as in the reference)
-            elem_bytes = (dtype_nbytes(options.data_type)
-                          if options.data_type != DataType.none else 1)
-            seg_elems = max(self.RING_KERNEL_MAX_BYTES // elem_bytes, 1)
-
-            def one_seg(y, slot=0):
-                return ring_allreduce_bidir(y, world, func, slot=slot)
-
-            def _ring_kernel_body(x, _wire=wire, _seg=seg_elems):
-                y = _wire.send(x)
-                out = schedules.segmented_apply(
-                    one_seg, y, _seg, overlap_slots=NUM_RING_SLOTS)
-                return _wire.recv(out, x.dtype)
-
-            body = _ring_kernel_body
-        else:
-            body = functools.partial(
+        if not (self.use_ring_kernel and (not eth_active or compressed_domain)):
+            return functools.partial(
                 schedules.allreduce_ring_schedule,
                 func=func, world=world, wire=wire, seg_count=plan.seg_count)
+        from ..ops.ring_allreduce import NUM_RING_SLOTS, ring_allreduce_bidir
 
-        if compressed_domain:
-            inner, wd = body, wire_dtype(arithcfg)
+        # elements per segment in the dtype the kernel runs in (the
+        # descriptor's: the compressed domain keeps the segmentation of
+        # the uncompressed payload, as in the reference)
+        elem_bytes = (dtype_nbytes(options.data_type)
+                      if options.data_type != DataType.none else 1)
+        seg_elems = max(self.RING_KERNEL_MAX_BYTES // elem_bytes, 1)
 
-            def _domain_cast_body(x, _inner=inner, _wd=wd):
-                return _inner(x.to(_wd)).to(x.dtype)
+        def one_seg(y, slot=0):
+            return ring_allreduce_bidir(y, world, func, slot=slot)
 
-            body = _domain_cast_body
-        return body
+        def _ring_kernel_body(x, _wire=wire, _seg=seg_elems):
+            y = _wire.send(x)
+            out = schedules.segmented_apply(
+                one_seg, y, _seg, overlap_slots=NUM_RING_SLOTS)
+            return _wire.recv(out, x.dtype)
+
+        return _ring_kernel_body
 
     def lower(self, options: CallOptions, plan: Plan) -> Callable:
         arithcfg = None

@@ -4,10 +4,10 @@ Counterpart of accl_tpu/sequencer/plan.py, rule for rule, for every
 branch the default tuning registers reach. The branches that only a
 non-zero register or an extra argument reach (the two-tier composition,
 the synthesized and latency-grid libraries, stripe overlap, the degraded
-live-subset ring, the rendezvous reduce+bcast allreduce) belong to later
-slices of the port: each raises NotImplementedError naming its slice
-where the reference would enter it, and none silently picks another
-plan.
+live-subset ring) belong to later slices of the port: each raises
+NotImplementedError naming its slice where the reference would enter it,
+and none silently picks another plan. The register-opened rendezvous
+reduce+bcast allreduce is ported.
 """
 
 from __future__ import annotations
@@ -262,8 +262,26 @@ def select_algorithm(
         # the segmented ring reduce-scatter + allgather, world-aligned
         # segments, is the default at every size
         if rndzv and bytes_count <= tuning.allreduce_composition_max_count:
-            raise not_ported("the rendezvous reduce+bcast allreduce",
-                             "remaining collectives")
+            # the register-opened reduce(count) to rank 0 + bcast(count)
+            # composition, both stages re-selected with the live registers
+            sub = functools.partial(
+                select_algorithm,
+                dtype_nbytes=dtype_nbytes,
+                world_size=world_size,
+                compression=compression,
+                stream=stream,
+                max_eager_size=max_eager_size,
+                eager_rx_buf_size=eager_rx_buf_size,
+                tuning=tuning,
+                compress_dtype=compress_dtype,
+            )
+            return rndzv_plan(
+                Algorithm.RNDZV_REDUCE_BCAST,
+                stages=(
+                    sub(Operation.reduce, count),
+                    sub(Operation.bcast, count),
+                ),
+            )
         if (tuning.overlap_min_count > 0
                 and compression == CompressionFlags.NO_COMPRESSION
                 and bytes_count >= tuning.overlap_min_count):

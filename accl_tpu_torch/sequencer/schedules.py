@@ -1,13 +1,13 @@
-"""Collective schedules over stacked rank tensors: the allreduce ring,
-on the exact, cast and blockwise-int8 wires.
+"""Collective schedules over stacked rank tensors: every one-call family
+of the reference, on the exact, cast and blockwise-int8 wires.
 
-Counterpart of the allreduce path of accl_tpu/sequencer/schedules.py. The
-reference's schedules are shard_map bodies that see one rank's (n,)
-buffer and move data with lax.ppermute. Here every schedule sees the
-whole stacked (world, n) tensor — row r is rank r's buffer — and a hop
-is a permutation along the rank axis (dim 0). The per-rank chunk
-arithmetic is the reference's, evaluated for all ranks at once, so every
-fold happens in the same order and the results are bitwise equal.
+Counterpart of accl_tpu/sequencer/schedules.py. The reference's schedules
+are shard_map bodies that see one rank's (n,) buffer and move data with
+lax.ppermute. Here every schedule sees the whole stacked (world, n)
+tensor — row r is rank r's buffer — and a hop is a permutation along the
+rank axis (dim 0). The per-rank chunk arithmetic is the reference's,
+evaluated for all ranks at once, so every fold happens in the same order
+and the results are bitwise equal.
 
 Conventions kept from the reference:
   - a rank not addressed by a hop's permutation receives zeros;
@@ -17,6 +17,12 @@ Conventions kept from the reference:
     blockwise-int8 wire a hop carries (codes, scales) instead, through
     Wire.encode/hop/decode and the fused ring steps, whose kernels
     (ops/quant_kernels.py) take every rank's row in one launch.
+
+The reference's `jnp.where(me == j, recv, out)` selections are row
+selections here: a hop moves only the rows its permutation addresses
+(`Wire.transfer`), and the receiving rows of the schedule's own copy of
+its buffer are updated in place. Every combine and every cast is one
+lane-kernel launch (ops/lane_kernels.py) over the rows of that hop.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..ops.compression import (
     quantize_blockwise,
     unpack_wire,
 )
+from ..ops.lane_kernels import cast
 from ..ops.reduce_ops import combine_op, reduce_lane
 
 
@@ -51,20 +58,30 @@ def _ring_ctx(world: int, device: torch.device):
     return torch.arange(world, device=device), _ring_perm(world)
 
 
-def _permute(y: torch.Tensor, perm) -> torch.Tensor:
+def _index(rows: list[int]):
+    """Index of `rows` on the rank axis: a slice (a view) when they are
+    consecutive, else the list (a gather)."""
+    if rows == list(range(rows[0], rows[0] + len(rows))):
+        return slice(rows[0], rows[0] + len(rows))
+    return rows
+
+
+def _permute(y: torch.Tensor, perm, transfer=None) -> torch.Tensor:
     """Row dst of the result is row src of y for each (src, dst) pair of
-    perm; rows no pair addresses receive zeros. A full rotation (the ring
-    hop) is a roll of the rank axis."""
+    perm, passed through `transfer` (what crossing the wire does to the
+    moved rows; nothing by default); rows no pair addresses receive
+    zeros. A full rotation (the ring hop) is a roll of the rank axis."""
     world = y.shape[0]
     src = [-1] * world
     for s, d in perm:
         src[d] = s
     shift = (-src[0]) % world
     if all(src[d] == (d - shift) % world for d in range(world)):
-        return torch.roll(y, shift, 0)
-    moved = torch.zeros_like(y)
+        return torch.roll(y if transfer is None else transfer(y), shift, 0)
     dst = [d for d, s in enumerate(src) if s >= 0]
-    moved[dst] = y[[src[d] for d in dst]]
+    rows = y[_index([src[d] for d in dst])]
+    moved = y.new_zeros(y.shape)
+    moved[_index(dst)] = rows if transfer is None else transfer(rows)
     return moved
 
 
@@ -89,23 +106,32 @@ class Wire:
     def recv(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
         return x if self.cfg is None else decompress(x, self.cfg, out_dtype)
 
+    def transfer(self, rows: torch.Tensor) -> torch.Tensor:
+        """What a hop does to the rows it moves, as the receiver sees
+        them: nothing on the exact wire; compress -> decompress on a cast
+        wire; encode -> pack one message -> unpack -> decode on the
+        quantized wire (an all-zero message decodes to zeros)."""
+        if self.quantized:
+            n = rows.shape[-1]
+            packed = pack_wire(*self.encode(rows))
+            return self.decode(unpack_wire(packed, n), n, rows.dtype)
+        return self.recv(self.send(rows), rows.dtype)
+
     def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
         """One cross-rank hop of the stacked tensor: row dst of the result
-        is row src of the (compressed) input for each (src, dst) pair of
-        perm; rows no pair addresses receive zeros. On the quantized wire
-        the hop is encode -> pack -> permute one message -> unpack ->
-        decode; an unaddressed rank's all-zero message decodes to zeros."""
-        if self.quantized:
-            n = x.shape[-1]
-            moved = _permute(pack_wire(*self.encode(x)), perm)
-            return self.decode(unpack_wire(moved, n), n, x.dtype)
-        return self.recv(_permute(self.send(x), perm), x.dtype)
+        is row src of the input, through the wire, for each (src, dst)
+        pair of perm; rows no pair addresses receive zeros."""
+        return _permute(x, perm, self.transfer)
 
     def combine(self, func: ReduceFunction, a: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-        """Elementwise reduction through the configured arith lane."""
+                b: torch.Tensor,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Elementwise reduction through the configured arith lane;
+        `out_dtype` rounds a fp16/bf16 lane's result once to that dtype."""
         if self.arith_lane is not None:
-            return reduce_lane(self.arith_lane, a, b)
+            return reduce_lane(self.arith_lane, a, b, out_dtype)
+        if out_dtype not in (None, a.dtype):
+            raise TypeError(f"a {a.dtype} combine cannot emit {out_dtype}")
         return combine_op(func, a, b)
 
     # -- quantized-wire datapath (compressor lanes 4/5) --------------------
@@ -142,17 +168,191 @@ def _quant_op(func: ReduceFunction) -> str:
     return "sum" if func == ReduceFunction.SUM else "max"
 
 
+def _fast_log2(x: int) -> int:
+    return x.bit_length() - 1
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+
+def copy_schedule(x: torch.Tensor, *, world: int, wire: Wire) -> torch.Tensor:
+    """The result is a tensor of its own: a buffer's device image is
+    mutable here, so it must not alias the source's."""
+    return x.clone()
+
+
+def combine_schedule(x: torch.Tensor, y: torch.Tensor, *, func, world: int,
+                     wire: Wire) -> torch.Tensor:
+    return wire.combine(func, x, y)
+
+
+def sendrecv_schedule(x: torch.Tensor, *, src: int, dst: int, world: int,
+                      wire: Wire) -> torch.Tensor:
+    """Point-to-point: dst's output is src's buffer, every other rank
+    keeps its input."""
+    out = x.clone()
+    if src == dst:
+        return out
+    out[dst:dst + 1] = wire.transfer(x[src:src + 1])
+    return out
+
+
+def fused_recv_reduce(acc: torch.Tensor, recv: torch.Tensor, receivers,
+                      func, wire: Wire) -> torch.Tensor:
+    """The fused recv-reduce primitive: combine the partials that arrived
+    at the rows `receivers` (recv holds one row per receiver, in order)
+    into the accumulator on those rows only, through the configured arith
+    lane — combine(acc, recv), the reference's operand order. A lane of
+    another dtype than the accumulator's (a bf16 lane over fp32 buffers)
+    is widened back, as the reference's select promotes it. Updates the
+    schedule's own accumulator in place and returns it."""
+    rows = _index(list(receivers))
+    acc[rows] = cast(wire.combine(func, acc[rows], recv), acc.dtype)
+    return acc
+
+
+def _hop_reduce(acc: torch.Tensor, sent: torch.Tensor, receivers, func,
+                wire: Wire) -> torch.Tensor:
+    """One hop of the partials `sent` to the rows `receivers` (one sent row
+    per receiver), folded into the accumulator there. On the quantized
+    wire the arrival's decode and the fold are one step (the fused
+    dequantize-combine): XLA contracts the reference's decode multiply
+    and its SUM add into one fused multiply-add."""
+    if not wire.quantized:
+        return fused_recv_reduce(acc, wire.transfer(sent), receivers, func,
+                                 wire)
+    n = sent.shape[-1]
+    enc = unpack_wire(pack_wire(*wire.encode(sent)), n)
+    rows = _index(list(receivers))
+    acc[rows] = wire.combine_decoded(func, enc, acc[rows])
+    return acc
+
+
+def _tree_round(world: int, root: int, d: int, up: bool):
+    """The (src, dst) pairs of one binomial-tree round at distance d, in
+    ranks: toward the root (normalized ln -> ln-d, ln = d mod 2d) or away
+    from it (ln -> ln+d, ln = 0 mod 2d)."""
+    if up:
+        return [((ln + root) % world, (ln - d + root) % world)
+                for ln in range(d, world, 2 * d)]
+    return [((ln + root) % world, (ln + d + root) % world)
+            for ln in range(0, world, 2 * d) if ln + d < world]
+
+
+# ---------------------------------------------------------------------------
+# broadcast family
+# ---------------------------------------------------------------------------
+
+
+def bcast_flat_schedule(x: torch.Tensor, *, root: int, world: int,
+                        wire: Wire) -> torch.Tensor:
+    """Flat fan-out: root sends its buffer to each rank with one hop per
+    destination (W-1 hops)."""
+    out = x.clone()
+    for j in range(world):
+        if j != root:
+            out[j:j + 1] = wire.transfer(x[root:root + 1])
+    return out
+
+
+def bcast_bin_tree_schedule(x: torch.Tensor, *, root: int, world: int,
+                            wire: Wire) -> torch.Tensor:
+    """Distance-doubling binary tree: the sender set doubles each round;
+    round distances run d = 2^floor(log2(W-1)) .. 1, and each round is one
+    hop of every sender's row."""
+    x = x.clone()
+    d = 1 << _fast_log2(world - 1)
+    while d > 0:
+        src, dst = zip(*_tree_round(world, root, d, up=False))
+        x[_index(list(dst))] = wire.transfer(x[_index(list(src))])
+        d >>= 1
+    return x
+
+
+# ---------------------------------------------------------------------------
+# scatter / gather family
+# ---------------------------------------------------------------------------
+
+
+def scatter_schedule(x: torch.Tensor, *, root: int, world: int,
+                     wire: Wire) -> torch.Tensor:
+    """Root holds world*count elements; rank j receives chunk j (one hop
+    per destination). Root keeps its own chunk root. x is (world,
+    world*count), the result (world, count)."""
+    count = x.shape[-1] // world
+    out = x.new_empty((world, count))
+    out[root] = x[root, root * count:(root + 1) * count]
+    for j in range(world):
+        if j != root:
+            out[j:j + 1] = wire.transfer(
+                x[root:root + 1, j * count:(j + 1) * count])
+    return out
+
+
+def gather_ring_schedule(x: torch.Tensor, *, root: int, world: int,
+                         wire: Wire) -> torch.Tensor:
+    """Eager daisy-chain gather: every rank relays its upstream
+    neighbours' chunks around the ring; root collects W-1 chunks in
+    arrival order (the step-s arrival originates from rank root-1-s).
+    Every rank's result holds its own chunk at slot root. x is (world,
+    count), the result (world, world*count)."""
+    count = x.shape[-1]
+    out = x.new_zeros((world, world, count))
+    out[:, root] = x
+    relay = x
+    for s in range(world - 1):
+        recv = wire.ppermute(relay, _ring_perm(world))
+        out[root, (root - 1 - s) % world] = recv[root]
+        relay = recv
+    return out.reshape(world, world * count)
+
+
+def gather_flat_schedule(x: torch.Tensor, *, root: int, world: int,
+                         wire: Wire, fanin: int) -> torch.Tensor:
+    """Rendezvous gather. With unbounded fan-in every rank sends straight
+    to root (W-1 hops); with the tuning cap it is a binomial combining
+    tree: at distance d the normalized ranks ln = d mod 2d send their
+    whole accumulated buffer to ln-d, which keeps the chunks of the
+    sender's subtree [ln, min(ln+d, W)). Every rank's result starts as
+    zeros with its own chunk at its own slot."""
+    count = x.shape[-1]
+    me = torch.arange(world, device=x.device)
+    out = x.new_zeros((world, world, count))
+    out[me, me] = x
+    if fanin >= world - 1:
+        for j in range(world):
+            if j != root:
+                out[root, j] = wire.transfer(x[j:j + 1])[0]
+        return out.reshape(world, world * count)
+    flat = out.view(world, world * count)
+    d = 1
+    while d < world:
+        pairs = _tree_round(world, root, d, up=True)
+        recv = wire.transfer(flat[_index([c for c, _ in pairs])])
+        for (child, parent), row in zip(pairs, recv):
+            ln = (child - root) % world
+            sub = [(root + k) % world for k in range(ln, min(ln + d, world))]
+            out[parent, sub] = row.view(world, count)[sub]
+        d *= 2
+    return flat
+
+
 def _chunks(x: torch.Tensor, world: int) -> torch.Tensor:
     """(world, world*count) -> (world, world, count): [rank, chunk]."""
     return x.reshape(world, world, x.shape[-1] // world)
 
 
 def reduce_scatter_ring_schedule(x: torch.Tensor, *, func, world: int,
-                                 wire: Wire) -> torch.Tensor:
+                                 wire: Wire,
+                                 out_dtype: torch.dtype | None = None
+                                 ) -> torch.Tensor:
     """Ring reduce-scatter: W-1 steps; at step s each rank combines the
     arriving partial with its local copy of chunk me-2-s and forwards;
     rank r ends holding reduced chunk r. x is (world, world*count), the
-    result (world, count)."""
+    result (world, count). `out_dtype` has the last fold round once to
+    that dtype instead of x's (the fused combine+cast)."""
     if wire.quantized:
         return _reduce_scatter_ring_quant(x, func=func, world=world,
                                           wire=wire)
@@ -161,7 +361,9 @@ def reduce_scatter_ring_schedule(x: torch.Tensor, *, func, world: int,
     v = xs[me, (me - 1) % world]
     for s in range(world - 1):
         recv = wire.ppermute(v, perm)
-        v = wire.combine(func, recv, xs[me, (me - 2 - s) % world])
+        last = s == world - 2
+        v = wire.combine(func, recv, xs[me, (me - 2 - s) % world],
+                         out_dtype if last else None)
     return v
 
 
@@ -222,6 +424,49 @@ def _allgather_ring_quant(x: torch.Tensor, *, world: int,
     return out.reshape(world, world * count)
 
 
+# ---------------------------------------------------------------------------
+# reduction family
+# ---------------------------------------------------------------------------
+
+
+def reduce_ring_schedule(x: torch.Tensor, *, root: int, func, world: int,
+                         wire: Wire) -> torch.Tensor:
+    """Eager ring reduce: the partial relays around the ring from root+1,
+    each hop a fused recv-reduce at the next rank, ending at root."""
+    acc = x.clone()
+    for s in range(world - 1):
+        sender = (root + 1 + s) % world
+        receiver = (sender + 1) % world
+        _hop_reduce(acc, acc[sender:sender + 1], [receiver], func, wire)
+    return acc
+
+
+def reduce_flat_schedule(x: torch.Tensor, *, root: int, func, world: int,
+                         wire: Wire) -> torch.Tensor:
+    """Rendezvous flat-tree reduce: each child sends its buffer straight
+    to root, which folds the arrivals into its accumulator in rank
+    order."""
+    acc = x.clone()
+    for j in range(world):
+        if j != root:
+            _hop_reduce(acc, x[j:j + 1], [root], func, wire)
+    return acc
+
+
+def reduce_bin_tree_schedule(x: torch.Tensor, *, root: int, func,
+                             world: int, wire: Wire) -> torch.Tensor:
+    """Rendezvous binomial-tree reduce: at distance d the normalized ranks
+    ln = d mod 2d send their partials to ln-d; ceil(log2 W) rounds, each
+    one hop and one combine over every parent's row."""
+    acc = x.clone()
+    d = 1
+    while d < world:
+        src, dst = zip(*_tree_round(world, root, d, up=True))
+        _hop_reduce(acc, acc[_index(list(src))], dst, func, wire)
+        d *= 2
+    return acc
+
+
 def allreduce_ring_schedule(x: torch.Tensor, *, func, world: int, wire: Wire,
                             seg_count: int) -> torch.Tensor:
     """Segmented ring allreduce: per segment, a ring reduce-scatter over
@@ -264,3 +509,18 @@ def _pad_to_multiple(x: torch.Tensor, m: int) -> torch.Tensor:
     if rem:
         x = torch.nn.functional.pad(x, (0, rem))
     return x
+
+
+# ---------------------------------------------------------------------------
+# barrier
+# ---------------------------------------------------------------------------
+
+
+def barrier_schedule(token: torch.Tensor, *, world: int,
+                     wire: Wire) -> torch.Tensor:
+    """Notification-only gather-to-0 and fan-out: the zero-payload
+    messages are carried as a 1-element token per rank, reduced to rank 0
+    and broadcast back."""
+    gathered = reduce_flat_schedule(token, root=0, func=ReduceFunction.SUM,
+                                    world=world, wire=wire)
+    return bcast_flat_schedule(gathered, root=0, world=world, wire=wire)

@@ -11,7 +11,9 @@ What it does, in order, printing one JSON object per line:
      from accl_tpu_torch/csrc/ into accl_tpu_torch/_build/ at first use;
   2. kernel phase: each fused ring kernel against its plain PyTorch
      version on the card, bitwise (NaN-aware for float MAX), over worlds
-     {1, 2, 5, 8}, n {1, 1000, 4099, 1<<20}, six dtypes, SUM and MAX;
+     {1, 2, 5, 8}, n {1, 1000, 4099, 1<<20}, six dtypes, SUM and MAX,
+     every float tensor with subnormal and signed-zero columns (the
+     flush-to-zero and IEEE-maximum repair);
   3. facade phase (the main path): ACCL(world=8).allreduce on the card,
      from_device/to_device, fp32 SUM at 4 KiB, 1 MiB, 25 MiB and 256 MiB
      per rank, bf16 SUM at 25 MiB, fp32 MAX at 1 MiB, then world 5 with
@@ -45,7 +47,27 @@ What it does, in order, printing one JSON object per line:
      device cost (launch and grid barriers), hop traffic and host-side
      wrapper cost, and of a quantized launch into device time and host
      cost;
-  7. the kernels line; last, the device line.
+  7. lane kernel phase: the three lane kernels (combine, combine_cast,
+     cast) against their plain versions on the card, bitwise (NaN
+     matches NaN), over rows {1, 2, 5, 8} x n {1, 127, 128, 129, 4099,
+     1<<20}, every dtype and op of their path, with signed zeros in both
+     orders, subnormals of every width, NaN, +-Inf, fp16 overflow and
+     int32 wrap; the ring kernel phase (2) carries the subnormal and
+     signed-zero columns as well;
+  8. collectives phase (the one-call collectives' path): ACCL(world=8)
+     reduce, reduce_scatter, allgather, gather, scatter, bcast and
+     combine at 25 MiB of fp32 (the whole buffer as nccl-tests sizes it),
+     bf16 reduce and reduce_scatter, reduce, bcast and allgather on the
+     bf16 wire, one barrier, and reduce and allgather at W = 5 with
+     1000003 elements; movers exact, reductions within their rounding
+     bound of a float64 reference (MAX exact), the cast wire within its
+     half-precision bound; every case again at 1 MiB, bitwise against the
+     port's CPU run; each call's lane-kernel launches against its plan;
+     then each collective's facade time (median of 20, CUDA events) and
+     nccl-tests bus bandwidth, and a breakdown of each lane kernel at its
+     launch shape (device time, host cost per launch, bound, the PyTorch
+     call computing the same function);
+  9. the kernels line; last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -71,6 +93,15 @@ QUANT_KERNELS = {
     "dequant_combine": "accl_tpu/ops/pallas_kernels.py:353",
     "dequant_combine_requant": "accl_tpu/ops/pallas_kernels.py:362",
 }
+# the three lane kernels and the TPU kernels they replace
+LANE_KERNELS = {
+    "combine": "accl_tpu/ops/pallas_kernels.py:80",
+    "combine_cast": "accl_tpu/ops/pallas_kernels.py:167",
+    "cast": "accl_tpu/ops/pallas_kernels.py:127",
+}
+COLL_BYTES = 25 * MIB  # the collectives phase's buffer (nccl-tests' size)
+BF16_UNIT = 2.0 ** -8
+F32_UNIT = 2.0 ** -24
 
 
 def emit(obj) -> None:
@@ -194,6 +225,24 @@ def rank_data(world: int, count: int, dtype, gen):
                          generator=gen, device="cuda", dtype=dtype)
 
 
+SUBNORMAL = {"float32": 1e-39, "float64": 1e-310, "bfloat16": 1e-39,
+             "float16": 6e-8}
+
+
+def repair_columns(x) -> None:
+    """Columns 0-3 of a float rank tensor: a subnormal on rank 0 only, a
+    subnormal on every rank, -0 on every rank but the last (+0), and a
+    negative subnormal beside that +0 — where an add that keeps
+    subnormals and torch.maximum's zero tie differ from the contract."""
+    tiny = SUBNORMAL[str(x.dtype).split(".")[-1]]
+    x[:, :4] = 0.0
+    x[0, 0] = tiny
+    x[:, 1] = tiny
+    x[:, 2] = -0.0
+    x[:-1, 3] = -tiny
+    x[-1, 2:4] = 0.0
+
+
 def kernel_phase(ring):
     import torch
 
@@ -205,11 +254,14 @@ def kernel_phase(ring):
              ("ring_allreduce", ring.ring_allreduce, ring.ring_allreduce_ref))
     errs = {}
     for name, kernel, plain in pairs:
-        cases, err, nan_cases = 0, 0.0, 0
+        cases, err, nan_cases, repair_cases = 0, 0.0, 0, 0
         for world in (1, 2, 5, 8):
             for n in (1, 1000, 4099, 1 << 20):
                 for dtype in ring.SUPPORTED_DTYPES:
                     x = rank_data(world, n, dtype, gen)
+                    if dtype.is_floating_point and n >= 4:
+                        repair_columns(x)
+                        repair_cases += 1
                     for func in (ReduceFunction.SUM, ReduceFunction.MAX):
                         xi = x
                         if (func == ReduceFunction.MAX and dtype.is_floating_point
@@ -225,12 +277,20 @@ def kernel_phase(ring):
                                 f"{name} differs from its plain version: "
                                 f"world={world} n={n} {dtype} {func.name} "
                                 f"max|diff|={max_abs_err(got, want)}")
+                        if (n >= 4 and world > 1 and dtype in (
+                                torch.float32, torch.float64, torch.bfloat16)):
+                            # the repair: subnormals flushed, +0 above -0
+                            if not ((got[:, :2] == 0).all() and not
+                                    torch.signbit(got[:, 2]).any()):
+                                raise AssertionError(
+                                    f"{name} keeps a subnormal or orders "
+                                    f"zeros wrongly: {dtype} {func.name}")
                         err = max(err, max_abs_err(got, want))
                         cases += 1
         errs[name] = err
         emit({"phase": "kernel", "kernel": name, "cases": cases,
-              "nan_cases": nan_cases, "bitwise_equal": True,
-              "max_abs_err": err})
+              "nan_cases": nan_cases, "repair_column_tensors": repair_cases,
+              "bitwise_equal": True, "max_abs_err": err})
     return errs
 
 
@@ -732,13 +792,456 @@ def quant_breakdown_phase(qk):
     emit({"phase": "quant_breakdown", "shape": [world, n], **rows})
 
 
-def kernel_line(ring, qk, errs, launches):
+LANE_SPECIAL = [  # (a, b) pairs, in float64 before the cast to the dtype
+    (0.0, -0.0), (-0.0, 0.0), (-0.0, -0.0), (1e-39, 0.0), (0.0, 1e-39),
+    (1e-39, 1e-39), (-1e-39, 0.0), (1e-39, -1e-39), (1e-310, 0.0),
+    (1e-310, -1e-310), (6e-8, 0.0), (6e-8, -6e-8), (math.nan, 0.0),
+    (0.0, math.nan), (math.inf, -math.inf), (math.inf, 1.0),
+    (-math.inf, -math.inf), (65504.0, 65504.0), (-65504.0, -65504.0),
+    (65520.0, 0.0), (3.4e38, 3.4e38),
+]
+CAST_SPECIAL = [1e-39, 1e-40, -1e-39, 7e-8, -0.0, math.nan, math.inf,
+                -math.inf, 65520.0, 3.4e38, 1.2e-38, 6e-8]
+
+
+def lane_operands(rows: int, n: int, dtype, gen):
+    """(a, b) rows of a lane dtype: random values with the special pairs
+    in row 0 and, reversed, in the last row; integers with the wrap
+    pairs."""
+    import torch
+
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        a, b = (torch.randint(info.min, info.max, (rows, n), generator=gen,
+                              device="cuda", dtype=dtype) for _ in range(2))
+        wrap = [(info.max, 1), (info.min, -1), (info.max, info.max),
+                (-1, info.min)][:n]
+        for k, (u, v) in enumerate(wrap):
+            a[0, k], b[0, k] = u, v
+        return a, b
+    a, b = (torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    sp = torch.tensor(LANE_SPECIAL[:n], dtype=torch.float64).to(dtype).cuda()
+    a[0, :len(sp)], b[0, :len(sp)] = sp[:, 0], sp[:, 1]
+    a[-1, :len(sp)], b[-1, :len(sp)] = sp.flip(0)[:, 1], sp.flip(0)[:, 0]
+    return a, b
+
+
+def lane_cases(L):
+    """(kernel name, description, kernel call, plain call) over every
+    dtype and op of the lane kernels' path."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3579)
+    for rows in (1, 2, 5, 8):
+        for n in (1, 127, 128, 129, 4099, 1 << 20):
+            for dtype in (torch.float32, torch.float64, torch.int32,
+                          torch.int64):
+                a, b = lane_operands(rows, n, dtype, gen)
+                for op in ("sum", "max"):
+                    yield ("combine", f"{rows}x{n} {dtype} {op}",
+                           lambda a=a, b=b, op=op: L.combine(a, b, op),
+                           lambda a=a, b=b, op=op: L._combine_impl(a, b, op))
+            for dtype, out in ((torch.float16, torch.float16),
+                               (torch.bfloat16, torch.bfloat16),
+                               (torch.bfloat16, torch.float32)):
+                a, b = lane_operands(rows, n, dtype, gen)
+                for op in ("sum", "max"):
+                    yield ("combine_cast", f"{rows}x{n} {dtype}->{out} {op}",
+                           lambda a=a, b=b, op=op, o=out: L.combine_cast(
+                               a, b, op, torch.float32, o),
+                           lambda a=a, b=b, op=op, o=out: L._combine_cast_impl(
+                               a, b, op, torch.float32, o))
+            for src, dst in L.CAST_PAIRS:
+                x = (torch.randn((rows, n), generator=gen, device="cuda")
+                     * 3000).to(src)
+                sp = torch.tensor(CAST_SPECIAL[:n], dtype=torch.float64)
+                x[0, :len(sp)] = sp.to(src).cuda()
+                yield ("cast", f"{rows}x{n} {src}->{dst}",
+                       lambda x=x, d=dst: L.cast(x, d),
+                       lambda x=x, d=dst: L._cast_impl(x, d))
+
+
+def lane_kernel_phase(L):
+    import torch
+
+    cases = {name: 0 for name in LANE_KERNELS}
+    errs = {name: 0.0 for name in LANE_KERNELS}
+    for name, where, kernel, plain in lane_cases(L):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"{where} max|diff|={max_abs_err(got, want)}")
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        cases[name] += 1
+    for name in LANE_KERNELS:
+        emit({"phase": "lane_kernel", "kernel": name, "cases": cases[name],
+              "bitwise_equal": True, "max_abs_err": errs[name]})
+    return errs
+
+
+# (op, world, elements of the whole buffer at COLL_BYTES, dtype name,
+# wire, root, func): the collectives phase; "reduce_scatter", "scatter",
+# "gather" and "allgather" split the whole buffer into W rank chunks
+COLL_CASES = [
+    ("reduce", 8, None, "float32", None, 3, "SUM"),
+    ("reduce_scatter", 8, None, "float32", None, 0, "SUM"),
+    ("allgather", 8, None, "float32", None, 0, "SUM"),
+    ("gather", 8, None, "float32", None, 5, "SUM"),
+    ("scatter", 8, None, "float32", None, 2, "SUM"),
+    ("bcast", 8, None, "float32", None, 0, "SUM"),
+    ("combine", 8, None, "float32", None, 0, "MAX"),
+    ("reduce", 8, None, "bfloat16", None, 3, "SUM"),
+    ("reduce_scatter", 8, None, "bfloat16", None, 0, "SUM"),
+    ("reduce", 8, None, "float32", "bfloat16", 3, "SUM"),
+    ("bcast", 8, None, "float32", "bfloat16", 0, "SUM"),
+    ("allgather", 8, None, "float32", "bfloat16", 0, "SUM"),
+    ("reduce", 5, 1_000_003, "float32", None, 2, "SUM"),
+    ("allgather", 5, 5 * 1_000_003, "float32", None, 0, "SUM"),
+]
+CHUNKED = ("reduce_scatter", "scatter", "gather", "allgather")
+WIDE_IN = ("reduce_scatter", "scatter")
+
+
+def coll_count(op, world, total):
+    """Per-rank count of a call whose whole buffer holds `total`."""
+    return total // world if op in CHUNKED else total
+
+
+def busbw_factor(op, world):
+    """nccl-tests' busbw = algbw * factor, algbw = buffer bytes / time
+    (None: no nccl-tests counterpart)."""
+    if op in ("reduce", "bcast"):
+        return 1.0
+    if op in CHUNKED:
+        return (world - 1) / world
+    return None
+
+
+def expected_lane_launches(op, plan, world, dtype, wire):
+    """Launches of (combine, combine_cast, cast) one call makes, from its
+    plan: a fold is one combine (combine_cast on a fp16/bf16 lane or in
+    the compressed domain), W-1 folds for a flat tree or ring and
+    ceil(log2 W) for a binomial tree; a hop of the cast wire is two
+    casts; a compressed-domain reduction casts in and out once, except
+    a reduce-scatter, whose last fold emits fp32 itself."""
+    import torch
+
+    tree_depth = math.ceil(math.log2(world))
+    alg = plan.algorithm.name
+    domain = wire is not None and op in ("reduce", "reduce_scatter")
+    folds = hops = 0
+    if op == "combine":
+        folds = 1
+    elif op == "barrier":
+        folds = world - 1
+    elif op in ("reduce", "reduce_scatter"):
+        stage = plan.stages[0] if alg == "RNDZV_REDUCE_SCATTER" else plan
+        folds = (tree_depth if stage.algorithm.name == "RNDZV_BIN_TREE"
+                 else world - 1)
+    elif wire is not None:
+        binomial = alg == "RNDZV_BIN_TREE" or (
+            op == "gather" and alg == "RNDZV_FLAT_TREE"
+            and plan.tree_fanin < world - 1)
+        hops = tree_depth if binomial else world - 1
+    half = dtype in (torch.float16, torch.bfloat16) or domain
+    casts = 2 * hops
+    if domain:
+        casts += 1 if op == "reduce_scatter" else 2
+    return {"combine": 0 if half else folds,
+            "combine_cast": folds if half else 0, "cast": casts}
+
+
+def run_collective(accl, op, count, x, y, root, func, wire):
+    """One facade call on the stacked operand x (and y for combine),
+    from/to device; returns (result tensor, request)."""
+    import torch
+
+    from accl_tpu_torch import DataType, ReduceFunction
+
+    world = accl.world
+    on_card = accl.cclo.torch_device.type == "cuda"
+    cd = None if wire is None else DataType[wire]
+    f = ReduceFunction[func]
+    width = {"gather": count * world, "allgather": count * world}.get(
+        op, count)
+
+    def make(t):
+        b = accl.create_buffer(t.shape[1], t.dtype, data=None if on_card
+                               else t)
+        if on_card:
+            b.device.copy_(t)
+        return b
+
+    src = make(x)
+    res = accl.create_buffer(width, x.dtype)
+    kw = dict(from_device=True, to_device=True) if on_card else {}
+    if op == "combine":
+        other = make(y)
+        req = accl.combine(count, f, src, other, res, **kw)
+        accl.free_buffer(other)
+    elif op == "bcast":
+        req, res = accl.bcast(src, count, root, compress_dtype=cd, **kw), src
+    elif op == "scatter":
+        req = accl.scatter(src, res, count, root, compress_dtype=cd, **kw)
+    elif op == "gather":
+        req = accl.gather(src, res, count, root, compress_dtype=cd, **kw)
+    elif op == "allgather":
+        req = accl.allgather(src, res, count, compress_dtype=cd, **kw)
+    elif op == "reduce":
+        req = accl.reduce(src, res, count, root, f, compress_dtype=cd, **kw)
+    else:
+        req = accl.reduce_scatter(src, res, count, f, compress_dtype=cd, **kw)
+    out = res.device if on_card else res.host
+    if res is not src:
+        accl.free_buffer(src)
+    accl.free_buffer(res)
+    torch.cuda.synchronize()
+    return out, req
+
+
+def check_collective(op, out, x, y, root, func, wire, world, count):
+    """Movers exact (the cast wire within one half-precision rounding),
+    reductions within their rounding bound of a float64 reference, MAX
+    exact; returns the worst excess over the bound (<= 0)."""
+    import torch
+
+    half = x.dtype in (torch.float16, torch.bfloat16)
+    unit = BF16_UNIT if (half or wire) else F32_UNIT
+    if op in ("reduce", "reduce_scatter", "combine"):
+        if op == "combine":
+            got, xs = out, torch.stack([x, y]).double()
+        elif op == "reduce":
+            got, xs = out[root:root + 1], x.double()
+        else:
+            got = out.reshape(1, -1)
+            xs = x.double()
+        if func == "MAX":
+            ref = xs.amax(0)
+            return float((got.double() - ref).abs().max())  # exact: <= 0
+        ref = xs.sum(0, keepdim=True)
+        # each term rounded at most `terms` times: into the wire dtype
+        # (compressed domain) and at each of the W-1 folds
+        terms = world - (0 if (wire and not half) else 1)
+        bound = ((1 + unit) ** terms - 1) * xs.abs().sum(0, keepdim=True)
+        return float(((got.double() - ref).abs() - bound).max())
+    flat = x.reshape(-1)
+    if op == "bcast":
+        got, ref = out, x[root].expand_as(out)
+    elif op == "scatter":
+        got, ref = out, x[root].reshape(world, count)
+    elif op == "gather":
+        got, ref = out[root], flat
+    else:
+        got, ref = out, flat.expand_as(out)
+    diff = (got.double() - ref.double()).abs()
+    bound = (BF16_UNIT * ref.double().abs()) if wire else 0.0
+    return float((diff - bound).max())
+
+
+def collectives_phase(L):
+    """This slice's path: the one-call collectives through the facade.
+    Returns the lane kernels' launch counts over the path's run and the
+    timing inputs."""
+    import torch
+
+    from accl_tpu_torch import ACCL
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    accls = {8: ACCL(world=8), 5: ACCL(world=5)}
+    cpu = {8: ACCL(world=8, torch_device="cpu"),
+           5: ACCL(world=5, torch_device="cpu")}
+    kernels = {name: getattr(L, name) for name in LANE_KERNELS}
+    for k in kernels.values():
+        k.launches = 0
+    expected = {name: 0 for name in kernels}
+    timing = []
+    for op, world, total, dname, wire, root, func in COLL_CASES:
+        dtype = getattr(torch, dname)
+        accl = accls[world]
+        for nbytes in (COLL_BYTES, MIB):
+            n = total if (total and nbytes == COLL_BYTES) else (
+                nbytes // dtype.itemsize)
+            count = coll_count(op, world, n)
+            width = count * world if op in WIDE_IN else count
+            x = rank_data(world, width, dtype, gen)
+            y = rank_data(world, count, dtype, gen) if op == "combine" \
+                else None
+            before = {k: f.launches for k, f in kernels.items()}
+            out, req = run_collective(accl, op, count, x, y, root, func, wire)
+            launched = {k: f.launches - before[k] for k, f in kernels.items()}
+            want = expected_lane_launches(op, req.plan, world, dtype, wire)
+            if launched != want:
+                raise AssertionError(f"{op} {dname} wire={wire} W={world} "
+                                     f"launched {launched}, expected {want}")
+            for k in expected:
+                expected[k] += want[k]
+            excess = check_collective(op, out, x, y, root, func, wire, world,
+                                      count)
+            if excess > 0:
+                raise AssertionError(f"{op} {dname} wire={wire} W={world} "
+                                     f"outside its bound by {excess}")
+            bitwise = None
+            if nbytes == MIB:
+                cout, _ = run_collective(cpu[world], op, count, x.cpu(),
+                                         None if y is None else y.cpu(),
+                                         root, func, wire)
+                bitwise = same_bits(out.cpu(), cout)
+                if not bitwise:
+                    raise AssertionError(f"{op} {dname} wire={wire} "
+                                         f"W={world} differs from the "
+                                         "port's CPU run")
+            emit({"phase": "collective", "op": op, "world": world,
+                  "dtype": dname, "wire": wire, "root": root, "func": func,
+                  "count": count, "buffer_bytes": n * dtype.itemsize,
+                  "plan": req.plan.algorithm.name,
+                  "lane_launches": launched, "bound_margin": -excess,
+                  "bitwise_vs_cpu": bitwise,
+                  "finite": bool(torch.isfinite(out).all())})
+            if nbytes == COLL_BYTES:
+                timing.append((op, world, n, dtype, wire, root, func, count,
+                               x, y))
+    before = {k: f.launches for k, f in kernels.items()}
+    req = accls[8].barrier()
+    torch.cuda.synchronize()
+    launched = {k: f.launches - before[k] for k, f in kernels.items()}
+    want = expected_lane_launches("barrier", req.plan, 8, torch.float32, None)
+    if launched != want:
+        raise AssertionError(f"barrier launched {launched}, expected {want}")
+    for k in expected:
+        expected[k] += want[k]
+    emit({"phase": "collective", "op": "barrier", "world": 8,
+          "plan": req.plan.algorithm.name, "lane_launches": launched})
+    launches = {k: f.launches for k, f in kernels.items()}
+    if launches != expected or 0 in launches.values():
+        raise AssertionError(f"collectives path launched {launches}, "
+                             f"expected {expected}")
+    return launches, accls, timing
+
+
+def collectives_timing_phase(accls, timing):
+    """Facade time of each collective: median of 20 calls, CUDA events
+    around the whole call (from/to device), and nccl-tests' busbw."""
+    import torch
+
+    from accl_tpu_torch import DataType, ReduceFunction
+
+    for op, world, n, dtype, wire, root, func, count, x, y in timing:
+        accl = accls[world]
+        cd = None if wire is None else DataType[wire]
+        f = ReduceFunction[func]
+        src = accl.create_buffer(x.shape[1], dtype)
+        src.device.copy_(x)
+        width = count * world if op in ("gather", "allgather") else count
+        res = accl.create_buffer(width, dtype)
+        other = None
+        kw = dict(from_device=True, to_device=True)
+        if op == "combine":
+            other = accl.create_buffer(count, dtype)
+            other.device.copy_(y)
+        call = {
+            "reduce": lambda: accl.reduce(src, res, count, root, f,
+                                          compress_dtype=cd, **kw),
+            "reduce_scatter": lambda: accl.reduce_scatter(
+                src, res, count, f, compress_dtype=cd, **kw),
+            "allgather": lambda: accl.allgather(src, res, count,
+                                                compress_dtype=cd, **kw),
+            "gather": lambda: accl.gather(src, res, count, root,
+                                          compress_dtype=cd, **kw),
+            "scatter": lambda: accl.scatter(src, res, count, root,
+                                            compress_dtype=cd, **kw),
+            "bcast": lambda: accl.bcast(src, count, root, compress_dtype=cd,
+                                        **kw),
+            "combine": lambda: accl.combine(count, f, src, other, res, **kw),
+        }[op]
+        ms = median_ms(call)
+        factor = busbw_factor(op, world)
+        nbytes = n * dtype.itemsize
+        row = {"phase": "collective_timing", "op": op, "world": world,
+               "dtype": str(dtype).split(".")[-1], "wire": wire,
+               "buffer_bytes": nbytes, "facade_ms": ms,
+               "busbw_GBps": None if factor is None
+               else nbytes / (ms * 1e-3) * factor / 1e9}
+        if world == 8 and dtype == torch.float32 and (op, wire) in (
+                ("reduce", None), ("allgather", "bfloat16")):
+            row["profile"] = profile_call(call)  # where the call's time goes
+        emit(row)
+        for b in (src, res, other):
+            if b is not None:
+                accl.free_buffer(b)
+    barrier_ms = median_ms(accls[8].barrier)
+    emit({"phase": "collective_timing", "op": "barrier", "world": 8,
+          "facade_ms": barrier_ms})
+    torch.cuda.synchronize()
+
+
+def lane_shape_calls(L):
+    """Per lane kernel at its launch shape on the collectives path: (shape,
+    bytes the function must move, kernel call, plain call, library call):
+    one fold of the 25 MiB fp32 reduce at its root, one fold of the
+    25 MiB bf16 reduce, and the compressed-domain cast of the W = 8,
+    25 MiB-per-rank fp32 buffer to bf16."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(24680)
+    n32 = COLL_BYTES // 4
+    a, b = (torch.randn((1, n32), generator=gen, device="cuda")
+            for _ in range(2))
+    h, k = (torch.randn((1, 2 * n32), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    x = torch.randn((8, n32), generator=gen, device="cuda")
+    return {
+        "combine": ((1, n32), 3 * 4 * n32,
+                    lambda: L.combine(a, b, "sum"),
+                    lambda: L._combine_impl(a, b, "sum"),
+                    lambda: torch.add(a, b)),
+        "combine_cast": ((1, 2 * n32), 3 * 2 * 2 * n32,
+                         lambda: L.combine_cast(h, k, "sum"),
+                         lambda: L._combine_cast_impl(
+                             h, k, "sum", torch.float32, torch.bfloat16),
+                         lambda: torch.add(h, k)),
+        "cast": ((8, n32), 8 * n32 * (4 + 2),
+                 lambda: L.cast(x, torch.bfloat16),
+                 lambda: L._cast_impl(x, torch.bfloat16),
+                 lambda: x.to(torch.bfloat16)),
+    }
+
+
+def lane_breakdown_phase(L):
+    """Each lane kernel at its launch shape: device time with the host
+    held off, host cost per launch on the host clock, the plain version,
+    the PyTorch call computing the same function (which does not flush
+    subnormals) and the byte bound. Returns the rows for the kernels
+    line."""
+    import torch
+
+    rows = {}
+    for name, (shape, nbytes, kernel, plain, library) in lane_shape_calls(
+            L).items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernel()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        rows[name] = {"shape": list(shape), "device_ms": device_ms(kernel),
+                      "host_ms_per_launch": host_ms,
+                      "plain_ms": device_ms(plain, count=10),
+                      "library_ms": device_ms(library),
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    emit({"phase": "lane_breakdown", **rows})
+    return rows
+
+
+def kernel_line(ring, qk, errs, launches, lane_rows):
     """Per kernel: device time per launch in steady state at the main
     path's launch shape, its plain version and the library yardstick,
     timed the same way. Ring kernels: W=8, fp32, 4 MiB per rank, events
     around back-to-back launches (device-bound there). Quantized kernels:
     (8, 131072) fp32, device time with the host held off (device_ms: at
-    this shape the wrapper's host cost exceeds the device's)."""
+    this shape the wrapper's host cost exceeds the device's). Lane
+    kernels: the rows of the lane breakdown."""
     import torch
 
     from accl_tpu_torch.ops import compression as C
@@ -776,6 +1279,15 @@ def kernel_line(ring, qk, errs, launches):
             "bound_ms": quant_bytes(name, rows, qn) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None,
             "shape": {"rows": rows, "n": qn, "dtype": "float32"}})
+    for name, row in lane_rows.items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "accl_tpu_torch/csrc/lanes.cu",
+            "replaces": LANE_KERNELS[name], "on_main_path": True,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": row["library_ms"], "shape": row["shape"]})
     emit({"kernels": entries})
 
 
@@ -788,6 +1300,7 @@ def main() -> int:
         return 2
     try:
         from accl_tpu_torch.ops import _build
+        from accl_tpu_torch.ops import lane_kernels as L
         from accl_tpu_torch.ops import quant_kernels as qk
         from accl_tpu_torch.ops import ring_allreduce as ring
     except ImportError as e:
@@ -801,7 +1314,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    sources = ("ring_allreduce", "quant_wire")
+    sources = ("ring_allreduce", "quant_wire", "lanes")
     _build.load_libraries(list(sources))  # one nvcc each, started together
     ptxas = {name: sorted(set(
         line.split("info    : ")[-1].strip()
@@ -812,16 +1325,31 @@ def main() -> int:
           "build_s": {name: _build.build_seconds[name] for name in sources},
           "load_s": time.perf_counter() - t0, "ptxas": ptxas})
 
-    errs = kernel_phase(ring)
-    errs.update(quant_kernel_phase(qk))
-    accl, kept, launches = facade_phase(ring)  # counts: the exact wire path
-    qlaunches, qaccl, qkept = quant_facade_phase(qk, ring)  # the int8 path
+    clock = {}
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        clock[fn.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    errs = timed(kernel_phase, ring)
+    errs.update(timed(quant_kernel_phase, qk))
+    errs.update(timed(lane_kernel_phase, L))
+    # each path runs with its kernels' counts set to 0 just before it
+    accl, kept, launches = timed(facade_phase, ring)  # the exact wire
+    qlaunches, qaccl, qkept = timed(quant_facade_phase, qk, ring)  # int8
     launches.update(qlaunches)
-    timing_phase(ring, accl, kept)
-    quant_timing_phase(qaccl, qkept)
-    breakdown_phase(ring)
-    quant_breakdown_phase(qk)
-    kernel_line(ring, qk, errs, launches)
+    llaunches, caccls, ctiming = timed(collectives_phase, L)  # collectives
+    launches.update(llaunches)
+    timed(timing_phase, ring, accl, kept)
+    timed(quant_timing_phase, qaccl, qkept)
+    timed(collectives_timing_phase, caccls, ctiming)
+    timed(breakdown_phase, ring)
+    timed(quant_breakdown_phase, qk)
+    lane_rows = timed(lane_breakdown_phase, L)
+    emit({"phase": "clock", "seconds": clock})
+    kernel_line(ring, qk, errs, launches, lane_rows)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

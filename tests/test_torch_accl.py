@@ -166,3 +166,33 @@ def test_register_window_of_a_later_slice_raises_through_the_facade():
         port.allreduce(sb, rb, 4096, ReduceFunction.SUM)
     port.configure_tuning_parameters(TuningParams.default())
     port.allreduce(sb, rb, 4096, ReduceFunction.SUM)
+
+
+@pytest.mark.parametrize("func", [0, 1], ids=["sum", "max"])
+def test_allreduce_flushes_subnormals_and_orders_zeros(mesh4, func):
+    """The columns where torch.add / torch.maximum alone diverge from the
+    JAX facade (XLA flushes subnormals and puts +0 above -0), W = 4,
+    n = 64: [1e-39, 0, 0, 0] and [1e-39] * 4 under SUM, [1e-39, 0, 0, 0]
+    and [-0, -0, -0, +0] under MAX, through both of the port's bodies (the
+    torch-op ring and the ring kernel's plain version) and both of the
+    reference's (the lax ring and the Pallas kernel in interpret mode)."""
+    x = _data(4, 64, np.float32, seed=40 + func)
+    cols = ([[1e-39, 0, 0, 0], [1e-39] * 4] if func == 0
+            else [[1e-39, 0, 0, 0], [-0.0, -0.0, -0.0, 0.0]])
+    for j, col in enumerate(cols):
+        x[:, 5 + j] = np.array(col, np.float32)
+    dev = TPUDevice(mesh4)
+    dev.compiler.use_pallas_ring = True
+    # (port body, reference body): the torch-op ring against the lax ring,
+    # the kernel's plain version against the Pallas kernel (their fold
+    # orders differ from each other, so SUM differs between the pairs)
+    pairs = ((False, RefACCL(mesh4)), (True, RefACCL(device=dev)))
+    for kernel_body, ref in pairs:
+        want = _ref_allreduce(ref, x, func)
+        assert not np.signbit(want[:, 5:7]).any()
+        assert (want[:, 5:7] == 0).all()
+        port = ACCL(world=4, torch_device="cpu")
+        port.cclo.compiler.use_ring_kernel = kernel_body
+        got = _port_allreduce(port, x, func)
+        assert torch.equal(got.view(torch.int32),
+                           torch.from_numpy(want).view(torch.int32))

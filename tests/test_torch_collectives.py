@@ -1,0 +1,197 @@
+"""The port's one-call collectives end to end against the JAX facade on
+the same numpy inputs, bitwise: copy, combine, bcast, scatter, gather,
+allgather, reduce, reduce_scatter, barrier and the register-opened
+reduce+bcast allreduce, at W = 8, 5 and 2 with non-zero roots, counts
+17 (eager) and 329 (rendezvous), flat and tree shapes chosen by the
+tuning registers, and the fp16, bf16 and int8 wires. The cases are a
+pairwise cover of those dimensions, not their full product."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+from accl_tpu.accl import ACCL as RefACCL
+from accl_tpu.constants import DataType as RefDT
+from accl_tpu.constants import ReduceFunction as RefF
+from accl_tpu.constants import TuningParams as RefTuning
+from accl_tpu_torch import (
+    ACCL,
+    DataType,
+    Operation,
+    ReduceFunction,
+    TuningParams,
+)
+from accl_tpu_torch.interop import tensor_from_numpy
+from accl_tpu_torch.sequencer.plan import Algorithm
+
+# register sets that steer the rendezvous families; None = the defaults
+TUNINGS = {
+    "tree": dict(bcast_flat_tree_max_ranks=1, reduce_flat_tree_max_ranks=1,
+                 reduce_flat_tree_max_count=1, gather_flat_tree_max_count=1),
+    "flat": dict(bcast_flat_tree_max_ranks=8, reduce_flat_tree_max_ranks=8,
+                 gather_flat_tree_max_count=1 << 30),
+    "compose": dict(allreduce_composition_max_count=1 << 20),
+}
+WIDE_IN = ("scatter", "reduce_scatter")
+WIDE_OUT = ("gather", "allgather")
+
+
+@pytest.fixture(scope="module")
+def facades(mesh8):
+    """(reference, port) facade pairs per world, shared by the module."""
+    out = {}
+    for world in (8, 5, 2):
+        mesh = mesh8 if world == 8 else Mesh(
+            np.array(jax.devices()[:world]), ("ccl",))
+        out[world] = (RefACCL(mesh), ACCL(world=world, torch_device="cpu"))
+    return out
+
+
+def _data(world, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if np.issubdtype(np.dtype(dtype), np.integer):
+        return rng.integers(-(1 << 30), 1 << 30, (world, n)).astype(dtype)
+    return rng.standard_normal((world, n)).astype(dtype)
+
+
+def _call(accl, ref: bool, op, x, y, count, root, func, wire):
+    """One facade call; returns the result buffer's host image and the
+    request."""
+    world = x.shape[0]
+    F = RefF if ref else ReduceFunction
+    cd = None if wire is None else (RefDT[wire] if ref else DataType[wire])
+    dtype = x.dtype if ref else tensor_from_numpy(x).dtype
+
+    def buf(n, data=None):
+        return accl.create_buffer(n, dtype, data=data)
+
+    n_in = count * world if op in WIDE_IN else count
+    n_out = count * world if op in WIDE_OUT else count
+    src = buf(n_in, x)
+    res = buf(n_out)
+    if op == "copy":
+        req = accl.copy(src, res, count)
+    elif op == "combine":
+        req = accl.combine(count, F(func), src, buf(count, y), res)
+    elif op == "bcast":
+        req, res = accl.bcast(src, count, root, compress_dtype=cd), src
+    elif op == "scatter":
+        req = accl.scatter(src, res, count, root, compress_dtype=cd)
+    elif op == "gather":
+        req = accl.gather(src, res, count, root, compress_dtype=cd)
+    elif op == "allgather":
+        req = accl.allgather(src, res, count, compress_dtype=cd)
+    elif op == "reduce":
+        req = accl.reduce(src, res, count, root, F(func), compress_dtype=cd)
+    elif op == "reduce_scatter":
+        req = accl.reduce_scatter(src, res, count, F(func), compress_dtype=cd)
+    else:
+        req = accl.allreduce(src, res, count, F(func), compress_dtype=cd)
+    return res.host, req
+
+
+CASES = [  # (op, world, count, root, func, wire, tuning, dtype)
+    ("copy", 8, 329, 0, 0, None, None, np.float32),
+    ("copy", 5, 17, 0, 0, None, None, np.int64),
+    ("combine", 8, 329, 0, 1, None, None, np.float32),
+    ("combine", 5, 17, 0, 0, None, None, np.float64),
+    ("combine", 2, 329, 0, 0, None, None, np.int32),
+    ("bcast", 8, 329, 3, 0, None, None, np.float32),
+    ("bcast", 8, 17, 5, 0, "float16", None, np.float32),
+    ("bcast", 5, 329, 4, 0, None, "flat", np.float32),
+    ("bcast", 5, 17, 2, 0, "int8", None, np.float32),
+    ("bcast", 2, 329, 1, 0, None, "tree", np.float32),
+    ("bcast", 8, 329, 6, 0, "bfloat16", None, np.float32),
+    ("scatter", 8, 17, 2, 0, "bfloat16", None, np.float32),
+    ("scatter", 5, 329, 3, 0, None, None, np.float32),
+    ("scatter", 2, 17, 1, 0, "int8", None, np.float32),
+    ("scatter", 8, 329, 6, 0, "float16", None, np.float32),
+    ("gather", 8, 17, 5, 0, None, None, np.float32),
+    ("gather", 8, 329, 1, 0, None, "tree", np.float32),
+    ("gather", 5, 329, 2, 0, None, "flat", np.float32),
+    ("gather", 5, 17, 4, 0, "int8", None, np.float32),
+    ("gather", 2, 17, 1, 0, "float16", None, np.float32),
+    ("allgather", 8, 329, 0, 0, None, None, np.float32),
+    ("allgather", 8, 17, 0, 0, "bfloat16", None, np.float32),
+    ("allgather", 5, 17, 0, 0, "int8", None, np.float32),
+    ("allgather", 2, 329, 0, 0, "float16", None, np.float32),
+    ("reduce", 8, 329, 3, 0, None, None, np.float32),
+    ("reduce", 8, 329, 6, 1, None, "tree", np.float32),
+    ("reduce", 8, 17, 5, 0, "bfloat16", None, np.float32),
+    ("reduce", 5, 329, 2, 1, None, "tree", np.float32),
+    ("reduce", 5, 17, 4, 0, "float16", None, np.float32),
+    ("reduce", 5, 17, 3, 0, "int8", None, np.float32),
+    ("reduce", 2, 329, 1, 0, None, "flat", np.float32),
+    ("reduce", 8, 17, 7, 0, None, None, "bfloat16"),
+    ("reduce_scatter", 8, 17, 0, 0, None, None, np.float32),
+    ("reduce_scatter", 8, 329, 0, 0, None, "tree", np.float32),
+    ("reduce_scatter", 8, 17, 0, 0, "bfloat16", None, np.float32),
+    ("reduce_scatter", 5, 329, 0, 1, None, "flat", np.float32),
+    ("reduce_scatter", 5, 17, 0, 0, "float16", None, np.float32),
+    ("reduce_scatter", 2, 17, 0, 1, "int8", None, np.float32),
+    ("reduce_scatter", 2, 329, 0, 0, None, None, "bfloat16"),
+    ("allreduce", 8, 329, 0, 0, None, "compose", np.float32),
+    ("allreduce", 5, 329, 0, 1, None, "compose", np.float32),
+    ("allreduce", 2, 329, 0, 0, None, "compose", np.float64),
+]
+
+
+def _case_id(case):
+    op, world, count, root, func, wire, tuning, dtype = case
+    dt = np.dtype(dtype).name if dtype != "bfloat16" else "bf16"
+    parts = [op, f"w{world}", f"n{count}", f"r{root}", ("sum", "max")[func],
+             wire or "exact", tuning or "default", dt]
+    return "-".join(parts)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
+def test_collective_bitwise_with_reference_facade(facades, case):
+    op, world, count, root, func, wire, tuning, dtype = case
+    if dtype == "bfloat16":
+        import jax.numpy as jnp
+
+        dtype = jnp.bfloat16
+    ref, port = facades[world]
+    n_in = count * world if op in WIDE_IN else count
+    x = _data(world, n_in, dtype, seed=CASES.index(case))
+    y = _data(world, count, dtype, seed=1000 + CASES.index(case))
+    regs = TUNINGS.get(tuning)
+    if regs:
+        ref.configure_tuning_parameters(RefTuning(**regs))
+        port.configure_tuning_parameters(TuningParams(**regs))
+    try:
+        want, _ = _call(ref, True, op, x, y, count, root, func, wire)
+        got, req = _call(port, False, op, x, y, count, root, func, wire)
+    finally:
+        if regs:
+            ref.configure_tuning_parameters(RefTuning.default())
+            port.configure_tuning_parameters(TuningParams.default())
+    want = tensor_from_numpy(np.asarray(want))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    if tuning == "compose":
+        assert req.plan.algorithm == Algorithm.RNDZV_REDUCE_BCAST
+    if tuning == "tree":  # the registers did move the plan onto a tree
+        plan = req.plan.stages[0] if op == "reduce_scatter" else req.plan
+        assert plan.use_bin_tree or 0 < plan.tree_fanin < world - 1
+
+
+def test_barrier_and_unported_entry_points(facades):
+    """barrier completes on both facades; streamed operands, send/recv
+    and alltoall raise NotImplementedError naming their slices."""
+    ref, port = facades[5]
+    ref.barrier()
+    req = port.barrier()
+    assert req.plan.algorithm == Algorithm.BARRIER_GATHER_SCATTER
+    b = port.create_buffer(17)
+    with pytest.raises(NotImplementedError, match="streams"):
+        port.bcast(b, 17, 0, op0_stream=3)
+    with pytest.raises(NotImplementedError, match="point-to-point"):
+        port.cclo.start(port._prepare(Operation.send, b, None, None, 17,
+                                      root_src_dst=1 << 16))
+    wide = port.create_buffer(17 * 5)
+    with pytest.raises(NotImplementedError, match="alltoall"):
+        port.cclo.start(port._prepare(Operation.alltoall, wide, None, wide,
+                                      17))

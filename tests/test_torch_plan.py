@@ -93,7 +93,6 @@ def _tuning(**regs):
     (dict(synth_allreduce_max_count=1 << 20), {}, "synthesized"),
     (dict(synth_latency_max_count=1 << 20), {}, "synthesized"),
     (dict(overlap_min_count=1024), {}, "overlapped"),
-    (dict(allreduce_composition_max_count=1 << 20), {}, "remaining"),
     ({}, dict(live_ranks=(0, 1, 2)), "resilience"),
 ])
 def test_later_slice_branches_raise(regs, extra, slice_name):
@@ -102,6 +101,25 @@ def test_later_slice_branches_raise(regs, extra, slice_name):
         port_plan.select_algorithm(
             port_c.Operation.allreduce, 65536, 4, 8, tuning=tuning,
             **KW, **extra)
+
+
+@pytest.mark.parametrize("world", [2, 3, 5, 8])
+@pytest.mark.parametrize("count", [300, 4096, 1 << 20])
+def test_reduce_bcast_allreduce_plan(world, count):
+    """The register-opened rendezvous reduce+bcast allreduce, field for
+    field with the reference, stages included (flat or binomial reduce and
+    bcast, re-selected with the live registers)."""
+    for regs in (dict(allreduce_composition_max_count=1 << 30),
+                 dict(allreduce_composition_max_count=1 << 30,
+                      bcast_flat_tree_max_ranks=8,
+                      reduce_flat_tree_max_ranks=1,
+                      reduce_flat_tree_max_count=1)):
+        ref, port = _both("allreduce", count, "float32", world,
+                          tuning=_tuning(**regs))
+        assert _plain(port) == _plain(ref)
+        assert port.algorithm == port_plan.Algorithm.RNDZV_REDUCE_BCAST
+        assert [s.algorithm.name for s in port.stages] == [
+            s.algorithm.name for s in ref.stages]
 
 
 def test_registers_outside_their_window_keep_the_ring():
@@ -128,3 +146,21 @@ def test_enums_match():
         assert port == ref
     assert ([f.name for f in dataclasses.fields(port_plan.Plan)]
             == [f.name for f in dataclasses.fields(ref_plan.Plan)])
+
+
+def test_step_widths_match_reference():
+    """The operand-width rules the device's launch uses (count * world
+    for the stacked-chunk inputs and the gathered outputs)."""
+    from accl_tpu.descriptor import CallOptions as RefOpts
+    from accl_tpu.sequencer import sequence as ref_seq
+    from accl_tpu_torch.descriptor import CallOptions
+    from accl_tpu_torch.sequencer import sequence as port_seq
+
+    for op in port_c.Operation:
+        for world in (1, 5, 8):
+            ref = RefOpts(scenario=ref_c.Operation[op.name], count=17)
+            port = CallOptions(scenario=op, count=17)
+            assert (port_seq.step_in_elems(port, world),
+                    port_seq.step_out_elems(port, world)) == (
+                ref_seq.step_in_elems(ref, world),
+                ref_seq.step_out_elems(ref, world)), (op, world)

@@ -146,3 +146,101 @@ def test_quantized_ring_primitives_bitwise(world, count, func):
     pp_ref = run(lambda a: ref_wire.ppermute(a, "ccl", perm), chunk)
     assert torch.equal(wire.ppermute(torch.from_numpy(chunk), perm),
                        torch.from_numpy(pp_ref))
+
+
+def _wires(name, func):
+    """(reference, port) Wire pair with the fp32 lane: the exact wire, the
+    bf16 cast wire or the blockwise-int8 wire. (The facade reduces on the
+    cast rows in the compressed domain, which tests/test_torch_collectives
+    covers; a bf16 lane over fp32 operands lets XLA keep the folds it
+    fuses in fp32, which no eager executor reproduces.)"""
+    from accl_tpu.arithconfig import DEFAULT_ARITH_CONFIG as REF_TABLE
+    from accl_tpu.constants import DataType as RefDT
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG
+    from accl_tpu_torch.constants import DataType
+
+    lane = LANES["float32"][func]
+    if name == "exact":
+        return ref_sched.Wire(None, lane), port_sched.Wire(None, lane)
+    rcfg = REF_TABLE[(RefDT.float32, RefDT[name])]
+    pcfg = DEFAULT_ARITH_CONFIG[(DataType.float32, DataType[name])]
+    return ref_sched.Wire(rcfg, lane), port_sched.Wire(pcfg, lane)
+
+
+# (schedule, world, root, extra keyword arguments): every one-call family
+SCHEDULES = [
+    ("copy_schedule", 5, None, {}),
+    ("sendrecv_schedule", 5, None, dict(src=3, dst=1)),
+    ("bcast_flat_schedule", 5, 3, {}),
+    ("bcast_bin_tree_schedule", 8, 5, {}),
+    ("bcast_bin_tree_schedule", 5, 2, {}),
+    ("scatter_schedule", 5, 4, {}),
+    ("gather_ring_schedule", 8, 3, {}),
+    ("gather_flat_schedule", 5, 1, dict(fanin=4)),
+    ("gather_flat_schedule", 8, 6, dict(fanin=2)),
+    ("gather_flat_schedule", 5, 3, dict(fanin=2)),
+    ("reduce_ring_schedule", 5, 2, {}),
+    ("reduce_flat_schedule", 8, 7, {}),
+    ("reduce_bin_tree_schedule", 8, 3, {}),
+    ("reduce_bin_tree_schedule", 5, 4, {}),
+    ("barrier_schedule", 5, None, {}),
+]
+REDUCING = ("reduce_ring_schedule", "reduce_flat_schedule",
+            "reduce_bin_tree_schedule")
+
+
+@pytest.mark.parametrize("wire", ["exact", "bfloat16", "int8"])
+@pytest.mark.parametrize("name,world,root,extra", SCHEDULES,
+                         ids=[f"{s[0]}-w{s[1]}" for s in SCHEDULES])
+def test_one_call_schedules_bitwise(name, world, root, extra, wire):
+    """Each ported schedule against the reference's under shard_map on
+    the same numpy input, on the exact, bf16-cast and int8 wires: the
+    row selections of the port against the reference's where-masks,
+    unaddressed ranks included."""
+    count = 37 if wire != "int8" else 300
+    func = (world + len(name)) % 2 if name in REDUCING else 0
+    ref_wire, wire_p = _wires(wire, func)
+    kw = dict(extra)
+    if root is not None:
+        kw["root"] = root
+    if name in REDUCING:
+        kw["func"] = func
+    n = count * world if name == "scatter_schedule" else count
+    x = _data(world, n, "float32", seed=world * 7 + len(name))
+    if name == "barrier_schedule":
+        x = np.ones((world, 1), np.float32)
+    mesh = Mesh(np.array(jax.devices()[:world]), ("ccl",))
+    ref_kw = {k: (RefF(v) if k == "func" else v) for k, v in kw.items()}
+    body = functools.partial(getattr(ref_sched, name), axis="ccl",
+                             world=world, wire=ref_wire, **ref_kw)
+    want = np.array(jax.jit(jax.shard_map(
+        lambda a: body(a.reshape(-1)).reshape(1, -1), mesh=mesh,
+        in_specs=PartitionSpec("ccl"), out_specs=PartitionSpec("ccl"),
+        check_vma=False))(x))
+    port_kw = {k: (PortF(v) if k == "func" else v) for k, v in kw.items()}
+    got = getattr(port_sched, name)(torch.from_numpy(x), world=world,
+                                    wire=wire_p, **port_kw)
+    assert torch.equal(got, torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("func", [0, 1], ids=["sum", "max"])
+def test_combine_schedule_bitwise(func):
+    x = _data(4, 333, "float32", seed=11)
+    y = _data(4, 333, "float32", seed=12)
+    x[0, :4] = [1e-39, -0.0, 0.0, np.nan]
+    y[0, :4] = [0.0, 0.0, -0.0, 1.0]
+    lane = LANES["float32"][func]
+    mesh = Mesh(np.array(jax.devices()[:4]), ("ccl",))
+    body = functools.partial(ref_sched.combine_schedule, func=RefF(func),
+                             axis="ccl", world=4, wire=ref_sched.Wire(None, lane))
+    want = np.array(jax.jit(jax.shard_map(
+        lambda a, b: body(a.reshape(-1), b.reshape(-1)).reshape(1, -1),
+        mesh=mesh, in_specs=(PartitionSpec("ccl"),) * 2,
+        out_specs=PartitionSpec("ccl"), check_vma=False))(x, y))
+    got = port_sched.combine_schedule(
+        torch.from_numpy(x), torch.from_numpy(y), func=PortF(func), world=4,
+        wire=port_sched.Wire(None, lane))
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.from_numpy(np.isnan(want)))
+    assert torch.equal(got[~nan].view(torch.int32),
+                       torch.from_numpy(want)[~nan].view(torch.int32))
