@@ -1,4 +1,5 @@
-// Fused ring allreduce over W virtual ranks on one Hopper card.
+// Ring allreduce over W virtual ranks on one Hopper card, as a
+// closed-form fold.
 //
 // Replaces the Pallas TPU kernels of accl_tpu/ops/ring_allreduce.py:
 //   DIRS == 2: ring_allreduce_pallas_bidir (_kernel_bidir), the default
@@ -7,60 +8,67 @@
 //
 // What it computes, for each rank r of the stacked (W, n) operand, is
 // exactly what the TPU kernel computes on chip r, fold order included,
-// so SUM is bitwise equal to the plain PyTorch version
-// (accl_tpu_torch/ops/ring_allreduce.py::_ring_ref):
+// so every result is bitwise equal to the plain PyTorch version
+// (accl_tpu_torch/ops/ring_allreduce.py::_ring_ref), which plays the
+// TPU's ring hop by hop:
 //   - each rank's n elements are cut into DIRS*W chunks of `chunk`
 //     elements (the TPU tile rounding is kept: it decides which rank
 //     starts each element's fold); direction 0 owns chunks [0, W),
 //     direction 1 chunks [W, 2W);
-//   - forward: the accumulator starts as rank r's chunk r-1; the hop-s
-//     arrival from rank r-1 is combined as combine(arrival, local chunk
-//     r-2-s); after W-1 hops rank r holds reduced chunk r, which then
-//     relays W-1 times, the hop-s arrival filed at chunk r-1-s;
-//   - backward mirrors it (start r+1, combine r+2+s, file r+1+s, the
-//     neighbour is r-1);
+//   - the reduce-scatter carries forward chunk c through ranks c+1, c+2,
+//     ..., c+W-1 and ends on rank c, each hop computing combine(arrival,
+//     local); backward chunk c goes through c-1, c-2, ..., c-W+1, c;
+//   - the allgather relays the reduced chunk unchanged, so every rank's
+//     output at a position of chunk c is the one fold
+//       acc = x[c+1]; acc = combine(acc, x[c+k]) for k = 2..W  (forward)
+//       acc = x[c-1]; acc = combine(acc, x[c-k]) for k = 2..W  (backward)
+//     over ranks mod W;
 //   - elements past n (the padding) are never read or written: padding
 //     only ever folds with padding at the same position.
 //
 // Design. The TPU kernel moves a chunk per hop with a remote DMA into the
-// neighbour's VMEM comm slot, guarded by DMA/credit semaphores and a
-// neighbour barrier. Here all W ranks live on one card: a hop is a store
-// into the neighbour's comm slot in device memory, and one grid-wide
-// barrier (cooperative launch, every block co-resident) between a hop's
-// stores and its loads stands in for the receive wait, the entry barrier
-// and the credits. The comm buffer keeps the TPU's two slots (hop t uses
-// slot t%2), so the store of hop t+1 can follow the loads of hop t
-// without a second barrier: the barrier of hop t already ordered every
-// reader of slot (t+1)%2 from hop t-1. The accumulator stays in a
-// register between a hop's combine and the next hop's store.
+// neighbour's VMEM comm slot. On one card the ranks share one memory, so
+// a hop only moves data and the fold order is all that is left of the
+// ring. Each thread owns one vector of VEC positions (16 bytes; a chunk
+// is a multiple of 1024 elements, so a vector never straddles two
+// chunks), finds its direction and chunk with one division, loads that
+// vector from the W rank rows in fold order through the read-only path
+// (in batches of kBatch, every load of a batch issued before the fold
+// consumes it), folds in registers, and stores the result to all W
+// output rows. There is no comm buffer, no grid barrier and no
+// cooperative launch: a plain launch sized from n. VEC is 16/sizeof(T)
+// when both base pointers and both row strides are 16-byte multiples,
+// else 1 (the scalar instantiation, chosen by the wrapper); in the
+// vector instantiation the ragged tail past the last whole vector runs
+// element by element in the thread that owns it.
 //
 // Bound: bytes. The function must read every rank's n input elements
 // once and write every rank's n output elements once, 2*W*n*sizeof(T)
-// bytes over 3.35 TB/s. This simple form moves about three times that
-// (each hop reads the slot and the local chunk and writes the next slot)
-// and pays 2(W-1) grid barriers per launch; narrowing that gap (keeping a
-// chunk's whole fold in registers, vector loads) is later work.
+// bytes over 3.35 TB/s; this kernel moves exactly that.
 //
 // Numerics, the lanes' contract (accl_tpu_torch/ops/lane_kernels.py), as
 // XLA computes the TPU kernel's combine: signed integer SUM wraps (added
 // as unsigned); in f32, f64 and bf16 every operand and every result
 // smaller in magnitude than FLT_MIN (DBL_MIN) is flushed to a zero of its
 // own sign, written out in code (flush()) with the source built without
-// -ftz; fp16/bf16 combine in float and round once; MAX is the IEEE
-// maximum: NaN propagates and +0 is above -0.
+// -ftz; fp16/bf16 combine in float and round to T after every combine
+// (the TPU's comm slot holds T); MAX is the IEEE maximum: NaN propagates
+// (the first operand's, so the order combine(acc, x[rank]) is kept) and
+// +0 is above -0.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-
-namespace cg = cooperative_groups;
+#include <cstring>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBatch = 8;  // rank rows loaded ahead of the fold
+constexpr long long kMaxBlocks = 1LL << 24;  // beyond: grid-stride
+constexpr long long kChunkAlign = 1024;  // chunk_elems rounds to this
 
 enum : int { kSum = 0, kMax = 1 };
 
@@ -169,174 +177,183 @@ __device__ __forceinline__ T combine(T arriving, T local) {
   }
 }
 
-__device__ __forceinline__ int wrap(int k, int w) {
-  k %= w;
-  return k < 0 ? k + w : k;
+// One vector of VEC elements of one rank row, moved as one load or store
+// of its raw bits.
+template <int BYTES>
+struct Raw;
+template <>
+struct Raw<2> {
+  using type = unsigned short;
+};
+template <>
+struct Raw<4> {
+  using type = unsigned int;
+};
+template <>
+struct Raw<8> {
+  using type = unsigned long long;
+};
+template <>
+struct Raw<16> {
+  using type = uint4;
+};
+
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load(const T* p) {
+  using R = typename Raw<sizeof(T) * VEC>::type;
+  const R raw = __ldg(reinterpret_cast<const R*>(p));
+  Pack<T, VEC> out;
+  memcpy(&out, &raw, sizeof(R));
+  return out;
 }
 
-// One work item per (direction d, rank r, offset j in the chunk) and hop.
-// comm is (2 slots, DIRS, W, chunk); item e = (d*W + r)*chunk + j names
-// the comm entry rank r reads at a hop, in either slot.
-template <typename T, int OP, int DIRS>
+template <typename T, int VEC>
+__device__ __forceinline__ void store(T* p, const Pack<T, VEC>& v) {
+  using R = typename Raw<sizeof(T) * VEC>::type;
+  R raw;
+  memcpy(&raw, &v, sizeof(R));
+  *reinterpret_cast<R*>(p) = raw;
+}
+
+// The fold of one vector over the W rank rows, starting at rank `first`
+// and stepping by `step` (+1 forward, -1 backward) around the ring, then
+// its store to every output row.
+template <typename T, int OP, int VEC>
+__device__ __forceinline__ void fold_store(const T* x, T* out,
+                                           long long ld_in, long long ld_out,
+                                           int world, int first, int step) {
+  Pack<T, VEC> acc;
+  int rank = first;
+  for (int base = 0; base < world; base += kBatch) {
+    Pack<T, VEC> v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (base + k < world) v[k] = load<T, VEC>(x + rank * ld_in);
+      rank += step;
+      rank = rank == world ? 0 : (rank < 0 ? world - 1 : rank);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (base + k >= world) break;
+      if (base + k == 0) {
+        acc = v[0];
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc.v[e] = combine<T, OP>(acc.v[e], v[k].v[e]);
+    }
+  }
+  for (int r = 0; r < world; ++r) store<T, VEC>(out + r * ld_out, acc);
+}
+
+template <typename T, int OP, int DIRS, int VEC>
 __global__ void __launch_bounds__(kThreads)
     ring_allreduce_kernel(const T* __restrict__ x, T* __restrict__ out,
-                          T* __restrict__ comm, long long ld_in,
-                          long long ld_out, long long n, int world,
-                          long long chunk) {
+                          long long ld_in, long long ld_out, long long n,
+                          int world, long long chunk) {
+  const long long vecs = (n + VEC - 1) / VEC;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-
-  if (world == 1) {  // no hops: the allreduce of one rank is its input
-    for (long long p = first; p < n; p += stride) out[p] = x[p];
-    return;
-  }
-
-  cg::grid_group grid = cg::this_grid();
-  const long long per_dir = static_cast<long long>(world) * chunk;
-  const long long items = DIRS * per_dir;  // entries of one comm slot
-
-  // Chunk rank r touches at a phase, as an offset from r along its
-  // direction: forward counts down from r, backward counts up.
-  auto chunk_at = [&](int d, int r, int back) {
-    return d == 0 ? wrap(r - back, world) : wrap(r + back, world);
-  };
-  auto neighbour = [&](int d, int r) {
-    return d == 0 ? wrap(r + 1, world) : wrap(r - 1, world);
-  };
-
-  // Entry: every rank stores its chunk r-1 (forward) / r+1 (backward)
-  // into the neighbour's slot 0.
-  for (long long e = first; e < items; e += stride) {
-    const int d = static_cast<int>(e / per_dir);
-    const long long rem = e - d * per_dir;
-    const int r = static_cast<int>(rem / chunk);
-    const long long j = rem - r * chunk;
-    const long long pos = d * per_dir + chunk_at(d, r, 1) * chunk + j;
-    if (pos >= n) continue;
-    comm[(d * world + neighbour(d, r)) * chunk + j] = x[r * ld_in + pos];
-  }
-  grid.sync();
-
-  // Reduce-scatter: hop s reads slot s%2, combines with local chunk
-  // r-2-s (backward r+2+s) and stores into the neighbour's other slot.
-  // After the last hop the reduced chunk r is also filed into the output
-  // and its store is the first allgather send.
-  for (int s = 0; s < world - 1; ++s) {
-    const T* in_slot = comm + (s & 1) * items;
-    T* next_slot = comm + ((s + 1) & 1) * items;
-    for (long long e = first; e < items; e += stride) {
-      const int d = static_cast<int>(e / per_dir);
-      const long long rem = e - d * per_dir;
-      const int r = static_cast<int>(rem / chunk);
-      const long long j = rem - r * chunk;
-      const long long pos = d * per_dir + chunk_at(d, r, 2 + s) * chunk + j;
-      if (pos >= n) continue;
-      const T v = combine<T, OP>(in_slot[e], x[r * ld_in + pos]);
-      if (s == world - 2) out[r * ld_out + pos] = v;
-      next_slot[(d * world + neighbour(d, r)) * chunk + j] = v;
+  for (long long i =
+           static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < vecs; i += stride) {
+    const long long p = i * VEC;
+    // chunk index along the padded row: direction q / W, chunk q % W
+    const int q = static_cast<int>(p / chunk);
+    const int d = DIRS == 1 ? 0 : q / world;
+    const int c = q - d * world;
+    const int step = d == 0 ? 1 : -1;
+    int first = c + step;
+    first = first == world ? 0 : (first < 0 ? world - 1 : first);
+    if (VEC == 1 || p + VEC <= n) {
+      fold_store<T, OP, VEC>(x + p, out + p, ld_in, ld_out, world, first,
+                             step);
+    } else {  // the ragged tail of the vector instantiation
+      for (long long e = p; e < n; ++e)
+        fold_store<T, OP, 1>(x + e, out + e, ld_in, ld_out, world, first,
+                             step);
     }
-    grid.sync();
-  }
-
-  // Allgather: hop s files the arrival at chunk r-1-s (backward r+1+s)
-  // and relays it on.
-  for (int s = 0; s < world - 1; ++s) {
-    const int t = world - 1 + s;
-    const T* in_slot = comm + (t & 1) * items;
-    T* next_slot = comm + ((t + 1) & 1) * items;
-    const bool relay = s < world - 2;
-    for (long long e = first; e < items; e += stride) {
-      const int d = static_cast<int>(e / per_dir);
-      const long long rem = e - d * per_dir;
-      const int r = static_cast<int>(rem / chunk);
-      const long long j = rem - r * chunk;
-      const long long pos = d * per_dir + chunk_at(d, r, 1 + s) * chunk + j;
-      if (pos >= n) continue;
-      const T v = in_slot[e];
-      out[r * ld_out + pos] = v;
-      if (relay) next_slot[(d * world + neighbour(d, r)) * chunk + j] = v;
-    }
-    if (relay) grid.sync();
   }
 }
 
-template <typename T, int OP, int DIRS>
-cudaError_t launch(const void* x, void* out, void* comm, long long ld_in,
-                   long long ld_out, long long n, int world, long long chunk,
+template <typename T, int OP, int DIRS, int VEC>
+cudaError_t launch(const T* x, T* out, long long ld_in, long long ld_out,
+                   long long n, int world, long long chunk,
                    cudaStream_t stream) {
-  auto kernel = ring_allreduce_kernel<T, OP, DIRS>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return err;
-  // every block must be co-resident for the grid barrier; a grid larger
-  // than that is refused by the cooperative launch, never hung
-  const long long work = world == 1 ? n : DIRS * world * chunk;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long resident = static_cast<long long>(per_sm) * sms;
-  if (blocks > resident) blocks = resident;
+  long long blocks = ((n + VEC - 1) / VEC + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
-
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  T* cp = static_cast<T*>(comm);
-  void* args[] = {&xp, &op, &cp, &ld_in, &ld_out, &n, &world, &chunk};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(static_cast<unsigned>(blocks)),
-                                    dim3(kThreads), args, 0, stream);
-  if (err != cudaSuccess) return err;
+  ring_allreduce_kernel<T, OP, DIRS, VEC>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          x, out, ld_in, ld_out, n, world, chunk);
   return cudaGetLastError();
 }
 
+__host__ bool aligned16(const void* p, long long row_stride, int itemsize) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (row_stride * itemsize) % 16 == 0;
+}
+
 template <typename T>
-cudaError_t dispatch_op(int op, int dirs, const void* x, void* out,
-                        void* comm, long long ld_in, long long ld_out,
-                        long long n, int world, long long chunk,
-                        cudaStream_t s) {
-  if (op == kSum && dirs == 2)
-    return launch<T, kSum, 2>(x, out, comm, ld_in, ld_out, n, world, chunk, s);
-  if (op == kSum && dirs == 1)
-    return launch<T, kSum, 1>(x, out, comm, ld_in, ld_out, n, world, chunk, s);
-  if (op == kMax && dirs == 2)
-    return launch<T, kMax, 2>(x, out, comm, ld_in, ld_out, n, world, chunk, s);
-  if (op == kMax && dirs == 1)
-    return launch<T, kMax, 1>(x, out, comm, ld_in, ld_out, n, world, chunk, s);
+cudaError_t dispatch(int op, int dirs, int vec, const void* xv, void* outv,
+                     long long ld_in, long long ld_out, long long n,
+                     int world, long long chunk, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
+  if (world < 1 || n < 0 || (n > 0 && (chunk < 1 || chunk % kChunkAlign ||
+                                       chunk * dirs * world < n)))
+    return cudaErrorInvalidValue;
+  if (vec && !(aligned16(x, ld_in, sizeof(T)) &&
+               aligned16(out, ld_out, sizeof(T))))
+    return cudaErrorMisalignedAddress;
+#define ACCL_RING_LAUNCH(OP, DIRS)                                          \
+  return vec ? launch<T, OP, DIRS, kVec>(x, out, ld_in, ld_out, n, world, \
+                                         chunk, s)                          \
+             : launch<T, OP, DIRS, 1>(x, out, ld_in, ld_out, n, world,     \
+                                      chunk, s)
+  if (op == kSum && dirs == 2) ACCL_RING_LAUNCH(kSum, 2);
+  if (op == kSum && dirs == 1) ACCL_RING_LAUNCH(kSum, 1);
+  if (op == kMax && dirs == 2) ACCL_RING_LAUNCH(kMax, 2);
+  if (op == kMax && dirs == 1) ACCL_RING_LAUNCH(kMax, 1);
+#undef ACCL_RING_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int accl_ring_allreduce(int dtype, int op, int dirs, const void* x,
-                                   void* out, void* comm, long long ld_in,
+// vec != 0 takes the 16-byte vector instantiation (the wrapper chooses it
+// when both base pointers and both row strides are 16-byte multiples; a
+// misaligned operand is refused); 0 the scalar one.
+extern "C" int accl_ring_allreduce(int dtype, int op, int dirs, int vec,
+                                   const void* x, void* out, long long ld_in,
                                    long long ld_out, long long n, int world,
                                    long long chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return dispatch_op<float>(op, dirs, x, out, comm, ld_in, ld_out, n,
-                                world, chunk, s);
+      return dispatch<float>(op, dirs, vec, x, out, ld_in, ld_out, n, world,
+                             chunk, s);
     case kFloat64:
-      return dispatch_op<double>(op, dirs, x, out, comm, ld_in, ld_out, n,
-                                 world, chunk, s);
+      return dispatch<double>(op, dirs, vec, x, out, ld_in, ld_out, n, world,
+                              chunk, s);
     case kInt32:
-      return dispatch_op<int32_t>(op, dirs, x, out, comm, ld_in, ld_out, n,
-                                  world, chunk, s);
+      return dispatch<int32_t>(op, dirs, vec, x, out, ld_in, ld_out, n,
+                               world, chunk, s);
     case kInt64:
-      return dispatch_op<int64_t>(op, dirs, x, out, comm, ld_in, ld_out, n,
-                                  world, chunk, s);
+      return dispatch<int64_t>(op, dirs, vec, x, out, ld_in, ld_out, n,
+                               world, chunk, s);
     case kFloat16:
-      return dispatch_op<__half>(op, dirs, x, out, comm, ld_in, ld_out, n,
-                                 world, chunk, s);
+      return dispatch<__half>(op, dirs, vec, x, out, ld_in, ld_out, n, world,
+                              chunk, s);
     case kBFloat16:
-      return dispatch_op<__nv_bfloat16>(op, dirs, x, out, comm, ld_in, ld_out,
-                                        n, world, chunk, s);
+      return dispatch<__nv_bfloat16>(op, dirs, vec, x, out, ld_in, ld_out, n,
+                                     world, chunk, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,9 +1,9 @@
-"""Fused ring allreduce: the Hopper kernel and its plain PyTorch version.
+"""Ring allreduce: the Hopper kernel and its plain PyTorch version.
 
 Counterpart of accl_tpu/ops/ring_allreduce.py. The TPU kernels run one
 rank per chip under shard_map and move chunks between chips with remote
 DMAs; here the W ranks are virtual ranks on one card, the operand is the
-stacked (W, n) tensor, and one launch runs the ring for every rank.
+stacked (W, n) tensor, and one launch computes every rank's result.
 
   ring_allreduce_bidir  replaces ring_allreduce_pallas_bidir
                         (_kernel_bidir): two ring directions, each over
@@ -13,12 +13,22 @@ stacked (W, n) tensor, and one launch runs the ring for every rank.
                         unidirectional twin, kept as its A/B baseline
 
 Both are one CUDA source, csrc/ring_allreduce.cu, templated over the
-element type, SUM/MAX and the direction count; its header states the
-design and the bound (bytes: 2*W*n*itemsize). A wrapper launches the
-kernel for a CUDA tensor and runs the plain version (`*_ref`, the same
-fold in torch ops on the same padded chunk geometry) only for a CPU
-tensor. Each wrapper counts its launches in a plain integer attribute,
-`launches`.
+element type, SUM/MAX, the direction count and the vector width. On one
+card a hop only moves data, so the kernel keeps the TPU ring's fold
+order and nothing else: each element is read once from every rank row,
+folded in registers in the order the ring would fold it, and written
+once to every output row — exactly the bound's bytes (2*W*n*itemsize),
+no comm buffer, no grid barrier. Its header states the closed form of
+the fold order. The wrapper picks the 16-byte vector instantiation when
+both operands' base pointers and row strides allow it (`vector_path`),
+else the scalar one.
+
+A wrapper launches the kernel for a CUDA tensor and runs the plain
+version (`_ring_ref`, the TPU ring played hop by hop in torch ops on the
+same padded chunk geometry) only for a CPU tensor. `out=` takes a
+(W, n) view with unit-stride rows (a column slice of a wider result) to
+write into. Each wrapper counts its launches in a plain integer
+attribute, `launches`.
 """
 
 from __future__ import annotations
@@ -113,7 +123,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, op, dirs
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, out, comm
+            ctypes.c_int,  # vector instantiation
+            ctypes.c_void_p, ctypes.c_void_p,  # x, out
             ctypes.c_longlong, ctypes.c_longlong,  # row strides in, out
             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,  # n, W, chunk
             ctypes.c_void_p,  # stream
@@ -123,24 +134,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x: torch.Tensor, world: int, func: ReduceFunction,
-            dirs: int) -> torch.Tensor:
+def vector_path(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """True when the kernel takes its 16-byte vector instantiation: both
+    base pointers and both row strides are 16-byte multiples. Otherwise
+    the scalar instantiation runs."""
+    b = x.element_size()
+    return all(v % 16 == 0 for v in (x.data_ptr(), out.data_ptr(),
+                                      x.stride(0) * b, out.stride(0) * b))
+
+
+def _launch(x: torch.Tensor, world: int, func: ReduceFunction, dirs: int,
+            out: torch.Tensor) -> torch.Tensor:
     if x.dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"ring allreduce kernel has no {x.dtype} lane")
     if x.stride(1) != 1:
         raise ValueError("ring allreduce kernel needs unit-stride rows")
     n = x.shape[1]
-    chunk = chunk_elems(n, world, x.dtype, dirs)
-    out = torch.empty((world, n), dtype=x.dtype, device=x.device)
-    # the two hop comm slots of every rank and direction
-    comm = torch.empty((2, dirs, world, chunk), dtype=x.dtype,
-                       device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.accl_ring_allreduce(
             int(from_torch_dtype(x.dtype)), int(func), dirs,
-            x.data_ptr(), out.data_ptr(), comm.data_ptr(),
-            x.stride(0), out.stride(0), n, world, chunk,
+            int(vector_path(x, out)), x.data_ptr(), out.data_ptr(),
+            x.stride(0), out.stride(0), n, world,
+            chunk_elems(n, world, x.dtype, dirs),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         msg = lib.accl_ring_error_string(err).decode()
@@ -149,7 +165,8 @@ def _launch(x: torch.Tensor, world: int, func: ReduceFunction,
     return out
 
 
-def _plain_on_cpu(x: torch.Tensor, world: int, slot: int) -> bool:
+def _plain_on_cpu(x: torch.Tensor, world: int, slot: int,
+                  out: torch.Tensor | None) -> bool:
     """Check a wrapper's arguments; True when x lies on the CPU (the plain
     version runs), False for a CUDA tensor (the kernel launches)."""
     _check_slot(slot)
@@ -159,35 +176,50 @@ def _plain_on_cpu(x: torch.Tensor, world: int, slot: int) -> bool:
             f"{tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ring allreduce runs on cuda or cpu, not {x.device}")
+    if out is not None:
+        if out.device != x.device or out.dtype != x.dtype:
+            raise ValueError(
+                f"ring allreduce out= is {out.dtype} on {out.device}, the "
+                f"operand {x.dtype} on {x.device}")
+        if out.shape != x.shape or (out.shape[1] > 1 and out.stride(1) != 1):
+            raise ValueError(
+                "ring allreduce out= must be a (world, n) view with "
+                f"unit-stride rows, got shape {tuple(out.shape)} strides "
+                f"{out.stride()}")
     return x.device.type == "cpu"
+
+
+def _run(x: torch.Tensor, world: int, func, slot: int,
+         out: torch.Tensor | None, dirs: int, wrapper) -> torch.Tensor:
+    func = ReduceFunction(func)
+    if _plain_on_cpu(x, world, slot, out):
+        res = _ring_ref(x, world, func, dirs)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty((world, x.shape[1]), dtype=x.dtype, device=x.device)
+    _launch(x, world, func, dirs, out)
+    wrapper.launches += 1
+    return out
 
 
 def ring_allreduce_bidir(x: torch.Tensor, world: int,
                          func: ReduceFunction = ReduceFunction.SUM,
-                         slot: int = 0) -> torch.Tensor:
-    """Bidirectional fused ring allreduce of a stacked (world, n) tensor
-    (rows may be a column slice of a wider buffer: only unit stride
-    within a row is required). Launches the Hopper kernel for a CUDA
-    tensor; a CPU tensor takes the plain version."""
-    func = ReduceFunction(func)
-    if _plain_on_cpu(x, world, slot):
-        return _ring_ref(x, world, func, dirs=2)
-    out = _launch(x, world, func, dirs=2)
-    ring_allreduce_bidir.launches += 1  # type: ignore[attr-defined]
-    return out
+                         slot: int = 0,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """Bidirectional ring allreduce of a stacked (world, n) tensor (rows
+    may be a column slice of a wider buffer: only unit stride within a
+    row is required), into `out` when given. Launches the Hopper kernel
+    for a CUDA tensor; a CPU tensor takes the plain version."""
+    return _run(x, world, func, slot, out, 2, ring_allreduce_bidir)
 
 
 def ring_allreduce(x: torch.Tensor, world: int,
                    func: ReduceFunction = ReduceFunction.SUM,
-                   slot: int = 0) -> torch.Tensor:
-    """Unidirectional fused ring allreduce (the A/B baseline of
+                   slot: int = 0,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """Unidirectional ring allreduce (the A/B baseline of
     ring_allreduce_bidir); same contract."""
-    func = ReduceFunction(func)
-    if _plain_on_cpu(x, world, slot):
-        return _ring_ref(x, world, func, dirs=1)
-    out = _launch(x, world, func, dirs=1)
-    ring_allreduce.launches += 1  # type: ignore[attr-defined]
-    return out
+    return _run(x, world, func, slot, out, 1, ring_allreduce)
 
 
 ring_allreduce_bidir.launches = 0  # type: ignore[attr-defined]

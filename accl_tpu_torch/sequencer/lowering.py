@@ -250,13 +250,15 @@ class ScheduleCompiler:
                       if options.data_type != DataType.none else 1)
         seg_elems = max(self.RING_KERNEL_MAX_BYTES // elem_bytes, 1)
 
-        def one_seg(y, slot=0):
-            return ring_allreduce_bidir(y, world, func, slot=slot)
-
         def _ring_kernel_body(x, _wire=wire, _seg=seg_elems):
+            # one result for the call; segment i (in slot i % 2, as the
+            # reference double-buffers them) writes its column view
             y = _wire.send(x)
-            out = schedules.segmented_apply(
-                one_seg, y, _seg, overlap_slots=NUM_RING_SLOTS)
+            out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+            for i, lo in enumerate(range(0, y.shape[-1], _seg)):
+                ring_allreduce_bidir(y[:, lo:lo + _seg], world, func,
+                                     slot=i % NUM_RING_SLOTS,
+                                     out=out[:, lo:lo + _seg])
             return _wire.recv(out, x.dtype)
 
         return _ring_kernel_body

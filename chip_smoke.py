@@ -9,11 +9,15 @@ What it does, in order, printing one JSON object per line:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the build time of the kernels, which are compiled
      from accl_tpu_torch/csrc/ into accl_tpu_torch/_build/ at first use;
-  2. kernel phase: each fused ring kernel against its plain PyTorch
-     version on the card, bitwise (NaN-aware for float MAX), over worlds
-     {1, 2, 5, 8}, n {1, 1000, 4099, 1<<20}, six dtypes, SUM and MAX,
-     every float tensor with subnormal and signed-zero columns (the
-     flush-to-zero and IEEE-maximum repair);
+  2. kernel phase: each ring kernel against its plain PyTorch version on
+     the card, bitwise (NaN-aware for float MAX), over worlds {1, 2, 5,
+     8}, n {1, 1000, 4099, 1<<20}, six dtypes, SUM and MAX, every float
+     tensor with subnormal and signed-zero columns (the flush-to-zero and
+     IEEE-maximum repair); then worlds {3, 6}, n at a chunk boundary +-1,
+     column views of wider buffers with an odd row stride and with
+     16-byte-aligned ones, and out= views, so that the kernel's 16-byte
+     vector and scalar instantiations both run (their case counts are
+     printed);
   3. facade phase (the main path): ACCL(world=8).allreduce on the card,
      from_device/to_device, fp32 SUM at 4 KiB, 1 MiB, 25 MiB and 256 MiB
      per rank, bf16 SUM at 25 MiB, fp32 MAX at 1 MiB, then world 5 with
@@ -44,7 +48,7 @@ What it does, in order, printing one JSON object per line:
      int8-wire facade at 25 MiB beside the exact wire, and one int8 call
      under torch.profiler (device busy time and idle share, the costliest
      host operations); then a breakdown of a ring launch into fixed
-     device cost (launch and grid barriers), hop traffic and host-side
+     device cost, the rate over its 2*W*n*itemsize bytes and host-side
      wrapper cost, and of a quantized launch into device time and host
      cost;
   7. lane kernel phase: the three lane kernels (combine, combine_cast,
@@ -243,6 +247,47 @@ def repair_columns(x) -> None:
     x[-1, 2:4] = 0.0
 
 
+def ring_cases(ring, dirs: int, gen):
+    """(description, x, out or None, nan case, repair columns) for one ring
+    kernel: the product of worlds {1, 2, 5, 8} and n {1, 1000, 4099,
+    1<<20}, then worlds {3, 6}, n at the chunk boundary +-1 (where the
+    chunk grows by a tile), and column views of wider buffers, as operand
+    and as out=, with an odd row stride (scalar instantiation) and
+    16-byte-aligned (vector)."""
+    import torch
+
+    def views(world, n, dtype, aligned):
+        """A (world, n) column view of a wider buffer: at element 16 of
+        rows a multiple of 8 elements wide (16-byte aligned for every
+        dtype) or at element 3 of rows n + 7 wide."""
+        width, lo = ((-(-n // 8) * 8 + 32, 16) if aligned else (n + 7, 3))
+        return rank_data(world, width, dtype, gen), lo
+
+    plain = [(w, n) for w in (1, 2, 5, 8) for n in (1, 1000, 4099, 1 << 20)]
+    plain += [(w, n) for w in (3, 6) for n in (1, 1000, 4099, 1 << 20)]
+    for world, n in plain:
+        for dtype in ring.SUPPORTED_DTYPES:
+            x = rank_data(world, n, dtype, gen)
+            yield f"world={world} n={n}", x, None, n == 4099, True
+    for world in (3, 5, 8):
+        for dtype in ring.SUPPORTED_DTYPES:
+            edge = dirs * world * ring.chunk_elems(1, 1, dtype, 1)
+            for n in (edge - 1, edge + 1):
+                x = rank_data(world, n, dtype, gen)
+                yield f"world={world} n={n} (chunk edge)", x, None, True, True
+    for world in (3, 8):
+        for n in (1000, 4099, 65536 + 5):
+            for dtype in ring.SUPPORTED_DTYPES:
+                for aligned in (False, True):
+                    buf, lo = views(world, n, dtype, aligned)
+                    obuf, olo = views(world, n, dtype, aligned)
+                    kind = "aligned" if aligned else "odd-stride"
+                    yield (f"world={world} n={n} {kind} view",
+                           buf[:, lo:lo + n], None, False, True)
+                    yield (f"world={world} n={n} {kind} view, out= view",
+                           buf[:, lo:lo + n], (obuf, olo), False, True)
+
+
 def kernel_phase(ring):
     import torch
 
@@ -250,46 +295,65 @@ def kernel_phase(ring):
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     pairs = (("ring_allreduce_bidir", ring.ring_allreduce_bidir,
-              ring.ring_allreduce_bidir_ref),
-             ("ring_allreduce", ring.ring_allreduce, ring.ring_allreduce_ref))
+              ring.ring_allreduce_bidir_ref, 2),
+             ("ring_allreduce", ring.ring_allreduce, ring.ring_allreduce_ref,
+              1))
     errs = {}
-    for name, kernel, plain in pairs:
+    for name, kernel, plain, dirs in pairs:
         cases, err, nan_cases, repair_cases = 0, 0.0, 0, 0
-        for world in (1, 2, 5, 8):
-            for n in (1, 1000, 4099, 1 << 20):
-                for dtype in ring.SUPPORTED_DTYPES:
-                    x = rank_data(world, n, dtype, gen)
-                    if dtype.is_floating_point and n >= 4:
-                        repair_columns(x)
-                        repair_cases += 1
-                    for func in (ReduceFunction.SUM, ReduceFunction.MAX):
-                        xi = x
-                        if (func == ReduceFunction.MAX and dtype.is_floating_point
-                                and n == 4099 and world > 1):
-                            xi = x.clone()
-                            xi[1, 7] = float("nan")
-                            nan_cases += 1
-                        got = kernel(xi, world, func)
-                        want = plain(xi, world, func)
-                        torch.cuda.synchronize()
-                        if not same_bits(got, want):
-                            raise AssertionError(
-                                f"{name} differs from its plain version: "
-                                f"world={world} n={n} {dtype} {func.name} "
-                                f"max|diff|={max_abs_err(got, want)}")
-                        if (n >= 4 and world > 1 and dtype in (
-                                torch.float32, torch.float64, torch.bfloat16)):
-                            # the repair: subnormals flushed, +0 above -0
-                            if not ((got[:, :2] == 0).all() and not
-                                    torch.signbit(got[:, 2]).any()):
-                                raise AssertionError(
-                                    f"{name} keeps a subnormal or orders "
-                                    f"zeros wrongly: {dtype} {func.name}")
-                        err = max(err, max_abs_err(got, want))
-                        cases += 1
+        by_path = {"vector": 0, "scalar": 0}
+        for where, x, out_buf, nan_case, repair in ring_cases(ring, dirs, gen):
+            world, n = x.shape
+            dtype = x.dtype
+            if repair and dtype.is_floating_point and n >= 4:
+                repair_columns(x)
+                repair_cases += 1
+            for func in (ReduceFunction.SUM, ReduceFunction.MAX):
+                xi = x
+                if (func == ReduceFunction.MAX and dtype.is_floating_point
+                        and nan_case and world > 1):
+                    xi = x.clone()
+                    xi[1, 7] = float("nan")
+                    nan_cases += 1
+                kw = {}
+                if out_buf is not None:
+                    obuf, olo = out_buf
+                    before = obuf.clone()
+                    kw["out"] = obuf[:, olo:olo + n]
+                got = kernel(xi, world, func, **kw)
+                path = ring.vector_path(xi, got)  # as the wrapper chose
+                want = plain(xi, world, func)
+                torch.cuda.synchronize()
+                if out_buf is not None:
+                    outside = torch.ones_like(obuf, dtype=torch.bool)
+                    outside[:, olo:olo + n] = False
+                    if (got.data_ptr() != kw["out"].data_ptr() or not
+                            same_bits(obuf[outside], before[outside])):
+                        raise AssertionError(
+                            f"{name} wrote outside its out= view: {where}")
+                if not same_bits(got, want):
+                    raise AssertionError(
+                        f"{name} differs from its plain version: {where} "
+                        f"{dtype} {func.name} "
+                        f"max|diff|={max_abs_err(got, want)}")
+                if (repair and n >= 4 and world > 1 and dtype in (
+                        torch.float32, torch.float64, torch.bfloat16)):
+                    # the repair: subnormals flushed, +0 above -0
+                    if not ((got[:, :2] == 0).all() and not
+                            torch.signbit(got[:, 2]).any()):
+                        raise AssertionError(
+                            f"{name} keeps a subnormal or orders "
+                            f"zeros wrongly: {dtype} {func.name}")
+                err = max(err, max_abs_err(got, want))
+                by_path["vector" if path else "scalar"] += 1
+                cases += 1
+        if 0 in by_path.values():
+            raise AssertionError(f"{name}: an instantiation never ran "
+                                 f"{by_path}")
         errs[name] = err
         emit({"phase": "kernel", "kernel": name, "cases": cases,
-              "nan_cases": nan_cases, "repair_column_tensors": repair_cases,
+              "cases_by_instantiation": by_path, "nan_cases": nan_cases,
+              "repair_column_tensors": repair_cases,
               "bitwise_equal": True, "max_abs_err": err})
     return errs
 
@@ -423,9 +487,12 @@ def timing_phase(ring, accl, kept):
             accl.allreduce(sb, rb, count, ReduceFunction.SUM,
                            from_device=True, to_device=True)
 
-        def kernel_alone():
+        res = torch.empty_like(x)
+
+        def kernel_alone():  # the body's launches: one result, column views
             for lo, hi in bounds:
-                ring.ring_allreduce_bidir(x[:, lo:hi], world)
+                ring.ring_allreduce_bidir(x[:, lo:hi], world,
+                                          out=res[:, lo:hi])
 
         def plain():
             for lo, hi in bounds:
@@ -435,6 +502,7 @@ def timing_phase(ring, accl, kept):
             x.sum(0, keepdim=True).expand_as(x).contiguous()
 
         t = {"facade_ms": median_ms(facade), "kernel_ms": median_ms(kernel_alone),
+             "kernel_device_ms": device_ms(kernel_alone, count=5),
              "plain_ms": median_ms(plain), "library_ms": median_ms(library)}
         bound_ms = 2 * world * count * dtype.itemsize / HBM_BYTES_PER_S * 1e3
         bus = 2 * (world - 1) / world * count * dtype.itemsize
@@ -447,24 +515,38 @@ def timing_phase(ring, accl, kept):
 
 
 def breakdown_phase(ring):
-    """Where a launch's time goes at W=8, fp32. Device side, in steady
-    state: t(n) = fixed + hops * hop_bytes(n) / rate, with hops = 2(W-1)
-    grid barriers and each hop moving 3*n*itemsize bytes (read the comm
-    slot, read the local chunk, write the next slot); two sizes that both
-    fill the resident grid give the rate and the fixed cost (launch plus
-    barriers, so fixed/hops bounds one barrier). Host side: the wrapper's
-    cost per launch on the host clock, over launches of a one-element
-    world-1 kernel the card finishes at once."""
+    """Where a launch's time goes at W=8, fp32. Device side, with the host
+    held off: t(n) = fixed + bytes(n) / rate, bytes(n) = 2*W*n*itemsize
+    (every rank row read once, every output row written once, which is
+    what the kernel moves); two launch sizes of the main path (2 MiB and
+    4 MiB per rank) give the rate and the fixed cost per launch. Each
+    launch takes the next of several operand and result pairs, 268 MB
+    in all, so that it finds its data in device memory and not in the
+    50 MB L2, as the segments of a large call do. Host side: the
+    wrapper's cost per launch on the host clock, over launches of a
+    one-element world-1 kernel the card finishes at once."""
+    import itertools
+
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    world, hops = 8, 2 * (8 - 1)
+    world = 8
     sizes = (SEG_BYTES // 8, SEG_BYTES // 4)  # 512 Ki and 1 Mi fp32 elements
-    xs = [rank_data(world, n, torch.float32, gen) for n in sizes]
-    t = [run_ms(lambda x=x: ring.ring_allreduce_bidir(x, world)) for x in xs]
-    hop_bytes = [3 * n * 4 for n in sizes]
-    ms_per_byte = (t[1] - t[0]) / (hops * (hop_bytes[1] - hop_bytes[0]))
-    fixed = t[0] - hops * hop_bytes[0] * ms_per_byte
+    nbytes = [2 * world * n * 4 for n in sizes]
+    t = []
+    for n, b in zip(sizes, nbytes):
+        pairs = [(rank_data(world, n, torch.float32, gen),
+                  torch.empty((world, n), device="cuda"))
+                 for _ in range(268_435_456 // b)]
+        turn = itertools.cycle(pairs)
+
+        def cold():
+            x, out = next(turn)
+            ring.ring_allreduce_bidir(x, world, out=out)
+
+        t.append(device_ms(cold))
+    ms_per_byte = (t[1] - t[0]) / (nbytes[1] - nbytes[0])
+    fixed = t[0] - nbytes[0] * ms_per_byte
     one = rank_data(1, 1, torch.float32, gen)
     ring.ring_allreduce_bidir(one, 1)
     torch.cuda.synchronize()
@@ -473,11 +555,11 @@ def breakdown_phase(ring):
         ring.ring_allreduce_bidir(one, 1)
     host_ms = (time.perf_counter() - t0) / 200 * 1e3
     torch.cuda.synchronize()
-    emit({"phase": "breakdown", "world": world, "hops": hops,
+    emit({"phase": "breakdown", "world": world,
+          "bytes_per_launch": dict(zip(("2MiB", "4MiB"), nbytes)),
           "device_ms": dict(zip(("2MiB", "4MiB"), t)),
-          "hop_rate_TBps": 1e-9 / ms_per_byte,
+          "rate_TBps": 1e-9 / ms_per_byte,
           "fixed_device_ms": fixed,
-          "barrier_ms_at_most": fixed / hops,
           "fixed_share_4MiB": fixed / t[1],
           "host_ms_per_launch": host_ms})
 
@@ -1235,13 +1317,14 @@ def lane_breakdown_phase(L):
 
 
 def kernel_line(ring, qk, errs, launches, lane_rows):
-    """Per kernel: device time per launch in steady state at the main
-    path's launch shape, its plain version and the library yardstick,
-    timed the same way. Ring kernels: W=8, fp32, 4 MiB per rank, events
-    around back-to-back launches (device-bound there). Quantized kernels:
-    (8, 131072) fp32, device time with the host held off (device_ms: at
-    this shape the wrapper's host cost exceeds the device's). Lane
-    kernels: the rows of the lane breakdown."""
+    """Per kernel: device time per launch at the main path's launch
+    shape with the host held off (device_ms), its plain version and the
+    library yardstick, timed the same way. Ring kernels: W=8, fp32, 4 MiB
+    per rank, with events around back-to-back launches beside it
+    (`back_to_back_ms`, which times the host once the wrapper's host cost
+    exceeds the device's); their plain version back to back. Quantized
+    kernels: (8, 131072) fp32. Lane kernels: the rows of the lane
+    breakdown."""
     import torch
 
     from accl_tpu_torch.ops import compression as C
@@ -1250,7 +1333,8 @@ def kernel_line(ring, qk, errs, launches, lane_rows):
     gen = torch.Generator(device="cuda").manual_seed(99)
     x = rank_data(world, n, torch.float32, gen)
     bound_ms = 2 * world * n * 4 / HBM_BYTES_PER_S * 1e3
-    library_ms = run_ms(lambda: x.sum(0, keepdim=True).expand_as(x).contiguous())
+    library_ms = device_ms(
+        lambda: x.sum(0, keepdim=True).expand_as(x).contiguous())
     entries = []
     for name, kernel, plain, replaces, main_path in (
             ("ring_allreduce_bidir", ring.ring_allreduce_bidir,
@@ -1263,7 +1347,10 @@ def kernel_line(ring, qk, errs, launches, lane_rows):
             "source": "accl_tpu_torch/csrc/ring_allreduce.cu",
             "replaces": replaces, "on_main_path": main_path,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": run_ms(lambda: kernel(x, world)),
+            "ms": device_ms(lambda: kernel(x, world)),
+            "back_to_back_ms": run_ms(lambda: kernel(x, world)),
+            # the plain version's ~100 launches a call fill the launch
+            # queue behind a spin: timed back to back, device-bound
             "plain_ms": run_ms(lambda: plain(x, world)),
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms,

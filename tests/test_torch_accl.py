@@ -73,9 +73,9 @@ def test_allreduce_ring_kernel_body_bitwise(mesh8):
     slots = []
     real = port_ring.ring_allreduce_bidir
 
-    def spy(y, world, func, slot=0):
+    def spy(y, world, func, slot=0, out=None):
         slots.append((y.shape[1], slot))
-        return real(y, world, func, slot=slot)
+        return real(y, world, func, slot=slot, out=out)
 
     port_ring.ring_allreduce_bidir = spy
     try:
