@@ -15,9 +15,12 @@ All three are one CUDA source, csrc/lanes.cu, whose header states the
 design and the bound (bytes). Each takes stacked (rows, n) operands, one
 virtual rank per row (any leading shape is flattened into rows; rows may
 be a column slice of a wider buffer: only unit stride within a row is
-required), and makes one launch for every row. A wrapper launches the
-kernel for a CUDA tensor and runs the plain version (`_*_impl` below,
-the numeric contract) only for a CPU tensor. Each wrapper counts its
+required), and makes one launch for every row. combine_cast and cast
+fold rows that lie back to back into one long row and take their
+16-byte vector instantiation when the operands' alignment allows it
+(`_launch_shape`), else the scalar one. A wrapper launches the kernel
+for a CUDA tensor and runs the plain version (`_*_impl` below, the
+numeric contract) only for a CPU tensor. Each wrapper counts its
 launches in a plain integer attribute, `launches`.
 
 The numeric contract is what the JAX package's functions give on XLA
@@ -40,10 +43,12 @@ The numeric contract is what the JAX package's functions give on XLA
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..constants import from_torch_dtype
+from ._vector import vector_path
 
 _OPS = {"sum": 0, "max": 1}
 COMBINE_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
@@ -52,6 +57,8 @@ HALF_DTYPES = (torch.float16, torch.bfloat16)
 COMBINE_CAST_DTYPES = (torch.float32, *HALF_DTYPES)
 CAST_PAIRS = ((torch.float32, torch.float16), (torch.float16, torch.float32),
               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
+# DataType codes of the half lanes' dtypes, as the C entry points take them
+_CODES = {d: int(from_torch_dtype(d)) for d in COMBINE_CAST_DTYPES}
 
 
 # -- the numeric rules (also the int8 wire's: ops/compression.py) ----------
@@ -103,23 +110,36 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("lanes")
     if lib.accl_lane_combine.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        sigs = {
-            # dtype, op, a, ld, b, ld, out, ld, rows, n, stream
-            "accl_lane_combine": [i, i, p, ll, p, ll, p, ll, ll, ll, p],
-            # in dtype, out dtype, op, a, ld, b, ld, out, ld, rows, n, stream
-            "accl_lane_combine_cast": [i, i, i, p, ll, p, ll, p, ll, ll, ll,
-                                       p],
-            # in dtype, out dtype, x, ld, out, ld, rows, n, stream
-            "accl_lane_cast": [i, i, p, ll, p, ll, ll, ll, p],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-        lib.accl_lane_error_string.restype = ctypes.c_char_p
-        lib.accl_lane_error_string.argtypes = [ctypes.c_int]
+        _bind(lib)
     return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/lanes.cu."""
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    sigs = {
+        # dtype, op, a, ld, b, ld, out, ld, rows, n, stream
+        "accl_lane_combine": [i, i, p, ll, p, ll, p, ll, ll, ll, p],
+        # in dtype, out dtype, op, a, ld, b, ld, out, ld, rows, n, vec,
+        # stream
+        "accl_lane_combine_cast": [i, i, i, p, ll, p, ll, p, ll, ll, ll, i,
+                                   p],
+        # in dtype, out dtype, x, ld, out, ld, rows, n, vec, stream
+        "accl_lane_cast": [i, i, p, ll, p, ll, ll, ll, i, p],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    lib.accl_lane_error_string.restype = ctypes.c_char_p
+    lib.accl_lane_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.cache
+def _entry(name: str):
+    """The C entry point `name` of the lanes library, looked up once."""
+    return getattr(_library(), name)
 
 
 def _op(op: str) -> int:
@@ -157,6 +177,22 @@ def _pair(a: torch.Tensor, b: torch.Tensor, dtypes, what: str):
     if not a.numel():
         raise ValueError(f"{what} of empty operands {tuple(a.shape)}")
     return _rows(a), _rows(b)
+
+
+def _launch_shape(*tensors: torch.Tensor):
+    """The launch of combine_cast or cast over (rows, n) operands with
+    unit-stride rows (inputs and output): (rows, n, row strides, vector
+    flag). When every operand's rows lie back to back (each row stride
+    equal to n), the rows fold into one row of rows*n elements; column
+    views of wider buffers keep their rows and strides. The flag says
+    whether the 16-byte vector instantiation may run (`vector_path` over
+    the launch's rows)."""
+    rows, n = tensors[0].shape
+    strides = [t.stride(0) for t in tensors]
+    if rows == 1 or strides.count(n) == len(strides):
+        rows, n = 1, rows * n
+        strides = [n] * len(tensors)
+    return rows, n, tuple(strides), vector_path(*tensors, one_row=rows == 1)
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -209,14 +245,13 @@ def combine_cast(a: torch.Tensor, b: torch.Tensor, op: str,
         return _combine_cast_impl(a, b, op, acc, out)
     code = _op(op)
     a2, b2 = _pair(a, b, COMBINE_CAST_DTYPES, "combine_cast")
-    rows, n = a2.shape
-    res = torch.empty((rows, n), dtype=out, device=a.device)
-    lib = _library()
+    res = torch.empty(a2.shape, dtype=out, device=a.device)
+    rows, n, (lda, ldb, ldo), vec = _launch_shape(a2, b2, res)
     with torch.cuda.device(a.device):
-        _launch("combine_cast", lib.accl_lane_combine_cast,
-                int(from_torch_dtype(a.dtype)), int(from_torch_dtype(out)),
-                code, a2.data_ptr(), a2.stride(0), b2.data_ptr(), b2.stride(0),
-                res.data_ptr(), res.stride(0), rows, n, _stream(a))
+        _launch("combine_cast", _entry("accl_lane_combine_cast"),
+                _CODES[a.dtype], _CODES[out], code, a2.data_ptr(), lda,
+                b2.data_ptr(), ldb, res.data_ptr(), ldo, rows, n, int(vec),
+                _stream(a))
     combine_cast.launches += 1  # type: ignore[attr-defined]
     return res.reshape(a.shape)
 
@@ -233,13 +268,12 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if not x.numel():
         return torch.empty(x.shape, dtype=dtype, device=x.device)
     x2 = _rows(x)
-    rows, n = x2.shape
-    out = torch.empty((rows, n), dtype=dtype, device=x.device)
-    lib = _library()
+    out = torch.empty(x2.shape, dtype=dtype, device=x.device)
+    rows, n, (ldx, ldo), vec = _launch_shape(x2, out)
     with torch.cuda.device(x.device):
-        _launch("cast", lib.accl_lane_cast, int(from_torch_dtype(x.dtype)),
-                int(from_torch_dtype(dtype)), x2.data_ptr(), x2.stride(0),
-                out.data_ptr(), out.stride(0), rows, n, _stream(x))
+        _launch("cast", _entry("accl_lane_cast"), _CODES[x.dtype],
+                _CODES[dtype], x2.data_ptr(), ldx, out.data_ptr(), ldo, rows,
+                n, int(vec), _stream(x))
     cast.launches += 1  # type: ignore[attr-defined]
     return out.reshape(x.shape)
 

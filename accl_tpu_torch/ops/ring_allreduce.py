@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from ..constants import ReduceFunction, from_torch_dtype
+from . import _vector
 from .lane_kernels import _combine_impl
 
 # Per-call segment slots of the reference (two independent resource sets
@@ -138,9 +139,7 @@ def vector_path(x: torch.Tensor, out: torch.Tensor) -> bool:
     """True when the kernel takes its 16-byte vector instantiation: both
     base pointers and both row strides are 16-byte multiples. Otherwise
     the scalar instantiation runs."""
-    b = x.element_size()
-    return all(v % 16 == 0 for v in (x.data_ptr(), out.data_ptr(),
-                                      x.stride(0) * b, out.stride(0) * b))
+    return _vector.vector_path(x, out)
 
 
 def _launch(x: torch.Tensor, world: int, func: ReduceFunction, dirs: int,

@@ -54,9 +54,19 @@ What it does, in order, printing one JSON object per line:
   7. lane kernel phase: the three lane kernels (combine, combine_cast,
      cast) against their plain versions on the card, bitwise (NaN
      matches NaN), over rows {1, 2, 5, 8} x n {1, 127, 128, 129, 4099,
-     1<<20}, every dtype and op of their path, with signed zeros in both
-     orders, subnormals of every width, NaN, +-Inf, fp16 overflow and
-     int32 wrap; the ring kernel phase (2) carries the subnormal and
+     1<<20}, every dtype and op of their path and every (in, out) pair
+     of combine_cast, with signed zeros in both orders, subnormals of
+     every width, NaN, +-Inf, fp16 overflow and int32 wrap; then
+     combine_cast and cast over the layouts that choose their 16-byte
+     vector or scalar instantiation (aligned and odd-stride column
+     views, also of 70 000 rows, more than grid.y's 65 535; bases 2 and
+     4 bytes off; one row with a ragged tail; contiguous rows with odd
+     n), with the cases of each instantiation counted; their C entry
+     points writing into views of sentinel-filled buffers (nothing
+     outside written, a misaligned vector request refused); and both
+     over one row of 2^31 + 3 elements, which takes the walk's 64-bit
+     index, and cast over one of 2^32 + 5 (scalar), which strides over
+     its grid; the ring kernel phase (2) carries the subnormal and
      signed-zero columns as well;
   8. collectives phase (the one-call collectives' path): ACCL(world=8)
      reduce, reduce_scatter, allgather, gather, scatter, bcast and
@@ -69,8 +79,10 @@ What it does, in order, printing one JSON object per line:
      port's CPU run; each call's lane-kernel launches against its plan;
      then each collective's facade time (median of 20, CUDA events) and
      nccl-tests bus bandwidth, and a breakdown of each lane kernel at its
-     launch shape (device time, host cost per launch, bound, the PyTorch
-     call computing the same function);
+     launch shape (held bitwise against its plain version there, then
+     device time, host cost per launch, bound, the PyTorch call
+     computing the same function); then combine_cast and cast with
+     cold operands at two sizes, fitted to a fixed cost plus a rate;
   9. the kernels line; last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -175,12 +187,13 @@ def run_ms(fn, count: int = 20, repeats: int = 5) -> float:
     return statistics.median(runs)
 
 
-def device_ms(fn, count: int = 50) -> float:
+def device_ms(fn, count: int = 50, tries: int = 3) -> float:
     """Device time per call with the host out of the way: a spin kernel
     holds the stream while the host enqueues `count` calls, so the events
     around them time the card's work and the gaps between launches, not
-    the wrapper's host cost. Fails if the spin ended before the last call
-    was enqueued."""
+    the wrapper's host cost. A run whose spin ended before the last call
+    was enqueued (a stall of the shared host) is not a measurement: it
+    is run again with twice the spin, and fails after `tries` runs."""
     import torch
 
     fn()
@@ -191,17 +204,21 @@ def device_ms(fn, count: int = 50) -> float:
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     spin = int((3 * host_s + 1e-3) * spin_cycles_per_s())
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(spin)
-    e0.record()
-    for _ in range(count):
-        fn()
-    e1.record()
-    if e0.query():
-        raise AssertionError("spin ended before the calls were enqueued")
-    e1.synchronize()
-    return e0.elapsed_time(e1) / count
+    for _ in range(tries):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        e0.record()
+        for _ in range(count):
+            fn()
+        e1.record()
+        held = not e0.query()
+        e1.synchronize()
+        if held:
+            return e0.elapsed_time(e1) / count
+        spin *= 2
+    raise AssertionError(f"spin ended before the calls were enqueued, "
+                         f"{tries} times")
 
 
 def spin_cycles_per_s() -> float:
@@ -909,9 +926,22 @@ def lane_operands(rows: int, n: int, dtype, gen):
     return a, b
 
 
+def cast_operand(rows: int, n: int, dtype, gen):
+    """Rows of a cast's source dtype: random values up to f16 overflow,
+    the cast's special values in row 0."""
+    import torch
+
+    x = (torch.randn((rows, n), generator=gen, device="cuda") * 3000).to(
+        dtype)
+    sp = torch.tensor(CAST_SPECIAL[:n], dtype=torch.float64)
+    x[0, :len(sp)] = sp.to(dtype).cuda()
+    return x
+
+
 def lane_cases(L):
-    """(kernel name, description, kernel call, plain call) over every
-    dtype and op of the lane kernels' path."""
+    """(kernel name, description, operands, kernel call, plain call) over
+    every dtype and op of the lane kernels' path, and every (in, out)
+    pair of combine_cast."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3579)
@@ -921,35 +951,264 @@ def lane_cases(L):
                           torch.int64):
                 a, b = lane_operands(rows, n, dtype, gen)
                 for op in ("sum", "max"):
-                    yield ("combine", f"{rows}x{n} {dtype} {op}",
+                    yield ("combine", f"{rows}x{n} {dtype} {op}", (a, b),
                            lambda a=a, b=b, op=op: L.combine(a, b, op),
                            lambda a=a, b=b, op=op: L._combine_impl(a, b, op))
-            for dtype, out in ((torch.float16, torch.float16),
-                               (torch.bfloat16, torch.bfloat16),
-                               (torch.bfloat16, torch.float32)):
+            for dtype in L.COMBINE_CAST_DTYPES:
                 a, b = lane_operands(rows, n, dtype, gen)
-                for op in ("sum", "max"):
-                    yield ("combine_cast", f"{rows}x{n} {dtype}->{out} {op}",
-                           lambda a=a, b=b, op=op, o=out: L.combine_cast(
-                               a, b, op, torch.float32, o),
-                           lambda a=a, b=b, op=op, o=out: L._combine_cast_impl(
-                               a, b, op, torch.float32, o))
+                for out in L.COMBINE_CAST_DTYPES:
+                    for op in ("sum", "max"):
+                        yield combine_cast_case(L, f"{rows}x{n}", a, b, op,
+                                                out)
             for src, dst in L.CAST_PAIRS:
-                x = (torch.randn((rows, n), generator=gen, device="cuda")
-                     * 3000).to(src)
-                sp = torch.tensor(CAST_SPECIAL[:n], dtype=torch.float64)
-                x[0, :len(sp)] = sp.to(src).cuda()
-                yield ("cast", f"{rows}x{n} {src}->{dst}",
-                       lambda x=x, d=dst: L.cast(x, d),
-                       lambda x=x, d=dst: L._cast_impl(x, d))
+                x = cast_operand(rows, n, src, gen)
+                yield cast_case(L, f"{rows}x{n}", x, dst)
+
+
+def combine_cast_case(L, where, a, b, op, out):
+    import torch
+
+    return ("combine_cast", f"{where} {a.dtype}->{out} {op}", (a, b),
+            lambda: L.combine_cast(a, b, op, torch.float32, out),
+            lambda: L._combine_cast_impl(a, b, op, torch.float32, out))
+
+
+def cast_case(L, where, x, dst):
+    return ("cast", f"{where} {x.dtype}->{dst}", (x,),
+            lambda: L.cast(x, dst),
+            lambda: L._cast_impl(x, dst))
+
+
+def lay_out(x, kind: str):
+    """x's values in another layout: a column view of a wider buffer, at
+    element 16 of rows a multiple of 8 elements wide (16-byte-aligned
+    base and row stride for every dtype) or at element 3 of rows n + 7
+    wide (odd stride); contiguous rows whose base is 2 or 4 bytes off a
+    16-byte multiple; or x itself."""
+    import torch
+
+    rows, n = x.shape
+    if kind in ("aligned view", "odd-stride view"):
+        width, lo = ((-(-n // 8) * 8 + 32, 16) if kind == "aligned view"
+                     else (n + 7, 3))
+        buf = torch.full((rows, width), -3.0, device="cuda").to(x.dtype)
+        view = buf[:, lo:lo + n]
+    elif kind.startswith("base+"):
+        off = int(kind[5:-1]) // x.itemsize
+        flat = torch.full((rows * n + 8,), -3.0, device="cuda").to(x.dtype)
+        view = flat[off:off + rows * n].view(rows, n)
+    else:
+        return x
+    view.copy_(x)
+    return view
+
+
+# (rows, n, layouts) of the layout cases: views of wider buffers (vector
+# when aligned, scalar at an odd stride; 70 000 rows pass grid.y's 65 535
+# and make the walk stride over rows), bases 2 and 4 bytes off (scalar),
+# one row with a ragged tail inside a vector launch, and contiguous rows
+# with odd n (folded into one row)
+LANE_LAYOUTS = (
+    [(rows, n, ("aligned view", "odd-stride view"))
+     for rows in (3, 8) for n in (1000, 4099, 65536 + 5)]
+    + [(70_000, 9, ("aligned view", "odd-stride view"))]
+    + [(rows, n, ("base+2B", "base+4B")) for rows in (1, 5)
+       for n in (1000, 4099)]
+    + [(1, 8 * 1000 + r, ("contiguous",)) for r in range(1, 8)]
+    + [(rows, n, ("contiguous",)) for rows, n in ((5, 4099), (8, 1001),
+                                                  (3, 131073))])
+
+
+def lane_layout_cases(L):
+    """Kernels 8 and 9 over the layouts that choose their instantiation
+    (LANE_LAYOUTS), every (in, out) pair, SUM and MAX; a float32 operand
+    is never 2 bytes off."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    for rows, n, kinds in LANE_LAYOUTS:
+        for kind in kinds:
+            where = f"{rows}x{n} {kind}"
+            for dtype in L.COMBINE_CAST_DTYPES:
+                if kind == "base+2B" and dtype.itemsize == 4:
+                    continue
+                a, b = (lay_out(t, kind)
+                        for t in lane_operands(rows, n, dtype, gen))
+                for out in L.COMBINE_CAST_DTYPES:
+                    for op in ("sum", "max"):
+                        yield combine_cast_case(L, where, a, b, op, out)
+            for src, dst in L.CAST_PAIRS:
+                if kind == "base+2B" and src.itemsize == 4:
+                    continue
+                yield cast_case(L, where,
+                                lay_out(cast_operand(rows, n, src, gen), kind),
+                                dst)
+
+
+def lane_bounds_check(L):
+    """Kernels 8 and 9 write nothing outside their output: their C entry
+    points, called with an output that is a view into a wider buffer
+    filled with a sentinel (inputs in the same layout), in the vector
+    instantiation (aligned views with a ragged n per row; one row with a
+    ragged tail) and the scalar one (odd stride; one row 2 bytes off),
+    must leave every sentinel in place and write the plain version's
+    values; a vector request on the misaligned layouts must be refused
+    (cudaErrorInvalidValue) without a write. Returns the cases by
+    instantiation."""
+    import torch
+
+    lib = L._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    by_path = {"vector": 0, "scalar": 0}
+    layouts = ((4, 1003, 1040, 16), (4, 1003, 1010, 3),
+               (1, 8 * 1000 + 5, 8 * 1000 + 24, 8),
+               (1, 8 * 1000 + 5, 8 * 1000 + 24, 1))
+    for rows, n, width, lo in layouts:
+        def place(t):
+            buf = torch.full((rows, width), -7.0, device="cuda").to(t.dtype)
+            buf[:, lo:lo + n] = t
+            return buf
+
+        calls = []
+        for src in L.COMBINE_CAST_DTYPES:
+            a, b = (place(t)[:, lo:lo + n]
+                    for t in lane_operands(rows, n, src, gen))
+            for dst in L.COMBINE_CAST_DTYPES:
+                for op in ("sum", "max"):
+                    calls.append((
+                        dst, (a, b),
+                        lambda ops, view, vec, sh, src=src, dst=dst, op=op:
+                        lib.accl_lane_combine_cast(
+                            L._CODES[src], L._CODES[dst], L._op(op),
+                            ops[0].data_ptr(), sh[2][0], ops[1].data_ptr(),
+                            sh[2][1], view.data_ptr(), sh[2][2], sh[0], sh[1],
+                            vec, stream),
+                        lambda a=a, b=b, dst=dst, op=op: L._combine_cast_impl(
+                            a, b, op, torch.float32, dst)))
+        for src, dst in L.CAST_PAIRS:
+            x = place(cast_operand(rows, n, src, gen))[:, lo:lo + n]
+            calls.append((
+                dst, (x,),
+                lambda ops, view, vec, sh, src=src, dst=dst:
+                lib.accl_lane_cast(
+                    L._CODES[src], L._CODES[dst], ops[0].data_ptr(), sh[2][0],
+                    view.data_ptr(), sh[2][1], sh[0], sh[1], vec, stream),
+                lambda x=x, dst=dst: L._cast_impl(x, dst)))
+        for dst, ops, call, plain in calls:
+            obuf = torch.full((rows, width), -7.0, device="cuda").to(dst)
+            before = obuf.clone()
+            view = obuf[:, lo:lo + n]
+            sh = L._launch_shape(*ops, view)
+            vec = sh[3]
+            if not vec:  # a vector request here is refused, nothing written
+                err = call(ops, view, 1, sh)
+                torch.cuda.synchronize()
+                if err != 1 or not same_bits(obuf, before):
+                    raise AssertionError(
+                        f"a misaligned vector request returned {err} or "
+                        f"wrote: {rows}x{n} at {lo} in {width}")
+            err = call(ops, view, int(vec), sh)
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"lane entry point returned {err}")
+            outside = torch.ones_like(obuf, dtype=torch.bool)
+            outside[:, lo:lo + n] = False
+            if not same_bits(obuf[outside], before[outside]):
+                raise AssertionError(f"lane kernel wrote outside its output: "
+                                     f"{rows}x{n} at {lo} in {width} {dst}")
+            if not same_bits(view, plain()):
+                raise AssertionError(f"lane kernel differs from its plain "
+                                     f"version: {rows}x{n} at {lo} in "
+                                     f"{width} {dst}")
+            by_path["vector" if vec else "scalar"] += 1
+    return by_path
+
+
+# (kernel, elements, instantiations) of the long-row cases: rows past
+# INT_MAX, so the walk of kernels 8 and 9 takes its 64-bit index; the
+# last a scalar walk of more than 2^32 units, more than its 2^24 blocks
+# of 256 threads cover in one pass, so that it strides over the grid
+LONG_ROWS = (("combine_cast", (1 << 31) + 3, ("vector", "scalar")),
+             ("cast", (1 << 31) + 3, ("vector", "scalar")),
+             ("cast", (1 << 32) + 5, ("scalar",)))
+
+
+def lane_long_row_check(L):
+    """Kernels 8 and 9 over the single rows of LONG_ROWS: combine_cast
+    bf16 SUM and cast f32 -> bf16, from aligned operands (vector) and
+    from operands one element off (scalar), with the special values at
+    the row's start and end, held bitwise against the plain version
+    chunk by chunk (it is elementwise; whole, it would need several
+    times the memory). Returns the cases run."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    chunk = 1 << 28
+    sp = torch.tensor(LANE_SPECIAL, dtype=torch.float64)
+    csp = torch.tensor(CAST_SPECIAL, dtype=torch.float64)
+
+    def filled(n, dtype, special):
+        buf = torch.empty((1, n + 1), dtype=dtype, device="cuda")
+        buf.normal_(generator=gen)
+        k = len(special)
+        for lo in (0, 1, n + 1 - k):
+            buf[0, lo:lo + k] = special.to(dtype).cuda()
+        return buf
+
+    kernels = {  # operands of a row of n, kernel call, plain call
+        "combine_cast": (lambda n: (filled(n, torch.bfloat16, sp[:, 0]),
+                                    filled(n, torch.bfloat16, sp[:, 1])),
+                         lambda a, b: L.combine_cast(a, b, "sum"),
+                         lambda a, b: L._combine_cast_impl(
+                             a, b, "sum", torch.float32, torch.bfloat16)),
+        "cast": (lambda n: (filled(n, torch.float32, csp),),
+                 lambda x: L.cast(x, torch.bfloat16),
+                 lambda x: L._cast_impl(x, torch.bfloat16)),
+    }
+    cases = []
+    for name, n, paths in LONG_ROWS:
+        make, kernel, plain = kernels[name]
+        bufs = make(n)
+        for path in paths:
+            ops = [buf[:, int(path == "scalar"):][:, :n] for buf in bufs]
+            got = kernel(*ops)
+            if L._launch_shape(*ops, got)[3] != (path == "vector"):
+                raise AssertionError(f"{name} long row: not the {path} "
+                                     "instantiation")
+            for i in range(0, n, chunk):
+                if not same_bits(got[:, i:i + chunk],
+                                 plain(*(t[:, i:i + chunk] for t in ops))):
+                    raise AssertionError(
+                        f"{name} differs from its plain version on a row "
+                        f"of {n} ({path}), elements {i}..")
+            units = n // (8 if path == "vector" else 1)
+            cases.append({"kernel": name, "n": n, "instantiation": path,
+                          "index": "64-bit" if n + 256 > (1 << 31) - 1
+                          else "32-bit",
+                          "grid_stride": -(-units // 256) > 1 << 24})
+            del got
+        del bufs
+        torch.cuda.empty_cache()
+    return cases
 
 
 def lane_kernel_phase(L):
+    """The lane kernels against their plain versions, bitwise (NaN
+    matches NaN): the path's dtypes and shapes, then kernels 8 and 9 over
+    the layouts that choose their instantiation, with the cases counted
+    by instantiation (as the wrapper chose: `_launch_shape` over the
+    operands and the result), and their bounds check."""
+    import itertools
+
     import torch
 
     cases = {name: 0 for name in LANE_KERNELS}
     errs = {name: 0.0 for name in LANE_KERNELS}
-    for name, where, kernel, plain in lane_cases(L):
+    by_path = {name: {"vector": 0, "scalar": 0}
+               for name in ("combine_cast", "cast")}
+    for name, where, ops, kernel, plain in itertools.chain(
+            lane_cases(L), lane_layout_cases(L)):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if not same_bits(got, want):
@@ -957,9 +1216,24 @@ def lane_kernel_phase(L):
                                  f"{where} max|diff|={max_abs_err(got, want)}")
         errs[name] = max(errs[name], max_abs_err(got, want))
         cases[name] += 1
+        if name in by_path:
+            shape = L._launch_shape(*(L._rows(t) for t in (*ops, got)))
+            by_path[name]["vector" if shape[3] else "scalar"] += 1
+    bounds = lane_bounds_check(L)
+    long_row = lane_long_row_check(L)
     for name in LANE_KERNELS:
-        emit({"phase": "lane_kernel", "kernel": name, "cases": cases[name],
-              "bitwise_equal": True, "max_abs_err": errs[name]})
+        row = {"phase": "lane_kernel", "kernel": name, "cases": cases[name],
+               "bitwise_equal": True, "max_abs_err": errs[name]}
+        if name in by_path:
+            if 0 in by_path[name].values():
+                raise AssertionError(f"{name}: an instantiation never ran "
+                                     f"{by_path[name]}")
+            row["cases_by_instantiation"] = by_path[name]
+        emit(row)
+    emit({"phase": "lane_bounds", "cases_by_instantiation": bounds,
+          "written_outside": False, "misaligned_vector_refused": True})
+    emit({"phase": "lane_long_row", "cases": long_row,
+          "bitwise_equal": True})
     return errs
 
 
@@ -1291,7 +1565,9 @@ def lane_shape_calls(L):
 
 
 def lane_breakdown_phase(L):
-    """Each lane kernel at its launch shape: device time with the host
+    """Each lane kernel at its launch shape: first held bitwise against
+    its plain version there (kernels 8 and 9 fold it into one row of
+    13 107 200 and 52 428 800 elements), then device time with the host
     held off, host cost per launch on the host clock, the plain version,
     the PyTorch call computing the same function (which does not flush
     subnormals) and the byte bound. Returns the rows for the kernels
@@ -1301,19 +1577,81 @@ def lane_breakdown_phase(L):
     rows = {}
     for name, (shape, nbytes, kernel, plain, library) in lane_shape_calls(
             L).items():
+        got, want = kernel(), plain()
+        if not same_bits(got, want):
+            raise AssertionError(
+                f"{name} differs from its plain version at its launch shape "
+                f"{shape}: max|diff|={max_abs_err(got, want)}")
+        del got, want
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(200):
             kernel()
         host_ms = (time.perf_counter() - t0) / 200 * 1e3
         torch.cuda.synchronize()
-        rows[name] = {"shape": list(shape), "device_ms": device_ms(kernel),
+        rows[name] = {"shape": list(shape), "bitwise_equal": True,
+                      "device_ms": device_ms(kernel),
                       "host_ms_per_launch": host_ms,
                       "plain_ms": device_ms(plain, count=10),
                       "library_ms": device_ms(library),
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     emit({"phase": "lane_breakdown", **rows})
     return rows
+
+
+def lane_cold_phase(L):
+    """Kernels 8 and 9 with cold operands, at their launch shape on the
+    path and at half of it: each launch takes the next of several operand
+    sets, 268 MB or more in all, and the last results are held so that
+    each launch writes a block of its own, so that it finds its data in
+    device memory and not in the 50 MB L2 (a result block the allocator
+    hands back at once stays partly in L2); device time with the host
+    held off. The fit t = fixed + bytes / rate over the two sizes says
+    whether a launch is held by its fixed cost or by its rate."""
+    import collections
+    import itertools
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13579)
+    n32 = COLL_BYTES // 4
+
+    def bf16(rows, n):
+        return torch.randn((rows, n), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    kernels = {  # shapes, bytes per launch, operand set, call on a set
+        "combine_cast": ([(1, n32), (1, 2 * n32)],
+                         lambda rows, n: 3 * 2 * rows * n,
+                         lambda rows, n: (bf16(rows, n), bf16(rows, n)),
+                         lambda ops: L.combine_cast(*ops, "sum")),
+        "cast": ([(8, n32 // 2), (8, n32)],
+                 lambda rows, n: rows * n * (4 + 2),
+                 lambda rows, n: torch.randn((rows, n), generator=gen,
+                                             device="cuda"),
+                 lambda x: L.cast(x, torch.bfloat16)),
+    }
+    row = {}
+    for name, (shapes, nbytes, make, call) in kernels.items():
+        t, sizes = [], []
+        for rows, n in shapes:
+            b = nbytes(rows, n)
+            sets = [make(rows, n) for _ in range(max(2, -(-268_435_456 // b)))]
+            turn = itertools.cycle(sets)
+            held = collections.deque(maxlen=len(sets))
+            t.append(device_ms(lambda: held.append(call(next(turn)))))
+            sizes.append(b)
+            del sets, turn, held
+        ms_per_byte = (t[1] - t[0]) / (sizes[1] - sizes[0])
+        fixed = t[0] - sizes[0] * ms_per_byte
+        row[name] = {"shapes": shapes, "bytes_per_launch": sizes,
+                     "cold_device_ms": t,
+                     "bound_ms": [b / HBM_BYTES_PER_S * 1e3 for b in sizes],
+                     "rate_TBps": 1e-9 / ms_per_byte,
+                     "fixed_device_ms": fixed,
+                     "fixed_share_path_shape": fixed / t[1]}
+    emit({"phase": "lane_cold", **row})
+    return row
 
 
 def kernel_line(ring, qk, errs, launches, lane_rows):
@@ -1435,6 +1773,7 @@ def main() -> int:
     timed(breakdown_phase, ring)
     timed(quant_breakdown_phase, qk)
     lane_rows = timed(lane_breakdown_phase, L)
+    timed(lane_cold_phase, L)
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, lane_rows)
     print(smi, flush=True)

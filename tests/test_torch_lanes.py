@@ -121,13 +121,17 @@ def test_combine_kernel_plain_matches_pallas(dtype):
         assert_same_bits(lane_kernels.combine(_t(a), _t(b), op), _t(want))
 
 
-@pytest.mark.parametrize("src,out", [(BF16, BF16), (np.float16, np.float16),
-                                     (np.float32, BF16), (BF16, np.float32)],
-                         ids=["bf16", "f16", "f32-to-bf16", "bf16-to-f32"])
+@pytest.mark.parametrize("src,out", [
+    (BF16, BF16), (np.float16, np.float16), (np.float32, BF16),
+    (BF16, np.float32), (np.float32, np.float32), (np.float32, np.float16),
+    (np.float16, np.float32), (np.float16, BF16), (BF16, np.float16),
+], ids=["bf16", "f16", "f32-to-bf16", "bf16-to-f32", "f32-to-f32",
+        "f32-to-f16", "f16-to-f32", "f16-to-bf16", "bf16-to-f16"])
 def test_combine_cast_kernel_plain_matches_pallas(src, out):
     """Kernel 8's plain version against fused_combine_cast_pallas in
-    interpret mode: both operands widened to float32, combined, rounded
-    once to the output dtype."""
+    interpret mode, for every (in, out) pair the kernel takes: both
+    operands widened to float32, combined, rounded once to the output
+    dtype."""
     a, b = _operands(src, n=1000, seed=4)
     out_t = _t(np.zeros(1, out)).dtype
     for op in ("sum", "max"):
@@ -201,3 +205,92 @@ def test_wrappers_use_the_plain_version_only_on_cpu():
         lane_kernels.combine(x, x, "min")
     with pytest.raises(ValueError):
         lane_kernels.combine(x, x.to("meta"), "sum")
+
+
+LANE_DTYPES = [torch.float32, torch.float16, torch.bfloat16]
+LANE_IDS = ["f32", "f16", "bf16"]
+
+
+@pytest.mark.parametrize("dtype", LANE_DTYPES, ids=LANE_IDS)
+@pytest.mark.parametrize("n", [1000, 999, 1], ids=["even", "odd", "one"])
+def test_launch_shape_folds_contiguous_rows(n, dtype):
+    """Rows that lie back to back in every operand launch as one row of
+    rows*n elements, in the vector instantiation (fresh tensors are
+    16-byte aligned), whatever n."""
+    a, b = torch.zeros((5, n), dtype=dtype), torch.ones((5, n), dtype=dtype)
+    res = torch.empty((5, n), dtype=torch.float32)
+    assert lane_kernels._launch_shape(a, b, res) == (1, 5 * n, (5 * n,) * 3,
+                                                     True)
+    assert lane_kernels._launch_shape(a, res) == (1, 5 * n, (5 * n,) * 2,
+                                                  True)
+
+
+@pytest.mark.parametrize("dtype", LANE_DTYPES, ids=LANE_IDS)
+def test_launch_shape_keeps_column_views(dtype):
+    """A column view of a wider buffer keeps its (rows, n) walk and its
+    row strides; one contiguous operand does not fold the others."""
+    buf = torch.zeros((4, 1040), dtype=dtype)
+    view = buf[:, 16:1016]
+    res = torch.empty((4, 1000), dtype=dtype)
+    assert lane_kernels._launch_shape(view, view, res) == (
+        4, 1000, (1040, 1040, 1000), True)
+    odd = torch.zeros((4, 1003), dtype=dtype)[:, :1000]
+    assert lane_kernels._launch_shape(odd, res) == (4, 1000, (1003, 1000),
+                                                    False)
+
+
+@pytest.mark.parametrize("dtype", LANE_DTYPES, ids=LANE_IDS)
+def test_launch_shape_vector_needs_aligned_bases_and_strides(dtype):
+    """The vector instantiation runs only when every base pointer is a
+    16-byte multiple, and so is every row stride in bytes, unless the
+    launch is one row."""
+    item = torch.empty(0, dtype=dtype).element_size()
+    buf = torch.zeros((4, 2048), dtype=dtype)
+    res = torch.empty((4, 1024), dtype=dtype)
+    assert lane_kernels._launch_shape(buf[:, 64:1088], res)[3]
+    for off in (2, 4, 8):  # bytes; a float32 base is never off by 2
+        if off % item:
+            continue
+        lo = 64 + off // item
+        view = buf[:, lo:lo + 1024]
+        assert not lane_kernels._launch_shape(view, res)[3], off
+        assert not lane_kernels._launch_shape(res, view)[3], off
+        assert not lane_kernels._launch_shape(buf[:1, lo:lo + 1024],
+                                              res[:1])[3], off
+    # a row stride of 1025 elements is no 16-byte multiple for any dtype
+    odd = torch.zeros((4, 1025), dtype=dtype)[:, :1024]
+    assert not lane_kernels._launch_shape(odd, res)[3]
+    assert not lane_kernels._launch_shape(res, odd)[3]
+    # one row: the stride is never used, and n need not be a multiple of 8
+    for n in (8 * 7 + 3, 1, 8):
+        one = odd[1:2, :n]  # base 1025 elements in: aligned for no dtype
+        assert lane_kernels._launch_shape(one, res[:1, :n]) == (
+            1, n, (n, n), False)
+        row = buf[1:2, 64:64 + n]  # base 2112 elements in: aligned
+        assert lane_kernels._launch_shape(row, res[:1, :n]) == (
+            1, n, (n, n), True)
+
+
+def test_ring_vector_path_is_the_shared_rule():
+    """ring_allreduce.vector_path(x, out) gives the answer of its own
+    former rule (both bases and both row strides 16-byte multiples, one
+    row or many) over aligned, offset and odd-stride views."""
+    from accl_tpu_torch.ops import ring_allreduce
+
+    def former(x, out):
+        b = x.element_size()
+        return all(v % 16 == 0 for v in (x.data_ptr(), out.data_ptr(),
+                                          x.stride(0) * b, out.stride(0) * b))
+
+    for dtype in (torch.float32, torch.float64, torch.int32, torch.float16,
+                  torch.bfloat16):
+        buf = torch.zeros((8, 2049), dtype=dtype)
+        views = [torch.zeros((8, 1024), dtype=dtype), buf[:, :1024],
+                 buf[:, 1:1025], buf[:1, :1001],
+                 torch.zeros((1, 1001), dtype=dtype),
+                 torch.zeros((8, 2048), dtype=dtype)[:, 8:1032]]
+        for x in views:
+            for out in views:
+                if x.shape == out.shape:
+                    assert ring_allreduce.vector_path(x, out) == former(
+                        x, out), (dtype, x.shape, x.stride(), out.stride())
