@@ -2,7 +2,7 @@
 // rank rows.
 //
 // Replace the Pallas TPU kernels of accl_tpu/ops/pallas_kernels.py:
-//   combine_kernel<T, OP>
+//   lane_walk<Combine<T, OP>, I, VEC>
 //       combine_pallas (_combine_kernel): SUM/MAX of two buffers of one
 //       dtype (f32, f64, i32, i64)
 //   lane_walk<CombineCast<TI, TO, OP>, I, VEC>
@@ -39,40 +39,44 @@
 // many bytes each SM keeps in flight and how few instructions a byte
 // costs.
 //
-// Design of combine_cast and cast (lane_walk). The TPU kernels tiled each
-// buffer into (512, 128) VMEM blocks on a sequential grid; here nothing
-// carries between blocks, so the tiling has nothing to keep.
-//   - A unit is VEC consecutive elements of a row: VEC = 8 in the vector
-//     instantiation (one 16-byte access of a f16/bf16 operand, two of a
-//     f32 one), 1 in the scalar one.
+// Design (lane_walk, all three lanes). The TPU kernels tiled each buffer
+// into (512, 128) VMEM blocks on a sequential grid; here nothing carries
+// between blocks, so the tiling has nothing to keep.
+//   - A unit is VEC consecutive elements of a row, 1 in the scalar
+//     instantiation. In the vector one: 8 for combine_cast and cast (one
+//     16-byte access of a f16/bf16 operand, two of a f32 one), and one
+//     16-byte access of each operand for combine (4 f32/i32, 2 f64/i64).
+//     A thread's accesses of a unit lie back to back, so a warp's access
+//     is dense only when it is the unit's one: combine with 8-element
+//     units (two or four accesses, each warp access touching every
+//     second or fourth 16 bytes) ran at 1.2 and 1.5 TB/s, 2.4x and 1.9x
+//     torch.add (lane_ab.py --ab unit). The cast's f32 loads take the
+//     same two accesses and it still runs at 3.1 TB/s, so the loss is in
+//     the stores (inferred, not profiled); combine_cast's f32 results,
+//     off the timed shapes, are stored that way too.
 //   - A thread takes one unit at a time (neighbouring threads on
 //     neighbouring units), issues every load of it through the read-only
 //     path before it converts or combines any, then stores the unit's
-//     results as one or two 16-byte stores, and strides by the grid. A
-//     thread of the vector instantiation has 32 bytes of loads in flight
-//     and moves 8 elements in 3 memory instructions (kernel 7's walk: 4
-//     bytes, and 2 or 3 instructions an element).
-//   - Each element is computed as narrow<TO>(Lane<float, OP>::apply(
-//     widen(a), widen(b))) (cast: narrow<TO>(widen(x))), element by
-//     element: the one rounding and the flush of the rules above.
+//     results in 16-byte stores, and strides by the grid.
+//   - Each element is computed by the lane's functor: Lane<T, OP>::apply
+//     (combine), narrow<TO>(Lane<float, OP>::apply(widen(a), widen(b)))
+//     (combine_cast), narrow<TO>(widen(x)) (cast), element by element:
+//     the one rounding and the flush of the rules above.
 //   - The wrapper folds rows that lie back to back (every row stride
 //     equal to n) into one row, so the kernel mostly sees one long row;
 //     blockIdx.y walks the rows of true column views.
 //   - Index arithmetic inside a row is 32-bit (I = int) when no index of
 //     the walk can pass INT_MAX (fits_int), else 64-bit; a row's base is
 //     computed once, in 64 bits. The 32-bit walk was measured faster for
-//     combine_cast at the path's shape (lane_index_ab.py).
+//     combine_cast at the path's shape (lane_ab.py --ab index).
 //   - The vector instantiation needs every base pointer, and every row
 //     stride in bytes when there is more than one row, to be a 16-byte
 //     multiple: the wrapper chooses it, and the entry points refuse a
-//     misaligned vector request. The n % 8 elements past a row's last
+//     misaligned vector request. The n % VEC elements past a row's last
 //     whole unit are done one by one by block 0 of that row, in the same
 //     launch.
 //   - The grid is sized from the unit count, capped at kWalkMaxBlocks
 //     (beyond it the loop strides over the grid).
-// combine_kernel (kernel 7) keeps the first design: a grid-stride loop
-// with 64-bit indices, one element per thread per step, blockIdx.y over
-// the rows (FOR_EACH_ELEMENT, grid_for).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -85,9 +89,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;  // over all rows: ~31 per SM on 132 SMs
-// lane_walk: elements of a unit in the vector instantiation and the
-// grid's cap (beyond it: grid-stride)
+// lane_walk: elements of a half lane's unit in the vector instantiation
+// and the grid's cap (beyond it: grid-stride)
 constexpr int kUnit = 8;
 constexpr long long kWalkMaxBlocks = 1LL << 24;
 constexpr float kFltMin = 0x1.0p-126f;
@@ -186,24 +189,7 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// The (row, column) walk of combine_kernel.
-#define FOR_EACH_ELEMENT(rows, n)                                        \
-  for (long long r = blockIdx.y; r < (rows); r += gridDim.y)             \
-    for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + \
-                       threadIdx.x;                                      \
-         j < (n); j += static_cast<long long>(gridDim.x) * blockDim.x)
-
-template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-    combine_kernel(const T* __restrict__ a, long long lda,
-                   const T* __restrict__ b, long long ldb, T* __restrict__ out,
-                   long long ldo, long long rows, long long n) {
-  FOR_EACH_ELEMENT(rows, n) {
-    out[r * ldo + j] = Lane<T, OP>::apply(a[r * lda + j], b[r * ldb + j]);
-  }
-}
-
-// Raw bits of one access of 2, 4 or 16 bytes.
+// Raw bits of one access of 2, 4, 8 or 16 bytes.
 template <int BYTES>
 struct Raw;
 template <>
@@ -213,6 +199,10 @@ struct Raw<2> {
 template <>
 struct Raw<4> {
   using type = unsigned int;
+};
+template <>
+struct Raw<8> {
+  using type = unsigned long long;
 };
 template <>
 struct Raw<16> {
@@ -253,12 +243,23 @@ __device__ __forceinline__ void store(T* p, const Pack<T, VEC>& v) {
   }
 }
 
-// The per-element functions of the walk's two lanes.
+// The per-element functions of the walk's three lanes, each with the
+// elements of its vector unit (kVec).
+template <typename T, int OP>
+struct Combine {
+  using In = T;
+  using Out = T;
+  static constexpr int kInputs = 2;
+  static constexpr int kVec = 16 / sizeof(T);  // one 16-byte access
+  __device__ static T apply(T a, T b) { return Lane<T, OP>::apply(a, b); }
+};
+
 template <typename TI, typename TO, int OP>
 struct CombineCast {
   using In = TI;
   using Out = TO;
   static constexpr int kInputs = 2;
+  static constexpr int kVec = kUnit;
   __device__ static TO apply(TI a, TI b) {
     return narrow<TO>(Lane<float, OP>::apply(widen(a), widen(b)));
   }
@@ -269,6 +270,7 @@ struct Cast {
   using In = TI;
   using Out = TO;
   static constexpr int kInputs = 1;
+  static constexpr int kVec = kUnit;
   __device__ static TO apply(TI x, TI) { return narrow<TO>(widen(x)); }
 };
 
@@ -315,33 +317,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-dim3 grid_for(long long rows, long long n) {
-  const long long y = rows < 65535 ? rows : 65535;
-  long long x = (n + kThreads - 1) / kThreads;
-  long long cap = kMaxBlocks / y;
-  if (cap < 1) cap = 1;
-  if (x > cap) x = cap;
-  return dim3(static_cast<unsigned>(x), static_cast<unsigned>(y));
-}
-
-template <typename T>
-cudaError_t launch_combine(int op, const void* a, long long lda, const void* b,
-                           long long ldb, void* out, long long ldo,
-                           long long rows, long long n, cudaStream_t s) {
-  const T* ap = static_cast<const T*>(a);
-  const T* bp = static_cast<const T*>(b);
-  T* op_ = static_cast<T*>(out);
-  if (op == kSum)
-    combine_kernel<T, kSum><<<grid_for(rows, n), kThreads, 0, s>>>(
-        ap, lda, bp, ldb, op_, ldo, rows, n);
-  else if (op == kMax)
-    combine_kernel<T, kMax><<<grid_for(rows, n), kThreads, 0, s>>>(
-        ap, lda, bp, ldb, op_, ldo, rows, n);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
-}
-
 // Whether every index of a walk over rows of n elements, `units` units,
 // on x blocks a row, fits an int: the last unit a thread reaches plus
 // one grid step, and the last element of the tail.
@@ -354,7 +329,7 @@ cudaError_t walk_as(dim3 grid,
                     const Rows<typename F::In, typename F::Out>& ops,
                     long long rows, I n, int vec, cudaStream_t s) {
   if (vec)
-    lane_walk<F, I, kUnit><<<grid, kThreads, 0, s>>>(ops, rows, n);
+    lane_walk<F, I, F::kVec><<<grid, kThreads, 0, s>>>(ops, rows, n);
   else
     lane_walk<F, I, 1><<<grid, kThreads, 0, s>>>(ops, rows, n);
   return cudaGetLastError();
@@ -366,7 +341,7 @@ template <typename F>
 cudaError_t launch_walk(const Rows<typename F::In, typename F::Out>& ops,
                         long long rows, long long n, int vec,
                         cudaStream_t s) {
-  const long long units = n / (vec ? kUnit : 1);
+  const long long units = n / (vec ? F::kVec : 1);
   const long long y = rows < 65535 ? rows : 65535;
   long long x = (units + kThreads - 1) / kThreads;
   long long cap = kWalkMaxBlocks / y;
@@ -386,6 +361,17 @@ Rows<TI, TO> rows_of(const void* a, long long lda, const void* b,
           {lda, ldb},
           static_cast<TO*>(out),
           ldo};
+}
+
+template <typename T>
+cudaError_t launch_combine(int op, const void* a, long long lda, const void* b,
+                           long long ldb, void* out, long long ldo,
+                           long long rows, long long n, int vec,
+                           cudaStream_t s) {
+  const Rows<T, T> ops = rows_of<T, T>(a, lda, b, ldb, out, ldo);
+  if (op == kSum) return launch_walk<Combine<T, kSum>>(ops, rows, n, vec, s);
+  if (op == kMax) return launch_walk<Combine<T, kMax>>(ops, rows, n, vec, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TI, typename TO>
@@ -429,10 +415,14 @@ cudaError_t launch_cast(const void* x, long long ldx, void* out, long long ldo,
       rows_of<TI, TO>(x, ldx, nullptr, 0, out, ldo), rows, n, vec, s);
 }
 
-// Bytes of an element of a half-lane dtype code; 0 for any other code.
+// Bytes of an element of a lane dtype code; 0 for any other code.
 int lane_bytes(int dtype) {
   switch (dtype) {
+    case kFloat64:
+    case kInt64:
+      return 8;
     case kFloat32:
+    case kInt32:
       return 4;
     case kFloat16:
     case kBFloat16:
@@ -452,29 +442,39 @@ bool aligned16(const void* p, long long ld, int itemsize, long long rows) {
 
 }  // namespace
 
+// vec != 0 takes the 16-byte vector instantiation (the wrapper chooses it
+// when the operands allow it; a misaligned request is refused), 0 the
+// scalar one.
 extern "C" int accl_lane_combine(int dtype, int op, const void* a,
                                  long long lda, const void* b, long long ldb,
                                  void* out, long long ldo, long long rows,
-                                 long long n, void* stream) {
+                                 long long n, int vec, void* stream) {
   if (rows < 1 || n < 1) return cudaErrorInvalidValue;
+  const int bytes = lane_bytes(dtype);
+  if (vec && !(aligned16(a, lda, bytes, rows) &&
+               aligned16(b, ldb, bytes, rows) &&
+               aligned16(out, ldo, bytes, rows)))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch_combine<float>(op, a, lda, b, ldb, out, ldo, rows, n, s);
+      return launch_combine<float>(op, a, lda, b, ldb, out, ldo, rows, n, vec,
+                                   s);
     case kFloat64:
-      return launch_combine<double>(op, a, lda, b, ldb, out, ldo, rows, n, s);
+      return launch_combine<double>(op, a, lda, b, ldb, out, ldo, rows, n,
+                                    vec, s);
     case kInt32:
-      return launch_combine<int32_t>(op, a, lda, b, ldb, out, ldo, rows, n, s);
+      return launch_combine<int32_t>(op, a, lda, b, ldb, out, ldo, rows, n,
+                                     vec, s);
     case kInt64:
-      return launch_combine<int64_t>(op, a, lda, b, ldb, out, ldo, rows, n, s);
+      return launch_combine<int64_t>(op, a, lda, b, ldb, out, ldo, rows, n,
+                                     vec, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// vec != 0 takes the 16-byte vector instantiation (the wrapper chooses it
-// when the operands allow it; a misaligned request is refused), 0 the
-// scalar one.
+// The same vec rule for the two half lanes.
 extern "C" int accl_lane_combine_cast(int in_dtype, int out_dtype, int op,
                                       const void* a, long long lda,
                                       const void* b, long long ldb, void* out,

@@ -7,10 +7,15 @@
 //                             (_fused_dq_combine_kernel, requant=False)
 //   dequant_combine_kernel    fused_dequant_combine_quant_pallas
 //     <REQUANT=true>          (_fused_dq_combine_kernel, requant=True)
+//   quant_ring_kernel         the int8-wire ring allreduce of one card:
+//                             every fused_dequant_combine_quant_pallas
+//                             step of the ring (and its quantize,
+//                             fused_dequant_combine and dequantize
+//                             steps) in closed form
 //
-// Every kernel takes a stacked (rows, n) operand with row strides (one
-// virtual rank per row) and computes per row. A row's n elements are cut
-// into 256-element scale blocks (the last one ragged); codes keep the
+// The four step kernels take a stacked (rows, n) operand with row strides
+// (one virtual rank per row) and compute per row. A row's n elements are
+// cut into 256-element scale blocks (the last one ragged); codes keep the
 // row's length, scales are ceil(n/256) per row.
 //
 // Numerics (the plain versions in accl_tpu_torch/ops/compression.py are
@@ -30,22 +35,49 @@
 //   - MAX is the IEEE maximum of the decoded value and the local operand:
 //     NaN propagates, +0 is above -0 (jnp.maximum).
 //
-// Design. One warp per scale block: each lane holds 8 of the block's 256
-// elements (lane + 32k, so each warp load is 32 neighbouring elements),
-// the block's max-abs is a 5-step shuffle reduction, and lane 0 writes
-// the scale. The TPU kernel held 256 blocks per grid step in VMEM; here a
-// 256-thread CTA holds 8 blocks and there are ceil(rows*nb/8) CTAs, so a
-// (8, 131072) ring chunk fills the card with 512 CTAs. The fused ring
-// step keeps the decoded, combined block in registers between the
-// combine and the re-encode: one read of each input, one write of each
-// output.
+// Design of the step kernels. One warp per scale block: each lane holds 8
+// of the block's 256 elements (lane + 32k, so each warp load is 32
+// neighbouring elements), the block's max-abs is a 5-step shuffle
+// reduction, and lane 0 writes the scale. The TPU kernel held 256 blocks
+// per grid step in VMEM; here a 256-thread CTA holds 8 blocks and there
+// are ceil(rows*nb/8) CTAs, so a (8, 131072) ring chunk fills the card
+// with 512 CTAs. The fused ring step keeps the decoded, combined block in
+// registers between the combine and the re-encode: one read of each
+// input, one write of each output.
 //
-// Bound: bytes. Per row, quantize reads 4n and writes n + 4*nb bytes;
-// dequantize reads n + 4*nb and writes 4n; the fused combine reads
-// n + 4*nb + 4n and writes 4n; the fused requantize reads n + 4*nb + 4n
-// and writes n + 4*nb. At the main path's (8, 131072) shape each moves
-// 5-9 MB, a few microseconds at 3.35 TB/s, so a launch is dominated by
-// its fixed cost; vector loads and fusing launches are later work.
+// Bound of the step kernels: bytes. Per row, quantize reads 4n and writes
+// n + 4*nb bytes; dequantize reads n + 4*nb and writes 4n; the fused
+// combine reads n + 4*nb + 4n and writes 4n; the fused requantize reads
+// n + 4*nb + 4n and writes n + 4*nb. At (8, 131072) each moves 5-9 MB, a
+// few microseconds at 3.35 TB/s, so a launch is dominated by its fixed
+// cost, and the ring runs 2W+1 of them a segment with torch ops between.
+//
+// Design of quant_ring_kernel. On one card every rank's rows lie in one
+// memory, and the ring's order alone fixes chunk c's result: rank c+1
+// encodes its copy of chunk c, ranks c+2 .. c+W-1 each decode, combine
+// their copy and re-encode (the interior step), rank c decodes and
+// combines its copy to fp32 (the terminal step), and the allgather
+// encodes that once and every rank decodes the same codes. A segment of
+// the ring (seg_len columns, zero-padded to W chunks of m) is cut into
+// 256-element scale blocks from each chunk's start, as the ring blocks
+// each chunk; one warp takes one (segment, chunk, block) and runs the
+// whole chain in registers: it loads the block from the W rank rows in
+// ring order, issuing the next row's load before the current step's
+// arithmetic, keeps codes and scale as register values (they never reach
+// memory), and stores the decoded result to all W output rows. The steps
+// are the step kernels' own device functions, so the chain is bitwise
+// the ring's. Columns of the padded segment past seg_len read as 0.0 and
+// are never stored (a zero does not move a block's max, and a block whose
+// scale is not finite decodes to NaN everywhere either way). One launch
+// covers any number of equal segments (the segment index is on the grid);
+// a ragged last segment takes a second launch. A lane of the vector
+// instantiation holds two float4 of its block (lane*4 + 128k), so every
+// row access is 16 bytes; it needs seg_len, m, both row strides and both
+// bases to be 4-element multiples (16 bytes), and the entry point refuses
+// a vector request otherwise. Bound: bytes, 2*W*seg_len*4 a segment (each
+// rank row read once, each output row written once), the exact ring
+// kernel's; the W correctly rounded divides an element costs are ~10x
+// below it on the card's fp32 rate.
 
 #include <cuda_runtime.h>
 
@@ -206,6 +238,120 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// One (segment, chunk, block) of the closed-form ring: where it lies and
+// the lane's elements. The scalar lane holds elements lane + 32k of the
+// block, the vector lane the float4s at lane*4 + 128k.
+template <bool VEC>
+struct RingBlock {
+  static constexpr int kGroups = VEC ? 2 : kPerLane;  // a lane's accesses a row
+  long long col;  // the block's first column in a row
+  int live;       // columns of the block that hold real elements
+
+  __device__ __forceinline__ int offset(int g, int lane) const {
+    return VEC ? g * 128 + lane * 4 : g * 32 + lane;
+  }
+  // Row `row`'s block into v; columns past `live` read as 0.0.
+  __device__ __forceinline__ void load(const float* row, int lane,
+                                       float (&v)[kPerLane]) const {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int j = offset(g, lane);
+      if constexpr (VEC) {
+        float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (j < live) f = __ldg(reinterpret_cast<const float4*>(row + col + j));
+        v[4 * g] = f.x;
+        v[4 * g + 1] = f.y;
+        v[4 * g + 2] = f.z;
+        v[4 * g + 3] = f.w;
+      } else {
+        v[g] = j < live ? __ldg(row + col + j) : 0.0f;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float* row, int lane,
+                                        const float (&v)[kPerLane]) const {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int j = offset(g, lane);
+      if (j >= live) continue;
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(row + col + j) =
+            make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+      } else {
+        row[col + j] = v[g];
+      }
+    }
+  }
+};
+
+// The int8-wire ring allreduce of `segs` segments of seg_len columns
+// each, over `world` rank rows: x (world rows, ld_x apart) -> out (world
+// rows, ld_out apart), every output row the same. A warp per (segment,
+// chunk c, 256-element block of the chunk).
+template <int OP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    quant_ring_kernel(const float* __restrict__ x, long long ld_x,
+                      float* __restrict__ out, long long ld_out, int world,
+                      long long segs, long long seg_len, long long m,
+                      long long nb) {
+  const long long g = static_cast<long long>(blockIdx.x) * kWarps +
+                      threadIdx.x / 32;
+  if (g >= segs * world * nb) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const long long seg = g / (world * nb);
+  const int c = static_cast<int>(g / nb % world);
+  const long long b = g % nb;
+  RingBlock<VEC> blk;
+  const long long in_seg = c * m + b * kBlock;  // the block's first column
+  blk.col = seg * seg_len + in_seg;
+  long long live = m - b * kBlock;  // the chunk's end
+  if (seg_len - in_seg < live) live = seg_len - in_seg;  // the count's end
+  if (live <= 0) return;  // a block wholly in the padding: nothing to store
+  blk.live = live < kBlock ? static_cast<int>(live) : kBlock;
+
+  float v[kPerLane], next[kPerLane];
+  blk.load(x + ((c + 1) % world) * ld_x, lane, v);
+  if (world > 1) {
+    blk.load(x + ((c + 2) % world) * ld_x, lane, next);
+    // rank c+1 encodes its copy of chunk c
+    float code[kPerLane];
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) v[k] = flush(v[k]);
+    float scale = block_scale(v);
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) code[k] = encode(v[k], scale);
+    // ranks c+2 .. c+W-1 decode, combine and re-encode; rank c (r == W)
+    // decodes and combines to fp32
+    for (int r = 2; r <= world; ++r) {
+      float loc[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) loc[k] = flush(next[k]);
+      if (r < world) blk.load(x + ((c + r + 1) % world) * ld_x, lane, next);
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        if constexpr (OP == kSum) {
+          v[k] = flush(__fmaf_rn(code[k], scale, loc[k]));
+        } else {
+          v[k] = max_ieee(__fmul_rn(code[k], scale), loc[k]);
+        }
+      }
+      if (r < world) {
+        scale = block_scale(v);
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) code[k] = encode(v[k], scale);
+      }
+    }
+  }
+  // the allgather: one encode of the fp32 chunk, decoded by every rank
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) v[k] = flush(v[k]);
+  const float scale = block_scale(v);
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k)
+    v[k] = __fmul_rn(static_cast<float>(encode(v[k], scale)), scale);
+  for (int r = 0; r < world; ++r) blk.store(out + r * ld_out, lane, v);
+}
+
 inline unsigned grid_for(long long rows, long long nb) {
   return static_cast<unsigned>((rows * nb + kWarps - 1) / kWarps);
 }
@@ -294,6 +440,41 @@ extern "C" int accl_dequant_combine_requant(
       ld_s, static_cast<const float*>(local), ld_l, nullptr, 0,
       static_cast<int8_t*>(q_out), ld_qo, static_cast<float*>(s_out), ld_so,
       rows, n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int accl_quant_ring(int op, const void* x, long long ld_x,
+                               void* out, long long ld_out, int world,
+                               long long segs, long long seg_len, int vec,
+                               void* stream) {
+  if (world < 1 || segs < 1 || seg_len < 1) return cudaErrorInvalidValue;
+  const long long m = (seg_len + world - 1) / world;
+  const long long nb = blocks_of(m);
+  if (vec && !(reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+               reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+               (world == 1 || (ld_x % 4 == 0 && ld_out % 4 == 0)) &&
+               seg_len % 4 == 0 && m % 4 == 0))
+    return cudaErrorInvalidValue;
+  const long long warps = segs * world * nb;
+  const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  float* op_ = static_cast<float*>(out);
+#define ACCL_RING(OP, V)                                                   \
+  quant_ring_kernel<OP, V><<<grid, kThreads, 0, s>>>(xp, ld_x, op_, ld_out, \
+                                                     world, segs, seg_len, \
+                                                     m, nb)
+  if (op == kSum && vec)
+    ACCL_RING(kSum, true);
+  else if (op == kSum)
+    ACCL_RING(kSum, false);
+  else if (op == kMax && vec)
+    ACCL_RING(kMax, true);
+  else if (op == kMax)
+    ACCL_RING(kMax, false);
+  else
+    return cudaErrorInvalidValue;
+#undef ACCL_RING
+  return cudaGetLastError();
 }
 
 extern "C" const char* accl_quant_error_string(int code) {

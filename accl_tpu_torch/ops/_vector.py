@@ -1,8 +1,8 @@
 """The 16-byte vector rule of the hand-written kernels.
 
 A kernel with a vector instantiation (the ring kernels of
-csrc/ring_allreduce.cu, the combine+cast and cast lanes of csrc/lanes.cu)
-moves 16 bytes of a row in one access. That needs every operand's base
+csrc/ring_allreduce.cu, the three lanes of csrc/lanes.cu, the closed-form
+int8 ring of csrc/quant_wire.cu) moves 16 bytes of a row in one access. That needs every operand's base
 pointer, and every row stride in bytes that the launch uses, to be a
 multiple of 16; the wrapper checks it here and the kernel's entry point
 refuses a vector request that breaks it.

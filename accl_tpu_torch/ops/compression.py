@@ -242,3 +242,34 @@ def _dequant_combine_impl(q, scales, local, func_op: str) -> torch.Tensor:
 def _dequant_combine_requant_impl(q, scales, local, func_op: str):
     return _encode_rule(
         _dequant_combine_impl(q, scales, local.to(torch.float32), func_op))
+
+
+def _quant_ring_impl(x: torch.Tensor, world: int, func_op: str,
+                     seg_count: int) -> torch.Tensor:
+    """The int8-wire ring allreduce of (world, count) fp32 rows in closed
+    form, per seg_count-column segment (the last one ragged): the
+    segment is zero-padded to world chunks of m; chunk c is encoded from
+    rank c+1's copy, combined and re-encoded at ranks c+2 .. c+W-1 (the
+    fused interior step), combined to fp32 at rank c (the terminal step),
+    and every rank receives decode(encode(.)) of that (the allgather).
+    The same steps in the same order as the ring's hops, so bitwise equal
+    to schedules.allreduce_ring_schedule on the int8 wire."""
+    count = x.shape[-1]
+    c = torch.arange(world, device=x.device)
+    outs = []
+    for lo in range(0, count, seg_count):
+        seg = x[:, lo:lo + seg_count]
+        n = seg.shape[-1]
+        m = -(-n // world)
+        xs = torch.nn.functional.pad(seg, (0, world * m - n)).reshape(
+            world, world, m)  # [rank, chunk]
+        red = xs[(c + 1) % world, c]  # chunk-major: row c is chunk c
+        if world > 1:
+            enc = _quantize_impl(red)
+            for k in range(2, world):
+                enc = _dequant_combine_requant_impl(
+                    *enc, xs[(c + k) % world, c], func_op)
+            red = _dequant_combine_impl(*enc, xs[c, c], func_op)
+        res = _dequantize_impl(*_quantize_impl(red))
+        outs.append(res.reshape(1, world * m)[:, :n].expand(world, n))
+    return torch.cat(outs, dim=-1)

@@ -15,10 +15,10 @@ All three are one CUDA source, csrc/lanes.cu, whose header states the
 design and the bound (bytes). Each takes stacked (rows, n) operands, one
 virtual rank per row (any leading shape is flattened into rows; rows may
 be a column slice of a wider buffer: only unit stride within a row is
-required), and makes one launch for every row. combine_cast and cast
-fold rows that lie back to back into one long row and take their
-16-byte vector instantiation when the operands' alignment allows it
-(`_launch_shape`), else the scalar one. A wrapper launches the kernel
+required), and makes one launch for every row. Each folds rows that
+lie back to back into one long row and takes its 16-byte vector
+instantiation when the operands' alignment allows it (`_launch_shape`),
+else the scalar one. A wrapper launches the kernel
 for a CUDA tensor and runs the plain version (`_*_impl` below, the
 numeric contract) only for a CPU tensor. Each wrapper counts its
 launches in a plain integer attribute, `launches`.
@@ -57,8 +57,9 @@ HALF_DTYPES = (torch.float16, torch.bfloat16)
 COMBINE_CAST_DTYPES = (torch.float32, *HALF_DTYPES)
 CAST_PAIRS = ((torch.float32, torch.float16), (torch.float16, torch.float32),
               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
-# DataType codes of the half lanes' dtypes, as the C entry points take them
-_CODES = {d: int(from_torch_dtype(d)) for d in COMBINE_CAST_DTYPES}
+# DataType codes of the lanes' dtypes, as the C entry points take them
+_CODES = {d: int(from_torch_dtype(d))
+          for d in (*COMBINE_DTYPES, *HALF_DTYPES)}
 
 
 # -- the numeric rules (also the int8 wire's: ops/compression.py) ----------
@@ -118,8 +119,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from csrc/lanes.cu."""
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     sigs = {
-        # dtype, op, a, ld, b, ld, out, ld, rows, n, stream
-        "accl_lane_combine": [i, i, p, ll, p, ll, p, ll, ll, ll, p],
+        # dtype, op, a, ld, b, ld, out, ld, rows, n, vec, stream
+        "accl_lane_combine": [i, i, p, ll, p, ll, p, ll, ll, ll, i, p],
         # in dtype, out dtype, op, a, ld, b, ld, out, ld, rows, n, vec,
         # stream
         "accl_lane_combine_cast": [i, i, i, p, ll, p, ll, p, ll, ll, ll, i,
@@ -180,7 +181,7 @@ def _pair(a: torch.Tensor, b: torch.Tensor, dtypes, what: str):
 
 
 def _launch_shape(*tensors: torch.Tensor):
-    """The launch of combine_cast or cast over (rows, n) operands with
+    """The launch of a lane kernel over (rows, n) operands with
     unit-stride rows (inputs and output): (rows, n, row strides, vector
     flag). When every operand's rows lie back to back (each row stride
     equal to n), the rows fold into one row of rows*n elements; column
@@ -216,16 +217,14 @@ def combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
         return _combine_impl(a, b, op)
     code = _op(op)
     a2, b2 = _pair(a, b, COMBINE_DTYPES, "combine")
-    rows, n = a2.shape
-    out = torch.empty((rows, n), dtype=a.dtype, device=a.device)
-    lib = _library()
+    res = torch.empty(a2.shape, dtype=a.dtype, device=a.device)
+    rows, n, (lda, ldb, ldo), vec = _launch_shape(a2, b2, res)
     with torch.cuda.device(a.device):
-        _launch("combine", lib.accl_lane_combine,
-                int(from_torch_dtype(a.dtype)), code, a2.data_ptr(),
-                a2.stride(0), b2.data_ptr(), b2.stride(0), out.data_ptr(),
-                out.stride(0), rows, n, _stream(a))
+        _launch("combine", _entry("accl_lane_combine"), _CODES[a.dtype],
+                code, a2.data_ptr(), lda, b2.data_ptr(), ldb, res.data_ptr(),
+                ldo, rows, n, int(vec), _stream(a))
     combine.launches += 1  # type: ignore[attr-defined]
-    return out.reshape(a.shape)
+    return res.reshape(a.shape)
 
 
 def combine_cast(a: torch.Tensor, b: torch.Tensor, op: str,

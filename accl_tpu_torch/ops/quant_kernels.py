@@ -6,15 +6,20 @@ Counterpart of the quantized half of accl_tpu/ops/pallas_kernels.py:
   dequantize               replaces dequantize_pallas
   dequant_combine          replaces fused_dequant_combine_pallas
   dequant_combine_requant  replaces fused_dequant_combine_quant_pallas
+  quant_ring_allreduce     the int8-wire ring allreduce on one card: every
+                           fused_dequant_combine_quant_pallas step of the
+                           ring, with its quantize, terminal combine and
+                           allgather dequantize, in closed form
 
-All four are one CUDA source, csrc/quant_wire.cu, whose header states the
-design and the bound (bytes). Each takes a stacked (rows, n) operand, one
-virtual rank per row (any leading shape is flattened into rows; rows may
-be a column slice of a wider buffer: only unit stride within a row is
-required), and computes per row. A wrapper launches the kernel for a
-CUDA tensor and runs the plain version (`_*_impl` in ops/compression.py,
-the numeric contract) only for a CPU tensor. Each wrapper counts its
-launches in a plain integer attribute, `launches`.
+All five are one CUDA source, csrc/quant_wire.cu, whose header states the
+design and the bound (bytes). The four step kernels take a stacked (rows,
+n) operand, one virtual rank per row (any leading shape is flattened into
+rows; rows may be a column slice of a wider buffer: only unit stride
+within a row is required), and compute per row; quant_ring_allreduce
+takes the (world, count) rank rows of one allreduce. A wrapper launches
+the kernel for a CUDA tensor and runs the plain version (`_*_impl` in
+ops/compression.py, the numeric contract) only for a CPU tensor. Each
+wrapper counts its launches in a plain integer attribute, `launches`.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ import ctypes
 
 import torch
 
+from ._vector import vector_path
 from .compression import (
     _dequant_combine_impl,
     _dequant_combine_requant_impl,
     _dequantize_impl,
+    _quant_ring_impl,
     _quantize_impl,
     quant_num_blocks,
 )
@@ -52,6 +59,9 @@ def _library() -> ctypes.CDLL:
             # stream
             "accl_dequant_combine_requant": [ctypes.c_int, p, ll, p, ll, p,
                                              ll, p, ll, p, ll, ll, ll, p],
+            # op, x, ld, out, ld, world, segs, seg_len, vec, stream
+            "accl_quant_ring": [ctypes.c_int, p, ll, p, ll, ctypes.c_int, ll,
+                                ll, ctypes.c_int, p],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -202,7 +212,69 @@ def dequant_combine_requant(q: torch.Tensor, scales: torch.Tensor,
     return q_out.reshape(*lead, n), s_out.reshape(*lead, nb)
 
 
+def ring_launches(x: torch.Tensor, out: torch.Tensor, world: int,
+                  seg_count: int):
+    """The launches of quant_ring_allreduce over (world, count) rows x into
+    out: (first column, segments, columns a segment, vector flag) for the
+    full segments of seg_count columns and for the ragged last one (the
+    plan's segmentation, which fixes the blocking). The 16-byte vector
+    instantiation needs both operands' bases and row strides
+    (`vector_path`), the segment length and its chunk length to be
+    4-element multiples."""
+    count = x.shape[-1]
+    full, rest = divmod(count, seg_count)
+    launches = []
+    for lo, segs, n in ((0, full, seg_count), (full * seg_count, 1, rest)):
+        if not (segs and n):
+            continue
+        m = -(-n // world)
+        vec = (n % 4 == 0 and m % 4 == 0
+               and vector_path(x[:, lo:], out[:, lo:], one_row=world == 1))
+        launches.append((lo, segs, n, vec))
+    return launches
+
+
+def quant_ring_allreduce(x: torch.Tensor, world: int, func_op: str,
+                         seg_count: int,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """The int8-wire ring allreduce of (world, count) fp32 rank rows, per
+    seg_count-column segment, in closed form (`_quant_ring_impl`): every
+    row of the result is the same. At most two launches: the full
+    segments, then the ragged last one, each writing its column view of
+    one result (`out`, a (world, count) fp32 view with unit-stride rows,
+    when given)."""
+    if x.dim() != 2 or x.shape[0] != world:
+        raise ValueError(f"rank rows of shape {tuple(x.shape)} for world "
+                         f"{world}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the int8-wire ring takes float32, got {x.dtype}")
+    if seg_count < 1 or not x.shape[-1]:
+        raise ValueError(f"{x.shape[-1]} columns in segments of {seg_count}")
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
+                            or out.stride(-1) != 1):
+        raise ValueError(f"out= {tuple(out.shape)} {out.dtype} stride "
+                         f"{out.stride()} for {tuple(x.shape)} float32 rows")
+    op = _op(func_op)
+    if _on_cpu(x, *(() if out is None else (out,))):
+        res = _quant_ring_impl(x, world, func_op, seg_count)
+        return res if out is None else out.copy_(res)
+    x2 = _rows(x, torch.float32, "the rank rows")
+    if out is None:
+        out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        for lo, segs, n, vec in ring_launches(x2, out, world, seg_count):
+            xs, os_ = x2[:, lo:], out[:, lo:]
+            err = lib.accl_quant_ring(op, xs.data_ptr(), xs.stride(0),
+                                      os_.data_ptr(), os_.stride(0), world,
+                                      segs, n, int(vec), _stream(x))
+            _check(err, lib, "quant_ring_allreduce")
+            quant_ring_allreduce.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
 quantize.launches = 0  # type: ignore[attr-defined]
 dequantize.launches = 0  # type: ignore[attr-defined]
 dequant_combine.launches = 0  # type: ignore[attr-defined]
 dequant_combine_requant.launches = 0  # type: ignore[attr-defined]
+quant_ring_allreduce.launches = 0  # type: ignore[attr-defined]

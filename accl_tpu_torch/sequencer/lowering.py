@@ -9,8 +9,10 @@ the reference's schedule for its plan. The allreduce branch picks one of
 the reference's two ring bodies: the torch-op ring over `Wire`
 (schedules.allreduce_ring_schedule), or — on the card — the fused ring
 kernel per 4 MiB segment, double-slotted like the reference's. The
-blockwise-int8 wire always takes the torch-op ring, per plan segment:
-its per-hop quantize / fused combine steps are kernels of their own.
+blockwise-int8 wire takes, on the card, the closed-form quantized ring
+kernel over the plan's segments (ops/quant_kernels.quant_ring_allreduce),
+and off it the torch-op ring, per plan segment, whose per-hop quantize /
+fused combine steps are kernels of their own.
 """
 
 from __future__ import annotations
@@ -233,10 +235,17 @@ class ScheduleCompiler:
             and options.compression_flags & CompressionFlags.ETH_COMPRESSED
             and wire_dtype(arithcfg) is not None
         )
+        if self.use_ring_kernel and wire.quantized:
+            # the blockwise-int8 wire: the whole quantized ring of every
+            # plan segment in closed form, one result for the call
+            from ..ops.quant_kernels import quant_ring_allreduce
+
+            return functools.partial(
+                quant_ring_allreduce, world=world,
+                func_op=schedules.quant_op(func), seg_count=plan.seg_count)
         # per-hop compression with uncompressed-domain arithmetic cannot be
-        # fused into the single-dtype ring kernel; this also routes the
-        # blockwise-int8 wire (whose hops carry a scale side-channel) to
-        # the quantized torch-op ring, where the quant_wire kernels run
+        # fused into the single-dtype ring kernel: the torch-op ring (also
+        # the int8 wire's off the card, the reference's schedule hop by hop)
         if not (self.use_ring_kernel and (not eth_active or compressed_domain)):
             return functools.partial(
                 schedules.allreduce_ring_schedule,

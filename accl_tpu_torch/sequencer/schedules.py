@@ -155,16 +155,17 @@ class Wire:
         """Fused dequantize -> reduce (terminal ring hop): fp32
         accumulation of an encoded arrival against the local operand."""
         q, s = enc
-        return dequant_combine(q, s, local, _quant_op(func))
+        return dequant_combine(q, s, local, quant_op(func))
 
     def combine_requant(self, func: ReduceFunction, enc, local: torch.Tensor):
         """Fused dequantize -> reduce -> requantize (interior ring step):
         only (codes, scales) travel to the next hop."""
         q, s = enc
-        return dequant_combine_requant(q, s, local, _quant_op(func))
+        return dequant_combine_requant(q, s, local, quant_op(func))
 
 
-def _quant_op(func: ReduceFunction) -> str:
+def quant_op(func: ReduceFunction) -> str:
+    """The quantized kernels' name of a reduce function."""
     return "sum" if func == ReduceFunction.SUM else "max"
 
 

@@ -26,48 +26,63 @@ What it does, in order, printing one JSON object per line:
      and 25 MiB results also bitwise against the port's plain kernel path
      on the CPU, and the bidirectional kernel's launch count against the
      expected segment count; one host-staged call timed on its own;
-  4. quantized kernel phase: the four blockwise-int8 kernels against their
-     plain versions on the card, bitwise (NaN matches NaN), over rows
-     {1, 2, 5, 8} x n {1, 32, 255, 257, 4099, 131072}, SUM and MAX for the
-     fused pair, with all-zero, negative-rail, 1e-39, NaN and Inf blocks;
-  5. quantized facade phase (the int8-wire path):
-     ACCL.allreduce(..., compress_dtype=int8) on the card, from_device/
-     to_device: W=8 with a 4 MiB eager buffer, fp32 SUM at 1 MiB and
-     25 MiB and MAX at 1 MiB per rank, W=5 with 1000003 elements, and
-     W=8 at 64 KiB with the default 1 KiB buffer (64 segments); every rank
-     identical, each result within W quantization passes of the float64
-     reduction (W*M*(1+W/254)/254 + (W-1)*u*sum|x_i|, M the segment's
-     max of sum|x_i|), the 1 MiB and 25 MiB results bitwise against the
-     port's CPU run, each kernel's launch count against its expected
-     count per segment (2 quantize, W dequantize, W-2 requantize, 1
-     combine);
+  4. quantized kernel phase: the four blockwise-int8 step kernels
+     against their plain versions on the card, bitwise (NaN matches
+     NaN), over rows {1, 2, 5, 8} x n {1, 32, 255, 257, 4099, 131072},
+     SUM and MAX for the fused pair, with all-zero, negative-rail,
+     1e-39, NaN and Inf blocks; then the closed-form int8 ring allreduce
+     against its plain version and against the torch-op quantized ring
+     (the step kernels hop by hop) on the card, bitwise, over worlds
+     {1, 2, 3, 5, 7, 8} x per-rank counts {1, 31, 255, 257, 4099, 1<<20}
+     x two eager buffers each (ragged last segments, chunk lengths that
+     are no multiple of 4 or 256) x SUM and MAX x special-valued blocks
+     (all-zero, signed zeros, 1e-39, NaN, +-Inf, the +-127 rail), then
+     aligned and odd-stride column views as operand and out= (its
+     vector and scalar launches counted), and a misaligned vector
+     request refused;
+  5. int8-wire path: ACCL.allreduce(..., compress_dtype=int8) on the
+     card, from_device/to_device: W=8 with a 4 MiB eager buffer, fp32
+     SUM at 1 MiB and 25 MiB and MAX at 1 MiB per rank, W=5 with 1000003
+     elements, and W=8 at 64 KiB with the default 1 KiB buffer (64
+     segments); every rank identical, each result within W quantization
+     passes of the float64 reduction (W*M*(1+W/254)/254 +
+     (W-1)*u*sum|x_i|, M the segment's max of sum|x_i|), the 1 MiB and
+     25 MiB results bitwise against the port's CPU run (the torch-op
+     ring), one or two launches of the closed-form ring a call and none
+     of the step kernels; then the int8-wire reduce, reduce_scatter,
+     allgather, gather, scatter and bcast at W=8 (25 MiB and 1 MiB),
+     bitwise against the port's CPU run, each call's step-kernel
+     launches against its plan;
   6. timings: per facade size, medians of 20 runs timed with CUDA events
      of the whole call, the kernel alone over the same segments, the plain
      version, and the one PyTorch call computing the same function
      (a yardstick only, never called by the port), beside the bound; the
      int8-wire facade at 25 MiB beside the exact wire, and one int8 call
      under torch.profiler (device busy time and idle share, the costliest
-     host operations); then a breakdown of a ring launch into fixed
-     device cost, the rate over its 2*W*n*itemsize bytes and host-side
-     wrapper cost, and of a quantized launch into device time and host
-     cost;
+     host operations, its launches); the fp16 and bf16 wires with fp32
+     arithmetic (the torch-op ring) at 25 MiB the same way; then a
+     breakdown of a ring launch into fixed device cost, the rate over its
+     2*W*n*itemsize bytes and host-side wrapper cost, of a quantized
+     launch into device time and host cost, and of the closed-form int8
+     ring at (8, 1 048 576) (device and host time, the torch-op ring it
+     replaces, a cold two-size fit);
   7. lane kernel phase: the three lane kernels (combine, combine_cast,
      cast) against their plain versions on the card, bitwise (NaN
      matches NaN), over rows {1, 2, 5, 8} x n {1, 127, 128, 129, 4099,
      1<<20}, every dtype and op of their path and every (in, out) pair
      of combine_cast, with signed zeros in both orders, subnormals of
-     every width, NaN, +-Inf, fp16 overflow and int32 wrap; then
-     combine_cast and cast over the layouts that choose their 16-byte
-     vector or scalar instantiation (aligned and odd-stride column
-     views, also of 70 000 rows, more than grid.y's 65 535; bases 2 and
-     4 bytes off; one row with a ragged tail; contiguous rows with odd
-     n), with the cases of each instantiation counted; their C entry
-     points writing into views of sentinel-filled buffers (nothing
-     outside written, a misaligned vector request refused); and both
-     over one row of 2^31 + 3 elements, which takes the walk's 64-bit
-     index, and cast over one of 2^32 + 5 (scalar), which strides over
-     its grid; the ring kernel phase (2) carries the subnormal and
-     signed-zero columns as well;
+     every width, NaN, +-Inf, fp16 overflow and int32 wrap; then all
+     three over the layouts that choose their 16-byte vector or scalar
+     instantiation (aligned and odd-stride column views, also of 70 000
+     rows, more than grid.y's 65 535; bases 2, 4 and 8 bytes off; one
+     row with a ragged tail; contiguous rows with odd n), with the cases
+     of each instantiation counted; their C entry points writing into
+     views of sentinel-filled buffers (nothing outside written, a
+     misaligned vector request refused); and each over one row of
+     2^31 + 3 elements, which takes the walk's 64-bit index, and cast
+     over one of 2^32 + 5 (scalar), which strides over its grid; the
+     ring kernel phase (2) carries the subnormal and signed-zero columns
+     as well;
   8. collectives phase (the one-call collectives' path): ACCL(world=8)
      reduce, reduce_scatter, allgather, gather, scatter, bcast and
      combine at 25 MiB of fp32 (the whole buffer as nccl-tests sizes it),
@@ -81,8 +96,9 @@ What it does, in order, printing one JSON object per line:
      nccl-tests bus bandwidth, and a breakdown of each lane kernel at its
      launch shape (held bitwise against its plain version there, then
      device time, host cost per launch, bound, the PyTorch call
-     computing the same function); then combine_cast and cast with
-     cold operands at two sizes, fitted to a fixed cost plus a rate;
+     computing the same function; combine over float64 as well); then
+     the three with cold operands at two sizes, fitted to a fixed cost
+     plus a rate;
   9. the kernels line; last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -109,6 +125,10 @@ QUANT_KERNELS = {
     "dequant_combine": "accl_tpu/ops/pallas_kernels.py:353",
     "dequant_combine_requant": "accl_tpu/ops/pallas_kernels.py:362",
 }
+# the closed-form int8 ring allreduce: the int8 allreduce's counterpart of
+# the fused interior ring step (and of its quantize, terminal combine and
+# allgather dequantize), on row 3's route
+QUANT_RING = ("quant_ring_allreduce", "accl_tpu/ops/pallas_kernels.py:362")
 # the three lane kernels and the TPU kernels they replace
 LANE_KERNELS = {
     "combine": "accl_tpu/ops/pallas_kernels.py:80",
@@ -681,10 +701,17 @@ def check_quant_bound(out, x, func, seg: int) -> float:
     return worst
 
 
+def ring_launch_count(count: int, seg: int) -> int:
+    """Launches of the closed-form int8 ring for one call: one for the
+    full segments, one for a ragged last one."""
+    return int(count >= seg) + int(count % seg != 0)
+
+
 def quant_facade_phase(qk, ring):
-    """The int8-wire path through the facade. Returns the kernels' launch
-    counts over this path's run and the W=8 facade with its 25 MiB
-    buffers."""
+    """The int8-wire allreduce through the facade: the closed-form ring
+    kernel, at most two launches a call, none of the four step kernels
+    and no exact ring kernel. Returns its launch count over this path's
+    run and the W=8 facade with its 25 MiB buffers."""
     import torch
 
     from accl_tpu_torch import ACCL, DataType
@@ -702,47 +729,43 @@ def quant_facade_phase(qk, ring):
         ("w5", 1_000_003, ReduceFunction.SUM, False),
         ("w8_default_buf", 64 * 1024 // 4, ReduceFunction.SUM, False),
     ]
-    kernels = {name: getattr(qk, name) for name in QUANT_KERNELS}
-    for k in kernels.values():
+    steps = {name: getattr(qk, name) for name in QUANT_KERNELS}
+    kernel = qk.quant_ring_allreduce
+    for k in (*steps.values(), kernel):
         k.launches = 0
     ring.ring_allreduce_bidir.launches = 0
     ring.ring_allreduce.launches = 0
-    expected = {name: 0 for name in kernels}
+    expected = 0
     kept = None
     for key, count, func, vs_cpu in cases:
         accl = accls[key]
         world = accl.world
         buf = accl.cclo.eager_rx_buf_size
-        seg = buf // 4 - (buf // 4) % world
+        seg = ring_seg(world, buf)
         segs = math.ceil(count / seg)
         x = rank_data(world, count, torch.float32, gen)
         sb = accl.create_buffer(count)
         rb = accl.create_buffer(count)
         sb.device.copy_(x)
-        before = {name: k.launches for name, k in kernels.items()}
+        before = kernel.launches
         req = accl.allreduce(sb, rb, count, func, from_device=True,
                              to_device=True, compress_dtype=DataType.int8)
         torch.cuda.synchronize()
         if req.plan.num_segments != segs:
             raise AssertionError(f"plan has {req.plan.num_segments} segments,"
                                  f" expected {segs}")
-        per_seg = {"quantize": 2, "dequantize": world,
-                   "dequant_combine_requant": world - 2,
-                   "dequant_combine": 1}
-        launched = {name: k.launches - before[name]
-                    for name, k in kernels.items()}
-        for name, n_per in per_seg.items():
-            if launched[name] != segs * n_per:
-                raise AssertionError(
-                    f"{name} launched {launched[name]} times, expected "
-                    f"{segs} segments x {n_per}")
-            expected[name] += segs * n_per
+        launched = kernel.launches - before
+        want = ring_launch_count(count, seg)
+        if launched != want or launched > 2:
+            raise AssertionError(f"quant_ring_allreduce launched {launched} "
+                                 f"times, expected {want}")
+        expected += want
         out = rb.device
         if not torch.equal(out, out[:1].expand_as(out)):
             raise AssertionError("int8-wire result differs between ranks")
         excess = check_quant_bound(out, x, func, seg)
         bitwise = None
-        if vs_cpu:
+        if vs_cpu:  # the CPU facade runs the torch-op ring's plain steps
             csb = cpu_accl.create_buffer(count, data=x.cpu())
             crb = cpu_accl.create_buffer(count)
             cpu_accl.allreduce(csb, crb, count, func,
@@ -756,7 +779,7 @@ def quant_facade_phase(qk, ring):
         emit({"phase": "quant_facade", "world": world,
               "eager_rx_buf_size": buf, "bytes_per_rank": count * 4,
               "count": count, "func": func.name, "segments": segs,
-              "launches": launched, "within_bound": True,
+              "launches": {QUANT_RING[0]: launched}, "within_bound": True,
               "bound_margin": -excess, "ranks_identical": True,
               "bitwise_vs_cpu_plain": bitwise,
               "finite": bool(torch.isfinite(out).all())})
@@ -765,18 +788,98 @@ def quant_facade_phase(qk, ring):
         else:
             accl.free_buffer(sb)
             accl.free_buffer(rb)
-    launches = {name: k.launches for name, k in kernels.items()}
+    if kernel.launches != expected or expected == 0:
+        raise AssertionError(f"int8-wire allreduce launched "
+                             f"{kernel.launches}, expected {expected}")
+    stray = {name: k.launches for name, k in steps.items() if k.launches}
+    if (stray or ring.ring_allreduce_bidir.launches
+            or ring.ring_allreduce.launches):
+        raise AssertionError(f"the int8-wire allreduce launched {stray} of "
+                             "the step kernels or an exact ring kernel")
+    return {QUANT_RING[0]: kernel.launches}, accls["w8"], kept
+
+
+# (op, root) of the int8-wire collectives other than allreduce: where the
+# four step kernels stay
+QUANT_COLL_CASES = (("reduce", 3), ("reduce_scatter", 0), ("allgather", 0),
+                    ("gather", 5), ("scatter", 2), ("bcast", 0))
+
+
+def expected_quant_launches(op: str, world: int) -> dict:
+    """Launches of the four step kernels one int8-wire call makes, from
+    its eager plan: a hop of a mover (flat bcast and scatter, the
+    gather's ring relay) is one encode and one decode; the allgather's
+    ring encodes once and decodes W times; the ring reduce's hop is one
+    encode and one fused decode+combine; the ring reduce-scatter encodes
+    once, runs W-2 fused interior steps and one terminal one."""
+    hops = world - 1
+    return {
+        "reduce": {"quantize": hops, "dequant_combine": hops},
+        "reduce_scatter": {"quantize": 1, "dequant_combine_requant": hops - 1,
+                           "dequant_combine": 1},
+        "allgather": {"quantize": 1, "dequantize": world},
+    }.get(op, {"quantize": hops, "dequantize": hops})
+
+
+def quant_collectives_phase(qk):
+    """The int8-wire collectives other than allreduce through the facade,
+    W=8, at 25 MiB (the whole buffer, as nccl-tests sizes it) and 1 MiB:
+    every result bitwise against the port's CPU run (the step kernels'
+    plain versions), each call's step-kernel launches against its plan,
+    and no launch of the closed-form ring. Returns the four step
+    kernels' launch counts over this path's run."""
+    import torch
+
+    from accl_tpu_torch import ACCL
+
+    gen = torch.Generator(device="cuda").manual_seed(4680)
+    world = 8
+    accl = ACCL(world=world)
+    cpu = ACCL(world=world, torch_device="cpu")
+    kernels = {name: getattr(qk, name) for name in QUANT_KERNELS}
+    for k in (*kernels.values(), qk.quant_ring_allreduce):
+        k.launches = 0
+    expected = {name: 0 for name in kernels}
+    for op, root in QUANT_COLL_CASES:
+        for nbytes in (COLL_BYTES, MIB):
+            count = coll_count(op, world, nbytes // 4)
+            width = count * world if op in WIDE_IN else count
+            x = rank_data(world, width, torch.float32, gen)
+            before = {k: f.launches for k, f in kernels.items()}
+            out, req = run_collective(accl, op, count, x, None, root, "SUM",
+                                      "int8")
+            launched = {k: f.launches - before[k] for k, f in kernels.items()}
+            want = {k: expected_quant_launches(op, world).get(k, 0)
+                    for k in kernels}
+            if launched != want:
+                raise AssertionError(f"int8-wire {op} launched {launched}, "
+                                     f"expected {want}")
+            for k in expected:
+                expected[k] += want[k]
+            cout, _ = run_collective(cpu, op, count, x.cpu(), None, root,
+                                     "SUM", "int8")
+            if not same_bits(out.cpu(), cout):
+                raise AssertionError(f"int8-wire {op} at {nbytes} bytes "
+                                     "differs from the port's CPU run")
+            emit({"phase": "quant_collective", "op": op, "world": world,
+                  "root": root, "count": count, "buffer_bytes": nbytes,
+                  "plan": req.plan.algorithm.name, "launches": launched,
+                  "bitwise_vs_cpu": True,
+                  "finite": bool(torch.isfinite(out).all())})
+    launches = {k: f.launches for k, f in kernels.items()}
     if launches != expected or 0 in launches.values():
-        raise AssertionError(f"int8-wire path launched {launches}, expected "
-                             f"{expected}")
-    if ring.ring_allreduce_bidir.launches or ring.ring_allreduce.launches:
-        raise AssertionError("the int8-wire path launched a ring kernel")
-    return launches, accls["w8"], kept
+        raise AssertionError(f"int8-wire collectives launched {launches}, "
+                             f"expected {expected}")
+    if qk.quant_ring_allreduce.launches:
+        raise AssertionError("an int8-wire collective launched the ring")
+    return launches
 
 
-def quant_timing_phase(accl, kept):
+def quant_timing_phase(qk, accl, kept):
     """The int8-wire facade at 25 MiB per rank beside the exact wire on
-    the same buffers and facade."""
+    the same buffers and facade, in turns, and one int8 call under the
+    profiler with its launches of the closed-form ring and of the four
+    step kernels counted."""
     from accl_tpu_torch import DataType
     from accl_tpu_torch.constants import ReduceFunction
 
@@ -794,7 +897,81 @@ def quant_timing_phase(accl, kept):
           "bytes_per_rank": count * 4, "eager_rx_buf_size": QUANT_BUF,
           "segments": math.ceil(count / (QUANT_BUF // 4)), **t,
           "int8_over_exact": t["int8_ms"] / t["exact_ms"]})
-    emit({"phase": "quant_profile", **profile_call(call(DataType.int8))})
+    kernels = {name: getattr(qk, name)
+               for name in (QUANT_RING[0], *QUANT_KERNELS)}
+    before = {name: k.launches for name, k in kernels.items()}
+    row = profile_call(call(DataType.int8))  # two calls: warm-up, profiled
+    launched = {name: (k.launches - before[name]) // 2
+                for name, k in kernels.items()}
+    if launched[QUANT_RING[0]] > 2 or any(
+            launched[name] for name in QUANT_KERNELS):
+        raise AssertionError(f"an int8-wire allreduce launched {launched}")
+    emit({"phase": "quant_profile", "launches_per_call": launched, **row})
+
+
+def cast_wire_timing_phase():
+    """The fp16 and bf16 wires with the arithmetic in fp32 (rows whose
+    arith_is_compressed is False, given to the facade and to its
+    schedule compiler: every hop casts to the wire dtype and back, every
+    fold is fp32), which keep the torch-op ring on the card: the
+    allreduce at W=8 and 25 MiB per rank with a 4 MiB eager buffer (the
+    int8 cases' 7 segments; the default 1 KiB buffer cuts 25 600), facade
+    time (median of 20,
+    CUDA events) beside the exact wire in the same run, one call under
+    the profiler; first held bitwise against the port's CPU run at
+    1 MiB."""
+    import torch
+
+    from accl_tpu_torch import ACCL, DataType
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
+    from accl_tpu_torch.constants import ReduceFunction
+
+    table = dict(DEFAULT_ARITH_CONFIG)
+    for wire, lanes in ((DataType.float16, (0, 1)),
+                        (DataType.bfloat16, (2, 3))):
+        table[(DataType.float32, wire)] = ArithConfig(4, 2, 0, *lanes, False,
+                                                      (0, 5))
+    accl = ACCL(world=8, arith_config=table, egr_rx_buf_size=QUANT_BUF)
+    cpu = ACCL(world=8, torch_device="cpu", arith_config=table,
+               egr_rx_buf_size=QUANT_BUF)
+    for a in (accl, cpu):  # the lowering reads its own table, as the
+        a.cclo.compiler.arith_table = table  # reference's does
+    gen = torch.Generator(device="cuda").manual_seed(5791)
+    for wire in (DataType.float16, DataType.bfloat16):
+        count = MIB // 4
+        x = rank_data(8, count, torch.float32, gen)
+        sb, rb = accl.create_buffer(count), accl.create_buffer(count)
+        sb.device.copy_(x)
+        accl.allreduce(sb, rb, count, ReduceFunction.SUM, from_device=True,
+                       to_device=True, compress_dtype=wire)
+        csb = cpu.create_buffer(count, data=x.cpu())
+        crb = cpu.create_buffer(count)
+        req = cpu.allreduce(csb, crb, count, ReduceFunction.SUM,
+                            compress_dtype=wire)
+        if not same_bits(rb.device.cpu(), crb.host):
+            raise AssertionError(f"{wire.name}-wire allreduce differs from "
+                                 "the port's CPU run")
+        for b in (sb, rb):
+            accl.free_buffer(b)
+        count = 25 * MIB // 4
+        sb, rb = accl.create_buffer(count), accl.create_buffer(count)
+        sb.device.copy_(rank_data(8, count, torch.float32, gen))
+
+        def call(cd, sb=sb, rb=rb, count=count):
+            return lambda: accl.allreduce(sb, rb, count, ReduceFunction.SUM,
+                                          from_device=True, to_device=True,
+                                          compress_dtype=cd)
+
+        t = {"exact_ms": median_ms(call(None)),
+             "facade_ms": median_ms(call(wire))}
+        t["exact_ms_again"] = median_ms(call(None))
+        t["facade_ms_again"] = median_ms(call(wire))
+        emit({"phase": "cast_wire_timing", "wire": wire.name, "world": 8,
+              "bytes_per_rank": count * 4, "plan": req.plan.algorithm.name,
+              "bitwise_vs_cpu_1MiB": True, **t,
+              "profile": profile_call(call(wire))})
+        for b in (sb, rb):
+            accl.free_buffer(b)
 
 
 def profile_call(fn) -> dict:
@@ -889,6 +1066,228 @@ def quant_breakdown_phase(qk):
                       "back_to_back_ms": run_ms(kernel),
                       "host_ms_per_launch": host_ms}
     emit({"phase": "quant_breakdown", "shape": [world, n], **rows})
+
+
+RING_SPECIAL = ("random", "zero_blocks", "signed_zeros", "subnormal", "nan",
+                "inf", "rail")
+
+
+def ring_payload(world: int, count: int, case: str, gen):
+    """(world, count) fp32 rank rows on the card with one kind of
+    special-valued blocks, as tests/test_torch_quant_ring.py makes them:
+    all-zero blocks, +-0 in both orders across ranks, 1e-39 (flushed),
+    NaN, +-Inf (and Inf on every rank: Inf/Inf quotients), values on the
+    +-127 codes of their scale."""
+    import torch
+
+    x = rank_data(world, count, torch.float32, gen) * 3
+    if case == "zero_blocks":
+        x[:, :300] = 0.0
+        x[:, count // 2:count // 2 + 260] = 0.0
+    elif case == "signed_zeros":
+        x[::2, ::5] = -0.0
+        x[1::2, ::5] = 0.0
+        x[0, 1::5] = 0.0
+        x[1:, 1::5] = -0.0
+        x[:, 2::5] = -0.0
+    elif case == "subnormal":
+        x[:, ::3] = 1e-39
+        x[-1, 1::3] = -1e-39
+        x[:, :256] = 1e-39
+    elif case == "nan":
+        x[world // 2, 7 % count] = float("nan")
+        x[0, count - 1] = float("nan")
+    elif case == "inf":
+        x[0, 3 % count] = float("inf")
+        x[-1, count // 2] = float("-inf")
+        x[:, count - 1] = float("inf")
+    elif case == "rail":
+        k = min(count, 256)
+        x[:, :k] = torch.linspace(-127.0, 127.0, k, device="cuda") / 64
+        x[0, count - 1] = -1270.0
+    return x
+
+
+def ring_seg(world: int, buf: int) -> int:
+    """The int8 allreduce plan's segment for an eager buffer of buf
+    bytes: its fp32 elements, rounded down to a multiple of the world."""
+    seg = buf // 4
+    return max(seg - seg % world, world)
+
+
+def quant_ring_phase(qk):
+    """The closed-form int8 ring allreduce against its plain version and
+    against the torch-op quantized ring (the four step kernels hop by
+    hop), both on the card, bitwise (NaN matches NaN): worlds {1, 2, 3,
+    5, 7, 8} x per-rank counts {1, 31, 255, 257, 4099, 1<<20} x two eager
+    buffers each (ragged last segments; chunk lengths that are no
+    multiple of 4 or 256) x SUM and MAX x the special-valued blocks of
+    RING_SPECIAL; then odd-stride and aligned column views as operand and
+    as out= (nothing written outside), with the launches counted by
+    instantiation, and a misaligned vector request refused."""
+    import torch
+
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG
+    from accl_tpu_torch.constants import DataType, ReduceFunction
+    from accl_tpu_torch.ops import compression as C
+    from accl_tpu_torch.sequencer import schedules
+
+    wire = schedules.Wire(DEFAULT_ARITH_CONFIG[(DataType.float32,
+                                                DataType.int8)])
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    by_path = {"vector": 0, "scalar": 0}
+    cases, ragged, err = 0, 0, 0.0
+
+    def check(x, world, func, seg, out=None, where=""):
+        nonlocal cases, ragged, err
+        op = schedules.quant_op(func)
+        got = qk.quant_ring_allreduce(x, world, op, seg, out=out)
+        launches = qk.ring_launches(x, got, world, seg)
+        for want, what in ((C._quant_ring_impl(x, world, op, seg), "plain"),
+                           (schedules.allreduce_ring_schedule(
+                               x, func=func, world=world, wire=wire,
+                               seg_count=seg), "torch-op ring")):
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                raise AssertionError(
+                    f"quant_ring_allreduce differs from the {what}: {where} "
+                    f"W={world} {op} seg={seg} "
+                    f"max|diff|={max_abs_err(got, want)}")
+            err = max(err, max_abs_err(got, want))
+        for *_, vec in launches:
+            by_path["vector" if vec else "scalar"] += 1
+        ragged += x.shape[-1] % seg != 0
+        cases += 1
+        return got
+
+    for world in (1, 2, 3, 5, 7, 8):
+        for count in (1, 31, 255, 257, 4099, 1 << 20):
+            bufs = (QUANT_BUF, MIB) if count == 1 << 20 else (1024, 4096)
+            for buf in bufs:
+                for case in RING_SPECIAL:
+                    x = ring_payload(world, count, case, gen)
+                    for func in (ReduceFunction.SUM, ReduceFunction.MAX):
+                        check(x, world, func, ring_seg(world, buf),
+                              where=f"n={count} buf={buf} {case}")
+    views = 0
+    for world in (3, 5, 8):
+        for count in (4099, 1 << 20, (1 << 20) + 5):
+            seg = ring_seg(world, QUANT_BUF)
+            x = ring_payload(world, count, "random", gen)
+            for kind in ("aligned view", "odd-stride view"):
+                xv = lay_out(x, kind)
+                obuf = torch.full((world, count + 40), -7.0, device="cuda")
+                lo = 16 if kind == "aligned view" else 3
+                before = obuf.clone()
+                for func in (ReduceFunction.SUM, ReduceFunction.MAX):
+                    check(xv, world, func, seg, where=f"n={count} {kind}")
+                    check(x, world, func, seg, out=obuf[:, lo:lo + count],
+                          where=f"n={count} out= {kind}")
+                outside = torch.ones_like(obuf, dtype=torch.bool)
+                outside[:, lo:lo + count] = False
+                if not same_bits(obuf[outside], before[outside]):
+                    raise AssertionError("quant_ring_allreduce wrote outside "
+                                         f"its out= view: {kind}")
+                views += 1
+    # a vector request on an odd-stride view is refused, nothing written
+    lib = qk._library()
+    x = lay_out(ring_payload(8, 4096, "random", gen), "odd-stride view")
+    obuf = torch.full((8, 4096 + 7), -7.0, device="cuda")
+    before = obuf.clone()
+    rc = lib.accl_quant_ring(0, x.data_ptr(), x.stride(0),
+                             obuf[:, 3:].data_ptr(), obuf.stride(0), 8, 1,
+                             4096, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if rc != 1 or not same_bits(obuf, before):
+        raise AssertionError(f"a misaligned vector request returned {rc} or "
+                             "wrote")
+    if 0 in by_path.values():
+        raise AssertionError(f"quant_ring_allreduce: an instantiation never "
+                             f"ran {by_path}")
+    emit({"phase": "quant_ring", "cases": cases,
+          "launches_by_instantiation": by_path,
+          "ragged_last_segment_cases": ragged, "view_layouts": views,
+          "bitwise_vs_plain": True, "bitwise_vs_torch_op_ring": True,
+          "written_outside": False, "misaligned_vector_refused": True,
+          "max_abs_err": err})
+    return {QUANT_RING[0]: err}
+
+
+def quant_ring_breakdown_phase(qk):
+    """The closed-form int8 ring at the main path's launch, one 4 MiB
+    segment at W=8 ((8, 1 048 576) fp32), held bitwise against its plain
+    version there; device time with the host held off (warm: repeated on
+    the same operand, as the kernels line times every kernel), beside
+    events around back-to-back launches, the wrapper's host cost per
+    launch, the plain version (back to back), the torch-op quantized
+    ring it replaces on the same segment (events around one call:
+    host-bound) and the bound, 2*W*n*4 bytes over 3.35 TB/s. Then cold,
+    at 2 MiB and 4 MiB
+    per rank, cycling 268 MB of operands and holding the last results:
+    the fit t = fixed + bytes / rate."""
+    import collections
+    import itertools
+
+    import torch
+
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG
+    from accl_tpu_torch.constants import DataType, ReduceFunction
+    from accl_tpu_torch.ops import compression as C
+    from accl_tpu_torch.sequencer import schedules
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    world, n = 8, QUANT_BUF // 4
+    x = rank_data(world, n, torch.float32, gen)
+    wire = schedules.Wire(DEFAULT_ARITH_CONFIG[(DataType.float32,
+                                                DataType.int8)])
+
+    def kernel():
+        return qk.quant_ring_allreduce(x, world, "sum", n)
+
+    def plain():
+        return C._quant_ring_impl(x, world, "sum", n)
+
+    def torch_op_ring():
+        return schedules.allreduce_ring_schedule(
+            x, func=ReduceFunction.SUM, world=world, wire=wire, seg_count=n)
+
+    got, want = kernel(), plain()
+    if not same_bits(got, want):
+        raise AssertionError("quant_ring_allreduce differs from its plain "
+                             f"version at (8, {n}): "
+                             f"max|diff|={max_abs_err(got, want)}")
+    del got, want
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kernel()
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
+    row = {"shape": [world, n], "bitwise_equal": True,
+           "device_ms": device_ms(kernel), "back_to_back_ms": run_ms(kernel),
+           "host_ms_per_launch": host_ms,
+           # the plain version's ~300 operations a call fill the launch
+           # queue behind a spin: timed back to back, device-bound
+           "plain_ms": run_ms(plain),
+           "torch_op_ring_ms": median_ms(torch_op_ring),
+           "bound_ms": 2 * world * n * 4 / HBM_BYTES_PER_S * 1e3}
+    t, sizes = [], []
+    for rows_n in (n // 2, n):
+        b = 2 * world * rows_n * 4
+        sets = [rank_data(world, rows_n, torch.float32, gen)
+                for _ in range(max(2, -(-268_435_456 // b)))]
+        turn = itertools.cycle(sets)
+        held = collections.deque(maxlen=len(sets))
+        t.append(device_ms(lambda: held.append(qk.quant_ring_allreduce(
+            next(turn), world, "sum", rows_n))))
+        sizes.append(b)
+        del sets, turn, held
+    ms_per_byte = (t[1] - t[0]) / (sizes[1] - sizes[0])
+    row.update({"cold_bytes_per_launch": sizes, "cold_device_ms": t,
+                "rate_TBps": 1e-9 / ms_per_byte,
+                "fixed_device_ms": t[0] - sizes[0] * ms_per_byte})
+    emit({"phase": "quant_ring_breakdown", **row})
+    return row
 
 
 LANE_SPECIAL = [  # (a, b) pairs, in float64 before the cast to the dtype
@@ -1005,14 +1404,14 @@ def lay_out(x, kind: str):
 
 # (rows, n, layouts) of the layout cases: views of wider buffers (vector
 # when aligned, scalar at an odd stride; 70 000 rows pass grid.y's 65 535
-# and make the walk stride over rows), bases 2 and 4 bytes off (scalar),
+# and make the walk stride over rows), bases 2, 4 and 8 bytes off (scalar),
 # one row with a ragged tail inside a vector launch, and contiguous rows
 # with odd n (folded into one row)
 LANE_LAYOUTS = (
     [(rows, n, ("aligned view", "odd-stride view"))
      for rows in (3, 8) for n in (1000, 4099, 65536 + 5)]
     + [(70_000, 9, ("aligned view", "odd-stride view"))]
-    + [(rows, n, ("base+2B", "base+4B")) for rows in (1, 5)
+    + [(rows, n, ("base+2B", "base+4B", "base+8B")) for rows in (1, 5)
        for n in (1000, 4099)]
     + [(1, 8 * 1000 + r, ("contiguous",)) for r in range(1, 8)]
     + [(rows, n, ("contiguous",)) for rows, n in ((5, 4099), (8, 1001),
@@ -1020,17 +1419,31 @@ LANE_LAYOUTS = (
 
 
 def lane_layout_cases(L):
-    """Kernels 8 and 9 over the layouts that choose their instantiation
-    (LANE_LAYOUTS), every (in, out) pair, SUM and MAX; a float32 operand
-    is never 2 bytes off."""
+    """The three lane kernels over the layouts that choose their
+    instantiation (LANE_LAYOUTS): combine over its dtypes, every (in,
+    out) pair of combine_cast, every cast, SUM and MAX; a base is never
+    off by less than its element."""
     import torch
+
+    def fits(kind, dtype):
+        return not kind.startswith("base+") or int(kind[5:-1]) % (
+            torch.empty(0, dtype=dtype).element_size()) == 0
 
     gen = torch.Generator(device="cuda").manual_seed(8642)
     for rows, n, kinds in LANE_LAYOUTS:
         for kind in kinds:
             where = f"{rows}x{n} {kind}"
+            for dtype in L.COMBINE_DTYPES:
+                if not fits(kind, dtype):
+                    continue
+                a, b = (lay_out(t, kind)
+                        for t in lane_operands(rows, n, dtype, gen))
+                for op in ("sum", "max"):
+                    yield ("combine", f"{where} {dtype} {op}", (a, b),
+                           lambda a=a, b=b, op=op: L.combine(a, b, op),
+                           lambda a=a, b=b, op=op: L._combine_impl(a, b, op))
             for dtype in L.COMBINE_CAST_DTYPES:
-                if kind == "base+2B" and dtype.itemsize == 4:
+                if not fits(kind, dtype):
                     continue
                 a, b = (lay_out(t, kind)
                         for t in lane_operands(rows, n, dtype, gen))
@@ -1038,7 +1451,7 @@ def lane_layout_cases(L):
                     for op in ("sum", "max"):
                         yield combine_cast_case(L, where, a, b, op, out)
             for src, dst in L.CAST_PAIRS:
-                if kind == "base+2B" and src.itemsize == 4:
+                if not fits(kind, src):
                     continue
                 yield cast_case(L, where,
                                 lay_out(cast_operand(rows, n, src, gen), kind),
@@ -1046,7 +1459,7 @@ def lane_layout_cases(L):
 
 
 def lane_bounds_check(L):
-    """Kernels 8 and 9 write nothing outside their output: their C entry
+    """The lane kernels write nothing outside their output: their C entry
     points, called with an output that is a view into a wider buffer
     filled with a sentinel (inputs in the same layout), in the vector
     instantiation (aligned views with a ragged n per row; one row with a
@@ -1071,6 +1484,18 @@ def lane_bounds_check(L):
             return buf
 
         calls = []
+        for dtype in L.COMBINE_DTYPES:
+            a, b = (place(t)[:, lo:lo + n]
+                    for t in lane_operands(rows, n, dtype, gen))
+            for op in ("sum", "max"):
+                calls.append((
+                    dtype, (a, b),
+                    lambda ops, view, vec, sh, dtype=dtype, op=op:
+                    lib.accl_lane_combine(
+                        L._CODES[dtype], L._op(op), ops[0].data_ptr(),
+                        sh[2][0], ops[1].data_ptr(), sh[2][1],
+                        view.data_ptr(), sh[2][2], sh[0], sh[1], vec, stream),
+                    lambda a=a, b=b, op=op: L._combine_impl(a, b, op)))
         for src in L.COMBINE_CAST_DTYPES:
             a, b = (place(t)[:, lo:lo + n]
                     for t in lane_operands(rows, n, src, gen))
@@ -1126,17 +1551,19 @@ def lane_bounds_check(L):
 
 
 # (kernel, elements, instantiations) of the long-row cases: rows past
-# INT_MAX, so the walk of kernels 8 and 9 takes its 64-bit index; the
+# INT_MAX, so the walk of kernels 7, 8 and 9 takes its 64-bit index; the
 # last a scalar walk of more than 2^32 units, more than its 2^24 blocks
 # of 256 threads cover in one pass, so that it strides over the grid
-LONG_ROWS = (("combine_cast", (1 << 31) + 3, ("vector", "scalar")),
+LONG_ROWS = (("combine", (1 << 31) + 3, ("vector", "scalar")),
+             ("combine_cast", (1 << 31) + 3, ("vector", "scalar")),
              ("cast", (1 << 31) + 3, ("vector", "scalar")),
              ("cast", (1 << 32) + 5, ("scalar",)))
 
 
 def lane_long_row_check(L):
-    """Kernels 8 and 9 over the single rows of LONG_ROWS: combine_cast
-    bf16 SUM and cast f32 -> bf16, from aligned operands (vector) and
+    """The lane kernels over the single rows of LONG_ROWS: combine f32
+    SUM, combine_cast bf16 SUM and cast f32 -> bf16, from aligned
+    operands (vector) and
     from operands one element off (scalar), with the special values at
     the row's start and end, held bitwise against the plain version
     chunk by chunk (it is elementwise; whole, it would need several
@@ -1157,6 +1584,10 @@ def lane_long_row_check(L):
         return buf
 
     kernels = {  # operands of a row of n, kernel call, plain call
+        "combine": (lambda n: (filled(n, torch.float32, sp[:, 0]),
+                               filled(n, torch.float32, sp[:, 1])),
+                    lambda a, b: L.combine(a, b, "sum"),
+                    lambda a, b: L._combine_impl(a, b, "sum")),
         "combine_cast": (lambda n: (filled(n, torch.bfloat16, sp[:, 0]),
                                     filled(n, torch.bfloat16, sp[:, 1])),
                          lambda a, b: L.combine_cast(a, b, "sum"),
@@ -1182,7 +1613,9 @@ def lane_long_row_check(L):
                     raise AssertionError(
                         f"{name} differs from its plain version on a row "
                         f"of {n} ({path}), elements {i}..")
-            units = n // (8 if path == "vector" else 1)
+            unit = (16 // ops[0].element_size() if name == "combine"
+                    else 8)  # elements of the kernel's vector unit
+            units = n // (unit if path == "vector" else 1)
             cases.append({"kernel": name, "n": n, "instantiation": path,
                           "index": "64-bit" if n + 256 > (1 << 31) - 1
                           else "32-bit",
@@ -1195,8 +1628,8 @@ def lane_long_row_check(L):
 
 def lane_kernel_phase(L):
     """The lane kernels against their plain versions, bitwise (NaN
-    matches NaN): the path's dtypes and shapes, then kernels 8 and 9 over
-    the layouts that choose their instantiation, with the cases counted
+    matches NaN): the path's dtypes and shapes, then all three over the
+    layouts that choose their instantiation, with the cases counted
     by instantiation (as the wrapper chose: `_launch_shape` over the
     operands and the result), and their bounds check."""
     import itertools
@@ -1205,8 +1638,7 @@ def lane_kernel_phase(L):
 
     cases = {name: 0 for name in LANE_KERNELS}
     errs = {name: 0.0 for name in LANE_KERNELS}
-    by_path = {name: {"vector": 0, "scalar": 0}
-               for name in ("combine_cast", "cast")}
+    by_path = {name: {"vector": 0, "scalar": 0} for name in LANE_KERNELS}
     for name, where, ops, kernel, plain in itertools.chain(
             lane_cases(L), lane_layout_cases(L)):
         got, want = kernel(), plain()
@@ -1537,7 +1969,8 @@ def lane_shape_calls(L):
     bytes the function must move, kernel call, plain call, library call):
     one fold of the 25 MiB fp32 reduce at its root, one fold of the
     25 MiB bf16 reduce, and the compressed-domain cast of the W = 8,
-    25 MiB-per-rank fp32 buffer to bf16."""
+    25 MiB-per-rank fp32 buffer to bf16; and combine over float64 at the
+    fp32 fold's shape (its 8-byte lane, four 16-byte accesses a unit)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(24680)
@@ -1547,11 +1980,16 @@ def lane_shape_calls(L):
     h, k = (torch.randn((1, 2 * n32), generator=gen, device="cuda")
             .to(torch.bfloat16) for _ in range(2))
     x = torch.randn((8, n32), generator=gen, device="cuda")
+    a64, b64 = a.double(), b.double()
     return {
         "combine": ((1, n32), 3 * 4 * n32,
                     lambda: L.combine(a, b, "sum"),
                     lambda: L._combine_impl(a, b, "sum"),
                     lambda: torch.add(a, b)),
+        "combine_float64": ((1, n32), 3 * 8 * n32,
+                            lambda: L.combine(a64, b64, "sum"),
+                            lambda: L._combine_impl(a64, b64, "sum"),
+                            lambda: torch.add(a64, b64)),
         "combine_cast": ((1, 2 * n32), 3 * 2 * 2 * n32,
                          lambda: L.combine_cast(h, k, "sum"),
                          lambda: L._combine_cast_impl(
@@ -1600,7 +2038,7 @@ def lane_breakdown_phase(L):
 
 
 def lane_cold_phase(L):
-    """Kernels 8 and 9 with cold operands, at their launch shape on the
+    """The lane kernels with cold operands, at their launch shape on the
     path and at half of it: each launch takes the next of several operand
     sets, 268 MB or more in all, and the last results are held so that
     each launch writes a block of its own, so that it finds its data in
@@ -1621,6 +2059,12 @@ def lane_cold_phase(L):
                            device="cuda").to(torch.bfloat16)
 
     kernels = {  # shapes, bytes per launch, operand set, call on a set
+        "combine": ([(1, n32 // 2), (1, n32)],
+                    lambda rows, n: 3 * 4 * rows * n,
+                    lambda rows, n: tuple(torch.randn(
+                        (rows, n), generator=gen, device="cuda")
+                        for _ in range(2)),
+                    lambda ops: L.combine(*ops, "sum")),
         "combine_cast": ([(1, n32), (1, 2 * n32)],
                          lambda rows, n: 3 * 2 * rows * n,
                          lambda rows, n: (bf16(rows, n), bf16(rows, n)),
@@ -1654,15 +2098,16 @@ def lane_cold_phase(L):
     return row
 
 
-def kernel_line(ring, qk, errs, launches, lane_rows):
+def kernel_line(ring, qk, errs, launches, ring_row, lane_rows):
     """Per kernel: device time per launch at the main path's launch
     shape with the host held off (device_ms), its plain version and the
     library yardstick, timed the same way. Ring kernels: W=8, fp32, 4 MiB
     per rank, with events around back-to-back launches beside it
     (`back_to_back_ms`, which times the host once the wrapper's host cost
     exceeds the device's); their plain version back to back. Quantized
-    kernels: (8, 131072) fp32. Lane kernels: the rows of the lane
-    breakdown."""
+    step kernels: (8, 131072) fp32. The closed-form int8 ring: the row of
+    its breakdown, (8, 1 048 576) fp32, one 4 MiB segment at W=8. Lane
+    kernels: the rows of the lane breakdown."""
     import torch
 
     from accl_tpu_torch.ops import compression as C
@@ -1704,7 +2149,19 @@ def kernel_line(ring, qk, errs, launches, lane_rows):
             "bound_ms": quant_bytes(name, rows, qn) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None,
             "shape": {"rows": rows, "n": qn, "dtype": "float32"}})
-    for name, row in lane_rows.items():
+    entries.append({
+        "name": QUANT_RING[0], "route": "cuda",
+        "source": "accl_tpu_torch/csrc/quant_wire.cu",
+        "replaces": QUANT_RING[1], "on_main_path": True,
+        "launches": launches[QUANT_RING[0]],
+        "max_abs_err": errs[QUANT_RING[0]], "ms": ring_row["device_ms"],
+        "back_to_back_ms": ring_row["back_to_back_ms"],
+        "plain_ms": ring_row["plain_ms"], "bound_ms": ring_row["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "torch_op_ring_ms": ring_row["torch_op_ring_ms"],
+        "shape": {"world": world, "n": n, "dtype": "float32"}})
+    for name in LANE_KERNELS:
+        row = lane_rows[name]
         entries.append({
             "name": name, "route": "cuda",
             "source": "accl_tpu_torch/csrc/lanes.cu",
@@ -1760,22 +2217,27 @@ def main() -> int:
 
     errs = timed(kernel_phase, ring)
     errs.update(timed(quant_kernel_phase, qk))
+    errs.update(timed(quant_ring_phase, qk))
     errs.update(timed(lane_kernel_phase, L))
     # each path runs with its kernels' counts set to 0 just before it
     accl, kept, launches = timed(facade_phase, ring)  # the exact wire
     qlaunches, qaccl, qkept = timed(quant_facade_phase, qk, ring)  # int8
     launches.update(qlaunches)
+    # the int8-wire collectives: the four step kernels
+    launches.update(timed(quant_collectives_phase, qk))
     llaunches, caccls, ctiming = timed(collectives_phase, L)  # collectives
     launches.update(llaunches)
     timed(timing_phase, ring, accl, kept)
-    timed(quant_timing_phase, qaccl, qkept)
+    timed(quant_timing_phase, qk, qaccl, qkept)
+    timed(cast_wire_timing_phase)
     timed(collectives_timing_phase, caccls, ctiming)
     timed(breakdown_phase, ring)
     timed(quant_breakdown_phase, qk)
+    ring_row = timed(quant_ring_breakdown_phase, qk)
     lane_rows = timed(lane_breakdown_phase, L)
     timed(lane_cold_phase, L)
     emit({"phase": "clock", "seconds": clock})
-    kernel_line(ring, qk, errs, launches, lane_rows)
+    kernel_line(ring, qk, errs, launches, ring_row, lane_rows)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@ allgather, reduce, reduce_scatter, barrier and the register-opened
 reduce+bcast allreduce, at W = 8, 5 and 2 with non-zero roots, counts
 17 (eager) and 329 (rendezvous), flat and tree shapes chosen by the
 tuning registers, and the fp16, bf16 and int8 wires. The cases are a
-pairwise cover of those dimensions, not their full product."""
+pairwise cover of those dimensions, not their full product. A second
+set runs W = 1, 3, 4, 6 and 7 on operands with special-valued columns
+(subnormals, signed zeros in both orders, NaN, +-Inf, values past fp16's
+range), bitwise with NaN matched as NaN."""
 
 import jax
 import numpy as np
@@ -195,3 +198,106 @@ def test_barrier_and_unported_entry_points(facades):
     with pytest.raises(NotImplementedError, match="alltoall"):
         port.cclo.start(port._prepare(Operation.alltoall, wide, None, wide,
                                       17))
+
+
+@pytest.fixture(scope="module")
+def odd_facades():
+    """(reference, port) facade pairs for the worlds of SPECIAL_CASES."""
+    return {world: (RefACCL(Mesh(np.array(jax.devices()[:world]),
+                                 ("ccl",))),
+                    ACCL(world=world, torch_device="cpu"))
+            for world in (1, 3, 4, 6, 7)}
+
+
+def _special_data(world, n, seed):
+    """float32 rank rows with special-valued columns 0-9: a subnormal on
+    rank 0 only and on every rank, -0 on all ranks but the last (+0),
+    +0 on rank 0 and -0 on the rest, a negative subnormal everywhere, a
+    NaN on one rank, +Inf against -Inf, +Inf everywhere, and values past
+    fp16's largest finite on every rank and (negated) on rank 0."""
+    x = _data(world, n, np.float32, seed)
+    x[:, :10] = 1.0
+    x[0, 0] = 1e-39
+    x[:, 1] = 1e-39
+    x[:, 2] = -0.0
+    x[-1, 2] = 0.0
+    x[:, 3] = -0.0
+    x[0, 3] = 0.0
+    x[:, 4] = -1e-39
+    x[(world - 1) // 2, 5] = np.nan
+    x[0, 6] = np.inf
+    x[-1, 6] = -np.inf
+    x[:, 7] = np.inf
+    x[:, 8] = 7e4
+    x[0, 9] = -7e4
+    return x
+
+
+SPECIAL_CASES = [  # (op, world, count, root, func, wire, tuning)
+    ("allreduce", 1, 17, 0, 0, "int8", None),
+    ("allreduce", 3, 329, 0, 0, None, None),
+    ("allreduce", 4, 17, 0, 1, "int8", None),
+    ("allreduce", 6, 329, 0, 0, "float16", None),
+    ("allreduce", 7, 17, 0, 0, "bfloat16", None),
+    ("allreduce", 7, 329, 0, 1, None, "compose"),
+    ("reduce", 1, 329, 0, 0, None, None),
+    ("reduce", 3, 17, 2, 0, "float16", None),
+    ("reduce", 4, 329, 1, 1, None, "tree"),
+    ("reduce", 6, 17, 5, 0, "int8", None),
+    ("reduce", 7, 329, 3, 0, "bfloat16", None),
+    ("reduce_scatter", 3, 17, 0, 0, "int8", None),
+    ("reduce_scatter", 4, 17, 0, 0, "bfloat16", None),
+    ("reduce_scatter", 6, 329, 0, 1, None, "flat"),
+    ("reduce_scatter", 7, 17, 0, 0, "float16", None),
+    ("bcast", 3, 329, 1, 0, "bfloat16", None),
+    ("bcast", 4, 17, 3, 0, "int8", None),
+    ("bcast", 6, 329, 0, 0, "float16", "tree"),
+    ("bcast", 7, 17, 6, 0, None, None),
+    ("allgather", 3, 17, 0, 0, "float16", None),
+    ("allgather", 4, 329, 0, 0, None, None),
+    ("allgather", 6, 17, 0, 0, "int8", None),
+    ("allgather", 7, 17, 0, 0, "bfloat16", None),
+    ("gather", 3, 329, 2, 0, "int8", None),
+    ("gather", 6, 17, 4, 0, "bfloat16", None),
+    ("gather", 7, 329, 0, 0, None, "tree"),
+    ("scatter", 4, 17, 2, 0, "float16", None),
+    ("scatter", 6, 17, 1, 0, None, None),
+    ("scatter", 7, 329, 5, 0, "int8", None),
+    ("combine", 3, 329, 0, 1, None, None),
+    ("combine", 7, 17, 0, 0, None, None),
+]
+
+
+def _bits_equal_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of float32 tensors; a NaN matches any NaN (the
+    contract leaves NaN payloads open)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize(
+    "case", SPECIAL_CASES,
+    ids=[_case_id((*c, np.float32)) for c in SPECIAL_CASES])
+def test_collective_special_values_bitwise_with_reference_facade(
+        odd_facades, case):
+    op, world, count, root, func, wire, tuning = case
+    ref, port = odd_facades[world]
+    n_in = count * world if op in WIDE_IN else count
+    seed = SPECIAL_CASES.index(case)
+    x = _special_data(world, n_in, seed)
+    y = _special_data(world, count, 1000 + seed)[:, ::-1].copy()
+    regs = TUNINGS.get(tuning)
+    if regs:
+        ref.configure_tuning_parameters(RefTuning(**regs))
+        port.configure_tuning_parameters(TuningParams(**regs))
+    try:
+        want, _ = _call(ref, True, op, x, y, count, root, func, wire)
+        got, req = _call(port, False, op, x, y, count, root, func, wire)
+    finally:
+        if regs:
+            ref.configure_tuning_parameters(RefTuning.default())
+            port.configure_tuning_parameters(TuningParams.default())
+    want = tensor_from_numpy(np.asarray(want))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _bits_equal_nan(got, want)

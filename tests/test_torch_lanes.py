@@ -294,3 +294,26 @@ def test_ring_vector_path_is_the_shared_rule():
                 if x.shape == out.shape:
                     assert ring_allreduce.vector_path(x, out) == former(
                         x, out), (dtype, x.shape, x.stride(), out.stride())
+
+
+@pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.float64, torch.int32, torch.int64],
+    ids=["f32", "f64", "i32", "i64"])
+def test_combine_launch_shape_over_its_dtypes(dtype):
+    """Kernel 7's launches: contiguous rows fold into one row, vector;
+    an aligned column view keeps its rows, vector; a base one element
+    (4 or 8 bytes) off or an odd row stride takes the scalar walk."""
+    a = torch.zeros((5, 999), dtype=dtype)
+    res = torch.empty((5, 999), dtype=dtype)
+    assert lane_kernels._launch_shape(a, a, res) == (1, 5 * 999,
+                                                     (5 * 999,) * 3, True)
+    buf = torch.zeros((4, 1040), dtype=dtype)
+    out = torch.empty((4, 1000), dtype=dtype)
+    assert lane_kernels._launch_shape(buf[:, 16:1016], buf[:, 16:1016],
+                                      out) == (4, 1000, (1040, 1040, 1000),
+                                               True)
+    assert not lane_kernels._launch_shape(buf[:, 17:1017], buf[:, 16:1016],
+                                          out)[3]
+    odd = torch.zeros((4, 1001), dtype=dtype)[:, :1000]
+    assert lane_kernels._launch_shape(odd, odd, out) == (
+        4, 1000, (1001, 1001, 1000), False)
