@@ -35,22 +35,53 @@
 //   - MAX is the IEEE maximum of the decoded value and the local operand:
 //     NaN propagates, +0 is above -0 (jnp.maximum).
 //
-// Design of the step kernels. One warp per scale block: each lane holds 8
-// of the block's 256 elements (lane + 32k, so each warp load is 32
-// neighbouring elements), the block's max-abs is a 5-step shuffle
-// reduction, and lane 0 writes the scale. The TPU kernel held 256 blocks
-// per grid step in VMEM; here a 256-thread CTA holds 8 blocks and there
-// are ceil(rows*nb/8) CTAs, so a (8, 131072) ring chunk fills the card
-// with 512 CTAs. The fused ring step keeps the decoded, combined block in
-// registers between the combine and the re-encode: one read of each
-// input, one write of each output.
+// Design of quantize_kernel and dequantize_kernel (a walk). The TPU
+// kernels held 256 blocks per grid step in VMEM; here a warp takes one
+// 256-element block at a time (WarpBlock) and strides over its row's
+// blocks by the grid, issuing the next block's loads before the current
+// block's shuffle max, divides and stores, so each SM keeps bytes in
+// flight through the divide chain. The grid is sized from the block count
+// and capped at one wave of resident CTAs, so a warp walks several blocks
+// at the path's large shapes. Rows go on grid.y; the wrapper
+// folds rows that lie back to back, n a multiple of 256, into one row
+// (the blocking restarts at each row's start).
+//   - Lanes. A lane of quantize's vector instantiation holds two float4
+//     of its block (lane*4 + 128k) and their eight codes as two 32-bit
+//     words, so a warp's fp32 access is 512 and its code access 128
+//     contiguous bytes; the scalar lanes hold elements lane + 32k (4-byte
+//     and 1-byte accesses). Quantize takes the vector lanes where it can:
+//     they need n a multiple of 4 (a ragged block is whole float4s), a
+//     16-byte fp32 base and row stride and a 4-byte code base and row
+//     stride, and its entry point refuses a vector request otherwise.
+//     Dequantize has only the scalar lanes: on an H100 its vector lanes
+//     (fp32 stores of 512 bytes a warp access) ran slower than these, so
+//     it needs no alignment of its operands.
+//   - The divide. Quantize divides by a multiply with the block's
+//     reciprocal wherever that cannot change the code (encode_rcp), and
+//     by a correctly rounded divide elsewhere.
+//   - The wire message. The scales are addressed by a byte pointer and a
+//     byte row stride, so one kernel writes (reads) either a fp32 scale
+//     tensor or the scale bytes of the int8 wire message, a row of n
+//     codes then the 4*nb raw scale bytes: a scale moves as one 32-bit
+//     word when the scale base and row stride are 4-byte multiples, else
+//     byte by byte.
+//   - Indices inside a row are 32-bit when n + 256 fits an int, else
+//     64-bit; a row's base is computed once, in 64 bits.
+//
+// Design of dequant_combine_kernel. One warp per scale block: each lane
+// holds 8 of the block's 256 elements (lane + 32k), the block's max-abs
+// is a 5-step shuffle reduction, and lane 0 writes the scale. A 256-thread
+// CTA holds 8 blocks and there are ceil(rows*nb/8) CTAs. The fused ring
+// step keeps the decoded, combined block in registers between the combine
+// and the re-encode: one read of each input, one write of each output.
 //
 // Bound of the step kernels: bytes. Per row, quantize reads 4n and writes
 // n + 4*nb bytes; dequantize reads n + 4*nb and writes 4n; the fused
 // combine reads n + 4*nb + 4n and writes 4n; the fused requantize reads
 // n + 4*nb + 4n and writes n + 4*nb. At (8, 131072) each moves 5-9 MB, a
-// few microseconds at 3.35 TB/s, so a launch is dominated by its fixed
-// cost, and the ring runs 2W+1 of them a segment with torch ops between.
+// few microseconds at 3.35 TB/s, so a launch there is dominated by its
+// fixed cost; the int8 collectives' mover hops launch quantize and
+// dequantize at (1, 6 553 600) and (8, 819 200), 32.9 MB each.
 //
 // Design of quant_ring_kernel. On one card every rank's rows lie in one
 // memory, and the ring's order alone fixes chunk c's result: rank c+1
@@ -81,6 +112,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -132,8 +164,30 @@ __device__ __forceinline__ int8_t encode(float v, float scale) {
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
-// Where warp `warp` of the grid works: its row, its block, and whether it
-// has one (trailing warps of the last CTA do not).
+// encode() with the divide taken, where that cannot change the code, as a
+// multiply by the block's correctly rounded reciprocal rcp = RN(1/scale):
+// q0 = RN(v * rcp) is within 2^-23 |v / scale| of v / scale and the
+// correctly rounded quotient within 2^-24 |v / scale|, and a block's own
+// elements give |v / scale| <= 127.01, so the two lie within 2.3e-5 of
+// each other. Where q0 is more than 1e-4 from a half-integer both round
+// to the same integer; elsewhere (near a tie, or q0 NaN: an Inf element
+// over an Inf scale, whose rcp is 0) the correctly rounded divide
+// decides. So the code is encode()'s, bit for bit, and the ~10-operation
+// divide runs for about one element in 5000.
+__device__ __forceinline__ int8_t encode_rcp(float v, float scale,
+                                             float rcp) {
+  if (!(scale > 0.0f)) return 0;  // zero or NaN scale
+  const float q0 = __fmul_rn(v, rcp);
+  float r = rintf(q0);
+  if (!(fabsf(q0 - r) < 0.4999f)) r = rintf(__fdiv_rn(v, scale));
+  if (r != r) return 0;
+  r = fminf(fmaxf(r, -kQmax), kQmax);
+  return static_cast<int8_t>(static_cast<int>(r));
+}
+
+// Where a warp of dequant_combine_kernel's grid works (one block per
+// warp): its row, its block, and whether it has one (trailing warps of the
+// last CTA do not).
 struct Block {
   long long row, base;
   bool live;
@@ -147,47 +201,6 @@ __device__ __forceinline__ Block my_block(long long rows, long long nb) {
   b.row = b.live ? g / nb : 0;
   b.base = b.live ? (g - b.row * nb) * kBlock : 0;
   return b;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    quantize_kernel(const float* __restrict__ x, long long ld_x,
-                    int8_t* __restrict__ q, long long ld_q,
-                    float* __restrict__ s, long long ld_s, long long rows,
-                    long long n, long long nb) {
-  const Block b = my_block(rows, nb);
-  if (!b.live) return;  // whole warps leave together
-  const int lane = threadIdx.x & 31;
-  float v[kPerLane];
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const long long j = b.base + k * 32 + lane;
-    v[k] = j < n ? flush(x[b.row * ld_x + j]) : 0.0f;
-  }
-  const float scale = block_scale(v);
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const long long j = b.base + k * 32 + lane;
-    if (j < n) q[b.row * ld_q + j] = encode(v[k], scale);
-  }
-  if (lane == 0) s[b.row * ld_s + b.base / kBlock] = scale;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    dequantize_kernel(const int8_t* __restrict__ q, long long ld_q,
-                      const float* __restrict__ s, long long ld_s,
-                      float* __restrict__ out, long long ld_out,
-                      long long rows, long long n, long long nb) {
-  const Block b = my_block(rows, nb);
-  if (!b.live) return;
-  const int lane = threadIdx.x & 31;
-  const float scale = flush(s[b.row * ld_s + b.base / kBlock]);
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const long long j = b.base + k * 32 + lane;
-    if (j < n)
-      out[b.row * ld_out + j] =
-          __fmul_rn(static_cast<float>(q[b.row * ld_q + j]), scale);
-  }
 }
 
 // Decode the arriving (codes, scales), combine with the local operand;
@@ -238,15 +251,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One (segment, chunk, block) of the closed-form ring: where it lies and
-// the lane's elements. The scalar lane holds elements lane + 32k of the
-// block, the vector lane the float4s at lane*4 + 128k.
-template <bool VEC>
-struct RingBlock {
+// One 256-element block of a row as a warp holds it: where it starts,
+// how many of its columns hold real elements, and each lane's elements.
+// The scalar lane holds elements lane + 32k of the block, the vector lane
+// the float4s at lane*4 + 128k, and their codes as one 32-bit word each.
+// The walk kernels and the closed-form ring share it; codes are read only
+// by dequantize, on the scalar lanes.
+template <bool VEC, typename I = long long>
+struct WarpBlock {
   static constexpr int kGroups = VEC ? 2 : kPerLane;  // a lane's accesses a row
-  long long col;  // the block's first column in a row
-  int live;       // columns of the block that hold real elements
+  I col;     // the block's first column in a row
+  int live;  // columns of the block that hold real elements
 
+  // Block b of a row of n elements.
+  __device__ __forceinline__ static WarpBlock at(I b, I n) {
+    WarpBlock w;
+    w.col = b * kBlock;
+    const I left = n - w.col;
+    w.live = left < kBlock ? static_cast<int>(left) : kBlock;
+    return w;
+  }
   __device__ __forceinline__ int offset(int g, int lane) const {
     return VEC ? g * 128 + lane * 4 : g * 32 + lane;
   }
@@ -282,7 +306,143 @@ struct RingBlock {
       }
     }
   }
+  // The block's codes of code row `row`; columns past `live` read as 0.
+  __device__ __forceinline__ void load_codes(const int8_t* row, int lane,
+                                             int8_t (&c)[kPerLane]) const {
+    static_assert(!VEC, "codes are read on the scalar lanes only");
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int j = offset(g, lane);
+      c[g] = j < live ? __ldg(row + col + j) : int8_t{0};
+    }
+  }
+  __device__ __forceinline__ void store_codes(
+      int8_t* row, int lane, const int8_t (&c)[kPerLane]) const {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int j = offset(g, lane);
+      if (j >= live) continue;
+      if constexpr (VEC) {
+        unsigned w = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w |= static_cast<unsigned>(static_cast<uint8_t>(c[4 * g + i]))
+               << (8 * i);
+        *reinterpret_cast<unsigned*>(row + col + j) = w;
+      } else {
+        row[col + j] = c[g];
+      }
+    }
+  }
 };
+
+// A block's fp32 scale at byte address p: one 32-bit access when the
+// scales are word-aligned, else four byte accesses (the scale region of a
+// wire message row starts at byte n).
+__device__ __forceinline__ float load_scale(const uint8_t* p, bool word) {
+  if (word) return __ldg(reinterpret_cast<const float*>(p));
+  unsigned u = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) u |= static_cast<unsigned>(__ldg(p + i)) << (8 * i);
+  return __uint_as_float(u);
+}
+
+__device__ __forceinline__ void store_scale(uint8_t* p, bool word,
+                                            float scale) {
+  if (word) {
+    *reinterpret_cast<float*>(p) = scale;
+    return;
+  }
+  const unsigned u = __float_as_uint(scale);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = static_cast<uint8_t>(u >> (8 * i));
+}
+
+// Blockwise encode of `rows` rows of n fp32 (x, ld_x elements apart) into
+// codes (q, ld_q bytes apart) and scales (s, ld_s bytes apart; block b of
+// a row at byte 4b, a 32-bit word when s_word). A warp walks its row's
+// blocks b = first, first + step, ..., loading block b + step before it
+// encodes block b.
+template <bool VEC, typename I>
+__global__ void __launch_bounds__(kThreads)
+    quantize_kernel(const float* __restrict__ x, long long ld_x,
+                    int8_t* __restrict__ q, long long ld_q,
+                    uint8_t* __restrict__ s, long long ld_s, bool s_word,
+                    long long rows, I n) {
+  const int lane = threadIdx.x & 31;
+  const I nb = (n + kBlock - 1) / kBlock;
+  const I first =
+      static_cast<I>(blockIdx.x) * kWarps + static_cast<I>(threadIdx.x / 32);
+  const I step = static_cast<I>(gridDim.x) * kWarps;
+  if (first >= nb) return;  // whole warps leave together
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float* xr = x + r * ld_x;
+    int8_t* qr = q + r * ld_q;
+    uint8_t* sr = s + r * ld_s;
+    WarpBlock<VEC, I> blk = WarpBlock<VEC, I>::at(first, n);
+    float next[kPerLane];
+    blk.load(xr, lane, next);
+    for (I b = first; b < nb; b += step) {
+      const WarpBlock<VEC, I> cur = blk;
+      float v[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) v[k] = flush(next[k]);
+      if (b + step < nb) {
+        blk = WarpBlock<VEC, I>::at(b + step, n);
+        blk.load(xr, lane, next);
+      }
+      const float scale = block_scale(v);
+      const float rcp = __frcp_rn(scale);
+      int8_t c[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) c[k] = encode_rcp(v[k], scale, rcp);
+      cur.store_codes(qr, lane, c);
+      if (lane == 0) store_scale(sr + 4 * b, s_word, scale);
+    }
+  }
+}
+
+// Blockwise decode, the same walk: codes (q, ld_q bytes apart) and scales
+// (s, ld_s bytes apart) into `rows` rows of n fp32 (out, ld_out elements
+// apart); block b + step's codes and scale are loaded before block b is
+// decoded and stored. A lane holds elements lane + 32k of its block.
+template <typename I>
+__global__ void __launch_bounds__(kThreads)
+    dequantize_kernel(const int8_t* __restrict__ q, long long ld_q,
+                      const uint8_t* __restrict__ s, long long ld_s,
+                      bool s_word, float* __restrict__ out, long long ld_out,
+                      long long rows, I n) {
+  const int lane = threadIdx.x & 31;
+  const I nb = (n + kBlock - 1) / kBlock;
+  const I first =
+      static_cast<I>(blockIdx.x) * kWarps + static_cast<I>(threadIdx.x / 32);
+  const I step = static_cast<I>(gridDim.x) * kWarps;
+  if (first >= nb) return;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const int8_t* qr = q + r * ld_q;
+    const uint8_t* sr = s + r * ld_s;
+    float* outr = out + r * ld_out;
+    WarpBlock<false, I> blk = WarpBlock<false, I>::at(first, n);
+    int8_t next[kPerLane];
+    blk.load_codes(qr, lane, next);
+    float next_scale = load_scale(sr + 4 * first, s_word);
+    for (I b = first; b < nb; b += step) {
+      const WarpBlock<false, I> cur = blk;
+      const float scale = flush(next_scale);
+      float v[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) v[k] = static_cast<float>(next[k]);
+      if (b + step < nb) {
+        blk = WarpBlock<false, I>::at(b + step, n);
+        blk.load_codes(qr, lane, next);
+        next_scale = load_scale(sr + 4 * (b + step), s_word);
+      }
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) v[k] = __fmul_rn(v[k], scale);
+      cur.store(outr, lane, v);
+    }
+  }
+}
 
 // The int8-wire ring allreduce of `segs` segments of seg_len columns
 // each, over `world` rank rows: x (world rows, ld_x apart) -> out (world
@@ -301,7 +461,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long seg = g / (world * nb);
   const int c = static_cast<int>(g / nb % world);
   const long long b = g % nb;
-  RingBlock<VEC> blk;
+  WarpBlock<VEC> blk;
   const long long in_seg = c * m + b * kBlock;  // the block's first column
   blk.col = seg * seg_len + in_seg;
   long long live = m - b * kBlock;  // the chunk's end
@@ -358,6 +518,70 @@ inline unsigned grid_for(long long rows, long long nb) {
 
 inline long long blocks_of(long long n) { return (n + kBlock - 1) / kBlock; }
 
+// One wave of `kernel`'s CTAs on the current device: the walk's grid cap.
+template <typename K>
+long long resident_ctas(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const long long ctas = static_cast<long long>(sms) * per_sm;
+  return ctas > 0 ? ctas : 1;
+}
+
+// The walk's grid: rows over grid.y (at most 65535, then the loop
+// strides), a row's blocks over grid.x, a warp a block, at most `cap`
+// CTAs in all (beyond it each warp walks several blocks of its row).
+inline dim3 walk_grid(long long rows, long long n, long long cap) {
+  const long long y = rows < 65535 ? rows : 65535;
+  long long x = (blocks_of(n) + kWarps - 1) / kWarps;
+  long long per_row = cap / y;
+  if (per_row < 1) per_row = 1;
+  if (x > per_row) x = per_row;
+  return dim3(static_cast<unsigned>(x), static_cast<unsigned>(y));
+}
+
+// Whether every index inside a row of n elements fits an int: the last
+// element's block end and, with it, every block index plus a grid step.
+inline bool fits_int(long long n) { return n + kBlock <= INT_MAX; }
+
+// What the walk's vector instantiation needs: n a multiple of 4, a
+// 16-byte fp32 base and row stride, a 4-byte code base and row stride
+// (the strides only when there is more than one row).
+inline bool vector_ok(const void* f, long long ld_f, const void* q,
+                      long long ld_q, long long rows, long long n) {
+  return n % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+         (rows == 1 || (ld_f % 4 == 0 && ld_q % 4 == 0));
+}
+
+// Whether the scales move as 32-bit words.
+inline bool scale_words(const void* s, long long ld_s, long long rows) {
+  return reinterpret_cast<uintptr_t>(s) % 4 == 0 && (rows == 1 || ld_s % 4 == 0);
+}
+
+template <bool VEC, typename I>
+cudaError_t quantize_as(const float* x, long long ld_x, int8_t* q,
+                        long long ld_q, uint8_t* s, long long ld_s,
+                        long long rows, long long n, cudaStream_t st) {
+  static const long long cap = resident_ctas(quantize_kernel<VEC, I>);
+  quantize_kernel<VEC, I><<<walk_grid(rows, n, cap), kThreads, 0, st>>>(
+      x, ld_x, q, ld_q, s, ld_s, scale_words(s, ld_s, rows), rows,
+      static_cast<I>(n));
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t dequantize_as(const int8_t* q, long long ld_q, const uint8_t* s,
+                          long long ld_s, float* out, long long ld_out,
+                          long long rows, long long n, cudaStream_t st) {
+  static const long long cap = resident_ctas(dequantize_kernel<I>);
+  dequantize_kernel<I><<<walk_grid(rows, n, cap), kThreads, 0, st>>>(
+      q, ld_q, s, ld_s, scale_words(s, ld_s, rows), out, ld_out, rows,
+      static_cast<I>(n));
+  return cudaGetLastError();
+}
+
 template <int OP, bool REQUANT>
 cudaError_t launch_combine(const int8_t* q, long long ld_q, const float* s,
                            long long ld_s, const float* local, long long ld_l,
@@ -392,28 +616,41 @@ cudaError_t dispatch_combine(int op, const int8_t* q, long long ld_q,
 
 }  // namespace
 
+// The walk's entry points. ld_x / ld_out count fp32 elements, ld_q and
+// ld_s bytes: s addresses either a fp32 scale tensor (ld_s = 4 * its row
+// stride) or the scale bytes of a wire message (s = message + n, ld_s =
+// ld_q). For quantize, vec != 0 takes the vector instantiation (the
+// wrapper chooses it when the operands allow it; a misaligned request is
+// refused), 0 the scalar one.
 extern "C" int accl_quantize(const void* x, long long ld_x, void* q,
                              long long ld_q, void* s, long long ld_s,
-                             long long rows, long long n, void* stream) {
+                             long long rows, long long n, int vec,
+                             void* stream) {
   if (rows < 1 || n < 1) return cudaErrorInvalidValue;
-  const long long nb = blocks_of(n);
-  quantize_kernel<<<grid_for(rows, nb), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), ld_x, static_cast<int8_t*>(q), ld_q,
-      static_cast<float*>(s), ld_s, rows, n, nb);
-  return cudaGetLastError();
+  if (vec && !vector_ok(x, ld_x, q, ld_q, rows, n))
+    return cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  int8_t* qp = static_cast<int8_t*>(q);
+  uint8_t* sp = static_cast<uint8_t*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fits_int(n))
+    return vec ? quantize_as<true, int>(xp, ld_x, qp, ld_q, sp, ld_s, rows, n, st)
+               : quantize_as<false, int>(xp, ld_x, qp, ld_q, sp, ld_s, rows, n, st);
+  return vec ? quantize_as<true, long long>(xp, ld_x, qp, ld_q, sp, ld_s, rows, n, st)
+             : quantize_as<false, long long>(xp, ld_x, qp, ld_q, sp, ld_s, rows, n, st);
 }
 
 extern "C" int accl_dequantize(const void* q, long long ld_q, const void* s,
                                long long ld_s, void* out, long long ld_out,
                                long long rows, long long n, void* stream) {
   if (rows < 1 || n < 1) return cudaErrorInvalidValue;
-  const long long nb = blocks_of(n);
-  dequantize_kernel<<<grid_for(rows, nb), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), ld_q, static_cast<const float*>(s), ld_s,
-      static_cast<float*>(out), ld_out, rows, n, nb);
-  return cudaGetLastError();
+  const int8_t* qp = static_cast<const int8_t*>(q);
+  const uint8_t* sp = static_cast<const uint8_t*>(s);
+  float* op = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fits_int(n))
+    return dequantize_as<int>(qp, ld_q, sp, ld_s, op, ld_out, rows, n, st);
+  return dequantize_as<long long>(qp, ld_q, sp, ld_s, op, ld_out, rows, n, st);
 }
 
 extern "C" int accl_dequant_combine(int op, const void* q, long long ld_q,

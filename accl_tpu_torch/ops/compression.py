@@ -13,7 +13,9 @@ leading row, as the stacked (world, n) rank buffers need: blocks never
 straddle rows, codes keep the row's own length and scales are
 ceil(n/256) per row. The four transforms (quantize, dequantize, the
 fused dequantize->combine and dequantize->combine->requantize ring
-steps) dispatch through ops/quant_kernels.py: a CUDA tensor launches the
+steps), and quantize_wire / dequantize_wire (the quantize and dequantize
+kernels writing and reading pack_wire's message themselves), dispatch
+through ops/quant_kernels.py: a CUDA tensor launches the
 Hopper kernel of csrc/quant_wire.cu, a CPU tensor runs the plain
 versions below (`_*_impl`), which are the numeric contract.
 
@@ -157,6 +159,24 @@ def dequant_combine_requant(q, scales, local, func_op: str):
     from .quant_kernels import dequant_combine_requant as kernel
 
     return kernel(q[..., :local.shape[-1]], scales, local, func_op)
+
+
+def quantize_wire(x: torch.Tensor) -> torch.Tensor:
+    """Encode rows of fp32 straight into the int8 wire message: bitwise
+    pack_wire(*quantize_blockwise(x)), the quantize kernel writing it."""
+    from .quant_kernels import quantize_packed
+
+    return quantize_packed(x)
+
+
+def dequantize_wire(msg: torch.Tensor, n: int,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Decode the int8 wire message of n elements a row: bitwise
+    dequantize_blockwise(*unpack_wire(msg, n), n, out_dtype), the
+    dequantize kernel reading it."""
+    from .quant_kernels import dequantize_packed
+
+    return dequantize_packed(msg, n).to(out_dtype)
 
 
 def pack_wire(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,10 @@
 Counterpart of the quantized half of accl_tpu/ops/pallas_kernels.py:
 
   quantize                 replaces quantize_pallas
+  quantize_packed          the same kernel, writing the int8 wire message
+                           (pack_wire's layout) as its own output
   dequantize               replaces dequantize_pallas
+  dequantize_packed        the same kernel, reading the wire message
   dequant_combine          replaces fused_dequant_combine_pallas
   dequant_combine_requant  replaces fused_dequant_combine_quant_pallas
   quant_ring_allreduce     the int8-wire ring allreduce on one card: every
@@ -11,15 +14,20 @@ Counterpart of the quantized half of accl_tpu/ops/pallas_kernels.py:
                            ring, with its quantize, terminal combine and
                            allgather dequantize, in closed form
 
-All five are one CUDA source, csrc/quant_wire.cu, whose header states the
-design and the bound (bytes). The four step kernels take a stacked (rows,
-n) operand, one virtual rank per row (any leading shape is flattened into
+All are one CUDA source, csrc/quant_wire.cu, whose header states the
+design and the bound (bytes). The step kernels take a stacked (rows, n)
+operand, one virtual rank per row (any leading shape is flattened into
 rows; rows may be a column slice of a wider buffer: only unit stride
-within a row is required), and compute per row; quant_ring_allreduce
-takes the (world, count) rank rows of one allreduce. A wrapper launches
-the kernel for a CUDA tensor and runs the plain version (`_*_impl` in
-ops/compression.py, the numeric contract) only for a CPU tensor. Each
-wrapper counts its launches in a plain integer attribute, `launches`.
+within a row is required), and compute per row; quantize and dequantize
+fold rows that lie back to back, and quantize takes its 16-byte vector
+instantiation where the operands allow it (`quant_launch`);
+quant_ring_allreduce takes the (world, count) rank rows of one
+allreduce. A wrapper launches the kernel for a CUDA tensor and runs the
+plain version (`_*_impl` in ops/compression.py, the numeric contract)
+only for a CPU tensor. Each
+wrapper counts its launches in a plain integer attribute, `launches`, and
+the (rows, n) of each launch in a plain dict attribute, `shapes` (launches
+by shape).
 """
 
 from __future__ import annotations
@@ -28,14 +36,17 @@ import ctypes
 
 import torch
 
-from ._vector import vector_path
+from ..constants import QUANT_BLOCK_ELEMS
+from ._vector import VECTOR_BYTES, vector_path
 from .compression import (
     _dequant_combine_impl,
     _dequant_combine_requant_impl,
     _dequantize_impl,
     _quant_ring_impl,
     _quantize_impl,
+    pack_wire,
     quant_num_blocks,
+    unpack_wire,
 )
 
 _OPS = {"sum": 0, "max": 1}
@@ -46,22 +57,21 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("quant_wire")
     if lib.accl_quantize.argtypes is None:
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         sigs = {
-            # x, ld, q, ld, s, ld, rows, n, stream
-            "accl_quantize": [p, ll, p, ll, p, ll, ll, ll, p],
-            # q, ld, s, ld, out, ld, rows, n, stream
+            # x, ld, q, ld (bytes), s, ld (bytes), rows, n, vec, stream
+            "accl_quantize": [p, ll, p, ll, p, ll, ll, ll, i, p],
+            # q, ld (bytes), s, ld (bytes), out, ld, rows, n, stream
             "accl_dequantize": [p, ll, p, ll, p, ll, ll, ll, p],
             # op, q, ld, s, ld, local, ld, out, ld, rows, n, stream
-            "accl_dequant_combine": [ctypes.c_int, p, ll, p, ll, p, ll,
-                                     p, ll, ll, ll, p],
+            "accl_dequant_combine": [i, p, ll, p, ll, p, ll, p, ll, ll, ll,
+                                     p],
             # op, q, ld, s, ld, local, ld, q_out, ld, s_out, ld, rows, n,
             # stream
-            "accl_dequant_combine_requant": [ctypes.c_int, p, ll, p, ll, p,
-                                             ll, p, ll, p, ll, ll, ll, p],
+            "accl_dequant_combine_requant": [i, p, ll, p, ll, p, ll, p, ll,
+                                             p, ll, ll, ll, p],
             # op, x, ld, out, ld, world, segs, seg_len, vec, stream
-            "accl_quant_ring": [ctypes.c_int, p, ll, p, ll, ctypes.c_int, ll,
-                                ll, ctypes.c_int, p],
+            "accl_quant_ring": [i, p, ll, p, ll, i, ll, ll, i, p],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -118,6 +128,66 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(wrapper, rows: int, n: int) -> None:
+    """One launch of `wrapper`'s kernel over (rows, n)."""
+    wrapper.launches += 1
+    wrapper.shapes[rows, n] = wrapper.shapes.get((rows, n), 0) + 1
+
+
+def quant_launch(f: torch.Tensor, q: torch.Tensor, s_ptr: int, ld_s: int):
+    """The launch of kernel 5 or 6 over (rows, n) fp32 rows `f` (the
+    payload of quantize, the result of dequantize), the code rows `q`
+    (rows of n codes, or the wire message rows whose first n bytes are
+    the codes) and the scale bytes at address s_ptr, ld_s bytes a row:
+    (rows, n, fp32 row stride, code row stride, scale row stride in
+    bytes, vector flag). Rows that lie back to back (fp32 and code row
+    strides n, scale row stride 4*nb) fold into one row when n is a
+    multiple of 256, since a row's blocking restarts at its start. The
+    flag says whether quantize's 16-byte vector instantiation may run:
+    n a multiple of 4, a 16-byte fp32 base and row stride and a 4-byte
+    code base and row stride (the strides only when more than one row is
+    launched). Dequantize always takes its scalar lanes (faster on the
+    card) and reads only the fold."""
+    rows, n = f.shape
+    ld_f, ld_q = f.stride(0), q.stride(0)
+    if rows > 1 and n % QUANT_BLOCK_ELEMS == 0 and ld_f == n == ld_q \
+            and ld_s == 4 * (n // QUANT_BLOCK_ELEMS):
+        rows, n = 1, rows * n
+        ld_f = ld_q = n
+        ld_s = 4 * (n // QUANT_BLOCK_ELEMS)
+    vec = (n % 4 == 0 and f.data_ptr() % VECTOR_BYTES == 0
+           and q.data_ptr() % 4 == 0
+           and (rows == 1 or (ld_f * 4 % VECTOR_BYTES == 0 and ld_q % 4 == 0)))
+    return rows, n, ld_f, ld_q, ld_s, vec
+
+
+def _quantize_into(x2: torch.Tensor, q: torch.Tensor, s_ptr: int,
+                   ld_s: int) -> None:
+    """Kernel 5 over fp32 rows x2 into the code rows q and the scale
+    bytes at s_ptr (ld_s bytes a row)."""
+    rows, n, ld_x, ld_q, ld_s, vec = quant_launch(x2, q, s_ptr, ld_s)
+    lib = _library()
+    with torch.cuda.device(x2.device):
+        err = lib.accl_quantize(x2.data_ptr(), ld_x, q.data_ptr(), ld_q,
+                                s_ptr, ld_s, rows, n, int(vec), _stream(x2))
+    _check(err, lib, "quantize")
+    _count(quantize, *x2.shape)
+
+
+def _dequantize_from(q: torch.Tensor, s_ptr: int, ld_s: int,
+                     out: torch.Tensor) -> None:
+    """Kernel 6 from the code rows q and the scale bytes at s_ptr (ld_s
+    bytes a row) into the fp32 rows out."""
+    rows, n, ld_out, ld_q, ld_s, _ = quant_launch(out, q, s_ptr, ld_s)
+    lib = _library()
+    with torch.cuda.device(out.device):
+        err = lib.accl_dequantize(q.data_ptr(), ld_q, s_ptr, ld_s,
+                                  out.data_ptr(), ld_out, rows, n,
+                                  _stream(out))
+    _check(err, lib, "dequantize")
+    _count(dequantize, *out.shape)
+
+
 def quantize(x: torch.Tensor):
     """fp32 (..., n) -> (int8 codes (..., n), fp32 scales (..., nb))."""
     if _on_cpu(x):
@@ -127,14 +197,22 @@ def quantize(x: torch.Tensor):
     rows, nb = x2.shape[0], quant_num_blocks(n)
     q = torch.empty((rows, n), dtype=torch.int8, device=x.device)
     s = torch.empty((rows, nb), dtype=torch.float32, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.accl_quantize(x2.data_ptr(), x2.stride(0), q.data_ptr(),
-                                q.stride(0), s.data_ptr(), s.stride(0), rows,
-                                n, _stream(x))
-    _check(err, lib, "quantize")
-    quantize.launches += 1  # type: ignore[attr-defined]
+    _quantize_into(x2, q, s.data_ptr(), 4 * nb)
     return q.reshape(*lead, n), s.reshape(*lead, nb)
+
+
+def quantize_packed(x: torch.Tensor) -> torch.Tensor:
+    """fp32 (..., n) -> the int8 wire message (..., n + 4*nb): each row's
+    codes, then its fp32 scales' raw bytes; bitwise
+    pack_wire(*quantize(x)), written by the quantize kernel itself."""
+    if _on_cpu(x):
+        return pack_wire(*_quantize_impl(x))
+    lead, n = x.shape[:-1], x.shape[-1]
+    x2 = _rows(x, torch.float32, "the payload")
+    width = n + 4 * quant_num_blocks(n)
+    msg = torch.empty((x2.shape[0], width), dtype=torch.int8, device=x.device)
+    _quantize_into(x2, msg, msg.data_ptr() + n, width)
+    return msg.reshape(*lead, width)
 
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -147,13 +225,24 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     rows = q2.shape[0]
     _check_scales(s2, rows, n)
     out = torch.empty((rows, n), dtype=torch.float32, device=q.device)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.accl_dequantize(q2.data_ptr(), q2.stride(0), s2.data_ptr(),
-                                  s2.stride(0), out.data_ptr(), out.stride(0),
-                                  rows, n, _stream(q))
-    _check(err, lib, "dequantize")
-    dequantize.launches += 1  # type: ignore[attr-defined]
+    _dequantize_from(q2, s2.data_ptr(), 4 * s2.stride(0), out)
+    return out.reshape(*lead, n)
+
+
+def dequantize_packed(msg: torch.Tensor, n: int) -> torch.Tensor:
+    """The int8 wire message (..., >= n + 4*nb) of n elements a row ->
+    fp32 (..., n); bitwise dequantize(*unpack_wire(msg, n)), read by the
+    dequantize kernel itself."""
+    if _on_cpu(msg):
+        return _dequantize_impl(*unpack_wire(msg, n))
+    lead = msg.shape[:-1]
+    m2 = _rows(msg, torch.int8, "the wire message")
+    if n < 1 or m2.shape[-1] < n + 4 * quant_num_blocks(n):
+        raise ValueError(f"a wire message of {m2.shape[-1]} bytes a row for "
+                         f"{n} elements")
+    out = torch.empty((m2.shape[0], n), dtype=torch.float32,
+                      device=msg.device)
+    _dequantize_from(m2, m2.data_ptr() + n, m2.stride(0), out)
     return out.reshape(*lead, n)
 
 
@@ -186,7 +275,7 @@ def dequant_combine(q: torch.Tensor, scales: torch.Tensor,
             l2.data_ptr(), l2.stride(0), out.data_ptr(), out.stride(0), rows,
             n, _stream(q))
     _check(err, lib, "dequant_combine")
-    dequant_combine.launches += 1  # type: ignore[attr-defined]
+    _count(dequant_combine, rows, n)
     return out.reshape(*lead, n)
 
 
@@ -208,7 +297,7 @@ def dequant_combine_requant(q: torch.Tensor, scales: torch.Tensor,
             l2.data_ptr(), l2.stride(0), q_out.data_ptr(), q_out.stride(0),
             s_out.data_ptr(), s_out.stride(0), rows, n, _stream(q))
     _check(err, lib, "dequant_combine_requant")
-    dequant_combine_requant.launches += 1  # type: ignore[attr-defined]
+    _count(dequant_combine_requant, rows, n)
     return q_out.reshape(*lead, n), s_out.reshape(*lead, nb)
 
 
@@ -273,8 +362,8 @@ def quant_ring_allreduce(x: torch.Tensor, world: int, func_op: str,
     return out
 
 
-quantize.launches = 0  # type: ignore[attr-defined]
-dequantize.launches = 0  # type: ignore[attr-defined]
-dequant_combine.launches = 0  # type: ignore[attr-defined]
-dequant_combine_requant.launches = 0  # type: ignore[attr-defined]
+for _wrapper in (quantize, dequantize, dequant_combine,
+                 dequant_combine_requant):
+    _wrapper.launches = 0  # type: ignore[attr-defined]
+    _wrapper.shapes = {}  # type: ignore[attr-defined]
 quant_ring_allreduce.launches = 0  # type: ignore[attr-defined]

@@ -38,10 +38,10 @@ from ..ops.compression import (
     dequant_combine,
     dequant_combine_requant,
     dequantize_blockwise,
+    dequantize_wire,
     is_quantized,
-    pack_wire,
     quantize_blockwise,
-    unpack_wire,
+    quantize_wire,
 )
 from ..ops.lane_kernels import cast
 from ..ops.reduce_ops import combine_op, reduce_lane
@@ -109,12 +109,13 @@ class Wire:
     def transfer(self, rows: torch.Tensor) -> torch.Tensor:
         """What a hop does to the rows it moves, as the receiver sees
         them: nothing on the exact wire; compress -> decompress on a cast
-        wire; encode -> pack one message -> unpack -> decode on the
-        quantized wire (an all-zero message decodes to zeros)."""
+        wire; on the quantized wire the reference's encode -> pack one
+        message -> unpack -> decode, where the quantize kernel writes the
+        message and the dequantize kernel reads it (an all-zero message
+        decodes to zeros)."""
         if self.quantized:
             n = rows.shape[-1]
-            packed = pack_wire(*self.encode(rows))
-            return self.decode(unpack_wire(packed, n), n, rows.dtype)
+            return dequantize_wire(quantize_wire(rows), n, rows.dtype)
         return self.recv(self.send(rows), rows.dtype)
 
     def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
@@ -220,12 +221,13 @@ def _hop_reduce(acc: torch.Tensor, sent: torch.Tensor, receivers, func,
     per receiver), folded into the accumulator there. On the quantized
     wire the arrival's decode and the fold are one step (the fused
     dequantize-combine): XLA contracts the reference's decode multiply
-    and its SUM add into one fused multiply-add."""
+    and its SUM add into one fused multiply-add. The reference packs the
+    encoded pair into one message and unpacks it; the bytes round-trip
+    exactly, so the pair is folded as encoded."""
     if not wire.quantized:
         return fused_recv_reduce(acc, wire.transfer(sent), receivers, func,
                                  wire)
-    n = sent.shape[-1]
-    enc = unpack_wire(pack_wire(*wire.encode(sent)), n)
+    enc = wire.encode(sent)
     rows = _index(list(receivers))
     acc[rows] = wire.combine_decoded(func, enc, acc[rows])
     return acc

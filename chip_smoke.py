@@ -26,11 +26,17 @@ What it does, in order, printing one JSON object per line:
      and 25 MiB results also bitwise against the port's plain kernel path
      on the CPU, and the bidirectional kernel's launch count against the
      expected segment count; one host-staged call timed on its own;
-  4. quantized kernel phase: the four blockwise-int8 step kernels
-     against their plain versions on the card, bitwise (NaN matches
-     NaN), over rows {1, 2, 5, 8} x n {1, 32, 255, 257, 4099, 131072},
-     SUM and MAX for the fused pair, with all-zero, negative-rail,
-     1e-39, NaN and Inf blocks; then the closed-form int8 ring allreduce
+  4. quantized kernel phase: the four blockwise-int8 step kernels and
+     the wire message entries of kernels 5 and 6 (quantize_packed,
+     dequantize_packed) against their plain versions on the card,
+     bitwise (NaN matches NaN), over rows {1, 2, 5, 8} x n {1, 32, 255,
+     257, 4099, 131072, 6553600}, SUM and MAX for the fused pair, with
+     all-zero, signed-zero, +-127-rail, negative-rail, 1e-39, NaN and
+     Inf blocks, and blocks whose quotients lie on and beside
+     half-integers (kernel 5's exact divide); kernels 5 and 6 also over aligned and odd-stride column
+     views and through their C entry points into sentinel-filled
+     buffers (nothing written outside, a misaligned vector request
+     refused), their vector and scalar launches counted; then the closed-form int8 ring allreduce
      against its plain version and against the torch-op quantized ring
      (the step kernels hop by hop) on the card, bitwise, over worlds
      {1, 2, 3, 5, 7, 8} x per-rank counts {1, 31, 255, 257, 4099, 1<<20}
@@ -52,7 +58,8 @@ What it does, in order, printing one JSON object per line:
      of the step kernels; then the int8-wire reduce, reduce_scatter,
      allgather, gather, scatter and bcast at W=8 (25 MiB and 1 MiB),
      bitwise against the port's CPU run, each call's step-kernel
-     launches against its plan;
+     launches against its plan, with the (rows, n) of every launch, and
+     a mover hop held to 3 device operations (profiled);
   6. timings: per facade size, medians of 20 runs timed with CUDA events
      of the whole call, the kernel alone over the same segments, the plain
      version, and the one PyTorch call computing the same function
@@ -60,12 +67,17 @@ What it does, in order, printing one JSON object per line:
      int8-wire facade at 25 MiB beside the exact wire, and one int8 call
      under torch.profiler (device busy time and idle share, the costliest
      host operations, its launches); the fp16 and bf16 wires with fp32
-     arithmetic (the torch-op ring) at 25 MiB the same way; then a
-     breakdown of a ring launch into fixed device cost, the rate over its
-     2*W*n*itemsize bytes and host-side wrapper cost, of a quantized
-     launch into device time and host cost, and of the closed-form int8
-     ring at (8, 1 048 576) (device and host time, the torch-op ring it
-     replaces, a cold two-size fit);
+     arithmetic (the torch-op ring) at 25 MiB the same way; the six
+     int8-wire collectives' facade time at 25 MiB, the flat bcast
+     profiled; the four quantized step kernels at every launch shape of
+     their path and at (8, 131072) (device time and the bound; at the
+     largest two and (8, 131072) through each entry, with the plain
+     version, host cost per launch and a cold two-size fit), with each
+     one's launches x (time - bound) over its path; then a breakdown of
+     a ring launch into fixed device cost, the rate over its
+     2*W*n*itemsize bytes and host-side wrapper cost, and of the
+     closed-form int8 ring at (8, 1 048 576) (device and host time, the
+     torch-op ring it replaces, a cold two-size fit);
   7. lane kernel phase: the three lane kernels (combine, combine_cast,
      cast) against their plain versions on the card, bitwise (NaN
      matches NaN), over rows {1, 2, 5, 8} x n {1, 127, 128, 129, 4099,
@@ -253,6 +265,20 @@ def spin_cycles_per_s() -> float:
     e1.record()
     e1.synchronize()
     return cycles / (e0.elapsed_time(e1) * 1e-3)
+
+
+def host_ms(fn, count: int = 200) -> float:
+    """The host clock's time per call over `count` calls enqueued back to
+    back: a wrapper's host cost per launch while the card keeps up."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        fn()
+    ms = (time.perf_counter() - t0) / count * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def rank_data(world: int, count: int, dtype, gen):
@@ -586,19 +612,14 @@ def breakdown_phase(ring):
     fixed = t[0] - nbytes[0] * ms_per_byte
     one = rank_data(1, 1, torch.float32, gen)
     ring.ring_allreduce_bidir(one, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        ring.ring_allreduce_bidir(one, 1)
-    host_ms = (time.perf_counter() - t0) / 200 * 1e3
-    torch.cuda.synchronize()
     emit({"phase": "breakdown", "world": world,
           "bytes_per_launch": dict(zip(("2MiB", "4MiB"), nbytes)),
           "device_ms": dict(zip(("2MiB", "4MiB"), t)),
           "rate_TBps": 1e-9 / ms_per_byte,
           "fixed_device_ms": fixed,
           "fixed_share_4MiB": fixed / t[1],
-          "host_ms_per_launch": host_ms})
+          "host_ms_per_launch": host_ms(
+              lambda: ring.ring_allreduce_bidir(one, 1))})
 
 
 def quant_payload(rows: int, n: int, case: str, gen):
@@ -613,10 +634,25 @@ def quant_payload(rows: int, n: int, case: str, gen):
     m = min(n, 256)
     if case == "zero":
         x[:, :m] = 0.0
+    elif case == "signed_zeros":  # a block of +-0 alone, then -0 beside values
+        x[:, :m] = 0.0
+        x[:, :m:2] = -0.0
+        x[:, 256::3] = -0.0
     elif case == "negative_rail":
         x[:, :m] = torch.linspace(-8.0, 3.0, 256, device="cuda")[:m]
+    elif case == "rail":  # codes -127 .. 127, the rails exactly
+        x[:, :m] = torch.linspace(-127.0, 127.0, 256, device="cuda")[:m] / 64
     elif case == "subnormal":
         x[:, :m] = 1e-39
+    elif case == "ties":  # quotients on and one ulp beside half-integers
+        scale = torch.tensor(127.0) * torch.tensor(1 / 127)  # the fp32 rule
+        half = torch.arange(m, device="cuda") % 254 - 126.5
+        ties = (half * scale.item()).float()
+        ties[1::2] = torch.nextafter(ties[1::2], ties[1::2] * 2)
+        ties[0] = 127.0  # the block's max: scale 1.0, the quotients exact
+        # other rows scaled: quotients within a few ulps of the ties
+        x[:, :m] = ties * torch.linspace(1.0, 3.0, rows,
+                                         device="cuda")[:, None]
     elif case == "nan":
         x[:, m // 2] = float("nan")
         local[0, n // 2] = float("nan")
@@ -626,37 +662,202 @@ def quant_payload(rows: int, n: int, case: str, gen):
     return x, local
 
 
+QUANT_EDGE = ("random", "zero", "signed_zeros", "negative_rail", "rail",
+              "subnormal", "ties", "nan", "inf")
+# the wire message entries of kernels 5 and 6
+QUANT_PACKED = {"quantize_packed": "quantize",
+                "dequantize_packed": "dequantize"}
+
+
+def same_message(a, b, n: int) -> bool:
+    """Two int8 wire messages of n elements a row, bitwise: the codes
+    byte for byte, the scale bytes as fp32 with a NaN matching any NaN."""
+    import torch
+
+    nb = -(-n // 256)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+
+    def scales(m):
+        return m[..., n:n + 4 * nb].clone(
+            memory_format=torch.contiguous_format).view(torch.float32)
+
+    return bool(same_bits(a[..., :n], b[..., :n])
+                and same_bits(scales(a), scales(b))
+                and same_bits(a[..., n + 4 * nb:], b[..., n + 4 * nb:]))
+
+
+def same_result(entry: str, got, want, n: int) -> bool:
+    """An entry's result (a tensor or a tuple of them) against its plain
+    version's, bitwise; a wire message as same_message compares it."""
+    if entry == "quantize_packed":
+        return same_message(got, want, n)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(map(same_bits, got, want))
+
+
+def quant_bounds_check(qk):
+    """Kernels 5 and 6 write nothing outside their outputs: their C entry
+    points, called with outputs that are views into wider buffers filled
+    with a sentinel (codes and scales, a wire message, fp32 rows), in
+    quantize's vector instantiation (16-byte-aligned views, n a multiple
+    of 4 with a ragged last block) and the scalar one (views 1 or 3
+    elements off, n % 4 != 0, so a message's scale bytes lie off a
+    4-byte boundary), and dequantize's scalar lanes on both layouts,
+    must leave every sentinel in place and write the plain version's
+    values; a vector request to quantize on the scalar layouts must be
+    refused (cudaErrorInvalidValue) without a write. Returns the cases by
+    instantiation."""
+    import torch
+
+    from accl_tpu_torch.ops import compression as C
+
+    lib = qk._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(2357)
+    by_path = {"vector": 0, "scalar": 0}
+
+    def quantize(xv, q, s_ptr, ld_s):
+        """The wrapper's launch of kernel 5 here: (launch taking a vector
+        flag, the wrapper's flag)."""
+        rows, n, ld_x, ld_q, ld_s, vec = qk.quant_launch(xv, q, s_ptr, ld_s)
+        return (lambda v: lib.accl_quantize(
+            xv.data_ptr(), ld_x, q.data_ptr(), ld_q, s_ptr, ld_s, rows, n,
+            int(v), stream)), vec
+
+    def dequantize(q, s_ptr, ld_s, out):
+        """Kernel 6's launch here (scalar lanes only: no vector flag)."""
+        rows, n, ld_o, ld_q, ld_s, _ = qk.quant_launch(out, q, s_ptr, ld_s)
+        return (lambda _: lib.accl_dequantize(
+            q.data_ptr(), ld_q, s_ptr, ld_s, out.data_ptr(), ld_o, rows, n,
+            stream)), None
+
+    def buffer(rows, width, dtype):
+        fill = 90 if dtype == torch.int8 else -7.0
+        return torch.full((rows, width), fill, dtype=dtype, device="cuda")
+
+    for rows, n, lo in ((4, 1000, 16), (4, 1003, 3), (1, 4100, 16),
+                        (1, 4099, 1)):
+        nb, kind = -(-n // 256), ("aligned view" if lo == 16
+                                  else "odd-stride view")
+        width = n + 4 * nb
+        x = lay_out(quant_payload(rows, n, "nan", gen)[0], kind)
+        want_q, want_s = C._quantize_impl(x)
+        want_msg = C.pack_wire(want_q, want_s)
+        want_out = C._dequantize_impl(want_q, want_s)
+        q_in, msg_in = lay_out(want_q, kind), lay_out(want_msg, kind)
+        qbuf, sbuf = buffer(rows, n + 24, torch.int8), buffer(
+            rows, nb + 8, torch.float32)
+        mbuf = buffer(rows, width + 24, torch.int8)
+        obuf = buffer(rows, n + 24, torch.float32)
+        qv, sv = qbuf[:, lo:lo + n], sbuf[:, 1:1 + nb]
+        mv, ov = mbuf[:, lo:lo + width], obuf[:, lo:lo + n]
+        s_in = lay_out(want_s, kind)
+        cases = (  # (entry, [(buffer, written columns)], (launch, vector
+            # flag), (result, plain version) ...)
+            ("quantize", [(qbuf, lo, lo + n), (sbuf, 1, 1 + nb)],
+             quantize(x, qv, sv.data_ptr(), 4 * sv.stride(0)),
+             (qv, want_q), (sv, want_s)),
+            ("quantize_packed", [(mbuf, lo, lo + width)],
+             quantize(x, mv, mv.data_ptr() + n, mv.stride(0)),
+             (mv, want_msg)),
+            ("dequantize", [(obuf, lo, lo + n)],
+             dequantize(q_in, s_in.data_ptr(), 4 * s_in.stride(0), ov),
+             (ov, want_out)),
+            ("dequantize_packed", [(obuf, lo, lo + n)],
+             dequantize(msg_in, msg_in.data_ptr() + n, msg_in.stride(0), ov),
+             (ov, want_out)),
+        )
+        for entry, written, (launch, vec), *results in cases:
+            for buf, _, _ in written:
+                buf.fill_(90 if buf.dtype == torch.int8 else -7.0)
+            before = [buf.clone() for buf, _, _ in written]
+            where = f"{entry} {rows}x{n} at {lo}"
+            if vec is False:  # a vector request is refused, nothing written
+                err = launch(True)
+                torch.cuda.synchronize()
+                if err != 1 or not all(same_bits(buf, b) for (buf, _, _), b
+                                       in zip(written, before)):
+                    raise AssertionError(f"a misaligned vector request "
+                                         f"returned {err} or wrote: {where}")
+            err = launch(bool(vec))
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"{where}: entry point returned {err}")
+            for (buf, a, b), old in zip(written, before):
+                outside = torch.ones_like(buf, dtype=torch.bool)
+                outside[:, a:b] = False
+                if not same_bits(buf[outside], old[outside]):
+                    raise AssertionError(f"{where} wrote outside its output")
+            for got, want in results:
+                if not same_result(entry, got, want, n):
+                    raise AssertionError(f"{where} differs from its plain "
+                                         "version")
+            by_path["vector" if vec else "scalar"] += 1
+    return by_path
+
+
 def quant_kernel_phase(qk):
+    """The four step kernels and the two wire message entries against
+    their plain versions, bitwise (NaN matches NaN): rows {1, 2, 5, 8} x
+    n {1, 32, 255, 257, 4099, 131072, 6553600} x the edge blocks of
+    QUANT_EDGE; kernels 5 and 6 also over column views of wider buffers
+    (aligned and odd-stride: codes, scales and messages as inputs) and
+    through their C entry points into sentinel-filled buffers
+    (quant_bounds_check), with their launches counted by instantiation."""
     import torch
 
     from accl_tpu_torch.ops import compression as C
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
-    cases = {name: 0 for name in QUANT_KERNELS}
-    errs = {name: 0.0 for name in QUANT_KERNELS}
+    names = (*QUANT_KERNELS, *QUANT_PACKED)
+    cases = {name: 0 for name in names}
+    errs = {name: 0.0 for name in names}
+    by_path = {"vector": 0, "scalar": 0}
 
-    def check(name, got, want, where):
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
+    def check(name, got, want, where, n=None):
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            if not same_bits(g, w):
-                raise AssertionError(
-                    f"{name} differs from its plain version: {where} "
-                    f"max|diff|={max_abs_err(g, w)}")
+        pairs = tuple(zip(*(t if isinstance(t, tuple) else (t,)
+                            for t in (got, want))))
+        if not same_result(name, got, want, n):
+            raise AssertionError(
+                f"{name} differs from its plain version: {where} max|diff|="
+                f"{max(max_abs_err(g, w) for g, w in pairs)}")
+        for g, w in pairs:
             errs[name] = max(errs[name], max_abs_err(g, w))
         cases[name] += 1
 
-    edge = ("random", "zero", "negative_rail", "subnormal", "nan", "inf")
+    def path(f, q, s_ptr, ld_s):  # a quantize launch's instantiation
+        by_path["vector" if qk.quant_launch(f, q, s_ptr, ld_s)[-1]
+                else "scalar"] += 1
+
+    def kernels_5_6(x, n, where, q_as=None, msg_as=None):
+        """Both entries of each kernel on x; dequantize reads the codes
+        and the message laid out by q_as / msg_as (default: as made)."""
+        nb = -(-n // 256)
+        q, s = qk.quantize(x)
+        check("quantize", (q, s), C._quantize_impl(x), where)
+        path(x, q, s.data_ptr(), 4 * nb)
+        msg = qk.quantize_packed(x)
+        check("quantize_packed", msg, C.pack_wire(*C._quantize_impl(x)),
+              where, n)
+        path(x, msg, msg.data_ptr() + n, msg.stride(0))
+        q = q if q_as is None else q_as(q)
+        msg = msg if msg_as is None else msg_as(msg)
+        check("dequantize", qk.dequantize(q, s), C._dequantize_impl(q, s),
+              where)
+        check("dequantize_packed", qk.dequantize_packed(msg, n),
+              C._dequantize_impl(*C.unpack_wire(msg, n)), where)
+        by_path["scalar"] += 2  # dequantize has only its scalar lanes
+        return q, s
+
     for rows in (1, 2, 5, 8):
-        for n in (1, 32, 255, 257, 4099, 131072):
-            for case in edge:
+        for n in (1, 32, 255, 257, 4099, 131072, 6553600):
+            for case in QUANT_EDGE:
                 where = f"rows={rows} n={n} case={case}"
                 x, local = quant_payload(rows, n, case, gen)
-                q, s = qk.quantize(x)
-                check("quantize", (q, s), C._quantize_impl(x), where)
-                check("dequantize", qk.dequantize(q, s),
-                      C._dequantize_impl(q, s), where)
+                q, s = kernels_5_6(x, n, where)
                 for op in ("sum", "max"):
                     check("dequant_combine",
                           qk.dequant_combine(q, s, local, op),
@@ -666,9 +867,26 @@ def quant_kernel_phase(qk):
                           qk.dequant_combine_requant(q, s, local, op),
                           C._dequant_combine_requant_impl(q, s, local, op),
                           f"{where} {op}")
-    for name in QUANT_KERNELS:
+    for rows, n in ((3, 1000), (8, 4099), (5, 131072 + 4), (1, 6553600)):
+        for kind in ("aligned view", "odd-stride view"):
+            x = lay_out(quant_payload(rows, n, "nan", gen)[0], kind)
+            kernels_5_6(x, n, f"rows={rows} n={n} {kind}",
+                        q_as=lambda t, kind=kind: lay_out(t, kind),
+                        msg_as=lambda t, kind=kind: lay_out(t, kind))
+    bounds = quant_bounds_check(qk)
+    for k, v in bounds.items():
+        by_path[k] += v
+    if 0 in by_path.values():
+        raise AssertionError(f"kernels 5 and 6: an instantiation never ran "
+                             f"{by_path}")
+    for name in names:
         emit({"phase": "quant_kernel", "kernel": name, "cases": cases[name],
               "bitwise_equal": True, "max_abs_err": errs[name]})
+    emit({"phase": "quant_kernel_5_6", "launches_by_instantiation": by_path,
+          "bounds_cases_by_instantiation": bounds, "written_outside": False,
+          "misaligned_vector_refused": True})
+    for packed, kernel in QUANT_PACKED.items():
+        errs[kernel] = max(errs[kernel], errs.pop(packed))
     return errs
 
 
@@ -826,8 +1044,9 @@ def quant_collectives_phase(qk):
     W=8, at 25 MiB (the whole buffer, as nccl-tests sizes it) and 1 MiB:
     every result bitwise against the port's CPU run (the step kernels'
     plain versions), each call's step-kernel launches against its plan,
-    and no launch of the closed-form ring. Returns the four step
-    kernels' launch counts over this path's run."""
+    with the (rows, n) of every launch, no launch of the closed-form
+    ring, and 3 device operations a mover hop (mover_hop_ops). Returns the four step kernels' launch counts over this path's
+    run, the shapes they launched at and the timing inputs."""
     import torch
 
     from accl_tpu_torch import ACCL
@@ -839,13 +1058,17 @@ def quant_collectives_phase(qk):
     kernels = {name: getattr(qk, name) for name in QUANT_KERNELS}
     for k in (*kernels.values(), qk.quant_ring_allreduce):
         k.launches = 0
+    for k in kernels.values():
+        k.shapes = {}
     expected = {name: 0 for name in kernels}
+    timing = []
     for op, root in QUANT_COLL_CASES:
         for nbytes in (COLL_BYTES, MIB):
             count = coll_count(op, world, nbytes // 4)
             width = count * world if op in WIDE_IN else count
             x = rank_data(world, width, torch.float32, gen)
             before = {k: f.launches for k, f in kernels.items()}
+            seen = {k: dict(f.shapes) for k, f in kernels.items()}
             out, req = run_collective(accl, op, count, x, None, root, "SUM",
                                       "int8")
             launched = {k: f.launches - before[k] for k, f in kernels.items()}
@@ -861,18 +1084,189 @@ def quant_collectives_phase(qk):
             if not same_bits(out.cpu(), cout):
                 raise AssertionError(f"int8-wire {op} at {nbytes} bytes "
                                      "differs from the port's CPU run")
+            shapes = {k: [[*sh, c - seen[k].get(sh, 0)]
+                          for sh, c in f.shapes.items()
+                          if c > seen[k].get(sh, 0)]
+                      for k, f in kernels.items()}
             emit({"phase": "quant_collective", "op": op, "world": world,
                   "root": root, "count": count, "buffer_bytes": nbytes,
                   "plan": req.plan.algorithm.name, "launches": launched,
+                  "shapes": {k: v for k, v in shapes.items() if v},
                   "bitwise_vs_cpu": True,
                   "finite": bool(torch.isfinite(out).all())})
+            if nbytes == COLL_BYTES:
+                timing.append((op, world, nbytes // 4, torch.float32, "int8",
+                               root, "SUM", count, x, None))
     launches = {k: f.launches for k, f in kernels.items()}
     if launches != expected or 0 in launches.values():
         raise AssertionError(f"int8-wire collectives launched {launches}, "
                              f"expected {expected}")
     if qk.quant_ring_allreduce.launches:
         raise AssertionError("an int8-wire collective launched the ring")
-    return launches
+    shapes = {k: dict(f.shapes) for k, f in kernels.items()}
+    emit({"phase": "quant_shapes",
+          "launches_by_shape": {k: [[*sh, c] for sh, c in v.items()]
+                                for k, v in shapes.items()}})
+    hop_ops = mover_hop_ops(COLL_BYTES // 4)
+    emit({"phase": "quant_mover_hop", "shape": [1, COLL_BYTES // 4],
+          "device_ops": hop_ops})
+    if hop_ops != 3:  # quantize_packed, dequantize_packed, the row copy
+        raise AssertionError(f"an int8-wire mover hop ran {hop_ops} device "
+                             "operations, not 3")
+    return launches, shapes, ({world: accl}, timing)
+
+
+def mover_hop_ops(n: int) -> int:
+    """Device operations of one int8-wire mover hop at (1, n), the flat
+    bcast's `out[j:j+1] = wire.transfer(x[root:root+1])`, counted under
+    torch.profiler: the encode, what carries the message, the decode
+    and the copy into the receiving row."""
+    import torch
+
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG
+    from accl_tpu_torch.constants import DataType
+    from accl_tpu_torch.sequencer import schedules
+
+    wire = schedules.Wire(DEFAULT_ARITH_CONFIG[(DataType.float32,
+                                                DataType.int8)])
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    x = rank_data(8, n, torch.float32, gen)
+    out = x.clone()
+
+    def hop():
+        out[1:2] = wire.transfer(x[0:1])
+
+    return profile_call(hop)["device_kernels"]
+
+
+def quant_collectives_timing_phase(qk, accls, timing):
+    """The six int8-wire collectives at 25 MiB, W=8: facade time (median
+    of 20, CUDA events around the whole call) and one flat bcast under
+    the profiler (device operations a call, busy time, idle share)."""
+    time_collectives(accls, timing, "quant_collective_timing",
+                     profiled={("bcast", "int8")})
+
+
+def cold_fit(make, call, nbytes, shapes) -> dict:
+    """Device time with the host held off over cold operands at each of
+    two shapes: each launch takes the next of several operand sets
+    (`make(rows, n)`), 268 MB or more in all, and the last results are
+    held, so that each launch finds its data in device memory and writes
+    a block of its own; then the fit t = fixed + bytes / rate."""
+    import collections
+    import itertools
+
+    t, sizes = [], []
+    for rows, n in shapes:
+        b = nbytes(rows, n)
+        sets = [make(rows, n) for _ in range(max(2, -(-268_435_456 // b)))]
+        turn = itertools.cycle(sets)
+        held = collections.deque(maxlen=len(sets))
+        t.append(device_ms(lambda: held.append(call(next(turn)))))
+        sizes.append(b)
+        del sets, turn, held
+    ms_per_byte = (t[1] - t[0]) / (sizes[1] - sizes[0])
+    return {"cold_shapes": [list(sh) for sh in shapes],
+            "cold_bytes_per_launch": sizes, "cold_device_ms": t,
+            "rate_TBps": 1e-9 / ms_per_byte,
+            "fixed_device_ms": t[0] - sizes[0] * ms_per_byte}
+
+
+def quant_shape_entries(qk):
+    """Per quantized step kernel: its entry points, the one its path takes
+    most first (the packed entries for the mover hops), each as (operand
+    set made from (rows, n) fp32 rows, launch on a set, plain version on
+    a set); the fused pair over SUM."""
+    import torch
+
+    from accl_tpu_torch.ops import compression as C
+
+    gen = torch.Generator(device="cuda").manual_seed(1113)
+
+    def rows_of(rows, n):
+        return rank_data(rows, n, torch.float32, gen)
+
+    def arrival(rows, n):  # (codes, scales, local operand)
+        return (*qk.quantize(rows_of(rows, n)), rows_of(rows, n))
+
+    return {
+        "quantize": {
+            "quantize_packed": (rows_of, qk.quantize_packed,
+                                lambda x: C.pack_wire(*C._quantize_impl(x))),
+            "quantize": (rows_of, qk.quantize, C._quantize_impl)},
+        "dequantize": {
+            "dequantize_packed": (
+                lambda rows, n: (qk.quantize_packed(rows_of(rows, n)), n),
+                lambda a: qk.dequantize_packed(*a),
+                lambda a: C._dequantize_impl(*C.unpack_wire(*a))),
+            "dequantize": (lambda rows, n: qk.quantize(rows_of(rows, n)),
+                           lambda enc: qk.dequantize(*enc),
+                           lambda enc: C._dequantize_impl(*enc))},
+        "dequant_combine": {"dequant_combine": (
+            arrival, lambda a: qk.dequant_combine(*a, "sum"),
+            lambda a: C._dequant_combine_impl(*a, "sum"))},
+        "dequant_combine_requant": {"dequant_combine_requant": (
+            arrival, lambda a: qk.dequant_combine_requant(*a, "sum"),
+            lambda a: C._dequant_combine_requant_impl(*a, "sum"))},
+    }
+
+
+def quant_shapes_phase(qk, shapes):
+    """The four step kernels at every launch shape of the int8
+    collectives' path (`shapes`, launches by (rows, n)) and at
+    (8, 131072), one rank chunk of a 4 MiB segment at W=8: device time
+    with the host held off on one operand set (warm) and the bound
+    (quant_bytes over 3.35 TB/s) through the entry the path takes most,
+    each held bitwise against its plain version first; at the two largest
+    path shapes (by elements, then launches) and at (8, 131072) through
+    every entry, with the plain version's device time (10 calls), events
+    around back-to-back calls, the wrapper's host cost per launch and a
+    cold two-size fit at the shape and at half its rows' length. Then
+    each kernel's launches x (time - bound) summed over its path shapes.
+    Returns per kernel the row of its first entry at its largest path
+    shape, with that sum, for the kernels line."""
+    out = {}
+    chunk = (8, QUANT_BUF // 4 // 8)
+    for name, entries in quant_shape_entries(qk).items():
+        path = sorted(shapes[name], key=lambda sh: (sh[0] * sh[1],
+                                                     shapes[name][sh]),
+                      reverse=True)
+        gap = 0.0
+        for shape in (*path, *([] if chunk in path else [chunk])):
+            rows, n = shape
+            full = shape in path[:2] or shape == chunk
+            for i, (entry, (make, call, plain)) in enumerate(entries.items()):
+                if i and not full:
+                    continue
+                warm = make(rows, n)
+                if not same_result(entry, call(warm), plain(warm), n):
+                    raise AssertionError(f"{entry} differs from its plain "
+                                         f"version at {shape}")
+                row = {"phase": "quant_shape_timing", "kernel": name,
+                       "entry": entry, "shape": [rows, n],
+                       "path_launches": shapes[name].get(shape, 0),
+                       "device_ms": device_ms(lambda: call(warm)),
+                       "bound_ms": quant_bytes(name, rows, n)
+                       / HBM_BYTES_PER_S * 1e3}
+                if full:
+                    row["plain_ms"] = device_ms(lambda: plain(warm), count=10)
+                    row["back_to_back_ms"] = run_ms(lambda: call(warm))
+                    row["host_ms_per_launch"] = host_ms(lambda: call(warm))
+                    row.update(cold_fit(make, call,
+                                        lambda r, m: quant_bytes(name, r, m),
+                                        ((rows, n // 2), (rows, n))))
+                del warm
+                emit(row)
+                if i == 0:
+                    gap += row["path_launches"] * (row["device_ms"]
+                                                   - row["bound_ms"])
+                    if shape == path[0]:
+                        out[name] = row
+        out[name]["launches_x_gap_ms"] = gap
+        emit({"phase": "quant_path_gap", "kernel": name,
+              "path_launches": sum(shapes[name].values()),
+              "launches_x_gap_ms": gap})
+    return out
 
 
 def quant_timing_phase(qk, accl, kept):
@@ -1002,18 +1396,6 @@ def profile_call(fn) -> dict:
                              for e in by_cpu]}
 
 
-def quant_shape_operands(qk, gen):
-    """The main path's launch shape: (8, 131072) fp32, one rank chunk of a
-    4 MiB segment at W=8."""
-    import torch
-
-    world, n = 8, QUANT_BUF // 4 // 8
-    x = rank_data(world, n, torch.float32, gen)
-    local = rank_data(world, n, torch.float32, gen)
-    q, s = qk.quantize(x)
-    return world, n, x, local, q, s
-
-
 def quant_bytes(name: str, rows: int, n: int) -> int:
     """Bytes the function must move: each input read once, each output
     written once."""
@@ -1025,47 +1407,6 @@ def quant_bytes(name: str, rows: int, n: int) -> int:
                "dequant_combine_requant": codes + scales + fp32 + codes + scales,
                }[name]
     return rows * per_row
-
-
-def quant_calls(qk, C, x, local, q, s):
-    """Per kernel: (kernel call, plain call) at the same inputs (SUM for
-    the fused pair)."""
-    return {
-        "quantize": (lambda: qk.quantize(x), lambda: C._quantize_impl(x)),
-        "dequantize": (lambda: qk.dequantize(q, s),
-                       lambda: C._dequantize_impl(q, s)),
-        "dequant_combine": (
-            lambda: qk.dequant_combine(q, s, local, "sum"),
-            lambda: C._dequant_combine_impl(q, s, local, "sum")),
-        "dequant_combine_requant": (
-            lambda: qk.dequant_combine_requant(q, s, local, "sum"),
-            lambda: C._dequant_combine_requant_impl(q, s, local, "sum")),
-    }
-
-
-def quant_breakdown_phase(qk):
-    """A quantized launch at the main path's shape: device time with the
-    host out of the way, beside events around back-to-back calls (which
-    the host bounds when its cost per launch exceeds the device's) and
-    the wrapper's host cost per launch on the host clock."""
-    import torch
-
-    from accl_tpu_torch.ops import compression as C
-
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    world, n, x, local, q, s = quant_shape_operands(qk, gen)
-    rows = {}
-    for name, (kernel, _) in quant_calls(qk, C, x, local, q, s).items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            kernel()
-        host_ms = (time.perf_counter() - t0) / 200 * 1e3
-        torch.cuda.synchronize()
-        rows[name] = {"device_ms": device_ms(kernel),
-                      "back_to_back_ms": run_ms(kernel),
-                      "host_ms_per_launch": host_ms}
-    emit({"phase": "quant_breakdown", "shape": [world, n], **rows})
 
 
 RING_SPECIAL = ("random", "zero_blocks", "signed_zeros", "subnormal", "nan",
@@ -1222,12 +1563,7 @@ def quant_ring_breakdown_phase(qk):
     launch, the plain version (back to back), the torch-op quantized
     ring it replaces on the same segment (events around one call:
     host-bound) and the bound, 2*W*n*4 bytes over 3.35 TB/s. Then cold,
-    at 2 MiB and 4 MiB
-    per rank, cycling 268 MB of operands and holding the last results:
-    the fit t = fixed + bytes / rate."""
-    import collections
-    import itertools
-
+    at 2 MiB and 4 MiB per rank (cold_fit)."""
     import torch
 
     from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG
@@ -1257,35 +1593,19 @@ def quant_ring_breakdown_phase(qk):
                              f"version at (8, {n}): "
                              f"max|diff|={max_abs_err(got, want)}")
     del got, want
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        kernel()
-    host_ms = (time.perf_counter() - t0) / 200 * 1e3
-    torch.cuda.synchronize()
     row = {"shape": [world, n], "bitwise_equal": True,
            "device_ms": device_ms(kernel), "back_to_back_ms": run_ms(kernel),
-           "host_ms_per_launch": host_ms,
+           "host_ms_per_launch": host_ms(kernel),
            # the plain version's ~300 operations a call fill the launch
            # queue behind a spin: timed back to back, device-bound
            "plain_ms": run_ms(plain),
            "torch_op_ring_ms": median_ms(torch_op_ring),
-           "bound_ms": 2 * world * n * 4 / HBM_BYTES_PER_S * 1e3}
-    t, sizes = [], []
-    for rows_n in (n // 2, n):
-        b = 2 * world * rows_n * 4
-        sets = [rank_data(world, rows_n, torch.float32, gen)
-                for _ in range(max(2, -(-268_435_456 // b)))]
-        turn = itertools.cycle(sets)
-        held = collections.deque(maxlen=len(sets))
-        t.append(device_ms(lambda: held.append(qk.quant_ring_allreduce(
-            next(turn), world, "sum", rows_n))))
-        sizes.append(b)
-        del sets, turn, held
-    ms_per_byte = (t[1] - t[0]) / (sizes[1] - sizes[0])
-    row.update({"cold_bytes_per_launch": sizes, "cold_device_ms": t,
-                "rate_TBps": 1e-9 / ms_per_byte,
-                "fixed_device_ms": t[0] - sizes[0] * ms_per_byte})
+           "bound_ms": 2 * world * n * 4 / HBM_BYTES_PER_S * 1e3,
+           **cold_fit(lambda r, m: rank_data(r, m, torch.float32, gen),
+                      lambda t: qk.quant_ring_allreduce(t, world, "sum",
+                                                        t.shape[1]),
+                      lambda r, m: 2 * r * m * 4,
+                      ((world, n // 2), (world, n)))}
     emit({"phase": "quant_ring_breakdown", **row})
     return row
 
@@ -1910,7 +2230,22 @@ def collectives_phase(L):
 
 def collectives_timing_phase(accls, timing):
     """Facade time of each collective: median of 20 calls, CUDA events
-    around the whole call (from/to device), and nccl-tests' busbw."""
+    around the whole call (from/to device), and nccl-tests' busbw; the
+    f32 reduce and the allgather on the bf16 wire profiled."""
+    import torch
+
+    time_collectives(accls, timing, "collective_timing",
+                     profiled={("reduce", None), ("allgather", "bfloat16")})
+    barrier_ms = median_ms(accls[8].barrier)
+    emit({"phase": "collective_timing", "op": "barrier", "world": 8,
+          "facade_ms": barrier_ms})
+    torch.cuda.synchronize()
+
+
+def time_collectives(accls, timing, phase: str, profiled) -> None:
+    """One row per timing case: facade ms (median of 20, CUDA events),
+    busbw, and for the W=8 fp32 (op, wire) pairs in `profiled` one call
+    under the profiler."""
     import torch
 
     from accl_tpu_torch import DataType, ReduceFunction
@@ -1946,22 +2281,17 @@ def collectives_timing_phase(accls, timing):
         ms = median_ms(call)
         factor = busbw_factor(op, world)
         nbytes = n * dtype.itemsize
-        row = {"phase": "collective_timing", "op": op, "world": world,
+        row = {"phase": phase, "op": op, "world": world,
                "dtype": str(dtype).split(".")[-1], "wire": wire,
                "buffer_bytes": nbytes, "facade_ms": ms,
                "busbw_GBps": None if factor is None
                else nbytes / (ms * 1e-3) * factor / 1e9}
-        if world == 8 and dtype == torch.float32 and (op, wire) in (
-                ("reduce", None), ("allgather", "bfloat16")):
+        if world == 8 and dtype == torch.float32 and (op, wire) in profiled:
             row["profile"] = profile_call(call)  # where the call's time goes
         emit(row)
         for b in (src, res, other):
             if b is not None:
                 accl.free_buffer(b)
-    barrier_ms = median_ms(accls[8].barrier)
-    emit({"phase": "collective_timing", "op": "barrier", "world": 8,
-          "facade_ms": barrier_ms})
-    torch.cuda.synchronize()
 
 
 def lane_shape_calls(L):
@@ -2010,8 +2340,6 @@ def lane_breakdown_phase(L):
     the PyTorch call computing the same function (which does not flush
     subnormals) and the byte bound. Returns the rows for the kernels
     line."""
-    import torch
-
     rows = {}
     for name, (shape, nbytes, kernel, plain, library) in lane_shape_calls(
             L).items():
@@ -2021,15 +2349,9 @@ def lane_breakdown_phase(L):
                 f"{name} differs from its plain version at its launch shape "
                 f"{shape}: max|diff|={max_abs_err(got, want)}")
         del got, want
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            kernel()
-        host_ms = (time.perf_counter() - t0) / 200 * 1e3
-        torch.cuda.synchronize()
         rows[name] = {"shape": list(shape), "bitwise_equal": True,
                       "device_ms": device_ms(kernel),
-                      "host_ms_per_launch": host_ms,
+                      "host_ms_per_launch": host_ms(kernel),
                       "plain_ms": device_ms(plain, count=10),
                       "library_ms": device_ms(library),
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -2046,9 +2368,6 @@ def lane_cold_phase(L):
     hands back at once stays partly in L2); device time with the host
     held off. The fit t = fixed + bytes / rate over the two sizes says
     whether a launch is held by its fixed cost or by its rate."""
-    import collections
-    import itertools
-
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(13579)
@@ -2077,40 +2396,28 @@ def lane_cold_phase(L):
     }
     row = {}
     for name, (shapes, nbytes, make, call) in kernels.items():
-        t, sizes = [], []
-        for rows, n in shapes:
-            b = nbytes(rows, n)
-            sets = [make(rows, n) for _ in range(max(2, -(-268_435_456 // b)))]
-            turn = itertools.cycle(sets)
-            held = collections.deque(maxlen=len(sets))
-            t.append(device_ms(lambda: held.append(call(next(turn)))))
-            sizes.append(b)
-            del sets, turn, held
-        ms_per_byte = (t[1] - t[0]) / (sizes[1] - sizes[0])
-        fixed = t[0] - sizes[0] * ms_per_byte
-        row[name] = {"shapes": shapes, "bytes_per_launch": sizes,
-                     "cold_device_ms": t,
-                     "bound_ms": [b / HBM_BYTES_PER_S * 1e3 for b in sizes],
-                     "rate_TBps": 1e-9 / ms_per_byte,
-                     "fixed_device_ms": fixed,
-                     "fixed_share_path_shape": fixed / t[1]}
+        fit = cold_fit(make, call, nbytes, shapes)
+        row[name] = {**fit, "bound_ms": [b / HBM_BYTES_PER_S * 1e3
+                                         for b in fit["cold_bytes_per_launch"]],
+                     "fixed_share_path_shape": fit["fixed_device_ms"]
+                     / fit["cold_device_ms"][1]}
     emit({"phase": "lane_cold", **row})
     return row
 
 
-def kernel_line(ring, qk, errs, launches, ring_row, lane_rows):
+def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows):
     """Per kernel: device time per launch at the main path's launch
     shape with the host held off (device_ms), its plain version and the
     library yardstick, timed the same way. Ring kernels: W=8, fp32, 4 MiB
     per rank, with events around back-to-back launches beside it
     (`back_to_back_ms`, which times the host once the wrapper's host cost
-    exceeds the device's); their plain version back to back. Quantized
-    step kernels: (8, 131072) fp32. The closed-form int8 ring: the row of
+    exceeds the device's); their plain version back to back. The four
+    quantized step kernels: the rows of quant_shapes_phase, each at the
+    largest launch shape of its path (the packed entries for kernels 5
+    and 6). The closed-form int8 ring: the row of
     its breakdown, (8, 1 048 576) fp32, one 4 MiB segment at W=8. Lane
     kernels: the rows of the lane breakdown."""
     import torch
-
-    from accl_tpu_torch.ops import compression as C
 
     world, n = 8, SEG_BYTES // 4
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -2138,17 +2445,19 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows):
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": {"world": world, "n": n, "dtype": "float32"}})
-    rows, qn, qx, local, q, s = quant_shape_operands(qk, gen)
-    for name, (kernel, plain) in quant_calls(qk, C, qx, local, q, s).items():
+    for name, row in quant_rows.items():
         entries.append({
             "name": name, "route": "cuda",
             "source": "accl_tpu_torch/csrc/quant_wire.cu",
             "replaces": QUANT_KERNELS[name], "on_main_path": True,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": device_ms(kernel), "plain_ms": device_ms(plain, count=10),
-            "bound_ms": quant_bytes(name, rows, qn) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None,
-            "shape": {"rows": rows, "n": qn, "dtype": "float32"}})
+            "ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "entry": row["entry"],
+            "cold_device_ms": row["cold_device_ms"][1],
+            "launches_x_gap_ms": row["launches_x_gap_ms"],
+            "shape": {"rows": row["shape"][0], "n": row["shape"][1],
+                      "dtype": "float32"}})
     entries.append({
         "name": QUANT_RING[0], "route": "cuda",
         "source": "accl_tpu_torch/csrc/quant_wire.cu",
@@ -2224,20 +2533,22 @@ def main() -> int:
     qlaunches, qaccl, qkept = timed(quant_facade_phase, qk, ring)  # int8
     launches.update(qlaunches)
     # the int8-wire collectives: the four step kernels
-    launches.update(timed(quant_collectives_phase, qk))
+    qclaunches, qshapes, qtiming = timed(quant_collectives_phase, qk)
+    launches.update(qclaunches)
     llaunches, caccls, ctiming = timed(collectives_phase, L)  # collectives
     launches.update(llaunches)
     timed(timing_phase, ring, accl, kept)
     timed(quant_timing_phase, qk, qaccl, qkept)
     timed(cast_wire_timing_phase)
     timed(collectives_timing_phase, caccls, ctiming)
+    timed(quant_collectives_timing_phase, qk, *qtiming)
     timed(breakdown_phase, ring)
-    timed(quant_breakdown_phase, qk)
+    quant_rows = timed(quant_shapes_phase, qk, qshapes)
     ring_row = timed(quant_ring_breakdown_phase, qk)
     lane_rows = timed(lane_breakdown_phase, L)
     timed(lane_cold_phase, L)
     emit({"phase": "clock", "seconds": clock})
-    kernel_line(ring, qk, errs, launches, ring_row, lane_rows)
+    kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

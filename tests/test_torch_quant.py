@@ -4,8 +4,10 @@ against the jitted jnp functions (what the reference facade runs: its
 ring is jitted under shard_map) and against the Pallas kernels in
 interpret mode, the eager jnp functions within the reference's own
 tolerance, the edge cases of tests/test_compression.py plus NaN, Inf and
-subnormal blocks, and the packed wire bytes. The CUDA kernels are held
-against these plain versions on the card by chip_smoke.py."""
+subnormal blocks, the packed wire bytes, the wire message entries of the
+quantize and dequantize kernels, and their launch choice (fold, vector
+or scalar instantiation). The CUDA kernels are held against these plain
+versions on the card by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -265,20 +267,151 @@ def test_cast_entry_points_refuse_the_quantized_row():
 
 def test_wrappers_take_the_plain_version_only_on_cpu():
     x = torch.from_numpy(_payload(2, 300, seed=5))
-    before = [f.launches for f in (quant_kernels.quantize,
-                                   quant_kernels.dequantize,
-                                   quant_kernels.dequant_combine,
-                                   quant_kernels.dequant_combine_requant)]
+    wrappers = (quant_kernels.quantize, quant_kernels.dequantize,
+                quant_kernels.dequant_combine,
+                quant_kernels.dequant_combine_requant)
+    before = [(f.launches, dict(f.shapes)) for f in wrappers]
     q, s = quant_kernels.quantize(x)
     quant_kernels.dequantize(q, s)
     quant_kernels.dequant_combine(q, s, x, "sum")
     quant_kernels.dequant_combine_requant(q, s, x, "max")
-    after = [f.launches for f in (quant_kernels.quantize,
-                                  quant_kernels.dequantize,
-                                  quant_kernels.dequant_combine,
-                                  quant_kernels.dequant_combine_requant)]
+    quant_kernels.dequantize_packed(quant_kernels.quantize_packed(x), 300)
+    after = [(f.launches, dict(f.shapes)) for f in wrappers]
     assert after == before  # the plain version is no launch
     with pytest.raises(ValueError, match="unsupported"):
         quant_kernels.dequant_combine(q, s, x, "min")
     with pytest.raises(ValueError, match="devices"):
         quant_kernels.dequant_combine(q, s, x.to("meta"), "sum")
+
+
+# -- the wire message entries of kernels 5 and 6 ------------------------------
+
+SPECIAL_BLOCKS = ("zero", "signed_zeros", "subnormal", "nan", "inf", "rail",
+                  "normal")
+
+
+def _special_payload(rows, n, seed):
+    """fp32 rows whose 256-element blocks take the special kinds in turn
+    (block b of row r: SPECIAL_BLOCKS[(r + b) % 7]), so that every kind
+    appears even where a row has one block: all-zero, +-0 (a block of
+    zeros alone, or -0 beside values), 1e-39 (flushed), NaN, +-Inf, the
+    +-127 rail."""
+    x = _payload(rows, n, seed)
+    for r in range(rows):
+        for b in range(-(-n // 256)):
+            blk = x[r, 256 * b:256 * (b + 1)]
+            kind = SPECIAL_BLOCKS[(r + b) % len(SPECIAL_BLOCKS)]
+            if kind == "zero":
+                blk[:] = 0.0
+            elif kind == "signed_zeros":
+                blk[::2] = F32(-0.0)
+                if r % 2:
+                    blk[1::2] = 0.0
+            elif kind == "subnormal":
+                blk[:] = F32(1e-39)
+                blk[1::3] = F32(-1e-39)
+            elif kind == "nan":
+                blk[len(blk) // 2] = np.nan
+            elif kind == "inf":
+                blk[0] = np.inf if r % 2 else -np.inf
+            elif kind == "rail":
+                blk[:] = (np.linspace(-127.0, 127.0, 256) / 64)[:len(blk)]
+    return x
+
+
+def _messages_equal(a, b, n) -> bool:
+    """Wire messages bitwise: the codes byte for byte, the scale bytes as
+    fp32 with a NaN matching any NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    nb = -(-n // 256)
+    return (a.shape == b.shape and _bits_equal(a[:, :n], b[:, :n])
+            and _bits_equal(a[:, n:n + 4 * nb].copy().view(F32),
+                            b[:, n:n + 4 * nb].copy().view(F32)))
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 256, 257, 1000, 4099])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_packed_entries_match_jitted_reference(rows, n):
+    """quantize_packed is the reference's jitted pack_wire(*quantize_
+    blockwise(x)) and dequantize_packed its dequantize_blockwise(*unpack_
+    wire(msg, n), n), bitwise, on blocks of every special kind."""
+    x = _special_payload(rows, n, seed=rows * 7919 + n)
+    msg = quant_kernels.quantize_packed(torch.from_numpy(x))
+    want = _per_row(jax.jit(lambda v: ref.pack_wire(
+        *ref.quantize_blockwise(v))), x)
+    assert msg.dtype == torch.int8 and msg.shape == (rows, n + 4 * -(-n // 256))
+    assert _messages_equal(msg.numpy(), want, n)
+    got = quant_kernels.dequantize_packed(msg, n)
+    rdq = _per_row(jax.jit(lambda m: ref.dequantize_blockwise(
+        *ref.unpack_wire(m, n), n)), want)
+    assert got.dtype == torch.float32 and _bits_equal(got.numpy(), rdq)
+    q, s = port.unpack_wire(msg, n)
+    assert _bits_equal(got.numpy(), quant_kernels.dequantize(q, s).numpy())
+
+
+def test_dequantize_packed_reads_a_wider_message_view():
+    """A message row may be a view of a wider buffer: only its first
+    n + 4*nb bytes are read."""
+    n = 1000
+    x = torch.from_numpy(_special_payload(3, n, seed=3))
+    msg = quant_kernels.quantize_packed(x)
+    wide = torch.full((3, msg.shape[1] + 9), 77, dtype=torch.int8)
+    wide[:, 2:2 + msg.shape[1]] = msg
+    got = quant_kernels.dequantize_packed(wide[:, 2:], n)
+    assert _bits_equal(got.numpy(), quant_kernels.dequantize_packed(
+        msg, n).numpy())
+
+
+def _launch(f, q, s_off, ld_s):
+    """quant_launch over views, the scale bytes s_off bytes into q."""
+    return quant_kernels.quant_launch(f, q, q.data_ptr() + s_off, ld_s)
+
+
+@pytest.mark.parametrize("layout,want", [
+    # rows back to back, n a multiple of 256: one row, vector
+    ("contiguous 8x1024", (1, 8192, 8192, 8192, 128, True)),
+    # n not a multiple of 256: the blocking restarts each row, no fold
+    ("contiguous 8x1000", (8, 1000, 1000, 1000, 16, True)),
+    # the wire message: codes and scales interleave by row, no fold
+    ("message 8x1024", (8, 1024, 1024, 1040, 1040, True)),
+    # n % 4 != 0: a ragged block of no whole float4s, scalar
+    ("contiguous 5x1003", (5, 1003, 1003, 1003, 16, False)),
+    ("message 5x1003", (5, 1003, 1003, 1019, 1019, False)),
+    # a column view at an odd offset: fp32 base 12 bytes off 16, scalar
+    ("odd view 4x1000", (4, 1000, 1007, 1000, 16, False)),
+    # an aligned column view whose rows are 16-byte multiples: vector
+    ("aligned view 4x1000", (4, 1000, 1032, 1000, 16, True)),
+    # a fp32 row stride off 16 bytes: scalar with rows, vector alone
+    ("stride 4x1000", (4, 1000, 1001, 1000, 16, False)),
+    ("stride 1x1000", (1, 1000, 1001, 1000, 16, True)),
+    # a code base 1 byte off 4: scalar
+    ("code view 4x1000", (4, 1000, 1000, 1001, 16, False)),
+])
+def test_quant_launch_choice(layout, want):
+    """The Python-side choice of kernel 5's and 6's launch: fold or not,
+    vector or scalar, from shapes, strides and base addresses alone (CPU
+    allocations are 64-byte aligned)."""
+    kind, shape = layout.rsplit(" ", 1)
+    rows, n = map(int, shape.split("x"))
+    nb = -(-n // 256)
+    f = torch.zeros((rows, n), dtype=torch.float32)
+    q = torch.zeros((rows, n), dtype=torch.int8)
+    s_off, ld_s = None, 4 * nb
+    if kind == "message":
+        q = torch.zeros((rows, n + 4 * nb), dtype=torch.int8)
+        s_off, ld_s = n, n + 4 * nb
+    elif kind == "odd view":
+        f = torch.zeros((rows, n + 7), dtype=torch.float32)[:, 3:3 + n]
+    elif kind == "aligned view":
+        f = torch.zeros((rows, n + 32), dtype=torch.float32)[:, 16:16 + n]
+    elif kind == "stride":
+        f = torch.zeros((rows, n + 1), dtype=torch.float32)[:, :n]
+    elif kind == "code view":
+        q = torch.zeros((rows, n + 1), dtype=torch.int8)[:, 1:]
+    assert f.data_ptr() % 64 == 0 or kind in ("odd view", "aligned view")
+    if s_off is None:
+        scales = torch.zeros((rows, nb), dtype=torch.float32)
+        got = quant_kernels.quant_launch(f, q, scales.data_ptr(), ld_s)
+    else:
+        got = _launch(f, q, s_off, ld_s)
+    assert got == want
