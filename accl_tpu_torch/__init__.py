@@ -6,7 +6,9 @@ rules, with a world of virtual ranks on one NVIDIA card in place of a
 mesh of TPU chips. Buffers are stacked (world, n) tensors; a hop between
 ranks is a permutation along the rank axis or, in the fused ring kernel,
 a store into the neighbour's comm slot in device memory. Kernels are CUDA
-C++ for sm_90a under csrc/, built at first use (ops/_build.py).
+C++ for sm_90a under csrc/, built at first use (ops/_build.py). A
+recorded call sequence (`ACCL.sequence()`) runs as one CUDA-graph replay
+of those kernels.
 """
 
 from .constants import (  # noqa: F401
@@ -29,11 +31,13 @@ from .errors import (  # noqa: F401
     ACCLValidationError,
     DtypeMismatchError,
     InvalidRootError,
+    LintError,
+    SequenceReuseError,
     ZeroLengthBufferError,
 )
 from .arithconfig import ArithConfig, DEFAULT_ARITH_CONFIG  # noqa: F401
 from .communicator import Communicator, Rank  # noqa: F401
-from .descriptor import CallOptions  # noqa: F401
+from .descriptor import CallOptions, SequenceDescriptor  # noqa: F401
 from .sequencer import Algorithm, Plan, Protocol, select_algorithm  # noqa: F401
 from .accl import ACCL  # noqa: F401
 

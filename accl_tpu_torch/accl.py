@@ -12,8 +12,11 @@ The facade runs on the card unless the caller asks for the CPU:
 form on the CPU (what the tests use). The one-call collectives are
 ported — copy, combine, bcast, scatter, gather, allgather, reduce,
 allreduce, reduce_scatter and barrier — on the exact, fp16/bf16 and
-blockwise-int8 wires; send/recv, alltoall, streamed operands and call
-sequences arrive with later slices.
+blockwise-int8 wires, with streamed operands (`op0_stream`/`res_stream`
+and the copy_*_stream forms over registered producers and consumers),
+and so are call sequences (`sequence()`: record a batch, compile it
+once, run it as one CUDA-graph replay on the card). send/recv,
+`stream_put` and alltoall arrive with later slices.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from .device.gpu_device import GPUDevice
 from .errors import (
     DtypeMismatchError,
     InvalidRootError,
+    SequenceReuseError,
     ZeroLengthBufferError,
     not_ported,
 )
@@ -88,6 +92,8 @@ class ACCL:
         self.communicators: list[Communicator] = []
         self._initialized = False
         self._last_request: BaseRequest | None = None
+        # placeholder buffers of the buffer-less stream forms, by shape
+        self._stream_scratch: dict = {}
         self.initialize()
 
     # ------------------------------------------------------------------ #
@@ -337,10 +343,18 @@ class ACCL:
 
     def wait(self, req: BaseRequest):
         """Complete an async request (sync-out deferred at start time)."""
-        req.wait()
-        req.check()
-        for b in getattr(req, "_accl_sync_out", []):
-            b.sync_from_device()
+        try:
+            req.wait()
+            req.check()
+            for b in getattr(req, "_accl_sync_out", []):
+                b.sync_from_device()
+        finally:
+            # release the private placeholder a run_async stream form rode
+            # (a fresh _scratch), even when check() raises
+            sc = getattr(req, "_accl_scratch", None)
+            if sc is not None:
+                self.free_buffer(sc)
+                req._accl_scratch = None
         return req
 
     def get_duration_ns(self, req: BaseRequest | None = None) -> int:
@@ -351,12 +365,61 @@ class ACCL:
     # collectives
     # ------------------------------------------------------------------ #
 
-    @staticmethod
-    def _no_streams(op0_stream, res_stream):
-        """Streamed operands (OP0_STREAM/RES_STREAM) keep the reference's
-        argument names and are refused until their slice."""
-        if op0_stream is not None or res_stream is not None:
-            raise not_ported("streamed operands", "streams")
+    def _stream_opts(self, opts: CallOptions, op0_stream, res_stream):
+        """Arm OP0_STREAM/RES_STREAM on a prepared descriptor (streams
+        route through any collective). Stream ids ride dedicated
+        descriptor bytes (word 8), leaving the tag free for matching."""
+        if op0_stream is None and res_stream is None:
+            return opts
+        from .ops.streams import check_stream_id
+
+        flags = StreamFlags.NO_STREAM
+        if op0_stream is not None:
+            flags |= StreamFlags.OP0_STREAM
+            opts.op0_stream_id = check_stream_id(op0_stream)
+        if res_stream is not None:
+            flags |= StreamFlags.RES_STREAM
+            opts.res_stream_id = check_stream_id(res_stream)
+        opts.stream_flags = flags
+        return opts
+
+    def register_stream_producer(self, stream_id: int, fn):
+        """Attach a device-side producer to a kernel stream (the PL
+        kernel's data_to_cclo port). `fn(ranks)` gets the (world, 1)
+        int64 tensor of rank indices and returns the stacked (world, n)
+        operand (ops/streams.py). To ride a call sequence on the card it
+        must be capturable into a CUDA graph: torch ops on the card only,
+        with no host reads of device data, no synchronization and no
+        copies from host memory."""
+        self.cclo.streams.register_producer(stream_id, fn)
+
+    def register_stream_consumer(self, stream_id: int, fn):
+        """Attach a device-side consumer to a kernel stream: `fn` maps the
+        stacked (world, n) result to the stacked result that lands in the
+        result buffer. The same capturability rule as a producer's
+        applies inside a call sequence on the card."""
+        self.cclo.streams.register_consumer(stream_id, fn)
+
+    def stream_put(self, count, stream_id, src, dst, recvbuf, *,
+                   dtype=DataType.float32, run_async=False):
+        """Device-autonomous send from a stream producer: it rides the
+        point-to-point send/recv schedule, which is not ported yet."""
+        raise not_ported("stream_put", "point-to-point")
+
+    def _scratch(self, count, dtype, fresh=False):
+        """Internal placeholder buffer for a buffer-less stream endpoint
+        (the dataType-only overloads of the reference driver), cached by
+        (count, dtype); run_async callers pass fresh=True for a private
+        one, released at wait()."""
+        if isinstance(dtype, DataType):
+            dtype = to_torch_dtype(dtype)
+        if fresh:
+            return self.create_buffer(count, dtype)
+        key = (int(count), dtype)
+        buf = self._stream_scratch.get(key)
+        if buf is None:
+            buf = self._stream_scratch[key] = self.create_buffer(count, dtype)
+        return buf
 
     def copy(self, srcbuf, dstbuf, count, *, from_device=False,
              to_device=False, run_async=False):
@@ -364,6 +427,47 @@ class ACCL:
         opts = self._prepare(Operation.copy, srcbuf, None, dstbuf, count)
         return self._execute(opts, [srcbuf], [dstbuf], from_device,
                              to_device, run_async)
+
+    def copy_from_stream(self, dstbuf, count, *, op0_stream, to_device=False,
+                         run_async=False):
+        """The operand comes from a registered producer stream, the
+        result lands in dstbuf."""
+        opts = self._prepare(Operation.copy, dstbuf, None, dstbuf, count)
+        self._stream_opts(opts, op0_stream, None)
+        return self._execute(opts, [dstbuf], [dstbuf], True, to_device,
+                             run_async)
+
+    def copy_to_stream(self, srcbuf, count, *, res_stream, dstbuf=None,
+                       from_device=False, to_device=False,
+                       run_async=False):
+        """srcbuf routes through a registered consumer stream. The
+        consumer's result lands in dstbuf when given, else in an internal
+        placeholder; `to_device=True` skips the result's device->host
+        sync even with a dstbuf."""
+        fresh = dstbuf is None and run_async
+        dst = dstbuf if dstbuf is not None else self._scratch(
+            count, srcbuf.dtype, fresh=run_async)
+        opts = self._prepare(Operation.copy, srcbuf, None, dst, count)
+        self._stream_opts(opts, None, res_stream)
+        req = self._execute(opts, [srcbuf], [dst], from_device,
+                            to_device or dstbuf is None, run_async)
+        if fresh:
+            req._accl_scratch = dst
+        return req
+
+    def copy_from_to_stream(self, data_type, count, *, op0_stream, res_stream,
+                            dstbuf=None, run_async=False):
+        """Producer stream -> consumer stream with no user buffers;
+        dstbuf optionally captures the consumer's result."""
+        scratch = self._scratch(count, data_type, fresh=run_async)
+        dst = dstbuf if dstbuf is not None else scratch
+        opts = self._prepare(Operation.copy, scratch, None, dst, count)
+        self._stream_opts(opts, op0_stream, res_stream)
+        req = self._execute(opts, [scratch], [dst], True,
+                            dstbuf is None, run_async)
+        if run_async:
+            req._accl_scratch = scratch
+        return req
 
     def combine(self, count, function, op0, op1, res, *, from_device=False,
                 to_device=False, run_async=False):
@@ -377,10 +481,10 @@ class ACCL:
               run_async=False, compress_dtype=None, comm=None,
               op0_stream=None, res_stream=None):
         """Every rank's buf receives root's."""
-        self._no_streams(op0_stream, res_stream)
         opts = self._prepare(Operation.bcast, buf, None, buf, count,
                              root_src_dst=root, compress_dtype=compress_dtype,
                              comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [buf], [buf], from_device, to_device,
                              run_async)
 
@@ -389,10 +493,10 @@ class ACCL:
                 comm=None, op0_stream=None, res_stream=None):
         """Rank j's recvbuf receives chunk j (count elements) of root's
         sendbuf of world*count elements."""
-        self._no_streams(op0_stream, res_stream)
         opts = self._prepare(Operation.scatter, sendbuf, None, recvbuf, count,
                              root_src_dst=root, compress_dtype=compress_dtype,
                              comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
 
@@ -401,10 +505,10 @@ class ACCL:
                comm=None, op0_stream=None, res_stream=None):
         """Root's recvbuf (world*count elements) receives every rank's
         sendbuf, chunk j from rank j."""
-        self._no_streams(op0_stream, res_stream)
         opts = self._prepare(Operation.gather, sendbuf, None, recvbuf, count,
                              root_src_dst=root, compress_dtype=compress_dtype,
                              comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
 
@@ -413,9 +517,9 @@ class ACCL:
                   comm=None, op0_stream=None, res_stream=None):
         """Every rank's recvbuf (world*count elements) receives every
         rank's sendbuf, chunk j from rank j."""
-        self._no_streams(op0_stream, res_stream)
         opts = self._prepare(Operation.allgather, sendbuf, None, recvbuf,
                              count, compress_dtype=compress_dtype, comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
 
@@ -425,16 +529,17 @@ class ACCL:
                res_stream=None):
         """Root's recvbuf receives the elementwise reduction (SUM/MAX) of
         every rank's sendbuf."""
-        self._no_streams(op0_stream, res_stream)
         opts = self._prepare(Operation.reduce, sendbuf, None, recvbuf, count,
                              root_src_dst=root, function=int(function),
                              compress_dtype=compress_dtype, comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
 
     def allreduce(self, sendbuf, recvbuf, count, function, *,
                   from_device=False, to_device=False, run_async=False,
-                  compress_dtype=None, comm=None):
+                  compress_dtype=None, comm=None, op0_stream=None,
+                  res_stream=None):
         """Every rank's recvbuf receives the elementwise reduction
         (ReduceFunction SUM/MAX) of all ranks' sendbufs. compress_dtype
         names a wire dtype: fp16/bf16 (cast lanes), or int8 on float32
@@ -447,6 +552,7 @@ class ACCL:
         opts = self._prepare(Operation.allreduce, sendbuf, None, recvbuf,
                              count, function=int(function),
                              compress_dtype=compress_dtype, comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
 
@@ -456,10 +562,10 @@ class ACCL:
                        res_stream=None):
         """Rank j's recvbuf (count elements) receives chunk j of the
         elementwise reduction of every rank's sendbuf (world*count)."""
-        self._no_streams(op0_stream, res_stream)
         opts = self._prepare(Operation.reduce_scatter, sendbuf, None, recvbuf,
                              count, function=int(function),
                              compress_dtype=compress_dtype, comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
 
@@ -470,3 +576,270 @@ class ACCL:
         req.wait()
         req.check()
         return req
+
+    # ------------------------------------------------------------------ #
+    # call sequences: record a batch, dispatch it as one program
+    # ------------------------------------------------------------------ #
+
+    def sequence(self, comm: Communicator | None = None,
+                 lint: str = "error",
+                 persistent=()) -> "SequenceRecorder":
+        """Start recording a call sequence: collective/copy/combine calls
+        on the returned recorder queue descriptors host-side (nothing
+        executes), then `run()` (or `compile()` and `SequenceProgram.run()`)
+        runs the whole batch as one prepared program: on the card one
+        CUDA-graph replay, intermediates threaded on the card between
+        steps, stream endpoints spliced at the seams. Usable as a context
+        manager (the batch runs on clean exit)::
+
+            with accl.sequence() as seq:
+                seq.reduce_scatter(a, b, n, ReduceFunction.SUM)
+                seq.allgather(b, c, n)
+            # one dispatch happened; results are in b and c
+
+        Results are bitwise the same as issuing the same calls eagerly
+        back to back.
+
+        `lint` runs the batch through the static analyzer (analysis/)
+        before it is built: "error" (default) raises errors.LintError on
+        hazardous batches, "warn" logs the diagnostics and proceeds,
+        "off" opts out. "deep" (the reference's exhaustive-interleaving
+        tier) is not ported yet and raises.
+
+        `persistent` declares device-resident state buffers: buffers
+        whose tails carry results from one dispatch to the next (a KV
+        cache, an optimizer state), refreshed partial-width inside the
+        batch by design. The hazard pass waives ACCL101 for exactly
+        those buffers."""
+        if lint == "deep":
+            raise not_ported("the deep lint tier", "analysis")
+        if lint not in ("error", "warn", "off"):
+            raise ValueError(
+                f"lint must be 'error'|'warn'|'off'|'deep', got {lint!r}")
+        return SequenceRecorder(self, comm, lint=lint,
+                                persistent=persistent)
+
+
+class SequenceRecorder:
+    """Records a batch of collective/copy/combine descriptors host-side:
+    each method queues the same descriptor its eager ACCL counterpart
+    would dispatch, and `run()` hands the whole batch to the device for
+    one prepare + dispatch (GPUDevice.start_sequence). Methods return the
+    recorder, so chains compose; send/recv and barrier cannot ride a
+    sequence (host-paired / payload-free), and alltoall steps wait for
+    the alltoall slice."""
+
+    def __init__(self, accl: ACCL, comm: Communicator | None = None,
+                 lint: str = "error", persistent=()):
+        self._accl = accl
+        self._comm = comm
+        self._lint = lint
+        # declared device-resident state buffers (the ACCL101 waiver), as
+        # addresses: the layer the hazard pass renames from
+        self._persistent = frozenset(b.address for b in persistent)
+        self.calls: list[CallOptions] = []
+        self._reads: list[list[BaseBuffer]] = []  # per-step operands
+        self._writes: list[list[BaseBuffer]] = []  # per-step results
+        self._ran = False
+
+    def __len__(self) -> int:
+        return len(self.calls)
+
+    def __enter__(self) -> "SequenceRecorder":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None and self.calls and not self._ran:
+            self.run()
+        return False
+
+    def _record(self, opts: CallOptions, reads, writes) -> "SequenceRecorder":
+        if self._ran:
+            raise SequenceReuseError(
+                "sequence already executed; record a new one")
+        self.calls.append(opts)
+        self._reads.append(list(reads))
+        self._writes.append(list(writes))
+        return self
+
+    def _prep(self, scenario, op0, op1, res, count, op0_stream=None,
+              res_stream=None, **kw):
+        opts = self._accl._prepare(scenario, op0, op1, res, count,
+                                   comm=self._comm, **kw)
+        return self._accl._stream_opts(opts, op0_stream, res_stream)
+
+    # -- recorded forms of the facade's data-plane calls -------------------
+
+    def copy(self, srcbuf, dstbuf, count, *, op0_stream=None,
+             res_stream=None):
+        """Recorded copy; `res_stream` routes the result through a
+        registered consumer before it lands in dstbuf (the recorded form
+        of copy_to_stream), `op0_stream` takes the operand from a
+        producer (copy_from_stream)."""
+        opts = self._prep(Operation.copy, srcbuf, None, dstbuf, count,
+                          op0_stream, res_stream)
+        return self._record(opts, [srcbuf], [dstbuf])
+
+    def combine(self, count, function, op0, op1, res):
+        opts = self._prep(Operation.combine, op0, op1, res, count,
+                          function=int(function))
+        return self._record(opts, [op0, op1], [res])
+
+    def bcast(self, buf, count, root, *, compress_dtype=None,
+              op0_stream=None, res_stream=None):
+        opts = self._prep(Operation.bcast, buf, None, buf, count,
+                          op0_stream, res_stream, root_src_dst=root,
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [buf], [buf])
+
+    def scatter(self, sendbuf, recvbuf, count, root, *, compress_dtype=None,
+                op0_stream=None, res_stream=None):
+        opts = self._prep(Operation.scatter, sendbuf, None, recvbuf, count,
+                          op0_stream, res_stream, root_src_dst=root,
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [sendbuf], [recvbuf])
+
+    def gather(self, sendbuf, recvbuf, count, root, *, compress_dtype=None,
+               op0_stream=None, res_stream=None):
+        opts = self._prep(Operation.gather, sendbuf, None, recvbuf, count,
+                          op0_stream, res_stream, root_src_dst=root,
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [sendbuf], [recvbuf])
+
+    def allgather(self, sendbuf, recvbuf, count, *, compress_dtype=None,
+                  op0_stream=None, res_stream=None):
+        opts = self._prep(Operation.allgather, sendbuf, None, recvbuf, count,
+                          op0_stream, res_stream,
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [sendbuf], [recvbuf])
+
+    def reduce(self, sendbuf, recvbuf, count, root, function, *,
+               compress_dtype=None, op0_stream=None, res_stream=None):
+        opts = self._prep(Operation.reduce, sendbuf, None, recvbuf, count,
+                          op0_stream, res_stream, root_src_dst=root,
+                          function=int(function),
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [sendbuf], [recvbuf])
+
+    def allreduce(self, sendbuf, recvbuf, count, function, *,
+                  compress_dtype=None, op0_stream=None, res_stream=None):
+        opts = self._prep(Operation.allreduce, sendbuf, None, recvbuf, count,
+                          op0_stream, res_stream, function=int(function),
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [sendbuf], [recvbuf])
+
+    def reduce_scatter(self, sendbuf, recvbuf, count, function, *,
+                       compress_dtype=None, op0_stream=None,
+                       res_stream=None):
+        opts = self._prep(Operation.reduce_scatter, sendbuf, None, recvbuf,
+                          count, op0_stream, res_stream,
+                          function=int(function),
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [sendbuf], [recvbuf])
+
+    def alltoall(self, sendbuf, recvbuf, count, *, compress_dtype=None,
+                 op0_stream=None, res_stream=None):
+        raise not_ported("an alltoall step", "alltoall")
+
+    def alltoallv(self, sendbuf, recvbuf, count, send_counts, *,
+                  compress_dtype=None, op0_stream=None, res_stream=None):
+        raise not_ported("an alltoallv step", "alltoall")
+
+    # -- execution ---------------------------------------------------------
+
+    def _sync_sets(self):
+        """(sync_in, sync_out): external inputs are the buffers read before
+        any in-sequence write (intermediates chain on the card); outputs
+        are every written buffer, in first-write order: the sets eager
+        back-to-back calls would sync."""
+        written: set[int] = set()
+        sync_in: list[BaseBuffer] = []
+        sync_out: list[BaseBuffer] = []
+        for reads, writes in zip(self._reads, self._writes):
+            for b in reads:
+                if id(b) not in written and all(b is not x for x in sync_in):
+                    sync_in.append(b)
+            for b in writes:
+                written.add(id(b))
+                if all(b is not x for x in sync_out):
+                    sync_out.append(b)
+        return sync_in, sync_out
+
+    def _consume(self) -> None:
+        if self._ran:
+            raise SequenceReuseError(
+                "sequence already executed; record a new one")
+        if not self.calls:
+            raise ValueError("empty sequence: record at least one call")
+        self._ran = True
+
+    def compile(self) -> "SequenceProgram":
+        """Freeze the recorded batch into a re-dispatchable
+        SequenceProgram: plan resolution, the lint gate, the dataflow
+        analysis, the composed body and, on the card, its CUDA-graph
+        capture all happen once here, and every `program.run()` is
+        stage-in + one dispatch (one graph replay) + completion. The
+        recorder is consumed (the same one-shot contract as run())."""
+        self._consume()
+        return SequenceProgram(self._accl, self)
+
+    def run(self, *, from_device=False, to_device=False, run_async=False):
+        """Dispatch the recorded batch as one program. from_device /
+        to_device skip the host<->device syncs around the whole sequence
+        (there are none between steps); run_async returns the request,
+        to be completed with accl.wait()."""
+        self._consume()
+        accl = self._accl
+        sync_in, sync_out = self._sync_sets()
+        accl._stage_in(sync_in, from_device)
+        Log.debug("sequence of %d: %s", len(self.calls),
+                  "+".join(o.scenario.name for o in self.calls))
+        req = accl.cclo.start_sequence(self.calls, lint=self._lint,
+                                       persistent=self._persistent)
+        return accl._complete(req, sync_out, to_device, run_async)
+
+
+class SequenceProgram:
+    """A recorded call sequence frozen into its steady-state form: plan
+    resolution, lint, the composed body and its CUDA-graph capture
+    happened once (at SequenceRecorder.compile), and every `run()` is
+    stage-in + one dispatch + completion.
+
+    The program binds the buffers the recorder referenced: each run
+    reads their current device images and places results back, so the
+    caller's loop is `write inputs -> program.run() -> read outputs`. The
+    plans were resolved under the tuning registers live at compile time;
+    retune, then re-record, to pick up new registers."""
+
+    def __init__(self, accl: ACCL, recorder: SequenceRecorder):
+        self._accl = accl
+        self._sync_in, self._sync_out = recorder._sync_sets()
+        self.n_steps = len(recorder.calls)
+        self._prepared = accl.cclo.prepare_sequence(
+            recorder.calls, lint=recorder._lint,
+            persistent=recorder._persistent)
+
+    @property
+    def plans(self):
+        """The per-step Plans the batch resolved to (frozen)."""
+        return self._prepared.plans
+
+    @property
+    def signature(self):
+        """Digest of the batch's composite signature: the compile and lint
+        cache key."""
+        return self._prepared.sig
+
+    @property
+    def graph(self):
+        """The prepared SequenceGraph (on the card: the captured CUDA
+        graph, its capture time and the bytes its copy-in moves)."""
+        return self._prepared.graph
+
+    def run(self, *, from_device=False, to_device=False, run_async=False):
+        """Dispatch the prepared batch over the bound buffers' current
+        contents; the same sync semantics as SequenceRecorder.run()."""
+        accl = self._accl
+        accl._stage_in(self._sync_in, from_device)
+        req = accl.cclo.dispatch_sequence(self._prepared)
+        return accl._complete(req, self._sync_out, to_device, run_async)

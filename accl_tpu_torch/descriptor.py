@@ -2,7 +2,8 @@
 
 Counterpart of accl_tpu/descriptor.py. A call is a fixed 15-word
 descriptor; the same words key the port's compiled-schedule cache
-through `signature()`.
+through `signature()`. A call sequence is a batch of them
+(`SequenceDescriptor`), keyed by its composite signature.
 """
 
 from __future__ import annotations
@@ -120,3 +121,64 @@ class CallOptions:
             tuple(self.peer_counts),
             tuple(self.live_ranks),
         )
+
+
+@dataclasses.dataclass
+class SequenceDescriptor:
+    """A recorded batch of call descriptors executed as one prepared
+    program: the host issues a single batch instead of one descriptor per
+    collective (on the card, one CUDA-graph replay)."""
+
+    steps: tuple[CallOptions, ...]
+
+    def __post_init__(self):
+        self.steps = tuple(self.steps)
+        if not self.steps:
+            raise ValueError("empty call sequence")
+        comm = self.steps[0].comm_addr
+        if any(s.comm_addr != comm for s in self.steps):
+            raise ValueError(
+                "all steps of a sequence must address one communicator")
+
+    @property
+    def comm_addr(self) -> int:
+        return self.steps[0].comm_addr
+
+    def to_words(self) -> list[int]:
+        """Serialize as a batched call stream: a count header word followed
+        by each step's 15-word descriptor back to back."""
+        words = [len(self.steps)]
+        for s in self.steps:
+            words.extend(s.to_words())
+        return words
+
+    @classmethod
+    def from_words(cls, words: list[int]) -> "SequenceDescriptor":
+        n = words[0]
+        if len(words) != 1 + n * DESCRIPTOR_WORDS:
+            raise ValueError("malformed sequence descriptor stream")
+        return cls(tuple(
+            CallOptions.from_words(
+                words[1 + i * DESCRIPTOR_WORDS:1 + (i + 1) * DESCRIPTOR_WORDS]
+            )
+            for i in range(n)
+        ))
+
+    def signature(self) -> tuple:
+        """Composite static signature: the per-step signatures plus the
+        dataflow between steps (which operands alias which results), with
+        buffer addresses renamed canonically in order of first appearance,
+        so two batches over different buffers with the same shapes and
+        wiring share one prepared program and one lint verdict."""
+        rename: dict[int, int] = {}
+
+        def idx(addr: int) -> int | None:
+            if addr == 0:
+                return None
+            return rename.setdefault(addr, len(rename))
+
+        flow = tuple(
+            (idx(s.addr_0), idx(s.addr_1), idx(s.addr_2)) for s in self.steps
+        )
+        return ("sequence",
+                tuple(s.signature() for s in self.steps), flow)

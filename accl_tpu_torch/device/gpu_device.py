@@ -9,14 +9,18 @@ collective for every rank. Completion is a CUDA event recorded after the
 call's kernels instead of XLA's block_until_ready.
 
 Every one-call collective is ported (copy, combine, bcast, scatter,
-gather, allgather, reduce, allreduce, reduce_scatter, barrier);
-point-to-point send/recv, alltoall, streams, call sequences and
-sub-communicators raise NotImplementedError naming the slice of the port
-that brings them.
+gather, allgather, reduce, allreduce, reduce_scatter, barrier), with
+streamed operands (a registered producer/consumer spliced into the
+body), and so are call sequences: a recorded batch is prepared once
+(plans, the lint gate, the composed body, on the card one captured CUDA
+graph) and dispatched as one graph replay. Point-to-point send/recv,
+alltoall and sub-communicators raise NotImplementedError naming the
+slice of the port that brings them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 import time
 from typing import Any
@@ -30,15 +34,22 @@ from ..constants import (
     CfgFunc,
     ErrorCode,
     Operation,
+    StreamFlags,
     TuningParams,
     dtype_nbytes,
 )
-from ..descriptor import CallOptions
+from ..descriptor import CallOptions, SequenceDescriptor
 from ..errors import not_ported
-from ..request import BaseRequest, GPURequest
+from ..ops.streams import StreamRegistry
+from ..request import BaseRequest, GPURequest, SequenceRequest
 from ..sequencer.lowering import ScheduleCompiler
-from ..sequencer.plan import Plan, select_algorithm
-from ..sequencer.sequence import step_in_elems
+from ..sequencer.plan import select_algorithm
+from ..sequencer.sequence import (
+    SequencePlan,
+    place_into,
+    slice_to,
+    step_in_elems,
+)
 from .base import CCLOAddr, CCLODevice
 
 
@@ -69,6 +80,10 @@ class GPUDevice(CCLODevice):
         self._launch_mu = threading.Lock()
         # comm_addr -> validated full-world communicator table end
         self._comm_cache: dict[int, int] = {}
+        # kernel-stream endpoints (OP0_STREAM / RES_STREAM)
+        self.streams = StreamRegistry()
+        # lint verdicts of call sequences, by composite signature
+        self._lint_cache: dict[tuple, tuple] = {}
 
     # -- registry ---------------------------------------------------------
 
@@ -171,12 +186,12 @@ class GPUDevice(CCLODevice):
         return self._launch(options)
 
     def _resolve_step(self, options: CallOptions,
-                      tuning: TuningParams | None = None) -> Plan:
-        """Per-descriptor plan selection (the one source both the eager
-        path and, in a later slice, call sequences use)."""
-        if options.stream_flags:
-            raise not_ported("streamed operands", "streams")
-        return select_algorithm(
+                      tuning: TuningParams | None = None):
+        """Per-descriptor plan selection and stream-endpoint resolution:
+        the one source for both the eager path and call sequences, so a
+        sequence can never run other than what eager execution would.
+        Returns (plan, producer, consumer)."""
+        plan = select_algorithm(
             options.scenario,
             options.count,
             dtype_nbytes(options.data_type),
@@ -190,11 +205,24 @@ class GPUDevice(CCLODevice):
             peer_counts=options.peer_counts,
             live_ranks=options.live_ranks,
         )
+        # stream ids ride dedicated descriptor bytes (word 8), so the tag
+        # stays free for matching
+        producer = consumer = None
+        if options.stream_flags & StreamFlags.OP0_STREAM:
+            producer = self.streams.producer(options.op0_stream_id)
+        if options.stream_flags & StreamFlags.RES_STREAM:
+            consumer = self.streams.consumer(options.res_stream_id,
+                                             strict=True)
+        return plan, producer, consumer
 
     def _launch(self, options: CallOptions) -> GPURequest:
         self._comm_ctx(options.comm_addr)
-        plan = self._resolve_step(options, self.tuning())
-        fn = self.compiler.lower(options, plan)
+        plan, producer, consumer = self._resolve_step(options, self.tuning())
+        if options.stream_flags:
+            fn = self.compiler.lower_streamed(options, plan, producer,
+                                              consumer)
+        else:
+            fn = self.compiler.lower(options, plan)
         scen = options.scenario
         res = self._buf(options.addr_2)
         if scen == Operation.barrier:
@@ -203,9 +231,9 @@ class GPUDevice(CCLODevice):
                                device=self.torch_device)]
         else:
             in_n = step_in_elems(options, self.world)
-            args = [_slice_to(self._buf(options.addr_0).device, in_n)]
+            args = [slice_to(self._buf(options.addr_0).device, in_n)]
             if scen == Operation.combine:
-                args.append(_slice_to(self._buf(options.addr_1).device, in_n))
+                args.append(slice_to(self._buf(options.addr_1).device, in_n))
 
         events = None
         with self._launch_mu:  # one collective in flight
@@ -223,7 +251,7 @@ class GPUDevice(CCLODevice):
             if res is not None and scen != Operation.barrier:
                 if res.device is None:  # host-only result: materialize first
                     res.sync_to_device()
-                res.device = _place_into(res.device, out)
+                res.device = place_into(res.device, out)
 
         req = GPURequest(options.scenario.name, [out], events,
                          on_complete=place)
@@ -231,6 +259,155 @@ class GPUDevice(CCLODevice):
             req._start_time = t0  # host clock around the eager CPU run
         req.plan = plan
         return req
+
+    # -- call sequences ------------------------------------------------------
+
+    def start_sequence(self, options_list, lint: str = "error",
+                       persistent=frozenset()) -> SequenceRequest:
+        """Execute a recorded batch of call descriptors as one prepared
+        program: `prepare_sequence` then one `dispatch_sequence`.
+
+        `lint` gates the batch through the static analyzer (analysis/)
+        before anything is built: "error" rejects hazardous batches with
+        a typed LintError, "warn" logs the diagnostics and proceeds,
+        "off" skips the stage; "deep" (the reference's interleaving
+        tier) raises not_ported. Verdicts are cached under the composite
+        signature, so a re-recorded batch re-lints nothing.
+
+        `persistent` (buffer addresses) declares device-resident state
+        the batch refreshes partial-width by design: the hazard pass
+        waives ACCL101 for those buffers only."""
+        return self.dispatch_sequence(
+            self.prepare_sequence(options_list, lint,
+                                  persistent=persistent))
+
+    def prepare_sequence(self, options_list, lint: str = "error",
+                         persistent=frozenset()) -> "_PreparedSequence":
+        """The resolve half of `start_sequence`: per-step plan selection
+        with the live registers (read once for the batch), the lint gate,
+        the dataflow resolution, the composed body and, on the card, its
+        CUDA graph, captured over the bound buffers' current device
+        images. The handle pins the registers it was resolved under:
+        re-prepare after retuning."""
+        if lint == "deep":
+            raise not_ported("the deep lint tier", "analysis")
+        desc = SequenceDescriptor(tuple(options_list))
+        self._comm_ctx(desc.comm_addr)
+        tuning = self.tuning()
+        # a content digest of the composite signature, stable across runs
+        # (enum hashes are salted per process)
+        sig = hashlib.sha256(repr(desc.signature()).encode()).hexdigest()[:16]
+        plans, endpoints = [], []
+        for opts in desc.steps:
+            plan, producer, consumer = self._resolve_step(opts, tuning)
+            plans.append(plan)
+            endpoints.append((producer, consumer))
+        if lint != "off":
+            self._lint_batch(desc, tuple(plans), lint,
+                             persistent=frozenset(persistent))
+        seq = SequencePlan(desc, plans, self.world, endpoints)
+        bufs = {addr: self._buf(addr) for addr in seq.buffer_addrs}
+        for addr, need in seq.min_widths().items():
+            have = bufs[addr].shape[-1]
+            if have < need:
+                raise ValueError(
+                    f"sequence needs {need} elements in buffer "
+                    f"{addr:#x}, which holds {have}")
+        fn = self.compiler.compile_sequence(seq)
+        with self._launch_mu:
+            graph = self.compiler.sequence_graph(
+                seq, fn, self._bound_tensors(seq, bufs))
+        return _PreparedSequence(desc=desc, plans=tuple(plans), seq=seq,
+                                 graph=graph, bufs=bufs, sig=sig)
+
+    @staticmethod
+    def _bound_tensors(seq, bufs) -> list[torch.Tensor]:
+        """The current device image of every buffer of the batch's table
+        (a host-only buffer is staged first)."""
+        tensors = []
+        for addr in seq.buffer_addrs:
+            buf = bufs[addr]
+            if buf.device is None:
+                buf.sync_to_device()
+            tensors.append(buf.device)
+        return tensors
+
+    def dispatch_sequence(self, prepared: "_PreparedSequence"
+                          ) -> SequenceRequest:
+        """The dispatch half of `start_sequence`: copy the bound buffers'
+        current device images into the prepared graph's inputs, replay it
+        once (between two CUDA events on the card), take the written
+        buffers' values out of the graph's pool, and place them at
+        completion. Safe to call repeatedly on one handle: each call is
+        an independent request."""
+        seq, graph = prepared.seq, prepared.graph
+        tensors = self._bound_tensors(seq, prepared.bufs)
+        events = None
+        with self._launch_mu:
+            t0 = time.perf_counter_ns()
+            graph.load(tensors)
+            if graph.graph is not None:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+                graph.replay()
+                events[1].record()
+            else:
+                graph.replay()
+            outs = graph.results()
+        out_bufs = [prepared.bufs[a] for a in seq.out_addrs]
+
+        def place(req):
+            for buf, out in zip(out_bufs, outs):
+                if buf.device is None:  # host-only result: materialize
+                    buf.sync_to_device()
+                buf.device = place_into(buf.device, out)
+
+        req = SequenceRequest(outs, prepared.plans, events,
+                              on_complete=place)
+        if events is None:
+            req._start_time = t0  # host clock around the eager CPU run
+        req.signature = prepared.sig
+        return req
+
+    def _lint_batch(self, desc, plans, mode: str,
+                    persistent: frozenset = frozenset()) -> None:
+        """The static gate in front of compile_sequence. Diagnostics are
+        cached by the batch's composite signature (the canonical renaming
+        the compile cache keys on) with the registered widths and the
+        persistent set in canonical order, and the arithmetic table's
+        lanes (ACCL406 reads them), so steady state pays a dict lookup.
+        Buffer widths come from the registry, enabling the static
+        underflow check."""
+        from ..analysis.diagnostics import enforce
+        from ..analysis.linter import SequenceLinter
+
+        widths = {}
+        canon: list[int] = []  # widths in canonical (renamed) order, so
+        # the cache can never alias two batches whose buffers differ
+        rename: dict[int, int] = {}  # addr -> canonical index, for the
+        # persistent part of the key (addresses are arena-unique, so the
+        # raw set would defeat cache hits across buffers)
+        for opts in desc.steps:
+            for addr in (opts.addr_0, opts.addr_1, opts.addr_2):
+                if addr and addr not in rename:
+                    rename[addr] = len(rename)
+                buf = self.buffers.get(addr)
+                if addr and buf is not None and addr not in widths:
+                    widths[addr] = buf.shape[-1]
+                    canon.append(widths[addr])
+        canon_persist = tuple(sorted(
+            rename[a] for a in persistent if a in rename))
+        table = self.compiler.arith_table
+        key = (desc.signature(), plans, self.world, tuple(canon),
+               canon_persist, frozenset(table))
+        diags = self._lint_cache.get(key)
+        if diags is None:
+            linter = SequenceLinter(self.world, arith_table=table)
+            diags = tuple(linter.lint(desc.steps, buffer_widths=widths,
+                                      persistent_addrs=persistent))
+            self._lint_cache[key] = diags
+        enforce(diags, mode)
 
     # -- config calls ------------------------------------------------------
 
@@ -241,6 +418,7 @@ class GPUDevice(CCLODevice):
         if fn == CfgFunc.reset_periph:
             self.compiler._cache.clear()
             self._comm_cache.clear()
+            self._lint_cache.clear()
         elif fn == CfgFunc.enable_pkt:
             self.pkt_enabled = True
         elif fn == CfgFunc.set_timeout:
@@ -257,14 +435,32 @@ class GPUDevice(CCLODevice):
         return req
 
 
-def _slice_to(t: torch.Tensor, n: int) -> torch.Tensor:
-    return t if t.shape[-1] == n else t[..., :n]
 
+class _PreparedSequence:
+    """A resolved and prepared descriptor batch, ready to dispatch any
+    number of times (GPUDevice.prepare_sequence / dispatch_sequence):
+    the batch, its per-step plans, the SequencePlan, the SequenceGraph
+    of its composed body (on the card the captured CUDA graph) and the
+    bound buffer objects, re-read at every dispatch so their current
+    device images flow in.
 
-def _place_into(dst: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Write a program result into a (possibly wider) result buffer."""
-    if dst.shape == out.shape:
-        return out
-    dst = dst.clone()
-    dst[..., : out.shape[-1]] = out.to(dst.dtype)
-    return dst
+    The reference's handle also carries `preds` (per-step timing.predict
+    estimates for traced dispatches: the cost model and telemetry,
+    ROADMAP items 9 and 13), `footprint` (the cross-program interference
+    summary, item 15's interference pass) and `cert` (the certificate of
+    a certify_concurrent set, which the scheduler admits against, item
+    17). They stay None here until those slices."""
+
+    __slots__ = ("desc", "plans", "seq", "graph", "bufs", "sig", "preds",
+                 "footprint", "cert")
+
+    def __init__(self, desc, plans, seq, graph, bufs, sig):
+        self.desc = desc
+        self.plans = plans
+        self.seq = seq
+        self.graph = graph
+        self.bufs = bufs
+        self.sig = sig
+        self.preds = None
+        self.footprint = None
+        self.cert = None

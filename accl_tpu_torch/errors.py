@@ -34,6 +34,29 @@ class DtypeMismatchError(ACCLValidationError, NotImplementedError):
     lint_code = "ACCL401"
 
 
+class SequenceReuseError(RuntimeError):
+    """A completed SequenceRecorder handle was reused: recording into or
+    re-running an executed batch."""
+
+
+class LintError(ACCLValidationError):
+    """A recorded descriptor batch failed static analysis with
+    `lint="error"` (accl_tpu_torch/analysis/). Carries the structured
+    diagnostics so callers and tests can inspect codes individually."""
+
+    def __init__(self, diagnostics):
+        self.diagnostics = tuple(diagnostics)
+        lines = [f"sequence rejected by lint ({len(self.diagnostics)} "
+                 "diagnostic(s)):"]
+        lines += [f"  {d}" for d in self.diagnostics]
+        lines.append("  (suppress with lint='warn' or lint='off')")
+        super().__init__("\n".join(lines))
+
+    @property
+    def codes(self) -> tuple[str, ...]:
+        return tuple(d.code for d in self.diagnostics)
+
+
 def not_ported(what: str, slice_name: str) -> NotImplementedError:
     """The error for a feature of the reference whose slice of the port
     has not landed: raised where the reference would run it, so nothing

@@ -6,7 +6,8 @@ the work is done, so a GPURequest's completion is a CUDA event recorded
 after the call's kernels on the current stream, and its duration is the
 elapsed time of an event pair around them. On the CPU PyTorch runs
 eagerly: the work is done when the request is made, and the duration is
-the host clock's.
+the host clock's. A call sequence's request (SequenceRequest) is timed
+by the event pair around its graph replay.
 """
 
 from __future__ import annotations
@@ -117,6 +118,25 @@ class GPURequest(BaseRequest):
             self.wait()
             return True
         return False
+
+
+class SequenceRequest(GPURequest):
+    """Request for one dispatch of a prepared call sequence: one graph
+    replay covering a recorded batch of descriptors on the card (its
+    duration is the CUDA event pair around the replay), the eager body on
+    the CPU (the host clock). `plans` and `num_steps` expose what the one
+    dispatch covered."""
+
+    def __init__(self, outputs, plans, events, on_complete=None):
+        super().__init__("sequence", outputs, events,
+                         on_complete=on_complete)
+        self.plans = list(plans)
+        self.num_steps = len(self.plans)
+        # content hash of the recorded batch (the compile and lint cache
+        # key), set by the device on every dispatch
+        self.signature: str | None = None
+        # exactly one dispatch happened for the whole batch
+        self.num_dispatches = 1
 
 
 def _classify_runtime_error(e: Exception) -> int:

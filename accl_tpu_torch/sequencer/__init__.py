@@ -3,7 +3,8 @@
   - plan.py       algorithm selection (the reference's rules)
   - schedules.py  schedules over stacked (world, n) rank tensors
   - lowering.py   descriptor -> schedule body, cached per signature
-  - sequence.py   operand widths of a call's steps
+  - sequence.py   call sequences: a recorded batch's dataflow and its
+                  composed body (and the operand widths of a step)
 """
 
 from .plan import Algorithm, Plan, Protocol, select_algorithm  # noqa: F401

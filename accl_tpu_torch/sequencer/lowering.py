@@ -13,6 +13,12 @@ blockwise-int8 wire takes, on the card, the closed-form quantized ring
 kernel over the plan's segments (ops/quant_kernels.quant_ring_allreduce),
 and off it the torch-op ring, per plan segment, whose per-hop quantize /
 fused combine steps are kernels of their own.
+
+Streamed operands splice a producer/consumer into the body
+(`lower_streamed`). A call sequence composes the per-call bodies of its
+steps (`compile_sequence`), and on the card runs them as one captured
+CUDA graph (`SequenceGraph`): the counterpart of the reference's one
+jit(shard_map) program per recorded batch.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..ops.compression import wire_dtype
 from ..ops.lane_kernels import cast
 from . import schedules
 from .plan import Algorithm, Plan
+from .sequence import step_in_elems
 
 
 class ScheduleCompiler:
@@ -278,6 +285,76 @@ class ScheduleCompiler:
             arithcfg = _arithcfg_for(self.arith_table, options)
         return self.compile(options, plan, arithcfg)
 
+    def lower_streamed(
+        self,
+        options: CallOptions,
+        plan: Plan,
+        producer: Callable | None = None,
+        consumer: Callable | None = None,
+    ) -> Callable:
+        """Streamed-operand collective (the reference's OP0_STREAM /
+        RES_STREAM routing through any collective): the operand comes
+        from a producer and/or the result passes through a consumer,
+        spliced into the same body (ops/streams.py has the calling
+        convention)."""
+        from ..ops.streams import splice_consumer, splice_producer
+
+        # the endpoint callables are part of the key: the strong
+        # reference prevents id reuse after GC from resurrecting a stale
+        # body when an endpoint is re-registered
+        key = (options.signature(), plan, self.use_ring_kernel, "streamed",
+               producer, consumer)
+        fn = self._cache.get(key)
+        if fn is None:
+            body = self.lower(options, plan)
+            if producer is not None:
+                if options.scenario == Operation.combine:
+                    raise ValueError(
+                        f"OP0_STREAM unsupported for {options.scenario.name}")
+                body = splice_producer(body, producer,
+                                       step_in_elems(options, self.world),
+                                       self.world)
+            if consumer is not None:
+                body = splice_consumer(body, consumer)
+            fn = self._cache[key] = body
+        return fn
+
+    # -- call sequences ----------------------------------------------------
+
+    def compile_sequence(self, seq) -> Callable:
+        """The composed body of a SequencePlan: every step's schedule body
+        over the batch's buffer table, cached under the batch's composite
+        signature beside the per-call entries, so re-recording the same
+        shapes and dataflow builds nothing."""
+        key = seq.cache_key(self.use_ring_kernel)
+        fn = self._cache.get(key)
+        if fn is None:
+            from ..utils.logging import Log
+
+            Log.info("building sequence of %d steps: %s world=%d",
+                     len(seq.steps),
+                     "+".join(s.options.scenario.name for s in seq.steps),
+                     self.world)
+            fn = self._cache[key] = self._finalize_sequence(seq.build(self))
+        return fn
+
+    def _finalize_sequence(self, body: Callable) -> Callable:
+        # kept as a distinct seam (tests pin it to detect re-builds)
+        return body
+
+    def sequence_graph(self, seq, body: Callable,
+                       inputs: list[torch.Tensor]) -> "SequenceGraph":
+        """The executable form of a composed body for buffers shaped like
+        `inputs` (the batch's buffer table): on the card a CUDA graph
+        captured once, cached with the body under the composite
+        signature plus the buffer table's widths and dtypes."""
+        layout = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        key = ("graph", seq.cache_key(self.use_ring_kernel), layout)
+        graph = self._cache.get(key)
+        if graph is None:
+            graph = self._cache[key] = SequenceGraph(body, inputs)
+        return graph
+
 
 def _arithcfg_for(table, options: CallOptions):
     dt = options.data_type
@@ -289,3 +366,73 @@ def _arithcfg_for(table, options: CallOptions):
             if unc == dt and unc != cmp_:
                 return cfg
     return table.get((dt, dt))
+
+
+class SequenceGraph:
+    """One prepared batch's executable form. It owns a static input per
+    buffer of the batch's table; `load` copies the buffers' current
+    device images into them (a buffer's tensor changes identity at every
+    placement, so a graph cannot read it directly), `replay` runs the
+    batch, and `results` returns the written buffers' values as tensors
+    of their own.
+
+    On a CUDA device the body is captured once as a CUDA graph and
+    `replay` is one graph launch. The body first runs once eagerly on a
+    side stream (building and loading the kernels, filling the schedules'
+    index caches: nothing that must not happen under capture), then is
+    captured; every kernel wrapper takes the current stream at call
+    time, so under capture it launches on the capture stream. Launch
+    counters tick on the host, at that warm-up run and at capture, never
+    at replay. A failed capture raises; nothing falls back to the eager
+    body. The graph's outputs live in its private memory pool, which the
+    next replay overwrites, so `results` clones them out.
+
+    On the CPU the body runs eagerly on the static inputs at each
+    `replay`, through the same load and results steps."""
+
+    def __init__(self, body: Callable, inputs: list[torch.Tensor]):
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                       for t in inputs]
+        self.load(inputs)
+        self.body = body
+        self.graph = None
+        self.outputs: tuple[torch.Tensor, ...] = ()
+        # host seconds of the eager warm-up run and of the capture
+        self.warmup_s = self.capture_s = 0.0
+        device = self.inputs[0].device
+        if device.type != "cuda":
+            return
+        import time
+
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body(*self.inputs)
+        main.wait_stream(side)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.outputs = body(*self.inputs)
+        self.graph = graph
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+    @property
+    def load_bytes(self) -> int:
+        """Device bytes `load` moves per dispatch (read and written)."""
+        return 2 * sum(t.numel() * t.element_size() for t in self.inputs)
+
+    def load(self, tensors) -> None:
+        for dst, src in zip(self.inputs, tensors):
+            dst.copy_(src)
+
+    def replay(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self.outputs = self.body(*self.inputs)
+
+    def results(self) -> list[torch.Tensor]:
+        return [t.clone() for t in self.outputs]

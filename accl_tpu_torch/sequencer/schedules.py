@@ -27,6 +27,7 @@ lane-kernel launch (ops/lane_kernels.py) over the rows of that hop.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -58,12 +59,21 @@ def _ring_ctx(world: int, device: torch.device):
     return torch.arange(world, device=device), _ring_perm(world)
 
 
-def _index(rows: list[int]):
+def _index(rows: list[int], device: torch.device):
     """Index of `rows` on the rank axis: a slice (a view) when they are
-    consecutive, else the list (a gather)."""
+    consecutive, else an index tensor on `device` (a gather)."""
     if rows == list(range(rows[0], rows[0] + len(rows))):
         return slice(rows[0], rows[0] + len(rows))
-    return rows
+    return _row_tensor(tuple(rows), device)
+
+
+@functools.cache
+def _row_tensor(rows: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The index tensor of a row set, made once per row set and device:
+    its host-to-device copy happens at the first use only, so a body that
+    has run once can be captured into a CUDA graph (a copy from pageable
+    host memory cannot be captured)."""
+    return torch.tensor(rows, dtype=torch.int64, device=device)
 
 
 def _permute(y: torch.Tensor, perm, transfer=None) -> torch.Tensor:
@@ -79,9 +89,10 @@ def _permute(y: torch.Tensor, perm, transfer=None) -> torch.Tensor:
     if all(src[d] == (d - shift) % world for d in range(world)):
         return torch.roll(y if transfer is None else transfer(y), shift, 0)
     dst = [d for d, s in enumerate(src) if s >= 0]
-    rows = y[_index([src[d] for d in dst])]
+    rows = y[_index([src[d] for d in dst], y.device)]
     moved = y.new_zeros(y.shape)
-    moved[_index(dst)] = rows if transfer is None else transfer(rows)
+    moved[_index(dst, y.device)] = (rows if transfer is None
+                                   else transfer(rows))
     return moved
 
 
@@ -210,7 +221,7 @@ def fused_recv_reduce(acc: torch.Tensor, recv: torch.Tensor, receivers,
     another dtype than the accumulator's (a bf16 lane over fp32 buffers)
     is widened back, as the reference's select promotes it. Updates the
     schedule's own accumulator in place and returns it."""
-    rows = _index(list(receivers))
+    rows = _index(list(receivers), acc.device)
     acc[rows] = cast(wire.combine(func, acc[rows], recv), acc.dtype)
     return acc
 
@@ -228,7 +239,7 @@ def _hop_reduce(acc: torch.Tensor, sent: torch.Tensor, receivers, func,
         return fused_recv_reduce(acc, wire.transfer(sent), receivers, func,
                                  wire)
     enc = wire.encode(sent)
-    rows = _index(list(receivers))
+    rows = _index(list(receivers), acc.device)
     acc[rows] = wire.combine_decoded(func, enc, acc[rows])
     return acc
 
@@ -269,7 +280,8 @@ def bcast_bin_tree_schedule(x: torch.Tensor, *, root: int, world: int,
     d = 1 << _fast_log2(world - 1)
     while d > 0:
         src, dst = zip(*_tree_round(world, root, d, up=False))
-        x[_index(list(dst))] = wire.transfer(x[_index(list(src))])
+        x[_index(list(dst), x.device)] = wire.transfer(
+            x[_index(list(src), x.device)])
         d >>= 1
     return x
 
@@ -333,10 +345,11 @@ def gather_flat_schedule(x: torch.Tensor, *, root: int, world: int,
     d = 1
     while d < world:
         pairs = _tree_round(world, root, d, up=True)
-        recv = wire.transfer(flat[_index([c for c, _ in pairs])])
+        recv = wire.transfer(flat[_index([c for c, _ in pairs], x.device)])
         for (child, parent), row in zip(pairs, recv):
             ln = (child - root) % world
-            sub = [(root + k) % world for k in range(ln, min(ln + d, world))]
+            sub = _index([(root + k) % world
+                          for k in range(ln, min(ln + d, world))], x.device)
             out[parent, sub] = row.view(world, count)[sub]
         d *= 2
     return flat
@@ -465,7 +478,8 @@ def reduce_bin_tree_schedule(x: torch.Tensor, *, root: int, func,
     d = 1
     while d < world:
         src, dst = zip(*_tree_round(world, root, d, up=True))
-        _hop_reduce(acc, acc[_index(list(src))], dst, func, wire)
+        _hop_reduce(acc, acc[_index(list(src), acc.device)], dst, func,
+                    wire)
         d *= 2
     return acc
 

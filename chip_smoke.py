@@ -111,7 +111,22 @@ What it does, in order, printing one JSON object per line:
      computing the same function; combine over float64 as well); then
      the three with cold operands at two sizes, fitted to a fixed cost
      plus a rate;
-  9. the kernels line; last, the device line.
+  9. sequence phase (call sequences): six batches at W = 8, 25 MiB and
+     4 KiB per rank: an allreduce; reduce_scatter -> allgather; that
+     chain and an allreduce on the int8 wire; reduce -> bcast in bf16;
+     the allreduce on the fp16 wire with fp32 arithmetic (the torch-op
+     ring); copy_from_stream -> allreduce with a res_stream consumer.
+     Each is prepared once through SequenceRecorder.compile() as one
+     CUDA graph and held bitwise against the same calls issued eagerly
+     (on two input sets); dispatch k's results must survive dispatch
+     k+1; the launches at compile must be twice the eager calls' (the
+     warm-up run and the capture) and none at replay; one dispatch is
+     profiled (one graph launch; the eager calls' device kernels, by
+     name and count); then eager and replay facade_ms in alternating
+     pairs, the replay's device time, host ms per dispatch, capture
+     seconds and the copy-in's bytes and device ms;
+ 10. the kernels line (with each kernel's launches on the sequence path);
+     last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -2405,7 +2420,405 @@ def lane_cold_phase(L):
     return row
 
 
-def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows):
+SEQ_SIZES = (25 * MIB, 4096)  # bytes per rank: DDP's bucket, the host-bound end
+SEQ_PAIRS = 10
+
+
+def seq_kernels(ring, qk, L) -> dict:
+    """Every kernel wrapper by its kernels-line name."""
+    return {"ring_allreduce_bidir": ring.ring_allreduce_bidir,
+            "ring_allreduce": ring.ring_allreduce,
+            **{name: getattr(qk, name) for name in QUANT_KERNELS},
+            QUANT_RING[0]: qk.quant_ring_allreduce,
+            **{name: getattr(L, name) for name in LANE_KERNELS}}
+
+
+def seq_batches(nbytes: int, gen):
+    """The batches of the sequence phase at `nbytes` per rank, W = 8:
+    (name, facade kind, {buffer: (width, dtype, input tensor or None)},
+    issue(ops, bufs, feed)), issue recording or calling the batch on a
+    recorder or a facade. Facade kinds: "exact" (the defaults), "int8"
+    (a 4 MiB eager buffer), "fp32_arith" (the fp16/bf16 rows with fp32
+    arithmetic, as cast_wire_timing builds them)."""
+    import torch
+
+    from accl_tpu_torch import DataType
+    from accl_tpu_torch.constants import ReduceFunction
+
+    w, n, h = 8, nbytes // 4, nbytes // 2
+    S, M = ReduceFunction.SUM, ReduceFunction.MAX
+    f32, bf16, i8 = torch.float32, torch.bfloat16, DataType.int8
+
+    def x(width, dtype=f32):
+        return rank_data(w, width, dtype, gen)
+
+    def a(ops, b, feed):
+        ops.allreduce(b["a"], b["b"], n, S)
+
+    def rs_ag(ops, b, feed):
+        ops.reduce_scatter(b["a"], b["b"], n // w, S)
+        ops.allgather(b["b"], b["c"], n // w)
+
+    def int8(ops, b, feed):
+        ops.reduce_scatter(b["a"], b["b"], n // w, S, compress_dtype=i8)
+        ops.allgather(b["b"], b["c"], n // w, compress_dtype=i8)
+        ops.allreduce(b["c"], b["d"], n, M, compress_dtype=i8)
+
+    def reduce_bcast(ops, b, feed):
+        ops.reduce(b["a"], b["b"], h, 3, S)
+        ops.bcast(b["b"], h, 3)
+
+    def fp16_wire(ops, b, feed):
+        ops.allreduce(b["a"], b["b"], n, S, compress_dtype=DataType.float16)
+
+    def streams(ops, b, feed):
+        if isinstance(ops, _Facade):  # the facade's own form
+            ops.copy_from_stream(b["a"], n, op0_stream=41)
+        else:
+            ops.copy(b["a"], b["a"], n, op0_stream=41)
+        ops.allreduce(b["a"], b["b"], n, S, res_stream=42)
+
+    return [
+        ("allreduce", "exact", {"a": (n, f32, x(n)), "b": (n, f32, None)}, a),
+        ("reduce_scatter+allgather", "exact",
+         {"a": (n, f32, x(n)), "b": (n // w, f32, None),
+          "c": (n, f32, None)}, rs_ag),
+        ("int8 reduce_scatter+allgather+allreduce", "int8",
+         {"a": (n, f32, x(n)), "b": (n // w, f32, None), "c": (n, f32, None),
+          "d": (n, f32, None)}, int8),
+        ("bf16 reduce+bcast", "exact",
+         {"a": (h, bf16, x(h, bf16)), "b": (h, bf16, None)}, reduce_bcast),
+        ("allreduce fp16 wire fp32 arith", "fp32_arith",
+         {"a": (n, f32, x(n)), "b": (n, f32, None)}, fp16_wire),
+        ("copy_from_stream+allreduce res_stream", "exact",
+         {"a": (n, f32, None), "b": (n, f32, None)}, streams),
+    ]
+
+
+def seq_facade(kind: str):
+    from accl_tpu_torch import ACCL, DataType
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
+
+    if kind == "exact":
+        return ACCL(world=8)
+    if kind == "int8":
+        return ACCL(world=8, egr_rx_buf_size=QUANT_BUF)
+    table = dict(DEFAULT_ARITH_CONFIG)
+    for wire, lanes in ((DataType.float16, (0, 1)),
+                        (DataType.bfloat16, (2, 3))):
+        table[(DataType.float32, wire)] = ArithConfig(4, 2, 0, *lanes, False,
+                                                      (0, 5))
+    accl = ACCL(world=8, arith_config=table, egr_rx_buf_size=QUANT_BUF)
+    accl.cclo.compiler.arith_table = table
+    return accl
+
+
+PROFILE_RUNS = 5      # runs of fn in one kernel_profile session
+PROFILE_SESSIONS = 3  # sessions kernel_profile may take to get one whole
+
+
+def profile_session(fn) -> list[dict]:
+    """One torch.profiler session over PROFILE_RUNS runs of fn, each
+    ending in a synchronize, marked by a record_function range and
+    followed by 5 ms of idle. Returns, for each run, the graph launches
+    the host made and the device kernels and memory copies the card ran
+    for it, by name.
+
+    A device event belongs to the run whose range holds the host call
+    that launched it: the runtime event (cudaLaunchKernel,
+    cudaGraphLaunch, ...) of the same correlation id, whose time is on
+    the host's clock. Only a device event with no such host event is
+    placed by its own time, in the run whose range starts at most 2.5 ms
+    after it: the card's clock in a trace can lag the host's by more
+    than that (one run of this script saw every device event of a run
+    land in the run before it), so that rule is the fallback, and the
+    count of events it placed is returned with each run."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    names = [f"kernel_profile_run{i}" for i in range(PROFILE_RUNS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name in names:
+            with record_function(name):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(0.005)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() != cuda]
+    # the record_function ranges also appear as device-side ranges
+    dev = [e for e in events if e.device_type() == cuda
+           and e.name() not in names]
+    starts = sorted(e.start_ns() for e in host if e.name() in names)
+    if len(starts) != PROFILE_RUNS:
+        raise AssertionError(
+            f"the profile holds {len(starts)} of {PROFILE_RUNS} runs")
+    launched_at = {e.correlation_id(): e.start_ns() for e in host
+                   if e.name().startswith("cu") and e.correlation_id() > 0}
+
+    def run_of(t: int) -> int:  # the index of the run a host time lies in
+        return sum(t >= s for s in starts) - 1
+
+    runs = [{"graph_launches": 0, "kernels": collections.Counter(),
+             "memcpy": 0, "busy_ms": 0.0, "placed_by_device_clock": 0}
+            for _ in names]
+    for e in host:
+        if "GraphLaunch" in e.name() and run_of(e.start_ns()) >= 0:
+            runs[run_of(e.start_ns())]["graph_launches"] += 1
+    for e in dev:
+        t = launched_at.get(e.correlation_id())
+        if t is None:
+            t = e.start_ns() + 2_500_000
+        i = run_of(t)
+        if i < 0:
+            continue
+        r = runs[i]
+        r["placed_by_device_clock"] += e.correlation_id() not in launched_at
+        if e.name().startswith("Memcpy"):
+            r["memcpy"] += 1
+        elif not e.name().startswith("Memset"):
+            r["kernels"][e.name()] += 1
+        r["busy_ms"] += e.duration_ns() * 1e-6
+    return runs
+
+
+def kernel_profile(fn) -> dict:
+    """The graph launches, device kernels and memory copies of one run
+    of fn, from profile_session. A session's first and last runs are not
+    read: device events at a session's edges can go missing (one run of
+    this script lost one kernel of each eager chain and two copies of
+    each dispatch at the start). Its three middle runs must agree, and
+    the first of them is returned. A session whose middle runs disagree
+    is taken again, up to PROFILE_SESSIONS sessions in all, and then the
+    profile fails with every session's runs; the returned dict says how
+    many sessions it took."""
+    def key(r):
+        return r["kernels"], r["memcpy"], r["graph_launches"]
+
+    seen = []
+    for session in range(1, PROFILE_SESSIONS + 1):
+        middle = profile_session(fn)[1:-1]
+        if all(key(r) == key(middle[0]) for r in middle):
+            return {**middle[0], "profile_sessions": session}
+        seen.append(middle)
+    raise AssertionError(f"the profiled runs differ in each of "
+                         f"{PROFILE_SESSIONS} sessions: {seen}")
+
+
+def sequence_phase(ring, qk, L):
+    """This slice's path: call sequences. Each batch of seq_batches at
+    25 MiB and 4 KiB per rank, W = 8, is recorded and prepared once
+    through SequenceRecorder.compile() (one CUDA graph), then checked:
+    dispatch bitwise equal to the same calls issued eagerly through the
+    facade on the same inputs (NaN as NaN), on two sets of inputs;
+    dispatch k's result tensors unchanged after dispatch k+1; the kernel
+    launches at compile (the warm-up run and the capture) equal to twice
+    the eager calls' and none at replay; one dispatch profiled: one graph
+    launch, and the eager calls' device kernels (by name and count).
+    Then facade_ms of the eager chain and of program.run() in SEQ_PAIRS
+    alternating pairs on the same tensors (median and both ends), the
+    replay's device ms (its request's events), host ms per dispatch
+    (run_async, 50 back to back), capture seconds, and the copy-in's
+    bytes and device ms. Returns every kernel's launches over the checked runs of
+    the phase (counts set to 0 just before it; the timing runs are not
+    counted), and fails if a kernel of the path (all but the
+    unidirectional ring kernel) was launched no time."""
+    import torch
+
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    # the path's launches: every batch's checked run (eager twins,
+    # compile, dispatches, profiles), without its timing runs
+    path = dict.fromkeys(kernels, 0)
+    gen = torch.Generator(device="cuda").manual_seed(8008)
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    def delta(before):
+        return {name: k.launches - before[name]
+                for name, k in kernels.items()
+                if k.launches != before[name]}
+
+    for nbytes in SEQ_SIZES:
+        for name, kind, spec, issue in seq_batches(nbytes, gen):
+            accl = seq_facade(kind)
+            feed = rank_data(8, spec["a"][0], spec["a"][1], gen)
+            accl.register_stream_producer(
+                41, lambda ranks, feed=feed: feed + ranks.to(feed.dtype))
+            accl.register_stream_consumer(42, lambda r: r * 0.5)
+
+            def make():
+                bufs = {k: accl.create_buffer(width, dtype)
+                        for k, (width, dtype, _) in spec.items()}
+                for k, (_, _, t) in spec.items():
+                    if t is not None:  # inputs: one tensor for both sides
+                        bufs[k].device = t
+                return bufs
+
+            eager, fused = make(), make()
+
+            def run_eager():
+                issue(_Facade(accl), eager, feed)
+                torch.cuda.synchronize()
+
+            start = before = counts()
+            run_eager()
+            eager_launches = delta(before)
+            rec = accl.sequence()
+            issue(rec, fused, feed)
+            written = [k for k in spec if any(
+                b is fused[k] for b in rec._sync_sets()[1])]
+            before = counts()
+            t0 = time.perf_counter()
+            prog = rec.compile()
+            compile_s = time.perf_counter() - t0
+            compile_launches = delta(before)
+            graph = prog.graph
+            if graph.graph is None:
+                raise AssertionError(f"{name}: no CUDA graph was captured")
+            if compile_launches != {k: 2 * v
+                                    for k, v in eager_launches.items()}:
+                raise AssertionError(
+                    f"{name}: launches at compile {compile_launches}, the "
+                    f"eager calls' {eager_launches}")
+            kept = []
+            for k_dispatch in range(2):
+                before = counts()
+                req = prog.run(from_device=True, to_device=True)
+                torch.cuda.synchronize()
+                if delta(before):
+                    raise AssertionError(f"{name}: a replay ticked "
+                                         f"{delta(before)}")
+                if req.num_dispatches != 1:
+                    raise AssertionError(f"{name}: {req.num_dispatches} "
+                                         "dispatches")
+                for k in written:
+                    got, want = fused[k].device, eager[k].device
+                    if not same_bits(got, want):
+                        raise AssertionError(
+                            f"{name} {nbytes} B: buffer {k} of dispatch "
+                            f"{k_dispatch} differs from the eager calls")
+                    if not torch.isfinite(got.float()).all():
+                        raise AssertionError(f"{name}: non-finite {k}")
+                kept.append([(fused[k].device, fused[k].device.clone())
+                             for k in written])
+                # other inputs for the next dispatch, and the eager twin
+                for k, (_, _, t) in spec.items():
+                    if t is not None:
+                        t.copy_(rank_data(8, t.shape[1], t.dtype, gen))
+                feed.copy_(rank_data(8, feed.shape[1], feed.dtype, gen))
+                run_eager()
+            survived = all(same_bits(t, saved) for t, saved in kept[0])
+            if not survived:
+                raise AssertionError(f"{name}: dispatch 0's results changed "
+                                     "in dispatch 1")
+            moved = any(not same_bits(a, b)
+                        for (a, _), (b, _) in zip(kept[0], kept[1]))
+
+            prof_seq = kernel_profile(
+                lambda: prog.run(from_device=True, to_device=True))
+            prof_eager = kernel_profile(run_eager)
+            if prof_seq["graph_launches"] != 1:
+                raise AssertionError(f"{name}: {prof_seq['graph_launches']} "
+                                     "graph launches in one dispatch")
+            if prof_seq["kernels"] != prof_eager["kernels"]:
+                raise AssertionError(f"{name}: a dispatch ran the kernels "
+                                     f"{prof_seq['kernels']}, the eager "
+                                     f"calls {prof_eager['kernels']}")
+            for k, v in delta(start).items():
+                path[k] += v
+
+            def run_seq():
+                prog.run(from_device=True, to_device=True)
+
+            times = {"eager": [], "sequence": []}
+            for p in range(SEQ_PAIRS):
+                for side in (("eager", "sequence") if p % 2 == 0
+                             else ("sequence", "eager")):
+                    fn = run_eager if side == "eager" else run_seq
+                    times[side].append(median_ms(fn, reps=5, warmup=1))
+            replay = []
+            for _ in range(5):
+                req = prog.run(from_device=True, to_device=True)
+                replay.append(req.get_duration_ns() * 1e-6)
+            host = host_ms(lambda: prog.run(from_device=True, to_device=True,
+                                            run_async=True), count=50)
+            tensors = [prog._prepared.bufs[a].device
+                       for a in prog._prepared.seq.buffer_addrs]
+            load_ms = device_ms(lambda: graph.load(tensors), count=20)
+            emit({"phase": "sequence", "batch": name, "world": 8,
+                  "bytes_per_rank": nbytes,
+                  "plans": [p.algorithm.name for p in prog.plans],
+                  "cuda_graph": True,
+                  "bitwise_vs_eager": True, "dispatches_checked": 2,
+                  "results_survive_next_dispatch": survived,
+                  "next_dispatch_results_differ": moved,
+                  "launches_eager": eager_launches,
+                  "launches_at_compile": compile_launches,
+                  "launches_per_replay": 0,
+                  "graph_launches_per_dispatch": prof_seq["graph_launches"],
+                  "device_kernels_per_dispatch": sum(
+                      prof_seq["kernels"].values()),
+                  "device_kernels_eager": sum(prof_eager["kernels"].values()),
+                  "same_kernels_as_eager":
+                      prof_seq["kernels"] == prof_eager["kernels"],
+                  "memcpy_per_dispatch": prof_seq["memcpy"],
+                  "profile_sessions": {"sequence": prof_seq["profile_sessions"],
+                                       "eager": prof_eager["profile_sessions"]},
+                  "placed_by_device_clock": {
+                      "sequence": prof_seq["placed_by_device_clock"],
+                      "eager": prof_eager["placed_by_device_clock"]},
+                  "memcpy_eager": prof_eager["memcpy"],
+                  "device_busy_ms": {"sequence": prof_seq["busy_ms"],
+                                     "eager": prof_eager["busy_ms"]},
+                  "facade_ms": {side: {"median": statistics.median(t),
+                                       "min": min(t), "max": max(t)}
+                                for side, t in times.items()},
+                  "facade_ms_pairs": times,
+                  "replay_ms": statistics.median(replay),
+                  "host_ms_per_dispatch": host,
+                  "compile_s": compile_s, "warmup_s": graph.warmup_s,
+                  "capture_s": graph.capture_s,
+                  "copy_in_bytes": graph.load_bytes,
+                  "copy_in_ms": load_ms})
+            del prog, rec, graph, tensors, kept, eager, fused
+            accl.cclo.compiler._cache.clear()
+            del accl
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    idle = [k for k, v in path.items() if v == 0 and k != "ring_allreduce"]
+    if idle:
+        raise AssertionError(f"the sequence path launched no {idle}")
+    return path
+
+
+class _Facade:
+    """The facade's calls with from_device/to_device, under the recorder's
+    method names, so one issue() drives both."""
+
+    def __init__(self, accl):
+        self.accl = accl
+
+    def __getattr__(self, op):
+        fn = getattr(self.accl, op)
+
+        def call(*args, **kw):
+            kw["to_device"] = True
+            if op != "copy_from_stream":  # which reads no buffer
+                kw["from_device"] = True
+            return fn(*args, **kw)
+
+        return call
+
+
+def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
+                seq_launches):
     """Per kernel: device time per launch at the main path's launch
     shape with the host held off (device_ms), its plain version and the
     library yardstick, timed the same way. Ring kernels: W=8, fp32, 4 MiB
@@ -2416,7 +2829,10 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows):
     largest launch shape of its path (the packed entries for kernels 5
     and 6). The closed-form int8 ring: the row of
     its breakdown, (8, 1 048 576) fp32, one 4 MiB segment at W=8. Lane
-    kernels: the rows of the lane breakdown."""
+    kernels: the rows of the lane breakdown. `sequence_launches`: each
+    kernel's launches over the sequence phase's checked runs (its eager
+    twins, and the warm-up run and capture at compile; a replay runs
+    the captured kernels without the host's wrappers)."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -2479,6 +2895,8 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows):
             "ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row["library_ms"], "shape": row["shape"]})
+    for entry in entries:
+        entry["sequence_launches"] = seq_launches[entry["name"]]
     emit({"kernels": entries})
 
 
@@ -2547,8 +2965,11 @@ def main() -> int:
     ring_row = timed(quant_ring_breakdown_phase, qk)
     lane_rows = timed(lane_breakdown_phase, L)
     timed(lane_cold_phase, L)
+    # call sequences: every kernel inside one CUDA graph per batch
+    seq_launches = timed(sequence_phase, ring, qk, L)
     emit({"phase": "clock", "seconds": clock})
-    kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows)
+    kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
+                seq_launches)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

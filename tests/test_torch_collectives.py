@@ -182,15 +182,19 @@ def test_collective_bitwise_with_reference_facade(facades, case):
 
 
 def test_barrier_and_unported_entry_points(facades):
-    """barrier completes on both facades; streamed operands, send/recv
-    and alltoall raise NotImplementedError naming their slices."""
+    """barrier completes on both facades; stream_put, send/recv and
+    alltoall raise NotImplementedError naming their slices (streamed
+    operands are ported: an unregistered producer is a KeyError, as in
+    the reference)."""
     ref, port = facades[5]
     ref.barrier()
     req = port.barrier()
     assert req.plan.algorithm == Algorithm.BARRIER_GATHER_SCATTER
     b = port.create_buffer(17)
-    with pytest.raises(NotImplementedError, match="streams"):
+    with pytest.raises(KeyError, match="no producer registered on stream 3"):
         port.bcast(b, 17, 0, op0_stream=3)
+    with pytest.raises(NotImplementedError, match="point-to-point"):
+        port.stream_put(17, 3, 0, 1, b)
     with pytest.raises(NotImplementedError, match="point-to-point"):
         port.cclo.start(port._prepare(Operation.send, b, None, None, 17,
                                       root_src_dst=1 << 16))
