@@ -9,17 +9,20 @@ stay on the card, as in the reference.
 The facade runs on the card unless the caller asks for the CPU:
 `ACCL(world=8)` needs a CUDA device and raises without one;
 `ACCL(world=8, torch_device="cpu")` runs every schedule's plain PyTorch
-form on the CPU (what the tests use). The one-call collectives are
-ported — copy, combine, bcast, scatter, gather, allgather, reduce,
-allreduce, reduce_scatter and barrier — on the exact, fp16/bf16 and
-blockwise-int8 wires, with streamed operands (`op0_stream`/`res_stream`
-and the copy_*_stream forms over registered producers and consumers),
-and so are call sequences (`sequence()`: record a batch, compile it
-once, run it as one CUDA-graph replay on the card). send/recv,
-`stream_put` and alltoall arrive with later slices.
+form on the CPU (what the tests use). The whole MPI-style surface is
+ported: send/recv (paired on the host, in either order, by tag or
+TAG_ANY), `stream_put`, copy, combine, bcast, scatter, gather,
+allgather, reduce, allreduce, reduce_scatter, alltoall(v) and barrier,
+on the exact, fp16/bf16 and blockwise-int8 wires, with streamed operands
+(`op0_stream`/`res_stream` and the copy_*_stream forms over registered
+producers and consumers), on the whole world or on a sub-communicator
+(`split()`, then `comm=`), and call sequences (`sequence()`: record a
+batch, compile it once, run it as one CUDA-graph replay on the card).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -109,8 +112,10 @@ class ACCL:
         dev.write(CCLOAddr.EGR_RX_BUF_SIZE, cfg["egr_rx_buf_size"])
         dev.write(CCLOAddr.NUM_EGR_RX_BUFS, cfg["n_egr_rx_bufs"])
         dev.eager_rx_buf_size = cfg["egr_rx_buf_size"]
-        # default communicator over the whole world
+        # default communicator over the whole world; re-initialization
+        # drops every earlier handle (their tables are laid out anew)
         self.communicators.clear()
+        self._split_cache: dict[tuple[int, ...], Communicator] = {}
         world = dev.world
         ranks = [Rank(device_index=i, session_id=i) for i in range(world)]
         self.communicators.append(Communicator(ranks, 0, CCLOAddr.DYNAMIC_BASE))
@@ -122,6 +127,9 @@ class ACCL:
             for i, w in enumerate(ac.exchmem_words()):
                 dev.write(addr + 4 * i, w)
             addr += 4 * ac.WORDS_PER_ROW
+        # the dynamic region's allocation tail: split() lays out later
+        # communicators from here
+        self._exchmem_alloc = addr
         self.configure_tuning_parameters(
             TuningParams.default(cfg["max_rendezvous_size"]))
         # thresholds via config calls
@@ -402,9 +410,29 @@ class ACCL:
 
     def stream_put(self, count, stream_id, src, dst, recvbuf, *,
                    dtype=DataType.float32, run_async=False):
-        """Device-autonomous send from a stream producer: it rides the
-        point-to-point send/recv schedule, which is not ported yet."""
-        raise not_ported("stream_put", "point-to-point")
+        """Device-autonomous send: the payload is made on the card by the
+        producer registered on `stream_id`, moves from rank src to rank
+        dst, passes the stream's consumer (if one is registered) and lands
+        in recvbuf, with no host data path. Every row of recvbuf is
+        written: dst's with src's produced row, the others with their own."""
+        opts = CallOptions(
+            scenario=Operation.send,
+            count=count,
+            root_src_dst=src | (dst << 16),
+            op0_stream_id=stream_id,
+            stream_flags=StreamFlags.OP0_STREAM,
+            data_type=dtype,
+            addr_2=recvbuf.address,
+        )
+        req = self.cclo.stream_put(opts)
+        self._last_request = req
+        if run_async:
+            req._accl_sync_out = [recvbuf]
+            return req
+        req.wait()
+        req.check()
+        recvbuf.sync_from_device()
+        return req
 
     def _scratch(self, count, dtype, fresh=False):
         """Internal placeholder buffer for a buffer-less stream endpoint
@@ -476,6 +504,56 @@ class ACCL:
                              function=int(function))
         return self._execute(opts, [op0, op1], [res], from_device,
                              to_device, run_async)
+
+    def send(self, srcbuf, count, src, dst, tag=TAG_ANY, *, from_device=False,
+             run_async=False, compress_dtype=None, comm=None,
+             op0_stream=None):
+        """Rank src sends count elements of its srcbuf row to rank dst
+        (communicator-relative ranks). The send parks until its recv
+        arrives; its operand is read when the pair runs. srcbuf may be a
+        DataType when op0_stream is set: the payload then comes from the
+        stream's producer."""
+        fresh = False
+        if isinstance(srcbuf, DataType):
+            if op0_stream is None:
+                raise ValueError("dataType-only send requires op0_stream")
+            srcbuf = self._scratch(count, srcbuf, fresh=run_async)
+            from_device = True
+            fresh = run_async
+        opts = self._prepare(Operation.send, srcbuf, None, None, count,
+                             root_src_dst=src | (dst << 16), tag=tag,
+                             compress_dtype=compress_dtype, comm=comm)
+        self._stream_opts(opts, op0_stream, None)
+        req = self._execute(opts, [srcbuf], [], from_device, True, run_async)
+        if fresh:
+            req._accl_scratch = srcbuf
+        return req
+
+    def recv(self, dstbuf, count, src, dst, tag=TAG_ANY, *, to_device=False,
+             run_async=False, compress_dtype=None, comm=None,
+             res_stream=None):
+        """Rank dst receives count elements from rank src into its dstbuf
+        row, pairing with a parked send of a matching (src, dst, tag), or
+        parking until one arrives or the timeout (set_timeout) lapses.
+        Every row of dstbuf is written: dst's with src's payload, every
+        other rank's with its own send-buffer row. dstbuf may be a
+        DataType when res_stream is set: the payload then only feeds the
+        stream's consumer."""
+        fresh = False
+        if isinstance(dstbuf, DataType):
+            if res_stream is None:
+                raise ValueError("dataType-only recv requires res_stream")
+            dstbuf = self._scratch(count, dstbuf, fresh=run_async)
+            to_device = True  # nothing observes the placeholder
+            fresh = run_async
+        opts = self._prepare(Operation.recv, None, None, dstbuf, count,
+                             root_src_dst=src | (dst << 16), tag=tag,
+                             compress_dtype=compress_dtype, comm=comm)
+        self._stream_opts(opts, None, res_stream)
+        req = self._execute(opts, [], [dstbuf], True, to_device, run_async)
+        if fresh:
+            req._accl_scratch = dstbuf
+        return req
 
     def bcast(self, buf, count, root, *, from_device=False, to_device=False,
               run_async=False, compress_dtype=None, comm=None,
@@ -569,6 +647,65 @@ class ACCL:
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
 
+    def alltoall(self, sendbuf, recvbuf, count, *, from_device=False,
+                 to_device=False, run_async=False, compress_dtype=None,
+                 comm=None, op0_stream=None, res_stream=None):
+        """Slot j (count elements) of rank i's sendbuf lands in slot i of
+        rank j's recvbuf; both buffers hold world*count elements."""
+        opts = self._prepare(Operation.alltoall, sendbuf, None, recvbuf,
+                             count, compress_dtype=compress_dtype, comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)
+
+    def alltoallv(self, sendbuf, recvbuf, count, send_counts, *,
+                  from_device=False, to_device=False, run_async=False,
+                  compress_dtype=None, comm=None, op0_stream=None,
+                  res_stream=None):
+        """Capacity-bounded all-to-all (the MoE dispatch): alltoall's slot
+        layout, but peer p receives only the first send_counts[p] elements
+        of each source's slot p, its capacity, and the rest of the slot is
+        zero (dropped at the source; each hop moves max(send_counts)
+        elements). An all-count vector is the dense alltoall, bitwise."""
+        opts = self._prepare_alltoallv(sendbuf, recvbuf, count, send_counts,
+                                       compress_dtype=compress_dtype,
+                                       comm=comm)
+        self._stream_opts(opts, op0_stream, res_stream)
+        return self._execute(opts, [sendbuf], [recvbuf], from_device,
+                             to_device, run_async)
+
+    def _prepare_alltoallv(self, sendbuf, recvbuf, count, send_counts, *,
+                           compress_dtype=None, comm=None) -> CallOptions:
+        """The alltoallv descriptor: the dense alltoall's plus the per-peer
+        capacity vector, validated here so a bad vector fails before
+        anything is built."""
+        comm_size = (comm or self.communicators[0]).size
+        pc = tuple(int(c) for c in send_counts)
+        if len(pc) != comm_size:
+            raise ValueError(
+                f"alltoallv needs one send count per rank: got {len(pc)} "
+                f"for communicator of {comm_size}")
+        if any(c <= 0 for c in pc):
+            raise ZeroLengthBufferError(
+                f"alltoallv send counts {pc} include a non-positive "
+                "capacity; every peer needs a positive valid prefix")
+        if any(c > count for c in pc):
+            raise ValueError(
+                f"alltoallv send counts {pc} exceed the {count}-element "
+                "peer slot")
+        if all(c == count for c in pc):
+            # an all-full vector is the dense alltoall: normalized here, so
+            # the signature and the built body are shared with it
+            pc = ()
+        if pc and not getattr(self.cclo, "supports_alltoallv", False):
+            raise NotImplementedError(
+                f"{type(self.cclo).__name__} has no capacity-masked "
+                "alltoallv rotation")
+        opts = self._prepare(Operation.alltoall, sendbuf, None, recvbuf,
+                             count, compress_dtype=compress_dtype, comm=comm)
+        opts.peer_counts = pc
+        return opts
+
     def barrier(self, comm=None):
         """Returns once every rank has entered the barrier."""
         opts = self._prepare(Operation.barrier, None, None, None, 0, comm=comm)
@@ -576,6 +713,83 @@ class ACCL:
         req.wait()
         req.check()
         return req
+
+    # ------------------------------------------------------------------ #
+    # communicators
+    # ------------------------------------------------------------------ #
+
+    def split(self, rank_indices: list[int]) -> Communicator:
+        """A sub-communicator over a subset of ranks: its rank table is
+        written to exchange memory and its handle can be passed as `comm=`
+        to any collective or to sequence(). Buffers stay full-world
+        stacked tensors; a sub-communicator call touches only its member
+        rows, and its roots and src/dst ranks are its own (rank i is
+        rank_indices[i]). Repeated splits of one member list return the
+        same handle."""
+        if len(set(rank_indices)) != len(rank_indices):
+            raise ValueError("duplicate ranks in split")
+        if not all(0 <= r < self.world for r in rank_indices):
+            raise ValueError(f"split ranks outside world of {self.world}")
+        cached = self._split_cache.get(tuple(rank_indices))
+        if cached is not None and cached in self.communicators:
+            return cached
+        parent = self.communicators[0].ranks
+        # backend constraints fail before any exchange memory is allocated
+        self.cclo.validate_split(
+            tuple(parent[r].device_index for r in rank_indices))
+        ranks = [dataclasses.replace(parent[r], inbound_seq=0,
+                                     outbound_seq=0) for r in rank_indices]
+        nwords = 2 + len(ranks) * Communicator.WORDS_PER_RANK
+        if self._exchmem_alloc + 4 * nwords > CCLOAddr.DYNAMIC_END:
+            raise MemoryError("exchange memory exhausted by communicators")
+        comm = Communicator(ranks, 0, self._exchmem_alloc)
+        self._exchmem_alloc += 4 * nwords
+        self.communicators.append(comm)
+        self._write_communicator(comm)
+        self._split_cache[tuple(rank_indices)] = comm
+        return comm
+
+    def get_comm_group(self, comm: Communicator | None = None) -> list[Rank]:
+        """The communicator's rank table as the device holds it, read back
+        from exchange memory (not the facade's cached object)."""
+        comm = comm or self.communicators[0]
+        n_words = 2 + Communicator.WORDS_PER_RANK * comm.size
+        words = [self.cclo.read(comm.exchmem_addr + 4 * i)
+                 for i in range(n_words)]
+        return Communicator.from_exchmem_words(
+            words, exchmem_addr=comm.exchmem_addr).ranks
+
+    # ------------------------------------------------------------------ #
+    # housekeeping and observability
+    # ------------------------------------------------------------------ #
+
+    def set_timeout(self, value: int):
+        """How long (microseconds) a recv waits for its send."""
+        self._config_call(CfgFunc.set_timeout, value)
+
+    def set_max_eager_size(self, value: int):
+        self._config_call(CfgFunc.set_max_eager_msg_size, value)
+
+    def set_max_rendezvous_size(self, value: int):
+        self._config_call(CfgFunc.set_max_rendezvous_msg_size, value)
+
+    def dump_exchange_memory(self) -> str:
+        return self.cclo.dump_exchange_memory()
+
+    def dump_communicator(self, index: int = 0) -> str:
+        return self.communicators[index].dump()
+
+    def dump_eager_rx_buffers(self) -> str:
+        """The eager rx state: on this backend the parked recv and send
+        queues."""
+        return self.cclo.dump_eager_rx_buffers()
+
+    def soft_reset(self):
+        """The reset_periph config call: drains parked sends and recvs
+        (each parked recv completes with RECEIVE_TIMEOUT_ERROR) and the
+        built-schedule caches, leaving the device configured (unlike
+        deinit, which also clears CFGRDY)."""
+        self._config_call(CfgFunc.reset_periph, 0)
 
     # ------------------------------------------------------------------ #
     # call sequences: record a batch, dispatch it as one program
@@ -626,8 +840,7 @@ class SequenceRecorder:
     would dispatch, and `run()` hands the whole batch to the device for
     one prepare + dispatch (GPUDevice.start_sequence). Methods return the
     recorder, so chains compose; send/recv and barrier cannot ride a
-    sequence (host-paired / payload-free), and alltoall steps wait for
-    the alltoall slice."""
+    sequence (host-paired / payload-free)."""
 
     def __init__(self, accl: ACCL, comm: Communicator | None = None,
                  lint: str = "error", persistent=()):
@@ -739,11 +952,18 @@ class SequenceRecorder:
 
     def alltoall(self, sendbuf, recvbuf, count, *, compress_dtype=None,
                  op0_stream=None, res_stream=None):
-        raise not_ported("an alltoall step", "alltoall")
+        opts = self._prep(Operation.alltoall, sendbuf, None, recvbuf, count,
+                          op0_stream, res_stream,
+                          compress_dtype=compress_dtype)
+        return self._record(opts, [sendbuf], [recvbuf])
 
     def alltoallv(self, sendbuf, recvbuf, count, send_counts, *,
                   compress_dtype=None, op0_stream=None, res_stream=None):
-        raise not_ported("an alltoallv step", "alltoall")
+        opts = self._accl._prepare_alltoallv(
+            sendbuf, recvbuf, count, send_counts,
+            compress_dtype=compress_dtype, comm=self._comm)
+        self._accl._stream_opts(opts, op0_stream, res_stream)
+        return self._record(opts, [sendbuf], [recvbuf])
 
     # -- execution ---------------------------------------------------------
 

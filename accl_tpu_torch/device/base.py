@@ -77,6 +77,17 @@ class CCLODevice:
         if not 0 <= addr < EXCHMEM_SIZE:
             raise ValueError(f"exchange-memory address {addr:#x} out of range")
 
+    def dump_exchange_memory(self) -> str:
+        """Every written exchange-memory word, by address."""
+        lines = ["exchange memory:"]
+        for addr in sorted(self._exchmem):
+            lines.append(f"  [{addr:#06x}] = {self._exchmem[addr]:#010x}")
+        return "\n".join(lines)
+
+    def dump_eager_rx_buffers(self) -> str:
+        """The eager rx state; backends that have one override this."""
+        return "eager rx ring: none on this backend"
+
     # -- calls ------------------------------------------------------------
 
     def call(self, options: CallOptions) -> BaseRequest:

@@ -9,17 +9,23 @@ collective for every rank. Completion is a CUDA event recorded after the
 call's kernels instead of XLA's block_until_ready.
 
 Every one-call collective is ported (copy, combine, bcast, scatter,
-gather, allgather, reduce, allreduce, reduce_scatter, barrier), with
-streamed operands (a registered producer/consumer spliced into the
-body), and so are call sequences: a recorded batch is prepared once
-(plans, the lint gate, the composed body, on the card one captured CUDA
-graph) and dispatched as one graph replay. Point-to-point send/recv,
-alltoall and sub-communicators raise NotImplementedError naming the
-slice of the port that brings them.
+gather, allgather, reduce, allreduce, reduce_scatter, alltoall(v),
+barrier), with streamed operands (a registered producer/consumer spliced
+into the body), and so are call sequences: a recorded batch is prepared
+once (plans, the lint gate, the composed body, on the card one captured
+CUDA graph) and dispatched as one graph replay. Point-to-point send/recv
+pairs on the host: a send parks its descriptor until its recv arrives
+(or the other way round), and the pair then runs as one sendrecv call;
+`stream_put` is a producer -> sendrecv -> consumer call. A descriptor
+addressing a sub-communicator runs over the member rows only: they are
+gathered into a (group, n) operand and the result is scattered back into
+them, every other row left as it was.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import hashlib
 import threading
 import time
@@ -32,16 +38,25 @@ from ..constants import (
     DEFAULT_MAX_EAGER_SIZE,
     DEFAULT_MAX_RENDEZVOUS_SIZE,
     CfgFunc,
+    CompressionFlags,
+    DataType,
     ErrorCode,
     Operation,
     StreamFlags,
+    TAG_ANY,
     TuningParams,
     dtype_nbytes,
 )
 from ..descriptor import CallOptions, SequenceDescriptor
 from ..errors import not_ported
-from ..ops.streams import StreamRegistry
-from ..request import BaseRequest, GPURequest, SequenceRequest
+from ..ops.streams import StreamRegistry, splice_consumer, splice_producer
+from ..request import (
+    BaseRequest,
+    GPURequest,
+    ParkedRecvRequest,
+    SequenceRequest,
+)
+from ..sequencer import schedules
 from ..sequencer.lowering import ScheduleCompiler
 from ..sequencer.plan import select_algorithm
 from ..sequencer.sequence import (
@@ -57,6 +72,14 @@ class GPUDevice(CCLODevice):
     # the blockwise int8 wire runs the quantized torch-op ring, whose
     # per-hop steps are the kernels of ops/quant_kernels.py on the card
     supports_quantized_wire = True
+    # the capacity-masked alltoallv rotation (schedules.alltoallv_schedule)
+    supports_alltoallv = True
+    # the ALLTOALL_COMPRESS_MIN_COUNT register applies the int8 wire to
+    # eligible fp32 alltoall(v) calls (_apply_alltoall_wire)
+    auto_alltoall_wire = True
+    # a send/recv backlog beyond this many parked sends fails the send
+    # (the reference's 512-notification park limit)
+    MAX_PARKED_SENDS = 512
 
     def __init__(self, world: int, torch_device: torch.device | str = "cuda"):
         super().__init__()
@@ -78,10 +101,25 @@ class GPUDevice(CCLODevice):
         # single sequencer, so concurrent callers interleave at call
         # granularity
         self._launch_mu = threading.Lock()
-        # comm_addr -> validated full-world communicator table end
-        self._comm_cache: dict[int, int] = {}
+        # send/recv pairing: sends parked until their recv arrives and
+        # recvs parked until their send does, each signature (comm_addr,
+        # src, dst, tag) keying a FIFO; a TAG_ANY match takes the oldest
+        # across every matching signature (arrival order). _recv_mu guards
+        # both maps and the counters, and is never held across a launch.
+        self._recv_mu = threading.Lock()
+        self._pending_sends: dict[tuple, list[tuple[int, CallOptions]]] = {}
+        self._pending_recvs: dict[tuple, list[ParkedRecvRequest]] = {}
+        self._park_seq = 0
+        self._parked_send_count = 0
+        # comm_addr -> resolved communicator context; a cached table's
+        # extent, so a write into it drops the entry; member rows ->
+        # context, so identical groups share one compiler
+        self._comm_cache: dict[int, _CommCtx] = {}
+        self._comm_extents: dict[int, int] = {}
+        self._group_cache: dict[tuple[int, ...], _CommCtx] = {}
         # kernel-stream endpoints (OP0_STREAM / RES_STREAM)
         self.streams = StreamRegistry()
+        self._stream_cache: dict[tuple, Any] = {}
         # lint verdicts of call sequences, by composite signature
         self._lint_cache: dict[tuple, tuple] = {}
 
@@ -141,35 +179,91 @@ class GPUDevice(CCLODevice):
 
     # -- communicator resolution ------------------------------------------
 
-    def _comm_ctx(self, comm_addr: int) -> None:
-        """Validate a descriptor's comm_addr against the rank table in
-        exchange memory: comm_addr 0 or a full-world identity table is the
-        default world. A sub-communicator raises until its slice."""
-        if comm_addr == 0 or comm_addr in self._comm_cache:
-            return
-        from ..communicator import Communicator
+    def _comm_ctx(self, comm_addr: int) -> "_CommCtx":
+        """Resolve a descriptor's comm_addr into an execution context by
+        reading the rank table back from exchange memory, as the
+        reference's firmware does per call. comm_addr 0 or a full-world
+        identity table is the default world; any other member set is a
+        sub-communicator over those rows."""
+        ctx = self._comm_cache.get(comm_addr)
+        if ctx is not None:
+            return ctx
+        rows = None
+        if comm_addr != 0:
+            from ..communicator import Communicator
 
-        size = self.read(comm_addr)
-        if not 0 < size <= self.world:
-            raise ValueError(
-                f"invalid communicator at {comm_addr:#x}: size={size}")
-        nwords = 2 + size * Communicator.WORDS_PER_RANK
-        words = [self.read(comm_addr + 4 * i) for i in range(nwords)]
-        comm = Communicator.from_exchmem_words(words, comm_addr)
-        members = tuple(r.device_index for r in comm.ranks)
-        if members != tuple(range(self.world)):
-            raise not_ported(
-                f"the sub-communicator at {comm_addr:#x} (members "
-                f"{members})", "communicators")
-        self._comm_cache[comm_addr] = comm_addr + 4 * nwords
+            size = self.read(comm_addr)
+            if not 0 < size <= self.world:
+                raise ValueError(
+                    f"invalid communicator at {comm_addr:#x}: size={size}")
+            nwords = 2 + size * Communicator.WORDS_PER_RANK
+            words = [self.read(comm_addr + 4 * i) for i in range(nwords)]
+            comm = Communicator.from_exchmem_words(words, comm_addr)
+            members = tuple(r.device_index for r in comm.ranks)
+            if any(not 0 <= d < self.world for d in members):
+                raise ValueError(
+                    f"communicator at {comm_addr:#x} references device "
+                    f"indices {members} outside world {self.world}")
+            if len(set(members)) != len(members):
+                raise ValueError(
+                    f"communicator at {comm_addr:#x} has duplicate "
+                    f"members {members}")
+            if members != tuple(range(self.world)):
+                rows = members
+            self._comm_extents[comm_addr] = comm_addr + 4 * nwords
+        if rows is None:
+            ctx = _CommCtx(self.world, self.compiler, None, None)
+        else:
+            # identical member sets at different table addresses share one
+            # context, so re-splits reuse the built schedules
+            ctx = self._group_cache.get(rows)
+            if ctx is None:
+                compiler = ScheduleCompiler(
+                    len(rows), self.torch_device,
+                    arith_table=self.compiler.arith_table,
+                    use_ring_kernel=self.compiler.use_ring_kernel)
+                index = torch.tensor(rows, dtype=torch.int64,
+                                     device=self.torch_device)
+                ctx = self._group_cache[rows] = _CommCtx(
+                    len(rows), compiler, rows, index)
+        self._comm_cache[comm_addr] = ctx
+        return ctx
 
     def write(self, addr: int, value: int) -> None:
-        # a write into a validated communicator table drops the cached
-        # verdict (the table must be re-read per call once it changes)
-        for start, end in list(self._comm_cache.items()):
+        # a write into a cached communicator table drops that entry (the
+        # cache must not outlive the table it mirrors)
+        for start, end in list(self._comm_extents.items()):
             if start <= addr < end:
                 self._comm_cache.pop(start, None)
+                self._comm_extents.pop(start, None)
         super().write(addr, value)
+
+    def validate_split(self, rows: tuple) -> None:
+        """Reject an unsupported rank group before the facade allocates
+        exchange memory for it: one card holds every rank, so any subset
+        is accepted."""
+
+    @staticmethod
+    def _member_rows(t: torch.Tensor, ctx: "_CommCtx",
+                     n: int) -> torch.Tensor:
+        """The first n elements of every member row of a full-world
+        stacked tensor, as a (group, n) tensor of its own (a gather by the
+        context's device index, never a host list)."""
+        t = slice_to(t, n)
+        return t if ctx.rows is None else t.index_select(0, ctx.index)
+
+    @staticmethod
+    def _place(full: torch.Tensor, ctx: "_CommCtx",
+               out: torch.Tensor) -> torch.Tensor:
+        """A result written into a full-world buffer's image: the whole
+        buffer (or its prefix) on the default world; on a sub-communicator
+        the member rows only, every other row bitwise as it was."""
+        if ctx.rows is None:
+            return place_into(full, out)
+        full = full.clone()
+        full[:, :out.shape[-1]].index_copy_(0, ctx.index,
+                                             out.to(full.dtype))
+        return full
 
     # -- execution --------------------------------------------------------
 
@@ -181,21 +275,53 @@ class GPUDevice(CCLODevice):
             req.running()
             req.complete(0)
             return req
-        if options.scenario in (Operation.send, Operation.recv):
-            raise not_ported("send/recv matching", "point-to-point")
+        if options.scenario == Operation.send:
+            return self._enqueue_send(options)
+        if options.scenario == Operation.recv:
+            return self._match_recv(options)
         return self._launch(options)
 
-    def _resolve_step(self, options: CallOptions,
+    def _apply_alltoall_wire(self, options: CallOptions,
+                             tuning: TuningParams) -> CallOptions:
+        """The ALLTOALL_COMPRESS_MIN_COUNT register, applied per
+        descriptor in front of plan selection, on the eager path and the
+        call-sequence path alike: an uncompressed fp32 alltoall(v) whose
+        hop payload reaches the register ships the blockwise int8 wire
+        (compress_dtype int8 + ETH_COMPRESSED, the descriptor the facade's
+        `compress_dtype=` would have made). The hop payload is the slot
+        for alltoall and max(peer_counts) elements for alltoallv. Register
+        0, the default, returns the descriptor untouched."""
+        reg = tuning.alltoall_compress_min_count
+        if (reg <= 0
+                or options.scenario != Operation.alltoall
+                or options.data_type != DataType.float32
+                or options.compress_dtype != DataType.none
+                or int(options.compression_flags) != 0
+                or not self.auto_alltoall_wire
+                or not self.supports_quantized_wire):
+            return options
+        hop_elems = (max(options.peer_counts) if options.peer_counts
+                     else options.count)
+        if hop_elems * dtype_nbytes(options.data_type) < reg:
+            return options
+        if (DataType.float32, DataType.int8) not in self.compiler.arith_table:
+            return options
+        return dataclasses.replace(
+            options, compress_dtype=DataType.int8,
+            compression_flags=CompressionFlags.ETH_COMPRESSED)
+
+    def _resolve_step(self, options: CallOptions, ctx: "_CommCtx",
                       tuning: TuningParams | None = None):
         """Per-descriptor plan selection and stream-endpoint resolution:
         the one source for both the eager path and call sequences, so a
         sequence can never run other than what eager execution would.
-        Returns (plan, producer, consumer)."""
+        Selection sees the communicator's world. Returns (plan, producer,
+        consumer)."""
         plan = select_algorithm(
             options.scenario,
             options.count,
             dtype_nbytes(options.data_type),
-            self.world,
+            ctx.world,
             options.compression_flags,
             options.stream_flags,
             max_eager_size=self.max_eager_size,
@@ -216,27 +342,54 @@ class GPUDevice(CCLODevice):
         return plan, producer, consumer
 
     def _launch(self, options: CallOptions) -> GPURequest:
-        self._comm_ctx(options.comm_addr)
-        plan, producer, consumer = self._resolve_step(options, self.tuning())
+        ctx = self._comm_ctx(options.comm_addr)
+        # send/recv arrive here paired (start() routes the raw halves
+        # through the parking maps; _pair merged them)
+        tuning = self.tuning()
+        options = self._apply_alltoall_wire(options, tuning)
+        plan, producer, consumer = self._resolve_step(options, ctx, tuning)
         if options.stream_flags:
-            fn = self.compiler.lower_streamed(options, plan, producer,
-                                              consumer)
+            fn = ctx.compiler.lower_streamed(options, plan, producer,
+                                             consumer)
         else:
-            fn = self.compiler.lower(options, plan)
+            fn = ctx.compiler.lower(options, plan)
         scen = options.scenario
         res = self._buf(options.addr_2)
         if scen == Operation.barrier:
             # the zero-payload notifications ride a one-element token
-            args = [torch.ones((self.world, 1), dtype=torch.float32,
+            args = [torch.ones((ctx.world, 1), dtype=torch.float32,
                                device=self.torch_device)]
         else:
-            in_n = step_in_elems(options, self.world)
-            args = [slice_to(self._buf(options.addr_0).device, in_n)]
+            in_n = step_in_elems(options, ctx.world)
+            args = [self._member_rows(self._buf(options.addr_0).device, ctx,
+                                      in_n)]
             if scen == Operation.combine:
-                args.append(slice_to(self._buf(options.addr_1).device, in_n))
+                args.append(self._member_rows(
+                    self._buf(options.addr_1).device, ctx, in_n))
+        out, events, t0 = self._run(fn, args)
 
+        def place(req):
+            if res is not None and scen != Operation.barrier:
+                if res.device is None:  # host-only result: materialize first
+                    res.sync_to_device()
+                res.device = self._place(res.device, ctx, out)
+
+        return self._request(options.scenario.name, out, events, t0, place,
+                             plan)
+
+    @staticmethod
+    def _request(name, out, events, t0, place, plan=None) -> GPURequest:
+        req = GPURequest(name, [out], events, on_complete=place)
+        if events is None:
+            req._start_time = t0  # host clock around the eager CPU run
+        req.plan = plan
+        return req
+
+    def _run(self, fn, args):
+        """Run a body with one collective in flight, between two CUDA
+        events on the card; returns (out, events, host start ns)."""
         events = None
-        with self._launch_mu:  # one collective in flight
+        with self._launch_mu:
             t0 = time.perf_counter_ns()
             if self.torch_device.type == "cuda":
                 events = (torch.cuda.Event(enable_timing=True),
@@ -246,19 +399,191 @@ class GPUDevice(CCLODevice):
                 events[1].record()
             else:
                 out = fn(*args)
+        return out, events, t0
+
+    # -- send/recv pairing -------------------------------------------------
+
+    def _enqueue_send(self, options: CallOptions) -> BaseRequest:
+        """A send parks its descriptor until the matching recv arrives
+        (the role each rank's eager rx-ring notification queue plays in
+        the reference); a recv already parked for it is claimed and the
+        pair launched at once, outside the lock. Only the descriptor
+        parks: the send's operand is read when the pair launches."""
+        src = options.root_src_dst & 0xFFFF
+        dst = (options.root_src_dst >> 16) & 0xFFFF
+        req = BaseRequest("send")
+        req.running()
+        parked = None
+        with self._recv_mu:  # match-or-enqueue is one atomic step
+            while parked is None:
+                # the oldest parked recv across every matching signature
+                # (each queue's head is its oldest)
+                best = None
+                for key, queue in self._pending_recvs.items():
+                    if self._matches(key, options, src, dst) and (
+                            best is None or queue[0]._park_seq
+                            < self._pending_recvs[best][0]._park_seq):
+                        best = key
+                if best is None:
+                    break
+                queue = self._pending_recvs[best]
+                candidate = queue.pop(0)
+                if not queue:
+                    self._pending_recvs.pop(best, None)
+                if candidate.claim():  # skip one that already timed out
+                    parked = candidate
+            if parked is None:
+                if self._parked_send_count >= self.MAX_PARKED_SENDS:
+                    # the backlog is full: fail instead of growing
+                    req.complete(int(
+                        ErrorCode.DEQUEUE_BUFFER_SPARE_BUFFER_STATUS_ERROR))
+                    return req
+                self._park_seq += 1
+                self._parked_send_count += 1
+                self._pending_sends.setdefault(
+                    (options.comm_addr, src, dst, options.tag), []
+                ).append((self._park_seq, options))
+        if parked is not None:
+            parked.resolve(self._launch(self._pair(parked.options, options)))
+        req.complete(0)
+        return req
+
+    @staticmethod
+    def _matches(key: tuple, options: CallOptions, src: int,
+                 dst: int) -> bool:
+        comm_addr, s, d, tag = key
+        return (comm_addr == options.comm_addr and s == src and d == dst
+                and (tag == options.tag or TAG_ANY in (tag, options.tag)))
+
+    @staticmethod
+    def _pair(recv_opts: CallOptions, send_opts: CallOptions) -> CallOptions:
+        """The one sendrecv descriptor of a matched pair: the recv's count,
+        communicator and wire, the send's operand (addr_0) and the recv's
+        result buffer (addr_2). Stream endpoints merge from the side that
+        owns them: OP0 from the send (a producer may make its payload),
+        RES from the recv (a consumer may take its result).
+
+        The recv's wire (compress_dtype, arithcfg_addr) rides the pair.
+        The reference's pair keeps only the compression flag, so its
+        lowering takes the first compressed row of the dtype's table (the
+        fp16 wire for fp32) whatever wire the caller named."""
+        flags = StreamFlags.NO_STREAM
+        op0_id = res_id = 0
+        if send_opts.stream_flags & StreamFlags.OP0_STREAM:
+            flags |= StreamFlags.OP0_STREAM
+            op0_id = send_opts.op0_stream_id
+        if recv_opts.stream_flags & StreamFlags.RES_STREAM:
+            flags |= StreamFlags.RES_STREAM
+            res_id = recv_opts.res_stream_id
+        return CallOptions(
+            scenario=Operation.send,
+            count=recv_opts.count,
+            comm_addr=recv_opts.comm_addr,
+            root_src_dst=recv_opts.root_src_dst,
+            tag=send_opts.tag,
+            arithcfg_addr=recv_opts.arithcfg_addr,
+            compression_flags=recv_opts.compression_flags,
+            stream_flags=flags,
+            op0_stream_id=op0_id,
+            res_stream_id=res_id,
+            data_type=recv_opts.data_type,
+            compress_dtype=recv_opts.compress_dtype,
+            addr_0=send_opts.addr_0,
+            addr_2=recv_opts.addr_2,
+        )
+
+    def _match_recv(self, options: CallOptions) -> BaseRequest:
+        """A recv takes the oldest parked send of a matching signature and
+        launches the pair, or parks until one arrives or the timeout
+        (`self.timeout`, microseconds) lapses."""
+        src = options.root_src_dst & 0xFFFF
+        dst = (options.root_src_dst >> 16) & 0xFFFF
+        with self._recv_mu:  # match-or-park is one atomic step
+            match = None
+            for key, queue in self._pending_sends.items():
+                if self._matches(key, options, src, dst) and (
+                        match is None
+                        or queue[0][0] < self._pending_sends[match][0][0]):
+                    match = key
+            if match is None:
+                req = ParkedRecvRequest(options, self.timeout / 1e6)
+                self._park_seq += 1
+                req._park_seq = self._park_seq
+                key = (options.comm_addr, src, dst, options.tag)
+                self._pending_recvs.setdefault(key, []).append(req)
+
+                def unpark(_key=key, _req=req):
+                    with self._recv_mu:
+                        queue = self._pending_recvs.get(_key)
+                        if queue is not None and _req in queue:
+                            queue.remove(_req)
+                            if not queue:
+                                self._pending_recvs.pop(_key, None)
+
+                req._unpark = unpark
+                return req
+            queue = self._pending_sends[match]
+            _, send_opts = queue.pop(0)
+            self._parked_send_count -= 1
+            if not queue:
+                self._pending_sends.pop(match, None)
+        return self._launch(self._pair(options, send_opts))
+
+    # -- kernel streams ------------------------------------------------------
+
+    def stream_put(self, options: CallOptions) -> GPURequest:
+        """The device-autonomous send: the stream producer registered under
+        the descriptor's op0_stream_id makes the operand, a sendrecv over
+        the exact wire moves rank src's row to dst, and the stream's
+        consumer (identity when none is registered) maps the result, which
+        lands in the result buffer (every row: dst's from src, the others
+        their own produced rows)."""
+        sid = options.op0_stream_id
+        src = options.root_src_dst & 0xFFFF
+        dst = (options.root_src_dst >> 16) & 0xFFFF
+        res = self._buf(options.addr_2)
+        prod = self.streams.producer(sid)
+        cons = self.streams.consumer(sid)
+        key = (sid, options.count, options.root_src_dst, options.data_type,
+               id(prod), id(cons))
+        fn = self._stream_cache.get(key)
+        if fn is None:
+            body = functools.partial(
+                schedules.sendrecv_schedule, src=src, dst=dst,
+                world=self.world, wire=schedules.Wire(None))
+            body = splice_producer(body, prod, options.count, self.world)
+            fn = self._stream_cache[key] = splice_consumer(body, cons)
+        if res.device is None:  # host-only result: materialize first
+            res.sync_to_device()
+        out, events, t0 = self._run(fn, [slice_to(res.device,
+                                                  options.count)])
 
         def place(req):
-            if res is not None and scen != Operation.barrier:
-                if res.device is None:  # host-only result: materialize first
-                    res.sync_to_device()
-                res.device = place_into(res.device, out)
+            res.device = place_into(res.device, out)
 
-        req = GPURequest(options.scenario.name, [out], events,
-                         on_complete=place)
-        if events is None:
-            req._start_time = t0  # host clock around the eager CPU run
-        req.plan = plan
-        return req
+        return self._request("stream_put", out, events, t0, place)
+
+    def dump_eager_rx_buffers(self) -> str:
+        """The counterpart of the reference's rx-ring dump: this backend
+        has no spare-buffer ring, so its eager state is the parked recv
+        and send queues."""
+        with self._recv_mu:
+            lines = [
+                f"eager rx (GPU executor): buf_size {self.eager_rx_buf_size}"
+                f", parked sends {self._parked_send_count}"
+                f"/{self.MAX_PARKED_SENDS}"
+            ]
+            for (ca, s, d, tag), q in sorted(self._pending_recvs.items()):
+                for parked in q:
+                    lines.append(
+                        f"parked recv: comm {ca:#x} src {s} dst {d} "
+                        f"tag {tag} seq {parked._park_seq}")
+            for (ca, s, d, tag), q in sorted(self._pending_sends.items()):
+                for seq, opts in q:
+                    lines.append(
+                        f"parked send: comm {ca:#x} src {s} dst {d} "
+                        f"tag {tag} seq {seq} count {opts.count}")
+        return "\n".join(lines)
 
     # -- call sequences ------------------------------------------------------
 
@@ -288,24 +613,31 @@ class GPUDevice(CCLODevice):
         the dataflow resolution, the composed body and, on the card, its
         CUDA graph, captured over the bound buffers' current device
         images. The handle pins the registers it was resolved under:
-        re-prepare after retuning."""
+        re-prepare after retuning. A batch on a sub-communicator runs its
+        steps over the member rows: its context's compiler and world."""
         if lint == "deep":
             raise not_ported("the deep lint tier", "analysis")
         desc = SequenceDescriptor(tuple(options_list))
-        self._comm_ctx(desc.comm_addr)
+        ctx = self._comm_ctx(desc.comm_addr)
         tuning = self.tuning()
+        # the alltoall wire register rewrites descriptors before the
+        # signature, lint and build see them, so all three key on what runs
+        steps = tuple(self._apply_alltoall_wire(o, tuning)
+                      for o in desc.steps)
+        if steps != desc.steps:
+            desc = SequenceDescriptor(steps)
         # a content digest of the composite signature, stable across runs
         # (enum hashes are salted per process)
         sig = hashlib.sha256(repr(desc.signature()).encode()).hexdigest()[:16]
         plans, endpoints = [], []
         for opts in desc.steps:
-            plan, producer, consumer = self._resolve_step(opts, tuning)
+            plan, producer, consumer = self._resolve_step(opts, ctx, tuning)
             plans.append(plan)
             endpoints.append((producer, consumer))
         if lint != "off":
-            self._lint_batch(desc, tuple(plans), lint,
+            self._lint_batch(desc, tuple(plans), ctx, lint,
                              persistent=frozenset(persistent))
-        seq = SequencePlan(desc, plans, self.world, endpoints)
+        seq = SequencePlan(desc, plans, ctx.world, endpoints)
         bufs = {addr: self._buf(addr) for addr in seq.buffer_addrs}
         for addr, need in seq.min_widths().items():
             have = bufs[addr].shape[-1]
@@ -313,23 +645,24 @@ class GPUDevice(CCLODevice):
                 raise ValueError(
                     f"sequence needs {need} elements in buffer "
                     f"{addr:#x}, which holds {have}")
-        fn = self.compiler.compile_sequence(seq)
+        fn = ctx.compiler.compile_sequence(seq)
         with self._launch_mu:
-            graph = self.compiler.sequence_graph(
-                seq, fn, self._bound_tensors(seq, bufs))
+            graph = ctx.compiler.sequence_graph(
+                seq, fn, self._bound_tensors(seq, bufs, ctx))
         return _PreparedSequence(desc=desc, plans=tuple(plans), seq=seq,
-                                 graph=graph, bufs=bufs, sig=sig)
+                                 graph=graph, bufs=bufs, ctx=ctx, sig=sig)
 
-    @staticmethod
-    def _bound_tensors(seq, bufs) -> list[torch.Tensor]:
+    def _bound_tensors(self, seq, bufs, ctx) -> list[torch.Tensor]:
         """The current device image of every buffer of the batch's table
-        (a host-only buffer is staged first)."""
+        (a host-only buffer is staged first), its member rows on a
+        sub-communicator."""
         tensors = []
         for addr in seq.buffer_addrs:
             buf = bufs[addr]
             if buf.device is None:
                 buf.sync_to_device()
-            tensors.append(buf.device)
+            tensors.append(self._member_rows(buf.device, ctx,
+                                             buf.device.shape[-1]))
         return tensors
 
     def dispatch_sequence(self, prepared: "_PreparedSequence"
@@ -340,8 +673,8 @@ class GPUDevice(CCLODevice):
         buffers' values out of the graph's pool, and place them at
         completion. Safe to call repeatedly on one handle: each call is
         an independent request."""
-        seq, graph = prepared.seq, prepared.graph
-        tensors = self._bound_tensors(seq, prepared.bufs)
+        seq, graph, ctx = prepared.seq, prepared.graph, prepared.ctx
+        tensors = self._bound_tensors(seq, prepared.bufs, ctx)
         events = None
         with self._launch_mu:
             t0 = time.perf_counter_ns()
@@ -361,7 +694,7 @@ class GPUDevice(CCLODevice):
             for buf, out in zip(out_bufs, outs):
                 if buf.device is None:  # host-only result: materialize
                     buf.sync_to_device()
-                buf.device = place_into(buf.device, out)
+                buf.device = self._place(buf.device, ctx, out)
 
         req = SequenceRequest(outs, prepared.plans, events,
                               on_complete=place)
@@ -370,7 +703,7 @@ class GPUDevice(CCLODevice):
         req.signature = prepared.sig
         return req
 
-    def _lint_batch(self, desc, plans, mode: str,
+    def _lint_batch(self, desc, plans, ctx, mode: str,
                     persistent: frozenset = frozenset()) -> None:
         """The static gate in front of compile_sequence. Diagnostics are
         cached by the batch's composite signature (the canonical renaming
@@ -378,7 +711,8 @@ class GPUDevice(CCLODevice):
         persistent set in canonical order, and the arithmetic table's
         lanes (ACCL406 reads them), so steady state pays a dict lookup.
         Buffer widths come from the registry, enabling the static
-        underflow check."""
+        underflow check; the batch is linted at its communicator's
+        world."""
         from ..analysis.diagnostics import enforce
         from ..analysis.linter import SequenceLinter
 
@@ -398,12 +732,12 @@ class GPUDevice(CCLODevice):
                     canon.append(widths[addr])
         canon_persist = tuple(sorted(
             rename[a] for a in persistent if a in rename))
-        table = self.compiler.arith_table
-        key = (desc.signature(), plans, self.world, tuple(canon),
+        table = ctx.compiler.arith_table
+        key = (desc.signature(), plans, ctx.world, tuple(canon),
                canon_persist, frozenset(table))
         diags = self._lint_cache.get(key)
         if diags is None:
-            linter = SequenceLinter(self.world, arith_table=table)
+            linter = SequenceLinter(ctx.world, arith_table=table)
             diags = tuple(linter.lint(desc.steps, buffer_widths=widths,
                                       persistent_addrs=persistent))
             self._lint_cache[key] = diags
@@ -416,9 +750,21 @@ class GPUDevice(CCLODevice):
         req.running()
         fn = CfgFunc(options.function)
         if fn == CfgFunc.reset_periph:
+            # drain the parking maps: every parked recv times out
+            with self._recv_mu:
+                self._pending_sends.clear()
+                self._parked_send_count = 0
+                queues = list(self._pending_recvs.values())
+                self._pending_recvs.clear()
+            for queue in queues:
+                for parked in queue:
+                    if parked.claim():
+                        parked._timeout_fire()
             self.compiler._cache.clear()
-            self._comm_cache.clear()
             self._lint_cache.clear()
+            self._comm_cache.clear()
+            self._comm_extents.clear()
+            self._group_cache.clear()
         elif fn == CfgFunc.enable_pkt:
             self.pkt_enabled = True
         elif fn == CfgFunc.set_timeout:
@@ -440,9 +786,9 @@ class _PreparedSequence:
     """A resolved and prepared descriptor batch, ready to dispatch any
     number of times (GPUDevice.prepare_sequence / dispatch_sequence):
     the batch, its per-step plans, the SequencePlan, the SequenceGraph
-    of its composed body (on the card the captured CUDA graph) and the
+    of its composed body (on the card the captured CUDA graph), the
     bound buffer objects, re-read at every dispatch so their current
-    device images flow in.
+    device images flow in, and the communicator context it runs on.
 
     The reference's handle also carries `preds` (per-step timing.predict
     estimates for traced dispatches: the cost model and telemetry,
@@ -451,16 +797,33 @@ class _PreparedSequence:
     a certify_concurrent set, which the scheduler admits against, item
     17). They stay None here until those slices."""
 
-    __slots__ = ("desc", "plans", "seq", "graph", "bufs", "sig", "preds",
-                 "footprint", "cert")
+    __slots__ = ("desc", "plans", "seq", "graph", "bufs", "ctx", "sig",
+                 "preds", "footprint", "cert")
 
-    def __init__(self, desc, plans, seq, graph, bufs, sig):
+    def __init__(self, desc, plans, seq, graph, bufs, ctx, sig):
         self.desc = desc
         self.plans = plans
         self.seq = seq
         self.graph = graph
         self.bufs = bufs
+        self.ctx = ctx
         self.sig = sig
         self.preds = None
         self.footprint = None
         self.cert = None
+
+
+class _CommCtx:
+    """A resolved communicator: its size, its schedule compiler, and the
+    member rows of full-world buffers with their device index tensor
+    (both None for the default full-world communicator)."""
+
+    __slots__ = ("world", "compiler", "rows", "index")
+
+    def __init__(self, world: int, compiler: ScheduleCompiler,
+                 rows: tuple[int, ...] | None,
+                 index: torch.Tensor | None):
+        self.world = world
+        self.compiler = compiler
+        self.rows = rows
+        self.index = index

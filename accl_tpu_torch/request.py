@@ -7,7 +7,9 @@ after the call's kernels on the current stream, and its duration is the
 elapsed time of an event pair around them. On the CPU PyTorch runs
 eagerly: the work is done when the request is made, and the duration is
 the host clock's. A call sequence's request (SequenceRequest) is timed
-by the event pair around its graph replay.
+by the event pair around its graph replay. A recv issued before its send
+parks as a ParkedRecvRequest until the send arrives or the device's
+timeout lapses.
 """
 
 from __future__ import annotations
@@ -137,6 +139,96 @@ class SequenceRequest(GPURequest):
         self.signature: str | None = None
         # exactly one dispatch happened for the whole batch
         self.num_dispatches = 1
+
+
+class ParkedRecvRequest(BaseRequest):
+    """A recv issued before its matching send: parks until the send
+    arrives (then mirrors the launched pair's GPURequest) or the device's
+    configured timeout lapses (then completes with RECEIVE_TIMEOUT_ERROR).
+    The reference's counterpart is the firmware retry queue re-running an
+    unmatched recv until its housekeeping timeout.
+
+    The outcome is decided exactly once: pairing (the sending thread) and
+    timeout (any waiting or testing thread) race through `claim()`, so a
+    send arriving at the deadline is never reported as a timeout after its
+    transfer ran, and the other way round."""
+
+    def __init__(self, options, timeout_s: float):
+        super().__init__("recv")
+        self.options = options
+        self.running()
+        self._deadline = time.monotonic() + timeout_s
+        self._inner: BaseRequest | None = None
+        self._paired = threading.Event()
+        self._claim_lock = threading.Lock()
+        self._claimed = False
+        # the device's parking sequence number (arrival order)
+        self._park_seq = 0
+        # set by the device: drops this request from its parking map
+        self._unpark: Callable[[], None] = lambda: None
+
+    def claim(self) -> bool:
+        """Atomically claim the right to decide this request's outcome."""
+        with self._claim_lock:
+            if self._claimed:
+                return False
+            self._claimed = True
+            return True
+
+    def resolve(self, inner: BaseRequest):
+        """Called by the device, after a successful claim, when the
+        matching send arrives: `inner` is the launched pair's request."""
+        self._inner = inner
+        self._paired.set()
+
+    def _timeout_fire(self) -> bool:
+        self._unpark()
+        self.complete(int(ErrorCode.RECEIVE_TIMEOUT_ERROR))
+        return True
+
+    def wait(self, timeout: float | None = None) -> bool:
+        if self.status == OperationStatus.COMPLETED:
+            return True
+        caller_deadline = (None if timeout is None
+                           else time.monotonic() + timeout)
+        while True:
+            # another thread (test(), a reset) may decide the outcome
+            if self.status == OperationStatus.COMPLETED:
+                return True
+            now = time.monotonic()
+            if caller_deadline is not None and now >= caller_deadline:
+                return False
+            if self._paired.is_set():
+                remain = (None if caller_deadline is None
+                          else max(caller_deadline - time.monotonic(), 0))
+                if not self._inner.wait(remain):
+                    return False
+                self.complete(self._inner.retcode)
+                return True
+            if now >= self._deadline:
+                if self.claim():
+                    return self._timeout_fire()
+                # claimed elsewhere: a send is pairing (resolve sets
+                # _paired) or another thread fired the timeout (status
+                # COMPLETED); poll for whichever
+                self._paired.wait(0.05)
+                continue
+            limit = self._deadline - now
+            if caller_deadline is not None:
+                limit = min(limit, caller_deadline - now)
+            self._paired.wait(max(limit, 0))
+
+    def test(self) -> bool:
+        if self.status == OperationStatus.COMPLETED:
+            return True
+        if self._paired.is_set():
+            if self._inner.test():
+                self.complete(self._inner.retcode)
+                return True
+            return False
+        if time.monotonic() >= self._deadline and self.claim():
+            return self._timeout_fire()
+        return False
 
 
 def _classify_runtime_error(e: Exception) -> int:

@@ -4,11 +4,12 @@ Counterpart of accl_tpu/sequencer/lowering.py. Where the reference
 traces a schedule once per descriptor signature and compiles it with XLA
 into one device program over the mesh, the port builds the schedule
 closure once per signature and runs it eagerly on the stacked (world, n)
-operands: row r is rank r's buffer. Every one-call collective lowers to
-the reference's schedule for its plan. The allreduce branch picks one of
-the reference's two ring bodies: the torch-op ring over `Wire`
-(schedules.allreduce_ring_schedule), or — on the card — the fused ring
-kernel per 4 MiB segment, double-slotted like the reference's. The
+operands: row r is rank r's buffer. Every one-call collective, a paired
+send/recv and alltoall(v) lower to the reference's schedule for their
+plan. The allreduce branch picks one of the reference's two ring
+bodies: the torch-op ring over `Wire` (schedules.allreduce_ring_schedule),
+or — on the card — the fused ring kernel per 4 MiB segment,
+double-slotted like the reference's. The
 blockwise-int8 wire takes, on the card, the closed-form quantized ring
 kernel over the plan's segments (ops/quant_kernels.quant_ring_allreduce),
 and off it the torch-op ring, per plan segment, whose per-hop quantize /
@@ -143,7 +144,11 @@ class ScheduleCompiler:
             body = functools.partial(schedules.combine_schedule, func=func,
                                      **common)
         elif op in (Operation.send, Operation.recv):
-            raise not_ported("send/recv matching", "point-to-point")
+            # a paired send/recv runs as one sendrecv over the whole world
+            # (src and dst from the descriptor)
+            body = functools.partial(
+                schedules.sendrecv_schedule, src=root & 0xFFFF,
+                dst=(root >> 16) & 0xFFFF, **common)
         elif op == Operation.bcast:
             if plan.algorithm == Algorithm.RNDZV_BIN_TREE:
                 body = functools.partial(schedules.bcast_bin_tree_schedule,
@@ -194,7 +199,13 @@ class ScheduleCompiler:
             body = self._allreduce_body(options, plan, arithcfg, func, wire,
                                         compressed_domain)
         elif op == Operation.alltoall:
-            raise not_ported("alltoall", "alltoall")
+            if plan.algorithm == Algorithm.FLAT_ALLTOALLV:
+                body = functools.partial(schedules.alltoallv_schedule,
+                                         peer_counts=plan.peer_counts,
+                                         **common)
+            else:
+                body = functools.partial(schedules.alltoall_schedule,
+                                         **common)
         elif op == Operation.barrier:
             body = functools.partial(schedules.barrier_schedule, **common)
         else:

@@ -1,5 +1,6 @@
 """Collective schedules over stacked rank tensors: every one-call family
-of the reference, on the exact, cast and blockwise-int8 wires.
+of the reference (point-to-point and alltoall(v) included), on the
+exact, cast and blockwise-int8 wires.
 
 Counterpart of accl_tpu/sequencer/schedules.py. The reference's schedules
 are shard_map bodies that see one rank's (n,) buffer and move data with
@@ -32,7 +33,7 @@ from typing import Callable
 
 import torch
 
-from ..constants import ReduceFunction
+from ..constants import QUANT_BLOCK_ELEMS, ReduceFunction
 from ..ops.compression import (
     compress,
     decompress,
@@ -526,6 +527,123 @@ def _pad_to_multiple(x: torch.Tensor, m: int) -> torch.Tensor:
     if rem:
         x = torch.nn.functional.pad(x, (0, rem))
     return x
+
+
+# ---------------------------------------------------------------------------
+# all-to-all
+# ---------------------------------------------------------------------------
+
+
+def alltoall_schedule(x: torch.Tensor, *, world: int,
+                      wire: Wire) -> torch.Tensor:
+    """Pairwise rotation exchange: at step k every rank sends slot me+k to
+    rank me+k and files the arrival from rank me-k into slot me-k; W-1
+    steps cover all peers. x and the result are (world, world*count).
+
+    Together the W-1 steps put slot s of rank r into slot r of rank s: a
+    transpose of the [rank, slot] grid, which is how the exact and cast
+    wires run it (a cast is elementwise, so casting every moved slot at
+    once is bitwise the per-hop casts). The local slot crosses no wire
+    and stays exact. On the blockwise-int8 wire every moved slot takes
+    one quantization pass: hop by hop (one encode and one decode of
+    every rank's slot a hop) unless the slot is a whole number of
+    blocks, when the whole buffer is encoded and decoded once
+    (`_alltoall_quant_aligned`)."""
+    count = x.shape[-1] // world
+    grid = x.reshape(world, world, count)
+    if wire.quantized:
+        if count % QUANT_BLOCK_ELEMS == 0:
+            return _alltoall_quant_aligned(x, world=world, wire=wire)
+        me = torch.arange(world, device=x.device)
+        out = torch.zeros_like(grid)
+        out[me, me] = grid[me, me]
+        for k in range(1, world):
+            _alltoall_hop(out, grid[me, (me + k) % world], k, wire)
+        return out.reshape(x.shape)
+    out = grid.transpose(0, 1).contiguous()
+    if wire.cfg is not None:
+        me = torch.arange(world, device=x.device)
+        out = wire.transfer(out)
+        out[me, me] = grid[me, me]
+    return out.reshape(x.shape)
+
+
+def _alltoall_hop(out: torch.Tensor, sent: torch.Tensor, k: int,
+                  wire: Wire) -> None:
+    """Step k of the rotation: `sent` holds, per rank, the (prefix of the)
+    slot it sends to rank me+k; each arrival lands in slot me-k of its
+    receiver's row of the [rank, slot, elem] grid `out`."""
+    world = out.shape[0]
+    me = torch.arange(world, device=out.device)
+    recv = torch.roll(wire.transfer(sent), k, 0)  # row d: from rank d-k
+    out[me, (me - k) % world, :sent.shape[-1]] = recv
+
+
+def _alltoall_quant_aligned(x: torch.Tensor, *, world: int,
+                            wire: Wire) -> torch.Tensor:
+    """The block-aligned int8 exchange: with the slot a whole number of
+    quantization blocks, blocks never span slots, so one encode of the
+    whole send buffer gives every slot's codes and scales bitwise. Each
+    hop moves its slice of codes and scales (the reference ships it as
+    one packed message, which round-trips exactly; on one card the W-1
+    hops are one transpose of each), and the received buffer is decoded
+    once. The local slot is spliced in exact after the decode."""
+    count = x.shape[-1] // world
+    nb = count // QUANT_BLOCK_ELEMS
+    q, s = wire.encode(x)
+    q_recv = q.reshape(world, world, count).transpose(0, 1).reshape(q.shape)
+    s_recv = s.reshape(world, world, nb).transpose(0, 1).reshape(s.shape)
+    out = wire.decode((q_recv, s_recv), x.shape[-1], x.dtype)
+    me = torch.arange(world, device=x.device)
+    grid = x.reshape(world, world, count)
+    out.view(world, world, count)[me, me] = grid[me, me]
+    return out
+
+
+def alltoallv_schedule(x: torch.Tensor, *, peer_counts, world: int,
+                       wire: Wire) -> torch.Tensor:
+    """Capacity-bounded pairwise exchange, the MoE dispatch's alltoallv:
+    the dense alltoall's slot layout (count elements a slot), but peer p
+    takes only the first peer_counts[p] elements of each source's slot p
+    (its capacity), and the rest of every slot is zero: the overflow is
+    dropped at the source. Every hop moves vmax = max(peer_counts)
+    elements. The local slot crosses no wire and stays exact; on the
+    int8 wire each moved prefix is encoded at its source and decoded at
+    its destination, hop by hop."""
+    count = x.shape[-1] // world
+    counts = tuple(int(c) for c in peer_counts)
+    if len(counts) != world:
+        raise ValueError(
+            f"alltoallv needs one peer count per rank: got {len(counts)} "
+            f"for world {world}")
+    if any(c <= 0 or c > count for c in counts):
+        raise ValueError(
+            f"peer counts {counts} outside (0, {count}] slot capacity")
+    vmax = max(counts)
+    grid = x.reshape(world, world, count)[..., :vmax]
+    me = torch.arange(world, device=x.device)
+    # valid[p, e]: element e lies inside peer p's capacity
+    valid = (torch.arange(vmax, device=x.device)
+             < _row_tensor(counts, x.device)[:, None])
+    if wire.quantized:
+        out = x.new_zeros((world, world, count))
+        out[me, me, :vmax] = torch.where(valid, grid[me, me], 0)
+        for k in range(1, world):
+            dst = (me + k) % world
+            _alltoall_hop(out, torch.where(valid[dst], grid[me, dst], 0), k,
+                          wire)
+        return out.reshape(x.shape)
+    # rank r's slot s holds source s's slot r, cut to r's capacity
+    moved = torch.where(valid[:, None], grid.transpose(0, 1), 0)
+    if wire.cfg is not None:
+        own = moved[me, me]
+        moved = wire.transfer(moved)
+        moved[me, me] = own
+    if vmax == count:
+        return moved.reshape(x.shape)
+    out = x.new_zeros((world, world, count))
+    out[..., :vmax] = moved
+    return out.reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

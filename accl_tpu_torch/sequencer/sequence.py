@@ -38,8 +38,6 @@ _WIDE_OUT = (Operation.gather, Operation.allgather, Operation.alltoall)
 # the descriptor kinds a sequence can carry: data-plane steps with static
 # operand/result addresses. send/recv pair through the host and barrier
 # carries no payload: none of them belongs in a data-flow program.
-# alltoall is a sequence op (the linter accepts it), but its lowering
-# raises not_ported until its slice.
 SEQUENCE_OPS = (
     Operation.copy,
     Operation.combine,

@@ -125,8 +125,34 @@ What it does, in order, printing one JSON object per line:
      name and count); then eager and replay facade_ms in alternating
      pairs, the replay's device time, host ms per dispatch, capture
      seconds and the copy-in's bytes and device ms;
- 10. the kernels line (with each kernel's launches on the sequence path);
-     last, the device line.
+ 10. point-to-point phase: W = 8, fp32, 4 KiB and 25 MiB per rank on
+     the exact, fp16, bf16 and int8 wires: send then recv, recv first,
+     three TAG_ANY messages received in FIFO order, three tagged ones
+     received in reverse, and a stream_put with a producer and a
+     consumer; every row of each result bitwise with the port's CPU run,
+     row dst bitwise row src on the exact wire and within one
+     quantization pass on the int8 wire, each message's launches (int8:
+     one quantize and one dequantize; fp16/bf16: two casts); then a
+     send+recv pair's facade_ms, device ms and bound;
+ 11. sub-communicator phase: split([0, 2, 4, 6]) and split([1, 2, 5])
+     of W = 8: the exact and int8 allreduce at 25 MiB per rank (kernel 1
+     at world g, ceil(bytes/4 MiB) launches; the closed-form int8 ring),
+     bcast, reduce (fp32, bf16), reduce_scatter, allgather, gather,
+     scatter and alltoall on 1024*g elements; member rows bitwise with
+     the port's CPU run, other rows unchanged; a reduce_scatter ->
+     allgather sequence on the group of four replayed as one CUDA graph,
+     bitwise with its eager twin; the group allreduce's facade_ms,
+     device ms and bound beside the full world's;
+ 12. alltoall phase: W = 8, 25 MiB per rank in slots of 819 200 (the
+     int8 wire's aligned exchange) and 8 000 elements in slots of 1 000,
+     alltoall and alltoallv (capacities 819 200 x (1, 3/4, 1/2, 1/4,
+     ...)) on the exact and int8 wires, ALLTOALL_COMPRESS_MIN_COUNT set
+     and at 0; exact bitwise with numpy's transpose, int8 bitwise with
+     the port's CPU run, local slots exact, the aligned call one
+     quantize and one dequantize; facade_ms, device ms and bound;
+ 13. the kernels line (with each kernel's launches on the sequence,
+     point-to-point, sub-communicator and alltoall paths); last, the
+     device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -2609,6 +2635,19 @@ def kernel_profile(fn) -> dict:
                          f"{PROFILE_SESSIONS} sessions: {seen}")
 
 
+def launch_counter(kernels):
+    """(counts, delta): every kernel's launches, and the kernels whose
+    count moved since `before`, by how much."""
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    def delta(before):
+        return {name: k.launches - before[name]
+                for name, k in kernels.items() if k.launches != before[name]}
+
+    return counts, delta
+
+
 def sequence_phase(ring, qk, L):
     """This slice's path: call sequences. Each batch of seq_batches at
     25 MiB and 4 KiB per rank, W = 8, is recorded and prepared once
@@ -2636,14 +2675,7 @@ def sequence_phase(ring, qk, L):
     # compile, dispatches, profiles), without its timing runs
     path = dict.fromkeys(kernels, 0)
     gen = torch.Generator(device="cuda").manual_seed(8008)
-
-    def counts():
-        return {name: k.launches for name, k in kernels.items()}
-
-    def delta(before):
-        return {name: k.launches - before[name]
-                for name, k in kernels.items()
-                if k.launches != before[name]}
+    counts, delta = launch_counter(kernels)
 
     for nbytes in SEQ_SIZES:
         for name, kind, spec, issue in seq_batches(nbytes, gen):
@@ -2817,8 +2849,609 @@ class _Facade:
         return call
 
 
+P2P_COUNTS = (1024, 6_553_600)  # per rank: 4 KiB, and 25 MiB (a pipeline
+# stage's boundary activation)
+P2P_WIRES = (None, "float16", "bfloat16", "int8")
+P2P_SRC, P2P_DST = 1, 6
+
+
+def per_message(wire) -> dict:
+    """The hand-written kernels one send/recv message launches: on the
+    int8 wire one quantize (writing the message) and one dequantize
+    (reading it); on a cast wire two casts; none on the exact wire."""
+    if wire == "int8":
+        return {"quantize": 1, "dequantize": 1}
+    return {"cast": 2} if wire else {}
+
+
+def quant_pass_excess(got, x) -> float:
+    """The worst excess of |got - x| over one blockwise-int8 quantization
+    pass's bound per 256-element block of max |x_b| = M: half a step,
+    M / 254, plus 4 fp32 units of M for the roundings around it (the
+    scale's product with fp32(1/127), the quotient x / scale and the
+    decode's product q * scale); <= 0 within."""
+    xb = x.double().reshape(-1, 256)
+    err = (got.double().reshape(-1, 256) - xb).abs()
+    amax = xb.abs().amax(1, keepdim=True)
+    return float((err - (amax / 254 + 4 * F32_UNIT * amax)).max())
+
+
+def p2p_phase(ring, qk, L):
+    """This slice's point-to-point path, W = 8, fp32, at 4 KiB and 25 MiB
+    per rank on the exact, fp16, bf16 and int8 wires, rank 1 to rank 6:
+    a send then its recv; a recv first (async), then its send; three
+    TAG_ANY messages on one channel, received in FIFO order; three
+    messages with their own tags received in reverse order; then a
+    stream_put with a producer and a consumer. Every result, every row,
+    bitwise with the port's CPU run of the same calls on the same
+    payload; on the exact wire row dst bitwise row src; on the int8 wire
+    row dst within one quantization pass of row src; each message's
+    kernel launches as per_message says. Then facade_ms of a send+recv
+    pair (median of 20), its device ms and its bound (every row of the
+    result is written: 2*W*n*4 bytes). Returns every kernel's launches
+    over the checked runs (timing runs not counted)."""
+    import torch
+
+    from accl_tpu_torch import ACCL, DataType, TAG_ANY
+
+    world = 8
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    accl, cpu = ACCL(world=world), ACCL(world=world, torch_device="cpu")
+    f32 = torch.float32
+    expected: dict = {}
+    timing = []
+    for n in P2P_COUNTS:
+        xs = [rank_data(world, n, f32, gen) for _ in range(3)]
+        sbs = [accl.create_buffer(n) for _ in xs]
+        for sb, x in zip(sbs, xs):
+            sb.device.copy_(x)
+        csbs = [cpu.create_buffer(n, data=x.cpu()) for x in xs]
+        rbs = [accl.create_buffer(n) for _ in range(3)]
+        crb = cpu.create_buffer(n)
+        for wire in P2P_WIRES:
+            cd = None if wire is None else DataType[wire]
+            kw = dict(compress_dtype=cd)
+            # the CPU run of one message of payload k: the same calls
+            twins = []
+            for csb in csbs:
+                cpu.send(csb, n, P2P_SRC, P2P_DST, tag=1, **kw)
+                cpu.recv(crb, n, P2P_SRC, P2P_DST, tag=1, **kw)
+                twins.append(crb.host.to("cuda"))
+
+            def send(k, tag):
+                accl.send(sbs[k], n, P2P_SRC, P2P_DST, tag=tag,
+                          from_device=True, **kw)
+
+            def recv(rb, tag, **extra):
+                return accl.recv(rb, n, P2P_SRC, P2P_DST, tag=tag,
+                                 to_device=True, **kw, **extra)
+
+            def first():  # send, then its recv
+                send(0, 1)
+                recv(rbs[0], 1)
+                return [0]
+
+            def recv_first():  # the recv parks, the send pairs it
+                req = recv(rbs[0], 2, run_async=True)
+                if req.test():
+                    raise AssertionError("a recv with no send completed")
+                send(1, 2)
+                accl.wait(req)
+                return [1]
+
+            def tag_any():  # FIFO on one channel
+                for k in range(3):
+                    send(k, TAG_ANY)
+                for rb in rbs:
+                    recv(rb, TAG_ANY)
+                return [0, 1, 2]
+
+            def reverse():  # own tags, received last first
+                for k in range(3):
+                    send(k, 10 + k)
+                for rb, k in zip(rbs, (2, 1, 0)):
+                    recv(rb, 10 + k)
+                return [2, 1, 0]
+
+            for name, traffic in (("send_then_recv", first),
+                                  ("recv_then_send", recv_first),
+                                  ("tag_any_fifo", tag_any),
+                                  ("tags_reversed", reverse)):
+                before = counts()
+                order = traffic()
+                torch.cuda.synchronize()
+                launched = delta(before)
+                want = {k: v * len(order) for k, v in per_message(wire).items()}
+                if launched != want:
+                    raise AssertionError(f"p2p {name} n={n} wire={wire}: "
+                                         f"launched {launched}, expected "
+                                         f"{want}")
+                for k, v in want.items():
+                    expected[k] = expected.get(k, 0) + v
+                excess = None
+                for rb, k in zip(rbs, order):
+                    out = rb.device
+                    if not same_bits(out, twins[k]):
+                        raise AssertionError(f"p2p {name} n={n} wire={wire}:"
+                                             " differs from the CPU run")
+                    rows = [r for r in range(world) if r != P2P_DST]
+                    if not same_bits(out[rows], xs[k][rows]):
+                        raise AssertionError(f"p2p {name}: a row other than "
+                                             "dst is not its send row")
+                    if wire is None and not same_bits(out[P2P_DST],
+                                                      xs[k][P2P_SRC]):
+                        raise AssertionError(f"p2p {name}: row dst is not "
+                                             "row src")
+                    if wire == "int8":
+                        e = quant_pass_excess(out[P2P_DST], xs[k][P2P_SRC])
+                        if e > 0:
+                            raise AssertionError(f"p2p {name}: int8 row "
+                                                 f"outside its bound by {e}")
+                        excess = e if excess is None else max(excess, e)
+                emit({"phase": "p2p", "traffic": name, "world": world,
+                      "count": n, "bytes_per_rank": n * 4, "wire": wire,
+                      "messages": len(order), "launches": launched,
+                      "bitwise_vs_cpu": True, "int8_bound_margin":
+                      None if excess is None else -excess})
+            timing.append((n, wire, cd))
+        # stream_put: the producer's rows, rank 1's to rank 6, then the
+        # consumer; no wire, no hand-written kernel
+        feed = rank_data(world, n, f32, gen)
+        cfeed = feed.cpu()
+        accl.register_stream_producer(31, lambda ranks: feed)
+        accl.register_stream_consumer(31, lambda r: r * 0.5)
+        cpu.register_stream_producer(31, lambda ranks: cfeed)
+        cpu.register_stream_consumer(31, lambda r: r * 0.5)
+        before = counts()
+        accl.stream_put(n, 31, P2P_SRC, P2P_DST, rbs[0])
+        launched = delta(before)
+        cpu.stream_put(n, 31, P2P_SRC, P2P_DST, crb)
+        out = rbs[0].device
+        if launched or not same_bits(out, crb.host.to("cuda")) or \
+                not same_bits(out[P2P_DST], feed[P2P_SRC] * 0.5):
+            raise AssertionError(f"stream_put n={n}: launched {launched}, "
+                                 "or differs from the CPU run")
+        emit({"phase": "p2p", "traffic": "stream_put", "world": world,
+              "count": n, "launches": launched, "bitwise_vs_cpu": True})
+        for b in (*sbs, *rbs):
+            accl.free_buffer(b)
+        for b in (*csbs, crb):
+            cpu.free_buffer(b)
+    path = counts()
+    want = {k: expected.get(k, 0) for k in kernels}
+    if path != want:
+        raise AssertionError(f"p2p path launched {path}, expected {want}")
+    for n, wire, cd in timing:
+        sb, rb = accl.create_buffer(n), accl.create_buffer(n)
+        sb.device.copy_(rank_data(world, n, f32, gen))
+
+        def pair(run_async=False):
+            accl.send(sb, n, P2P_SRC, P2P_DST, tag=5, from_device=True,
+                      compress_dtype=cd)
+            accl.recv(rb, n, P2P_SRC, P2P_DST, tag=5, to_device=True,
+                      compress_dtype=cd, run_async=run_async)
+
+        emit({"phase": "p2p_timing", "world": world, "count": n,
+              "bytes_per_rank": n * 4, "wire": wire,
+              "facade_ms": median_ms(pair),
+              "device_ms": device_ms(lambda: pair(run_async=True)),
+              "bound_ms": 2 * world * n * 4 / HBM_BYTES_PER_S * 1e3})
+        accl.free_buffer(sb)
+        accl.free_buffer(rb)
+    torch.cuda.synchronize()
+    return path
+
+
+COMM_GROUPS = ((0, 2, 4, 6), (1, 2, 5))  # a tensor-parallel group of four
+# in an eight-GPU node, and a group of three in no order of the ranks
+COMM_COUNT = 6_553_600  # 25 MiB per rank
+COMM_SMALL = ("bcast", "reduce", "reduce_scatter", "allgather", "gather",
+              "scatter", "alltoall")
+
+
+def comm_call(accl, op, sb, rb, count, comm, **kw):
+    """One call on a communicator (roots are its rank 1)."""
+    from accl_tpu_torch.constants import ReduceFunction
+
+    s = ReduceFunction.SUM
+    return {
+        "allreduce": lambda: accl.allreduce(sb, rb, count, s, comm=comm,
+                                            **kw),
+        "bcast": lambda: accl.bcast(sb, count, 1, comm=comm, **kw),
+        "reduce": lambda: accl.reduce(sb, rb, count, 1, s, comm=comm, **kw),
+        "reduce_scatter": lambda: accl.reduce_scatter(sb, rb, count, s,
+                                                      comm=comm, **kw),
+        "allgather": lambda: accl.allgather(sb, rb, count, comm=comm, **kw),
+        "gather": lambda: accl.gather(sb, rb, count, 1, comm=comm, **kw),
+        "scatter": lambda: accl.scatter(sb, rb, count, 1, comm=comm, **kw),
+        "alltoall": lambda: accl.alltoall(sb, rb, count, comm=comm, **kw),
+    }[op]()
+
+
+def comm_phase(ring, qk, L):
+    """Sub-communicators, W = 8: split([0, 2, 4, 6]) and split([1, 2, 5]).
+    On each, the allreduce at 25 MiB per rank on the exact wire (kernel 1
+    at world g, ceil(bytes/4 MiB) launches) and the int8 wire (the
+    closed-form ring at world g), then bcast, reduce (fp32 and bf16),
+    reduce_scatter, allgather, gather, scatter and alltoall on buffers
+    of 1024*g elements (slots of 1024). Every result bitwise with the
+    port's CPU run (the kernels' plain versions) on member rows, and
+    non-member rows bitwise what they held before; lane kernel launches
+    as the group's plans say. Then one call sequence on the group of four
+    (reduce_scatter -> allgather, 25 MiB), replayed as one CUDA graph:
+    bitwise with its eager twin on two input sets, one graph launch a
+    dispatch (profiled). Then facade_ms, device ms and the bound
+    2*g*n*4 bytes of the group allreduce beside the full world's.
+    Returns every kernel's launches over the checked runs."""
+    import torch
+
+    from accl_tpu_torch import ACCL, DataType
+    from accl_tpu_torch.constants import ReduceFunction
+
+    world = 8
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    accl = ACCL(world=world, egr_rx_buf_size=QUANT_BUF)
+    cpu = ACCL(world=world, torch_device="cpu", egr_rx_buf_size=QUANT_BUF)
+    cpu.cclo.compiler.use_ring_kernel = True  # the kernels' plain versions
+    expected: dict = {}
+
+    def check(op, members, count, width_in, width_out, dtype=torch.float32,
+              wire=None):
+        g = len(members)
+        comm, ccomm = accl.split(list(members)), cpu.split(list(members))
+        x = rank_data(world, width_in, dtype, gen)
+        prior = rank_data(world, width_out, dtype, gen)  # what rb held
+        sb, rb = accl.create_buffer(width_in, dtype), \
+            accl.create_buffer(width_out, dtype)
+        sb.device.copy_(x)
+        rb.device.copy_(prior)
+        csb = cpu.create_buffer(width_in, dtype, data=x.cpu())
+        crb = cpu.create_buffer(width_out, dtype, data=prior.cpu())
+        cd = None if wire is None else DataType[wire]
+        before = counts()
+        req = comm_call(accl, op, sb, rb, count, comm, from_device=True,
+                        to_device=True, compress_dtype=cd)
+        torch.cuda.synchronize()
+        launched = delta(before)
+        comm_call(cpu, op, csb, crb, count, ccomm, compress_dtype=cd)
+        out = (sb if op == "bcast" else rb).device
+        before_rows = x if op == "bcast" else prior
+        others = [r for r in range(world) if r not in members]
+        if not same_bits(out, (csb if op == "bcast" else crb).host.to(
+                "cuda")):
+            raise AssertionError(f"comm {op} {members}: differs from the "
+                                 "CPU run")
+        if not same_bits(out[others], before_rows[others]):
+            raise AssertionError(f"comm {op} {members}: a non-member row "
+                                 "changed")
+        if op == "allreduce" and wire is None:
+            want = {"ring_allreduce_bidir": math.ceil(count * 4 / SEG_BYTES)}
+        elif op == "allreduce":
+            want = {QUANT_RING[0]: ring_launch_count(
+                count, ring_seg(g, QUANT_BUF))}
+        else:
+            want = {k: v for k, v in expected_lane_launches(
+                op, req.plan, g, dtype, None).items() if v}
+        if launched != want:
+            raise AssertionError(f"comm {op} {members} wire={wire}: "
+                                 f"launched {launched}, expected {want}")
+        for k, v in want.items():
+            expected[k] = expected.get(k, 0) + v
+        emit({"phase": "comm", "op": op, "members": list(members),
+              "group": g, "count": count, "wire": wire,
+              "dtype": str(dtype).split(".")[-1],
+              "plan": req.plan.algorithm.name, "launches": launched,
+              "bitwise_vs_cpu": True, "non_members_unchanged": True})
+        for b in (sb, rb):
+            accl.free_buffer(b)
+        for b in (csb, crb):
+            cpu.free_buffer(b)
+
+    for members in COMM_GROUPS:
+        g = len(members)
+        for wire in (None, "int8"):
+            check("allreduce", members, COMM_COUNT, COMM_COUNT, COMM_COUNT,
+                  wire=wire)
+        small = 1024 * g
+        for op in COMM_SMALL:
+            count = 1024 if op in ("reduce_scatter", "allgather", "gather",
+                                   "scatter", "alltoall") else small
+            w_in = small if op in ("reduce_scatter", "scatter",
+                                   "alltoall") else count
+            w_out = small if op in ("allgather", "gather", "alltoall") \
+                else count
+            check(op, members, count, w_in, w_out)
+        check("reduce", members, small, small, small, dtype=torch.bfloat16)
+
+    # one call sequence on the group of four, replayed as one CUDA graph
+    members = COMM_GROUPS[0]
+    g, n = len(members), COMM_COUNT
+    comm = accl.split(list(members))
+    s = ReduceFunction.SUM
+
+    def bufs():
+        b = [accl.create_buffer(n), accl.create_buffer(n // g),
+             accl.create_buffer(n)]
+        for buf in b[1:]:
+            buf.device.zero_()
+        return b
+
+    fused, eager = bufs(), bufs()
+
+    def issue(ops, b, **kw):
+        ops.reduce_scatter(b[0], b[1], n // g, s, **kw)
+        ops.allgather(b[1], b[2], n // g, **kw)
+
+    def run_eager():
+        issue(accl, eager, comm=comm, from_device=True, to_device=True)
+
+    rec = accl.sequence(comm=comm)
+    issue(rec, fused)
+    before = counts()
+    prog = rec.compile()
+    compile_launches = delta(before)
+    if prog.graph.graph is None:
+        raise AssertionError("the group's sequence captured no CUDA graph")
+    for k, v in compile_launches.items():
+        expected[k] = expected.get(k, 0) + v
+    for dispatch in range(2):
+        x = rank_data(world, n, torch.float32, gen)
+        fused[0].device.copy_(x)  # the bound buffer, written in place
+        eager[0].device.copy_(x)
+        before = counts()
+        prog.run(from_device=True, to_device=True)
+        if delta(before):
+            raise AssertionError(f"a replay launched {delta(before)}")
+        before = counts()
+        run_eager()
+        torch.cuda.synchronize()
+        eager_launches = delta(before)
+        if compile_launches != {k: 2 * v for k, v in eager_launches.items()}:
+            raise AssertionError(f"the group's sequence launched "
+                                 f"{compile_launches} at compile, its eager "
+                                 f"twin {eager_launches}")
+        for k, v in eager_launches.items():
+            expected[k] = expected.get(k, 0) + v
+        for i in (1, 2):
+            if not same_bits(fused[i].device, eager[i].device):
+                raise AssertionError(f"the group's sequence differs from "
+                                     f"its eager twin (buffer {i}, dispatch "
+                                     f"{dispatch})")
+    prof = kernel_profile(lambda: prog.run(from_device=True, to_device=True))
+    if prof["graph_launches"] != 1:
+        raise AssertionError(f"{prof['graph_launches']} graph launches in "
+                             "one dispatch of the group's sequence")
+    path = counts()
+    want = {k: expected.get(k, 0) for k in kernels}
+    if path != want:
+        raise AssertionError(f"comm path launched {path}, expected {want}")
+    idle = [k for k in ("ring_allreduce_bidir", QUANT_RING[0], "combine",
+                        "combine_cast") if path[k] == 0]
+    if idle:
+        raise AssertionError(f"the comm path launched no {idle}")
+    emit({"phase": "comm_sequence", "members": list(members), "group": g,
+          "bytes_per_rank": n * 4, "cuda_graph": True,
+          "bitwise_vs_eager": True, "dispatches_checked": 2,
+          "launches_at_compile": compile_launches,
+          "graph_launches_per_dispatch": prof["graph_launches"],
+          "device_kernels_per_dispatch": sum(prof["kernels"].values()),
+          "memcpy_per_dispatch": prof["memcpy"],
+          "facade_ms": {"eager": median_ms(run_eager),
+                        "sequence": median_ms(lambda: prog.run(
+                            from_device=True, to_device=True))}})
+    for b in (*fused, *eager):
+        accl.free_buffer(b)
+    del prog, rec
+
+    # the group allreduce's time beside the full world's
+    sb, rb = accl.create_buffer(n), accl.create_buffer(n)
+    sb.device.copy_(rank_data(world, n, torch.float32, gen))
+    for members in (None, *COMM_GROUPS):
+        comm = None if members is None else accl.split(list(members))
+        g = world if members is None else len(members)
+        for wire in (None, "int8"):
+            cd = None if wire is None else DataType.int8
+
+            def call(run_async=False):
+                accl.allreduce(sb, rb, n, s, comm=comm, from_device=True,
+                               to_device=True, compress_dtype=cd,
+                               run_async=run_async)
+
+            emit({"phase": "comm_timing", "op": "allreduce",
+                  "members": members and list(members), "group": g,
+                  "bytes_per_rank": n * 4, "wire": wire,
+                  "facade_ms": median_ms(call),
+                  "device_ms": device_ms(lambda: call(run_async=True)),
+                  "bound_ms": 2 * g * n * 4 / HBM_BYTES_PER_S * 1e3})
+    accl.free_buffer(sb)
+    accl.free_buffer(rb)
+    torch.cuda.synchronize()
+    return path
+
+
+A2A_COUNT = 6_553_600  # per rank: 25 MiB of fp32
+A2A_SLOT = A2A_COUNT // 8  # 819 200 = 3 200 blocks of 256: the aligned path
+A2A_CAPACITY = tuple(A2A_SLOT * q // 4 for q in (4, 3, 2, 1, 4, 3, 2, 1))
+A2A_SMALL_SLOT = 1000  # no whole number of blocks: a hop's encode each
+
+
+def a2a_oracle(x, slot: int, capacity=None):
+    """numpy's transpose of the [rank, slot] grid, each receiver's slots
+    cut to its capacity."""
+    w = x.shape[0]
+    out = x.reshape(w, w, slot).transpose(1, 0, 2).copy()
+    for r, c in enumerate(capacity or ()):
+        out[r, :, c:] = 0
+    return out.reshape(w, w * slot)
+
+
+def alltoall_phase(ring, qk, L):
+    """alltoall and alltoallv, W = 8, fp32: a 25 MiB buffer per rank with
+    slots of 819 200 (3 200 quantization blocks: the int8 wire's aligned
+    exchange, one quantize and one dequantize of the whole buffer) and an
+    8 000-element buffer with slots of 1 000 (a quantize and a dequantize
+    a hop); alltoallv with capacities 819 200 x (1, 3/4, 1/2, 1/4, 1, 3/4,
+    1/2, 1/4), the MoE expert-capacity dispatch; the exact and int8
+    wires, and ALLTOALL_COMPRESS_MIN_COUNT set (the fp32 call takes the
+    int8 wire) and back at 0 (the exact wire's bits). The exact wire
+    bitwise with numpy's transpose, the int8 wire bitwise with the port's
+    CPU run with every local slot exact, the launches as the wire says.
+    Then facade_ms, device ms and the bound 2*W*n*4 bytes. Returns every
+    kernel's launches over the checked runs."""
+    import torch
+
+    from accl_tpu_torch import ACCL, DataType, TuningParams
+
+    world = 8
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(9753)
+    accl, cpu = ACCL(world=world), ACCL(world=world, torch_device="cpu")
+    expected: dict = {}
+    kept = {}
+    cases = [  # (slot, wire, capacity, register)
+        (A2A_SLOT, None, None, 0), (A2A_SLOT, "int8", None, 0),
+        (A2A_SLOT, None, A2A_CAPACITY, 0), (A2A_SLOT, "int8", A2A_CAPACITY, 0),
+        (A2A_SLOT, None, None, 4096), (A2A_SLOT, None, A2A_CAPACITY, 4096),
+        (A2A_SMALL_SLOT, None, None, 0), (A2A_SMALL_SLOT, "int8", None, 0),
+    ]
+    xs = {}
+    for slot, wire, capacity, register in cases:
+        n = world * slot
+        if slot not in xs:
+            xs[slot] = rank_data(world, n, torch.float32, gen)
+        x = xs[slot]
+        sb, rb = accl.create_buffer(n), accl.create_buffer(n)
+        sb.device.copy_(x)
+        cd = None if wire is None else DataType[wire]
+        accl.configure_tuning_parameters(TuningParams(
+            alltoall_compress_min_count=register))
+        before = counts()
+        try:
+            if capacity is None:
+                req = accl.alltoall(sb, rb, slot, from_device=True,
+                                    to_device=True, compress_dtype=cd)
+            else:
+                req = accl.alltoallv(sb, rb, slot, capacity, from_device=True,
+                                     to_device=True, compress_dtype=cd)
+        finally:
+            accl.configure_tuning_parameters(TuningParams.default())
+        torch.cuda.synchronize()
+        launched = delta(before)
+        out = rb.device
+        int8 = wire == "int8" or register > 0
+        if req.plan.wire_dtype != (DataType.int8 if int8 else DataType.none):
+            raise AssertionError(f"alltoall slot={slot} wire={wire} "
+                                 f"register={register}: plan wire "
+                                 f"{req.plan.wire_dtype}")
+        if int8:
+            hops = 1 if (capacity is None and slot % 256 == 0) else world - 1
+            want = {"quantize": hops, "dequantize": hops}
+        else:
+            want = {}
+        if launched != want:
+            raise AssertionError(f"alltoall slot={slot} wire={wire} "
+                                 f"capacity={capacity is not None} register="
+                                 f"{register}: launched {launched}, expected "
+                                 f"{want}")
+        for k, v in want.items():
+            expected[k] = expected.get(k, 0) + v
+        grid, xgrid = out.reshape(world, world, slot), x.reshape(
+            world, world, slot)
+        me = torch.arange(world, device="cuda")
+        own = xgrid[me, me].clone()
+        for r, c in enumerate(capacity or ()):
+            own[r, c:] = 0
+        if not same_bits(grid[me, me], own):
+            raise AssertionError(f"alltoall slot={slot} wire={wire}: a "
+                                 "local slot is not exact")
+        key = (slot, capacity)
+        if int8 and register:  # the register's call is the explicit one's
+            ok = same_bits(out, kept[key, "int8"])
+        elif int8:
+            csb = cpu.create_buffer(n, data=x.cpu())
+            crb = cpu.create_buffer(n)
+            if capacity is None:
+                cpu.alltoall(csb, crb, slot, compress_dtype=cd)
+            else:
+                cpu.alltoallv(csb, crb, slot, capacity, compress_dtype=cd)
+            ok = same_bits(out, crb.host.to("cuda"))
+            cpu.free_buffer(csb)
+            cpu.free_buffer(crb)
+        else:
+            ok = same_bits(out.cpu(), torch.from_numpy(
+                a2a_oracle(x.cpu().numpy(), slot, capacity)))
+        if not ok:
+            raise AssertionError(f"alltoall slot={slot} wire={wire} "
+                                 f"capacity={capacity is not None} register="
+                                 f"{register}: wrong result")
+        kept.setdefault((key, "int8" if int8 else None), out)
+        emit({"phase": "alltoall", "world": world, "slot": slot,
+              "bytes_per_rank": n * 4, "wire": wire,
+              "alltoallv_capacity": capacity, "compress_register": register,
+              "plan": req.plan.algorithm.name,
+              "plan_wire": req.plan.wire_dtype.name, "launches": launched,
+              "local_slot_exact": True,
+              "checked_against": ("explicit int8 call" if int8 and register
+                                  else "cpu run" if int8
+                                  else "numpy transpose")})
+        accl.free_buffer(sb)
+        accl.free_buffer(rb)
+    # register back at 0: the exact wire's bits
+    sb, rb = accl.create_buffer(world * A2A_SLOT), \
+        accl.create_buffer(world * A2A_SLOT)
+    sb.device.copy_(xs[A2A_SLOT])
+    accl.alltoall(sb, rb, A2A_SLOT, from_device=True, to_device=True)
+    if not same_bits(rb.device, kept[(A2A_SLOT, None), None]):
+        raise AssertionError("register 0 does not give the exact wire's bits")
+    path = counts()
+    want = {k: expected.get(k, 0) for k in kernels}
+    if path != want or not (path["quantize"] and path["dequantize"]):
+        raise AssertionError(f"alltoall path launched {path}, expected "
+                             f"{want}")
+    kept.clear()
+    for capacity in (None, A2A_CAPACITY):
+        for wire in (None, "int8"):
+            cd = None if wire is None else DataType.int8
+
+            def call(run_async=False):
+                if capacity is None:
+                    accl.alltoall(sb, rb, A2A_SLOT, from_device=True,
+                                  to_device=True, compress_dtype=cd,
+                                  run_async=run_async)
+                else:
+                    accl.alltoallv(sb, rb, A2A_SLOT, capacity,
+                                   from_device=True, to_device=True,
+                                   compress_dtype=cd, run_async=run_async)
+
+            emit({"phase": "alltoall_timing", "world": world,
+                  "slot": A2A_SLOT, "bytes_per_rank": A2A_COUNT * 4,
+                  "wire": wire, "alltoallv_capacity": capacity,
+                  "facade_ms": median_ms(call),
+                  # an int8 alltoallv is ~80 device operations: 5 calls
+                  # stay inside the launch queue behind the spin
+                  "device_ms": device_ms(lambda: call(run_async=True),
+                                         count=5),
+                  "bound_ms": 2 * world * A2A_COUNT * 4 / HBM_BYTES_PER_S
+                  * 1e3})
+    accl.free_buffer(sb)
+    accl.free_buffer(rb)
+    torch.cuda.synchronize()
+    return path
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
-                seq_launches):
+                path_launches):
     """Per kernel: device time per launch at the main path's launch
     shape with the host held off (device_ms), its plain version and the
     library yardstick, timed the same way. Ring kernels: W=8, fp32, 4 MiB
@@ -2832,7 +3465,9 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     kernels: the rows of the lane breakdown. `sequence_launches`: each
     kernel's launches over the sequence phase's checked runs (its eager
     twins, and the warm-up run and capture at compile; a replay runs
-    the captured kernels without the host's wrappers)."""
+    the captured kernels without the host's wrappers); `p2p_launches`,
+    `comm_launches` and `alltoall_launches` likewise over the checked
+    runs of the point-to-point, sub-communicator and alltoall paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -2896,7 +3531,8 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row["library_ms"], "shape": row["shape"]})
     for entry in entries:
-        entry["sequence_launches"] = seq_launches[entry["name"]]
+        for path, counted in path_launches.items():
+            entry[f"{path}_launches"] = counted[entry["name"]]
     emit({"kernels": entries})
 
 
@@ -2965,11 +3601,16 @@ def main() -> int:
     ring_row = timed(quant_ring_breakdown_phase, qk)
     lane_rows = timed(lane_breakdown_phase, L)
     timed(lane_cold_phase, L)
-    # call sequences: every kernel inside one CUDA graph per batch
-    seq_launches = timed(sequence_phase, ring, qk, L)
+    # call sequences: every kernel inside one CUDA graph per batch; then
+    # point-to-point, sub-communicators and alltoall, each path with every
+    # kernel's count set to 0 just before it
+    paths = {"sequence": timed(sequence_phase, ring, qk, L),
+             "p2p": timed(p2p_phase, ring, qk, L),
+             "comm": timed(comm_phase, ring, qk, L),
+             "alltoall": timed(alltoall_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
-                seq_launches)
+                paths)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

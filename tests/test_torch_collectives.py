@@ -182,10 +182,11 @@ def test_collective_bitwise_with_reference_facade(facades, case):
 
 
 def test_barrier_and_unported_entry_points(facades):
-    """barrier completes on both facades; stream_put, send/recv and
-    alltoall raise NotImplementedError naming their slices (streamed
-    operands are ported: an unregistered producer is a KeyError, as in
-    the reference)."""
+    """barrier completes on both facades. The entry points that used to
+    raise NotImplementedError run now: stream_put on an unregistered
+    producer is a KeyError, as in the reference (so is a streamed
+    operand's), a raw send descriptor parks until its recv, and a raw
+    alltoall descriptor runs the pairwise exchange."""
     ref, port = facades[5]
     ref.barrier()
     req = port.barrier()
@@ -193,15 +194,23 @@ def test_barrier_and_unported_entry_points(facades):
     b = port.create_buffer(17)
     with pytest.raises(KeyError, match="no producer registered on stream 3"):
         port.bcast(b, 17, 0, op0_stream=3)
-    with pytest.raises(NotImplementedError, match="point-to-point"):
+    with pytest.raises(KeyError, match="no producer registered on stream 3"):
         port.stream_put(17, 3, 0, 1, b)
-    with pytest.raises(NotImplementedError, match="point-to-point"):
-        port.cclo.start(port._prepare(Operation.send, b, None, None, 17,
-                                      root_src_dst=1 << 16))
-    wide = port.create_buffer(17 * 5)
-    with pytest.raises(NotImplementedError, match="alltoall"):
-        port.cclo.start(port._prepare(Operation.alltoall, wide, None, wide,
-                                      17))
+    req = port.cclo.start(port._prepare(Operation.send, b, None, None, 17,
+                                        root_src_dst=1 << 16))
+    assert req.test() and req.retcode == 0
+    assert "parked send: comm 0x200 src 0 dst 1" in \
+        port.dump_eager_rx_buffers()
+    port.soft_reset()
+    x = _data(5, 17 * 5, np.float32, seed=77)
+    wide = port.create_buffer(17 * 5, data=x)
+    out = port.create_buffer(17 * 5)
+    req = port.cclo.start(port._prepare(Operation.alltoall, wide, None, out,
+                                        17))
+    req.wait()
+    assert req.plan.algorithm == Algorithm.FLAT_ALLTOALL
+    assert torch.equal(out.device, torch.from_numpy(
+        x.reshape(5, 5, 17).transpose(1, 0, 2).reshape(5, 85)))
 
 
 @pytest.fixture(scope="module")

@@ -468,22 +468,22 @@ def test_dispatch_results_survive_the_next_dispatch(port4):
 
 
 def test_unported_steps_and_tiers_raise(port4):
-    """alltoall steps, stream_put, the deep lint tier and a
-    sub-communicator raise NotImplementedError naming their slices, at
-    record or prepare time."""
+    """The deep lint tier raises NotImplementedError naming its slice, at
+    record and at prepare time. What else used to raise here runs now:
+    alltoall(v) steps record, stream_put on an unregistered producer is a
+    KeyError as in the reference, and a batch addressing a two-rank
+    communicator table runs over rows 0 and 2 only."""
     from accl_tpu_torch.communicator import Communicator, Rank
 
     n = 8
     a, b = _mk(port4, 4 * n), _mk(port4, 4 * n)
-    with pytest.raises(NotImplementedError, match="alltoall"):
-        port4.sequence().alltoall(a, b, n)
-    with pytest.raises(NotImplementedError, match="alltoall"):
-        port4.sequence().alltoallv(a, b, n, [n] * 4)
+    assert len(port4.sequence().alltoall(a, b, n)) == 1
+    assert len(port4.sequence().alltoallv(a, b, n, [n, 1, 2, 3])) == 1
     with pytest.raises(NotImplementedError, match="analysis"):
         port4.sequence(lint="deep")
     with pytest.raises(NotImplementedError, match="analysis"):
         port4.cclo.prepare_sequence([], lint="deep")
-    with pytest.raises(NotImplementedError, match="point-to-point"):
+    with pytest.raises(KeyError, match="no producer registered on stream 5"):
         port4.stream_put(n, 5, 0, 1, a)
     # a descriptor addressing a two-rank communicator table
     sub = Communicator([Rank(device_index=i, session_id=i) for i in (0, 2)],
@@ -491,8 +491,12 @@ def test_unported_steps_and_tiers_raise(port4):
     port4._write_communicator(sub)
     opts = port4._prepare(Operation.allreduce, a, None, b, n)
     opts.comm_addr = sub.exchmem_addr
-    with pytest.raises(NotImplementedError, match="communicators"):
-        port4.cclo.start_sequence([opts])
+    before = b.device.clone()
+    port4.cclo.start_sequence([opts]).wait()
+    assert torch.equal(b.device[[1, 3]], before[[1, 3]])
+    want = a.device[0, :n] + a.device[2, :n]
+    assert torch.equal(b.device[[0, 2], :n], torch.stack([want, want]))
+    assert torch.equal(b.device[[0, 2], n:], before[[0, 2], n:])
 
 
 def test_step_accesses_match_reference():

@@ -1,7 +1,7 @@
 """The port's streamed collectives against the JAX facade's, bitwise.
 
 The streamed-collective cases of tests/test_streams.py without send/recv
-(and stream_put, which rides them), at W = 8: OP0_STREAM / RES_STREAM on
+and stream_put (tests/test_torch_p2p.py has those), at W = 8: OP0_STREAM / RES_STREAM on
 allreduce, bcast, scatter, gather, reduce, reduce_scatter and allgather,
 copy_from_stream, copy_to_stream, copy_from_to_stream, the stream id
 rules and re-registration, and streams spliced into a call sequence.
@@ -190,8 +190,16 @@ def test_stream_id_validation_and_stream_put(pair):
     out = port.create_buffer(8)
     with pytest.raises(KeyError, match="no consumer registered"):
         port.copy_to_stream(out, 8, res_stream=77)
-    with pytest.raises(NotImplementedError, match="point-to-point"):
-        port.stream_put(8, stream_id=11, src=0, dst=1, recvbuf=out)
+    # stream_put is ported: an unregistered producer is a KeyError, as in
+    # the reference, and a registered one's row 0 lands in row 1
+    with pytest.raises(KeyError, match="no producer registered on stream 13"):
+        port.stream_put(8, stream_id=13, src=0, dst=1, recvbuf=out)
+    made = torch.arange(WORLD * 8, dtype=torch.float32).reshape(WORLD, 8)
+    port.register_stream_producer(13, lambda ranks: made)
+    port.stream_put(8, stream_id=13, src=0, dst=1, recvbuf=out)
+    want = made.clone()
+    want[1] = made[0]
+    assert torch.equal(out.host, want)
     port.register_stream_producer(12, lambda ranks: torch.ones(WORLD))
     with pytest.raises(ValueError, match="stacked"):
         port.copy_from_stream(out, 8, op0_stream=12)
