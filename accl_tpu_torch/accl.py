@@ -184,6 +184,88 @@ class ACCL:
         dev.write(CCLOAddr.SYNTH_LATENCY_MAX_COUNT,
                   tuning.synth_latency_max_count)
 
+    def autotune(self, link=None, timing_model_path=None,
+                 tier: str = "emulator",
+                 wire_dtype: DataType = DataType.none,
+                 tier_links=None, compute_fit=None) -> TuningParams:
+        """Derive the tuning registers from the timing model and apply
+        them, as the reference does: the flat switch points, the
+        synthesized and latency-grid windows, the quantized-alltoall and
+        overlap windows, and, on a device that declares a two-tier
+        topology (GPUDevice(hier_topology=...)), the hierarchical window
+        with its per-tier wire arbitration (`hier_wires`, for fp32 calls).
+
+        `link` is a timing.LinkParams; absent, it is the emulator link of
+        the model at `timing_model_path` (default: the port's copy of the
+        shipped model, accl_tpu_torch/data/timing_model.json). That model
+        was fitted on the reference's native emulator and a CPU mesh, so
+        the windows it opens are the reference's, not measurements of
+        this card. tier="tpu" reads the model's TPU section, which the
+        port's copy does not carry: it raises ValueError unless a model
+        with one is named. `wire_dtype` tunes for a workload on that
+        compression lane (the byte registers stretch by the compression
+        ratio). `tier_links` and `compute_fit` override the model's
+        per-tier and compute calibrations. Returns the applied
+        TuningParams."""
+        import json
+        import pathlib
+
+        from .sequencer.timing import (
+            LinkParams,
+            emulator_link,
+            tuning_crossovers,
+        )
+        from .telemetry.feedback import (
+            MODEL_PATH,
+            default_compute_fit,
+            default_tier_links,
+        )
+
+        if tier not in ("emulator", "tpu"):
+            raise ValueError(f"unknown autotune tier {tier!r}")
+        if link is not None and tier != "emulator":
+            raise ValueError("pass either link= or tier=, not both")
+        if link is None:
+            path = pathlib.Path(timing_model_path or MODEL_PATH)
+            model = json.loads(path.read_text())
+            if tier == "tpu":
+                t = model.get("tpu_tier")
+                if not t or not t.get("hbm_stream_gbps"):
+                    raise ValueError(
+                        "timing model has no usable tpu_tier; re-run "
+                        "tools/timing_model.py with an on-chip profile")
+                link = LinkParams(alpha=t["dispatch_alpha_us"] * 1e-6,
+                                  beta=t["hbm_stream_gbps"] * 1e9)
+            else:
+                link = emulator_link(model)
+        topology = getattr(self.cclo, "hier_topology", None)
+        if tier_links is None:
+            tier_links = default_tier_links(timing_model_path)
+        if compute_fit is None:
+            compute_fit = default_compute_fit(timing_model_path)
+        cross = tuning_crossovers(link, world=self.world,
+                                  wire_dtype=wire_dtype,
+                                  tier_links=tier_links,
+                                  topology=topology,
+                                  compute_fit=compute_fit)
+        tuning = TuningParams.from_crossovers(cross)
+        self.configure_tuning_parameters(tuning)
+        # the tier wires ride the same tune: arbitrated at a clearly
+        # bandwidth-bound payload (>= 1 MiB, never below the window's
+        # floor) of fp32, the dtype the device applies them to
+        if (tuning.hier_allreduce_min_count > 0 and topology is not None
+                and tier_links is not None
+                and hasattr(self.cclo, "hier_wires")):
+            from .sequencer.plan import select_tier_wires
+
+            cnt = max(tuning.hier_allreduce_min_count, 1 << 20) // 4
+            self.cclo.hier_wires = select_tier_wires(
+                cnt, DataType.float32, topology, tier_links,
+                arith_table=self.arith_config,
+                quantized_ok=getattr(self.cclo,
+                                     "supports_quantized_wire", False))
+        return tuning
+
     # ------------------------------------------------------------------ #
     # buffers
     # ------------------------------------------------------------------ #

@@ -1,0 +1,395 @@
+"""Hop-DAG IR: one call's schedule as data.
+
+Counterpart of accl_tpu/analysis/hopdag.py (everything but the fault
+mutations, which serve the semantic certifier). A `HopDag` is a
+rank-tagged, program-ordered list of nodes describing every cross-rank
+move and every arithmetic fold of ONE call's schedule, plus the per-rank
+output composition. The synthesized schedule library
+(sequencer/synthesis.py) ships its entries in this form, and the
+lowering compiles them into schedule bodies.
+
+Node kinds (each output is a flat run of `length` elements):
+
+  arg      rank r's view of operand slot `arg` (the schedule input)
+  send     rank r posts `value` on channel `hop` toward rank `peer`
+  recv     rank r receives channel `hop` from rank `peer`; its content
+           is the matching send's value (pairing is (hop, peer, rank))
+  combine  elementwise reduction `func` of `value` with `value2`
+  encode   blockwise quantization of `value`: the node has TWO outputs,
+           `data` (int8 codes, `length` elements) and `scales`
+           (`scales_len` fp32 per-block scales); pieces select a part
+  decode   dequantize codes `value` against scales `value2`
+  cast     dtype conversion of `value`; dtype == "" is an identity
+
+Values are piece lists: each `Piece` is a contiguous slice of some
+node's output (or a constant fill), so slicing, concatenation and
+splicing stay exact.
+
+The IR is executable: `execute` evaluates a DAG with numpy (encode and
+decode through the port's blockwise int8 lanes on the CPU), the
+reference the lowered program is held against. A node reading a node
+that has not run yet (`validate_order` -> ACCL504) reads zeros.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterator
+
+import numpy as np
+
+from .diagnostics import Diagnostic, make
+
+__all__ = [
+    "CONST",
+    "DATA",
+    "SCALES",
+    "Piece",
+    "Value",
+    "Node",
+    "HopDag",
+    "const_value",
+    "value_length",
+    "slice_value",
+    "splice_value",
+    "concat_values",
+    "validate_order",
+    "rank_programs",
+    "execute",
+    "to_json",
+    "from_json",
+]
+
+DATA = "data"
+SCALES = "scales"
+CONST = -1  # Piece.node for constant fill (no producing node)
+
+
+@dataclasses.dataclass(frozen=True)
+class Piece:
+    """A contiguous run of elements: a slice of node `node`'s output
+    part (`offset` .. `offset+length`), or `length` elements of the
+    constant `fill` when node == CONST."""
+
+    length: int
+    node: int = CONST
+    offset: int = 0
+    part: str = DATA
+    fill: float = 0.0
+
+
+Value = tuple[Piece, ...]
+
+
+def const_value(length: int, fill: float = 0.0) -> Value:
+    return (Piece(length, CONST, 0, DATA, fill),) if length else ()
+
+
+def value_length(value: Value) -> int:
+    return sum(p.length for p in value)
+
+
+def slice_value(value: Value, start: int, length: int) -> Value:
+    """The sub-value covering elements [start, start+length)."""
+    if length == 0:
+        return ()
+    out: list[Piece] = []
+    pos = 0
+    end = start + length
+    for p in value:
+        lo = max(start, pos)
+        hi = min(end, pos + p.length)
+        if lo < hi:
+            out.append(dataclasses.replace(
+                p, length=hi - lo, offset=p.offset + (lo - pos)))
+        pos += p.length
+        if pos >= end:
+            break
+    got = sum(p.length for p in out)
+    if got < length:  # slice past the end: stale/undefined tail
+        out.append(Piece(length - got, CONST, 0, DATA, 0.0))
+    return tuple(out)
+
+
+def splice_value(base: Value, update: Value, start: int) -> Value:
+    """`base` with `update` written at element offset `start`."""
+    n = value_length(base)
+    u = value_length(update)
+    return (slice_value(base, 0, start) + update
+            + slice_value(base, start + u, n - start - u))
+
+
+def concat_values(*values: Value) -> Value:
+    out: list[Piece] = []
+    for v in values:
+        out.extend(v)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Node:
+    """One IR node; `id` is its position in HopDag.nodes (program
+    order — the order the device would execute the hops in)."""
+
+    id: int
+    kind: str  # arg | send | recv | combine | encode | decode | cast
+    rank: int
+    length: int  # elements of the node's data output
+    value: Value = ()  # primary input (send payload, combine lhs, ...)
+    value2: Value = ()  # combine rhs / decode scales
+    func: str = ""  # combine: "sum" | "max"
+    hop: int = -1  # send/recv channel id
+    peer: int = -1  # send: destination rank; recv: source rank
+    arg: int = -1  # arg nodes: operand slot
+    dtype: str = ""  # cast target / arg & encode element dtype
+    scales_len: int = 0  # encode: number of per-block scales
+
+    def refs(self) -> Iterator[Piece]:
+        for p in self.value:
+            if p.node != CONST:
+                yield p
+        for p in self.value2:
+            if p.node != CONST:
+                yield p
+
+
+@dataclasses.dataclass
+class HopDag:
+    """One call's schedule as data: nodes in program order plus the
+    per-rank output composition."""
+
+    world: int
+    n_in: int
+    in_elems: int
+    out_elems: int
+    nodes: tuple[Node, ...]
+    outputs: tuple[Value, ...]  # one Value per rank
+
+    def sends_by_channel(self) -> dict[tuple[int, int], Node]:
+        """(hop, dst_rank) -> send node. A rank receives at most one
+        payload per channel (check_hops' ACCL204 guards the perm side)."""
+        idx: dict[tuple[int, int], Node] = {}
+        for n in self.nodes:
+            if n.kind == "send":
+                idx.setdefault((n.hop, n.peer), n)
+        return idx
+
+
+# ---------------------------------------------------------------------------
+# Order validation (ACCL504)
+# ---------------------------------------------------------------------------
+
+
+def validate_order(dag: HopDag) -> list[Diagnostic]:
+    """Prove every node's inputs are produced before the node runs: a
+    send/combine reading a node with a LARGER program index forwards a
+    region before its producer wrote it (the device would ship stale
+    memory). This is the IR-level form of the stale-read class — the
+    hazard pass's ACCL101 covers the BATCH level (a step reading past
+    what an earlier step wrote); ACCL504 covers hop order within one
+    schedule, which descriptors alone cannot express."""
+    diags: list[Diagnostic] = []
+    sends = {}
+    for n in dag.nodes:
+        if n.kind == "send":
+            sends[(n.hop, n.peer)] = n
+    for n in dag.nodes:
+        for p in n.refs():
+            if p.node >= n.id:
+                src = dag.nodes[p.node]
+                diags.append(make(
+                    "ACCL504",
+                    f"{n.kind} node {n.id} (rank {n.rank}"
+                    + (f", hop {n.hop}" if n.hop >= 0 else "")
+                    + f") reads {p.length} elements of {src.kind} node "
+                    f"{src.id} before it is produced: the device would "
+                    "forward stale memory", rank=n.rank))
+        if n.kind == "recv":
+            s = sends.get((n.hop, n.rank))
+            if s is not None and s.id >= n.id:
+                diags.append(make(
+                    "ACCL504",
+                    f"recv node {n.id} (rank {n.rank}, hop {n.hop}) "
+                    f"consumes send node {s.id} posted later in program "
+                    "order", rank=n.rank))
+    return diags
+
+
+# ---------------------------------------------------------------------------
+# Protocol view: lower the hops to per-rank Event programs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HopEvent:
+    """One blocking step of a rank's program: the reference protocol
+    Event's kind, peer and tag."""
+
+    kind: str  # "send" | "recv"
+    peer: int
+    tag: int
+
+
+def rank_programs(dag: HopDag) -> list[list[Any]]:
+    """Per-rank blocking programs over the DAG's hops (tag = hop
+    channel): the event lists the reference's protocol simulation and
+    interleaving model checker consume."""
+    programs: list[list[Any]] = [[] for _ in range(dag.world)]
+    for n in dag.nodes:
+        if n.kind in ("send", "recv"):
+            programs[n.rank].append(HopEvent(n.kind, n.peer, n.hop))
+    return programs
+
+
+# ---------------------------------------------------------------------------
+# Numeric execution
+# ---------------------------------------------------------------------------
+
+
+def execute(dag: HopDag, operands: list[list[np.ndarray]]) -> list[np.ndarray]:
+    """Evaluate the DAG numerically: `operands[rank][slot]` are the
+    per-rank input buffers; returns one output array per rank.
+
+    Combines are numpy adds and maxes; encode and decode run the port's
+    blockwise int8 lanes on the CPU (their plain versions), unfused, as
+    the reference evaluates them eagerly. Reads of not-yet-produced
+    nodes (the ACCL504 class) evaluate as zeros — stale memory."""
+
+    done: dict[tuple[int, str], np.ndarray] = {}
+    sends = dag.sends_by_channel()
+
+    def materialize(value: Value, dtype: Any = np.float32) -> np.ndarray:
+        parts: list[np.ndarray] = []
+        for p in value:
+            if p.node == CONST:
+                parts.append(np.full(p.length, p.fill, dtype=dtype))
+                continue
+            src = done.get((p.node, p.part))
+            if src is None:  # stale read: producer hasn't run
+                parts.append(np.zeros(p.length, dtype=dtype))
+            else:
+                parts.append(src[p.offset:p.offset + p.length])
+        if not parts:
+            return np.zeros(0, dtype=dtype)
+        widest = max(parts, key=lambda a: a.dtype.itemsize)
+        return np.concatenate([a.astype(widest.dtype) for a in parts])
+
+    for n in dag.nodes:
+        if n.kind == "arg":
+            out = np.asarray(operands[n.rank][max(n.arg, 0)])[: n.length]
+        elif n.kind == "send":
+            out = materialize(n.value)
+        elif n.kind == "recv":
+            s = sends.get((n.hop, n.rank))
+            if s is None or (s.id, DATA) not in done:
+                out = np.zeros(n.length, dtype=np.float32)
+            else:
+                out = done[(s.id, DATA)][: n.length]
+        elif n.kind == "combine":
+            a = materialize(n.value)
+            b = materialize(n.value2, dtype=a.dtype)
+            out = np.maximum(a, b) if n.func == "max" else a + b
+        elif n.kind == "encode":
+            x = materialize(n.value)
+            q, s = _quantize(np.asarray(x, np.float32))
+            done[(n.id, SCALES)] = s
+            out = q
+        elif n.kind == "decode":
+            q = materialize(n.value, dtype=np.int8)
+            s = materialize(n.value2, dtype=np.float32)
+            out = _dequantize(q, s, n.length)
+        elif n.kind == "cast":
+            x = materialize(n.value)
+            out = x.astype(np.dtype(n.dtype)) if n.dtype else x
+        else:  # pragma: no cover - guarded by from_json/lift
+            raise ValueError(f"unknown node kind {n.kind!r}")
+        done[(n.id, DATA)] = np.asarray(out)
+
+    return [materialize(dag.outputs[r]) for r in range(dag.world)]
+
+
+def _quantize(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    import torch
+
+    from ..ops.compression import quantize_blockwise
+
+    q, s = quantize_blockwise(torch.from_numpy(x.copy()).reshape(1, -1))
+    return q.reshape(-1).numpy(), s.reshape(-1).numpy()
+
+
+def _dequantize(q: np.ndarray, s: np.ndarray, n: int) -> np.ndarray:
+    import torch
+
+    from ..ops.compression import dequantize_blockwise
+
+    out = dequantize_blockwise(
+        torch.from_numpy(np.asarray(q, np.int8).copy()).reshape(1, -1),
+        torch.from_numpy(np.asarray(s, np.float32).copy()).reshape(1, -1),
+        n)
+    return out.reshape(-1).numpy()
+
+
+# ---------------------------------------------------------------------------
+# JSON (the library's form)
+# ---------------------------------------------------------------------------
+
+
+def _piece_json(p: Piece) -> list:
+    out: list = [p.length, p.node, p.offset]
+    if p.part != DATA or p.fill:
+        out.append(p.part)
+    if p.fill:
+        out.append(p.fill)
+    return out
+
+
+def _piece_from(v: list) -> Piece:
+    part = v[3] if len(v) > 3 else DATA
+    fill = float(v[4]) if len(v) > 4 else 0.0
+    return Piece(int(v[0]), int(v[1]), int(v[2]), part, fill)
+
+
+def to_json(dag: HopDag) -> dict:
+    nodes = []
+    for n in dag.nodes:
+        d: dict[str, Any] = {"kind": n.kind, "rank": n.rank,
+                             "length": n.length}
+        if n.value:
+            d["value"] = [_piece_json(p) for p in n.value]
+        if n.value2:
+            d["value2"] = [_piece_json(p) for p in n.value2]
+        for field in ("func", "dtype"):
+            if getattr(n, field):
+                d[field] = getattr(n, field)
+        for field in ("hop", "peer", "arg"):
+            if getattr(n, field) >= 0:
+                d[field] = getattr(n, field)
+        if n.scales_len:
+            d["scales_len"] = n.scales_len
+        nodes.append(d)
+    return {
+        "world": dag.world, "n_in": dag.n_in,
+        "in_elems": dag.in_elems, "out_elems": dag.out_elems,
+        "nodes": nodes,
+        "outputs": [[_piece_json(p) for p in v] for v in dag.outputs],
+    }
+
+
+def from_json(d: dict) -> HopDag:
+    nodes = []
+    for i, nd in enumerate(d["nodes"]):
+        nodes.append(Node(
+            id=i, kind=nd["kind"], rank=int(nd["rank"]),
+            length=int(nd["length"]),
+            value=tuple(_piece_from(p) for p in nd.get("value", [])),
+            value2=tuple(_piece_from(p) for p in nd.get("value2", [])),
+            func=nd.get("func", ""), hop=int(nd.get("hop", -1)),
+            peer=int(nd.get("peer", -1)), arg=int(nd.get("arg", -1)),
+            dtype=nd.get("dtype", ""),
+            scales_len=int(nd.get("scales_len", 0))))
+    return HopDag(
+        world=int(d["world"]), n_in=int(d.get("n_in", 1)),
+        in_elems=int(d["in_elems"]), out_elems=int(d["out_elems"]),
+        nodes=tuple(nodes),
+        outputs=tuple(tuple(_piece_from(p) for p in v)
+                      for v in d["outputs"]))

@@ -316,3 +316,77 @@ class TuningParams:
                 max_rndzv_msg_size // reduce_flat_ranks, 32 * 1024
             ),
         )
+
+    @classmethod
+    def from_crossovers(cls, cross: dict,
+                        max_count_cap: int = 1 << 22) -> "TuningParams":
+        """Register values from the timing model's switch-over points
+        (sequencer.timing.tuning_crossovers), as the reference derives
+        them. Byte thresholds are clamped to [1, max_count_cap] — an infinite
+        crossover (flat never loses on this link) caps rather than
+        overflowing the 32-bit register."""
+        def as_reg(v):
+            if v != v or v == float("inf"):  # NaN/inf -> cap
+                return max_count_cap
+            return max(1, min(int(v), max_count_cap))
+
+        # the allreduce composition crossover may legitimately be 0
+        # ("ring always wins"), which as_reg would clamp to 1; NaN/inf
+        # cap like every other threshold
+        comp = cross.get("allreduce_composition_max_bytes", 0)
+        if comp != comp or comp == float("inf"):
+            comp = max_count_cap
+        comp = 0 if comp <= 0 else min(int(comp), max_count_cap)
+        return cls(
+            gather_flat_tree_max_count=as_reg(
+                cross["gather_flat_tree_max_count_bytes"]),
+            bcast_flat_tree_max_ranks=max(
+                1, int(cross["bcast_flat_tree_max_ranks"])),
+            reduce_flat_tree_max_ranks=max(
+                1, int(cross["reduce_flat_tree_max_ranks"])),
+            reduce_flat_tree_max_count=as_reg(
+                cross["reduce_flat_tree_max_count_bytes"]),
+            allreduce_composition_max_count=comp,
+            # 0 is meaningful for the synth registers ("never wins on
+            # this link" / no library entry): clamp only the top end
+            synth_allreduce_max_count=min(
+                int(cross.get("synth_allreduce_max_bytes", 0)),
+                max_count_cap),
+            synth_allgather_max_count=min(
+                int(cross.get("synth_allgather_max_bytes", 0)),
+                max_count_cap),
+            synth_reduce_scatter_max_count=min(
+                int(cross.get("synth_reduce_scatter_max_bytes", 0)),
+                max_count_cap),
+            # same MAX-register posture as the synth trio: 0 = no
+            # latency-grid entry or never wins on this link
+            synth_latency_max_count=min(
+                int(cross.get("synth_latency_max_bytes", 0)),
+                max_count_cap),
+            # 0 is meaningful here too: no per-tier calibration / no
+            # topology / hierarchical never wins on these links. This
+            # is a MIN threshold, so the overflow-safe clamp is OFF —
+            # min(v, cap) would WIDEN the window into the region the
+            # calibration said flat wins.
+            hier_allreduce_min_count=(
+                int(cross.get("hier_allreduce_min_bytes", 0))
+                if int(cross.get("hier_allreduce_min_bytes", 0))
+                <= max_count_cap else 0),
+            # same MIN-register posture: 0 = never wins / no quantized
+            # lane on this link, and an over-cap window start clamps to
+            # OFF (min(v, cap) would widen the window into the regime
+            # the calibration said the exact wire wins)
+            alltoall_compress_min_count=(
+                int(cross.get("alltoall_compress_min_bytes", 0))
+                if int(cross.get("alltoall_compress_min_bytes", 0))
+                <= max_count_cap else 0),
+            # same MIN-register posture again: 0 = no compute
+            # calibration / overlap never predicts a win, and an
+            # over-cap window start clamps to OFF (min(v, cap) would
+            # widen the window into the regime the calibration said
+            # the serial form wins)
+            overlap_min_count=(
+                int(cross.get("overlap_min_bytes", 0))
+                if int(cross.get("overlap_min_bytes", 0))
+                <= max_count_cap else 0),
+        )

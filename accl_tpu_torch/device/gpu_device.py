@@ -19,7 +19,11 @@ pairs on the host: a send parks its descriptor until its recv arrives
 `stream_put` is a producer -> sendrecv -> consumer call. A descriptor
 addressing a sub-communicator runs over the member rows only: they are
 gathered into a (group, n) operand and the result is scattered back into
-them, every other row left as it was.
+them, every other row left as it was. A device that declares its
+two-tier shape (`hier_topology=(inner, outer)`) runs the full world's
+allreduces in the HIER_ALLREDUCE_MIN_COUNT window on the striped
+two-tier schedule, with the tier wires ACCL.autotune sets in
+`hier_wires`.
 """
 
 from __future__ import annotations
@@ -81,7 +85,8 @@ class GPUDevice(CCLODevice):
     # (the reference's 512-notification park limit)
     MAX_PARKED_SENDS = 512
 
-    def __init__(self, world: int, torch_device: torch.device | str = "cuda"):
+    def __init__(self, world: int, torch_device: torch.device | str = "cuda",
+                 hier_topology: tuple[int, int] | None = None):
         super().__init__()
         torch_device = torch.device(torch_device)
         if torch_device.type == "cuda" and not torch.cuda.is_available():
@@ -91,6 +96,14 @@ class GPUDevice(CCLODevice):
         self._world = world
         self.torch_device = torch_device
         self.compiler = ScheduleCompiler(world, torch_device)
+        # the two-tier (inner_world, outer_world) shape of the world for
+        # the hierarchical allreduce (None: flat); its plans stay
+        # unreachable until the HIER_ALLREDUCE_MIN_COUNT register opens
+        self.hier_topology = hier_topology
+        # the per-tier wire dtypes of hierarchical plans, set by
+        # ACCL.autotune (plan.select_tier_wires) for fp32 calls
+        self.hier_wires: tuple[DataType, DataType] = (DataType.none,
+                                                      DataType.none)
         self.buffers: dict[int, Any] = {}  # address -> GPUBuffer
         self.timeout = 1_000_000
         self.max_eager_size = DEFAULT_MAX_EAGER_SIZE
@@ -315,8 +328,11 @@ class GPUDevice(CCLODevice):
         """Per-descriptor plan selection and stream-endpoint resolution:
         the one source for both the eager path and call sequences, so a
         sequence can never run other than what eager execution would.
-        Selection sees the communicator's world. Returns (plan, producer,
-        consumer)."""
+        Selection sees the communicator's world; the two-tier topology
+        applies to the full world only (a sub-communicator is its own flat
+        world), and the tier wires to fp32 calls only (the dtype they were
+        arbitrated for). Returns (plan, producer, consumer)."""
+        topo = self.hier_topology if ctx.rows is None else None
         plan = select_algorithm(
             options.scenario,
             options.count,
@@ -328,6 +344,10 @@ class GPUDevice(CCLODevice):
             eager_rx_buf_size=self.eager_rx_buf_size,
             tuning=tuning if tuning is not None else self.tuning(),
             compress_dtype=options.compress_dtype,
+            topology=topo,
+            tier_wires=(self.hier_wires
+                        if options.data_type == DataType.float32
+                        else (DataType.none, DataType.none)),
             peer_counts=options.peer_counts,
             live_ranks=options.live_ranks,
         )
@@ -584,6 +604,27 @@ class GPUDevice(CCLODevice):
                         f"parked send: comm {ca:#x} src {s} dst {d} "
                         f"tag {tag} seq {seq} count {opts.count}")
         return "\n".join(lines)
+
+    def predict_sequence_cost(self, prepared) -> float | None:
+        """Predicted seconds for one dispatch of a prepared batch under
+        the shipped default link (timing.predict_prepared over its frozen
+        steps and plans, aggregate cost shape): the price a scheduler
+        budgets a batch at. The link is the copied emulator fit, not a
+        measurement of this card. None when no calibration is shipped or
+        no step is priceable."""
+        from ..sequencer.timing import predict_prepared
+        from ..telemetry.feedback import default_link
+
+        link = default_link()
+        if link is None:
+            return None
+        try:
+            return predict_prepared(
+                link, prepared.desc.steps, prepared.plans,
+                prepared.ctx.world,
+                rx_buf_bytes=self.eager_rx_buf_size, aggregate=True)
+        except (ValueError, KeyError, ZeroDivisionError):
+            return None
 
     # -- call sequences ------------------------------------------------------
 

@@ -6,10 +6,14 @@ into one device program over the mesh, the port builds the schedule
 closure once per signature and runs it eagerly on the stacked (world, n)
 operands: row r is rank r's buffer. Every one-call collective, a paired
 send/recv and alltoall(v) lower to the reference's schedule for their
-plan. The allreduce branch picks one of the reference's two ring
-bodies: the torch-op ring over `Wire` (schedules.allreduce_ring_schedule),
-or — on the card — the fused ring kernel per 4 MiB segment,
-double-slotted like the reference's. The
+plan; a SYNTHESIZED plan to its library hop-DAG (synthesis.lower_plan),
+a HIER_RS_AR_AG plan to the striped two-tier allreduce
+(hierarchical.py). The allreduce branch picks one of the reference's two
+ring bodies: the torch-op ring over `Wire`
+(schedules.allreduce_ring_schedule), or — on the card — the fused ring
+kernel per 4 MiB segment, double-slotted like the reference's; a
+stripe-overlapped plan (Plan.stripes > 1) runs one such chain per
+stripe. The
 blockwise-int8 wire takes, on the card, the closed-form quantized ring
 kernel over the plan's segments (ops/quant_kernels.quant_ring_allreduce),
 and off it the torch-op ring, per plan segment, whose per-hop quantize /
@@ -39,7 +43,6 @@ from ..constants import (
     to_torch_dtype,
 )
 from ..descriptor import CallOptions
-from ..errors import not_ported
 from ..ops.compression import wire_dtype
 from ..ops.lane_kernels import cast
 from . import schedules
@@ -114,11 +117,14 @@ class ScheduleCompiler:
         op = options.scenario
         world = self.world
         root = options.root_src_dst
-        if plan.algorithm in (Algorithm.SYNTHESIZED, Algorithm.HIER_RS_AR_AG):
-            raise not_ported(f"the {plan.algorithm.name} schedule",
-                             "synthesized schedules"
-                             if plan.algorithm == Algorithm.SYNTHESIZED
-                             else "hierarchical schedules")
+        if plan.algorithm == Algorithm.SYNTHESIZED:
+            # the library entry's hop-DAG at this call's count; an int8
+            # entry carries its encode/decode nodes, so no per-hop wire
+            from . import synthesis
+
+            return synthesis.lower_plan(plan, options, world)
+        if plan.algorithm == Algorithm.HIER_RS_AR_AG:
+            return self._hier_body(options, plan, arithcfg)
         func = ReduceFunction(options.function) if op in (
             Operation.combine,
             Operation.reduce,
@@ -221,6 +227,33 @@ class ScheduleCompiler:
             body = _domain_cast_body
         return body
 
+    def _hier_body(self, options: CallOptions, plan: Plan,
+                   arithcfg) -> Callable:
+        """The striped two-tier allreduce, its tier wires resolved from
+        the plan's frozen tier dtypes against the arith table as the
+        reference resolves them: an exact tier carries no wire config,
+        and folds run through the call's own arith lane."""
+        from . import hierarchical
+
+        func = ReduceFunction(options.function)
+        lane = (arithcfg.arith_lanes[int(func)] if arithcfg is not None
+                else None)
+
+        def tier_wire(dt: DataType) -> schedules.Wire:
+            cfg = (self.arith_table.get((options.data_type, dt))
+                   if dt not in (DataType.none, options.data_type)
+                   else None)
+            return schedules.Wire(cfg, lane)
+
+        return functools.partial(
+            hierarchical.hierarchical_allreduce_striped_schedule,
+            func=func,
+            rankmap=hierarchical.RankMap(plan.inner_world,
+                                         plan.outer_world, "outer_major"),
+            wire=hierarchical.TierWire(tier_wire(plan.inner_wire_dtype),
+                                       tier_wire(plan.outer_wire_dtype)),
+            stripes=plan.stripes)
+
     def _reduce_body(self, stage_plan: Plan, root: int, func, common):
         """The reduce schedule of a plan (a reduce call or the reduce stage
         of a composition): flat tree, binomial tree or eager ring."""
@@ -276,16 +309,26 @@ class ScheduleCompiler:
         elem_bytes = (dtype_nbytes(options.data_type)
                       if options.data_type != DataType.none else 1)
         seg_elems = max(self.RING_KERNEL_MAX_BYTES // elem_bytes, 1)
+        # a stripe-overlapped plan's chains are its stripes: each runs the
+        # kernel over its own columns, in 4 MiB segments
+        stripe = plan.seg_count if plan.stripes > 1 else None
 
-        def _ring_kernel_body(x, _wire=wire, _seg=seg_elems):
+        def _ring_kernel_body(x, _wire=wire, _seg=seg_elems, _stripe=stripe):
             # one result for the call; segment i (in slot i % 2, as the
             # reference double-buffers them) writes its column view
             y = _wire.send(x)
             out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
-            for i, lo in enumerate(range(0, y.shape[-1], _seg)):
-                ring_allreduce_bidir(y[:, lo:lo + _seg], world, func,
-                                     slot=i % NUM_RING_SLOTS,
-                                     out=out[:, lo:lo + _seg])
+            n = y.shape[-1]
+            step = _stripe or n
+            i = 0
+            for s_lo in range(0, n, step):
+                s_hi = min(s_lo + step, n)
+                for lo in range(s_lo, s_hi, _seg):
+                    hi = min(lo + _seg, s_hi)
+                    ring_allreduce_bidir(y[:, lo:hi], world, func,
+                                         slot=i % NUM_RING_SLOTS,
+                                         out=out[:, lo:hi])
+                    i += 1
             return _wire.recv(out, x.dtype)
 
         return _ring_kernel_body

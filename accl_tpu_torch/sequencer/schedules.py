@@ -53,11 +53,22 @@ def _ring_perm(world: int, distance: int = 1) -> list[tuple[int, int]]:
     return [(i, (i + distance) % world) for i in range(world)]
 
 
-def _ring_ctx(world: int, device: torch.device):
-    """The ring a schedule runs on: every rank's position is its row index
-    (the stacked tensor's form of lax.axis_index) and a hop is the
-    distance-1 rotation."""
-    return torch.arange(world, device=device), _ring_perm(world)
+def _ring_ctx(x: torch.Tensor, world: int, ring=None):
+    """The ring a schedule runs on: (rows, pos, perm). By default the ring
+    IS the rank axis: row r's position is r (the stacked tensor's form of
+    lax.axis_index) and a hop is the distance-1 rotation. `ring=(pos,
+    perm)` embeds the same schedule onto sub-rings of a wider rank axis
+    (the two-tier compositions of hierarchical.py): `pos` holds every
+    row's position on its ring, [0, world), and `perm` the global (src,
+    dst) row pairs of one ring hop (every sub-ring advancing in
+    lockstep). The chunk arithmetic depends only on (pos, world), so one
+    body serves the flat axis and every tier embedding, as in the
+    reference."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    if ring is None:
+        return rows, rows, _ring_perm(world)
+    pos, perm = ring
+    return rows, pos, perm
 
 
 def _index(rows: list[int], device: torch.device):
@@ -91,6 +102,8 @@ def _permute(y: torch.Tensor, perm, transfer=None) -> torch.Tensor:
         return torch.roll(y if transfer is None else transfer(y), shift, 0)
     dst = [d for d, s in enumerate(src) if s >= 0]
     rows = y[_index([src[d] for d in dst], y.device)]
+    if len(dst) == world:  # every row receives: one gather
+        return rows if transfer is None else transfer(rows)
     moved = y.new_zeros(y.shape)
     moved[_index(dst, y.device)] = (rows if transfer is None
                                    else transfer(rows))
@@ -357,66 +370,68 @@ def gather_flat_schedule(x: torch.Tensor, *, root: int, world: int,
 
 
 def _chunks(x: torch.Tensor, world: int) -> torch.Tensor:
-    """(world, world*count) -> (world, world, count): [rank, chunk]."""
-    return x.reshape(world, world, x.shape[-1] // world)
+    """(rows, world*count) -> (rows, world, count): [row, chunk]."""
+    return x.reshape(x.shape[0], world, x.shape[-1] // world)
 
 
 def reduce_scatter_ring_schedule(x: torch.Tensor, *, func, world: int,
                                  wire: Wire,
-                                 out_dtype: torch.dtype | None = None
-                                 ) -> torch.Tensor:
+                                 out_dtype: torch.dtype | None = None,
+                                 ring=None) -> torch.Tensor:
     """Ring reduce-scatter: W-1 steps; at step s each rank combines the
     arriving partial with its local copy of chunk me-2-s and forwards;
-    rank r ends holding reduced chunk r. x is (world, world*count), the
-    result (world, count). `out_dtype` has the last fold round once to
-    that dtype instead of x's (the fused combine+cast)."""
+    rank r ends holding reduced chunk r. x is (rows, world*count), the
+    result (rows, count). `out_dtype` has the last fold round once to
+    that dtype instead of x's (the fused combine+cast); `ring` embeds
+    the ring onto sub-rings (_ring_ctx)."""
     if wire.quantized:
         return _reduce_scatter_ring_quant(x, func=func, world=world,
-                                          wire=wire)
-    me, perm = _ring_ctx(world, x.device)
+                                          wire=wire, ring=ring)
+    rows, me, perm = _ring_ctx(x, world, ring)
     xs = _chunks(x, world)
-    v = xs[me, (me - 1) % world]
+    v = xs[rows, (me - 1) % world]
     for s in range(world - 1):
         recv = wire.ppermute(v, perm)
         last = s == world - 2
-        v = wire.combine(func, recv, xs[me, (me - 2 - s) % world],
+        v = wire.combine(func, recv, xs[rows, (me - 2 - s) % world],
                          out_dtype if last else None)
     return v
 
 
-def allgather_ring_schedule(x: torch.Tensor, *, world: int,
-                            wire: Wire) -> torch.Tensor:
+def allgather_ring_schedule(x: torch.Tensor, *, world: int, wire: Wire,
+                            ring=None) -> torch.Tensor:
     """Ring allgather: W-1 relay steps; the step-s arrival originates from
-    rank me-1-s. x is (world, count), the result (world, world*count)."""
+    rank me-1-s. x is (rows, count), the result (rows, world*count);
+    `ring` embeds the ring onto sub-rings (_ring_ctx)."""
     if wire.quantized:
-        return _allgather_ring_quant(x, world=world, wire=wire)
-    me, perm = _ring_ctx(world, x.device)
+        return _allgather_ring_quant(x, world=world, wire=wire, ring=ring)
+    rows, me, perm = _ring_ctx(x, world, ring)
     count = x.shape[-1]
-    out = x.new_zeros((world, world, count))
-    out[me, me] = x
+    out = x.new_zeros((x.shape[0], world, count))
+    out[rows, me] = x
     relay = x
     for s in range(world - 1):
         recv = wire.ppermute(relay, perm)
-        out[me, (me - 1 - s) % world] = recv
+        out[rows, (me - 1 - s) % world] = recv
         relay = recv
-    return out.reshape(world, world * count)
+    return out.reshape(x.shape[0], world * count)
 
 
 def _reduce_scatter_ring_quant(x: torch.Tensor, *, func, world: int,
-                               wire: Wire) -> torch.Tensor:
+                               wire: Wire, ring=None) -> torch.Tensor:
     """Quantized ring reduce-scatter: the travelling partial stays encoded
     between hops while every interior combine runs the fused dequantize
     -> reduce (fp32) -> requantize step; the terminal hop lands the fp32
     partial (W-1 quantization passes on a partial's path)."""
-    me, perm = _ring_ctx(world, x.device)
+    rows, me, perm = _ring_ctx(x, world, ring)
     xs = _chunks(x, world)
-    out = xs[me, (me - 1) % world]
+    out = xs[rows, (me - 1) % world]
     if world == 1:  # no hop: the local chunk (the reference's encode is dead)
         return out
     enc = wire.encode(out)
     for s in range(world - 1):
         enc = wire.hop(enc, perm)
-        local = xs[me, (me - 2 - s) % world]
+        local = xs[rows, (me - 2 - s) % world]
         if s < world - 2:
             enc = wire.combine_requant(func, enc, local)
         else:
@@ -424,21 +439,21 @@ def _reduce_scatter_ring_quant(x: torch.Tensor, *, func, world: int,
     return out
 
 
-def _allgather_ring_quant(x: torch.Tensor, *, world: int,
-                          wire: Wire) -> torch.Tensor:
+def _allgather_ring_quant(x: torch.Tensor, *, world: int, wire: Wire,
+                          ring=None) -> torch.Tensor:
     """Quantized ring allgather: each rank encodes its chunk once and the
     (codes, scales) pair relays unchanged. The local chunk takes the same
     encode/decode round trip as the remote copies, which is what makes
     the quantized allreduce's result identical on every rank."""
-    me, perm = _ring_ctx(world, x.device)
+    rows, me, perm = _ring_ctx(x, world, ring)
     count = x.shape[-1]
-    out = x.new_zeros((world, world, count))
+    out = x.new_zeros((x.shape[0], world, count))
     enc = wire.encode(x)
-    out[me, me] = wire.decode(enc, count, x.dtype)
+    out[rows, me] = wire.decode(enc, count, x.dtype)
     for s in range(world - 1):
         enc = wire.hop(enc, perm)
-        out[me, (me - 1 - s) % world] = wire.decode(enc, count, x.dtype)
-    return out.reshape(world, world * count)
+        out[rows, (me - 1 - s) % world] = wire.decode(enc, count, x.dtype)
+    return out.reshape(x.shape[0], world * count)
 
 
 # ---------------------------------------------------------------------------
@@ -486,15 +501,18 @@ def reduce_bin_tree_schedule(x: torch.Tensor, *, root: int, func,
 
 
 def allreduce_ring_schedule(x: torch.Tensor, *, func, world: int, wire: Wire,
-                            seg_count: int) -> torch.Tensor:
+                            seg_count: int, ring=None) -> torch.Tensor:
     """Segmented ring allreduce: per segment, a ring reduce-scatter over
-    world-size chunks followed by a ring allgather."""
+    world-size chunks followed by a ring allgather; `ring` embeds both
+    onto sub-rings (_ring_ctx). A stripe-overlapped plan's stripes are
+    its segments (seg_count = the stripe width)."""
 
     def one_segment(seg: torch.Tensor) -> torch.Tensor:
         padded = _pad_to_multiple(seg, world)
         red = reduce_scatter_ring_schedule(padded, func=func, world=world,
-                                           wire=wire)
-        gathered = allgather_ring_schedule(red, world=world, wire=wire)
+                                           wire=wire, ring=ring)
+        gathered = allgather_ring_schedule(red, world=world, wire=wire,
+                                           ring=ring)
         return gathered[:, : seg.shape[-1]]
 
     return segmented_apply(one_segment, x, seg_count)

@@ -150,9 +150,24 @@ What it does, in order, printing one JSON object per line:
      and at 0; exact bitwise with numpy's transpose, int8 bitwise with
      the port's CPU run, local slots exact, the aligned call one
      quantize and one dequantize; facade_ms, device ms and bound;
- 13. the kernels line (with each kernel's launches on the sequence,
-     point-to-point, sub-communicator and alltoall paths); last, the
-     device line.
+ 13. tuned phase (ACCL.autotune and the plans it opens): autotune at
+     W = 4, 8, 16 and at W = 8 with hier_topology=(4, 2), the crossovers,
+     registers and tier wires against the reference's values; then the
+     plans they open through the facade: the latency-grid synthesized
+     entry at 1, 4 and 16 KiB (and bf16), the stripe-overlapped
+     allreduce at 64 KiB and 25 MiB, the rs_ag entry at 1 and 4 MiB, the
+     allgather and reduce_scatter entries, W = 16's rs_ag entry, the
+     two-tier allreduce on (4, 2) with the autotuned (int8, int8) wires
+     at 1 and 25 MiB, exact at 25 MiB and fp16 at 1 MiB, a tiered entry
+     on (2, 4), and the int8 exchange entry through an explicit plan;
+     each call's plan and kernel launches as predicted, the result
+     bitwise with the same plan on CPU tensors (the exact 25 MiB and
+     4 MiB calls within their float64 bound), facade_ms and device ms
+     beside the default plan's; a recorded sequence of a HIER and a
+     synthesized step as one CUDA graph, bitwise with the eager calls;
+ 14. the kernels line (with each kernel's launches on the sequence,
+     point-to-point, sub-communicator, alltoall and tuned paths); last,
+     the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -3450,6 +3465,409 @@ def alltoall_phase(ring, qk, L):
     return path
 
 
+# ---------------------------------------------------------------------------
+# the tuned path: ACCL.autotune and the plans it opens
+# ---------------------------------------------------------------------------
+
+KIB = 1 << 10
+# the shipped timing model's crossovers (bytes) by (world, topology), as
+# the reference computes them on the CPU; the registers are
+# TuningParams.from_crossovers of them (the synth MAX registers capped at
+# 4 MiB)
+TUNED_CROSSOVERS = {
+    (4, None): dict(synth_allreduce_max_bytes=2097152,
+                    synth_allgather_max_bytes=524288,
+                    synth_reduce_scatter_max_bytes=16777216,
+                    synth_latency_max_bytes=32768,
+                    hier_allreduce_min_bytes=0, overlap_min_bytes=1024),
+    (8, None): dict(synth_allreduce_max_bytes=4194304,
+                    synth_allgather_max_bytes=524288,
+                    synth_reduce_scatter_max_bytes=16777216,
+                    synth_latency_max_bytes=16384,
+                    hier_allreduce_min_bytes=0, overlap_min_bytes=1024),
+    (16, None): dict(synth_allreduce_max_bytes=8388608,
+                     synth_allgather_max_bytes=524288,
+                     synth_reduce_scatter_max_bytes=16777216,
+                     synth_latency_max_bytes=0,
+                     hier_allreduce_min_bytes=0, overlap_min_bytes=1024),
+    (8, (4, 2)): dict(synth_allreduce_max_bytes=4194304,
+                      synth_allgather_max_bytes=524288,
+                      synth_reduce_scatter_max_bytes=16777216,
+                      synth_latency_max_bytes=16384,
+                      hier_allreduce_min_bytes=1024,
+                      overlap_min_bytes=1024),
+}
+TUNED_REGISTER_CAP = 4 * MIB
+# (label, world, topology, op, bytes per rank of the send buffer, dtype,
+#  tier wires (None: autotune's), the plan: (algorithm, library key,
+#  stripes), the launches of one call, how the result is checked: "cpu"
+#  bitwise with the same plan on CPU tensors, "f64" within the rounding
+#  bound of a float64 sum)
+TUNED_CASES = (
+    ("latency 1 KiB", 8, None, "allreduce", KIB, "float32", None,
+     ("SYNTHESIZED", "allreduce_w8_exchange_d1_2_4_lat", 1),
+     {"combine": 3}, "cpu"),
+    ("latency 4 KiB", 8, None, "allreduce", 4 * KIB, "float32", None,
+     ("SYNTHESIZED", "allreduce_w8_exchange_d1_2_4_lat", 1),
+     {"combine": 3}, "cpu"),
+    ("latency 16 KiB", 8, None, "allreduce", 16 * KIB, "float32", None,
+     ("SYNTHESIZED", "allreduce_w8_exchange_d1_2_4_lat", 1),
+     {"combine": 3}, "cpu"),
+    ("latency 16 KiB bf16", 8, None, "allreduce", 16 * KIB, "bfloat16",
+     None, ("SYNTHESIZED", "allreduce_w8_exchange_d1_2_4_lat", 1),
+     {"combine_cast": 3}, "cpu"),
+    ("overlap 64 KiB", 8, None, "allreduce", 64 * KIB, "float32", None,
+     ("EAGER_RING_RS_AG", "", 4), {"ring_allreduce_bidir": 4}, "cpu"),
+    ("synth 1 MiB", 8, None, "allreduce", MIB, "float32", None,
+     ("SYNTHESIZED", "allreduce_w8_rs_ag_d1_2_4", 1), {"combine": 7},
+     "cpu"),
+    ("synth 4 MiB", 8, None, "allreduce", 4 * MIB, "float32", None,
+     ("SYNTHESIZED", "allreduce_w8_rs_ag_d1_2_4", 1), {"combine": 7},
+     "f64"),
+    ("overlap 25 MiB", 8, None, "allreduce", 25 * MIB, "float32", None,
+     ("EAGER_RING_RS_AG", "", 8), {"ring_allreduce_bidir": 8}, "f64"),
+    ("allgather 256 KiB", 8, None, "allgather", 256 * KIB, "float32", None,
+     ("SYNTHESIZED", "allgather_w8_doubling_d1_2_4", 1), {}, "cpu"),
+    ("reduce_scatter 16 MiB", 8, None, "reduce_scatter", 16 * MIB,
+     "float32", None,
+     ("SYNTHESIZED", "reduce_scatter_w8_halving_d1_2_4", 1),
+     {"combine": 7}, "cpu"),
+    ("W16 synth 4 MiB", 16, None, "allreduce", 4 * MIB, "float32", None,
+     ("SYNTHESIZED", "allreduce_w16_rs_ag_d1_2_4_8", 1), {"combine": 15},
+     "f64"),
+    ("hier int8 1 MiB", 8, (4, 2), "allreduce", MIB, "float32", None,
+     ("HIER_RS_AR_AG", "", 1),
+     {"quantize": 4, "dequant_combine_requant": 2, "dequant_combine": 2,
+      "dequantize": 6}, "cpu"),
+    ("hier int8 25 MiB", 8, (4, 2), "allreduce", 25 * MIB, "float32", None,
+     ("HIER_RS_AR_AG", "", 2),
+     {"quantize": 8, "dequant_combine_requant": 4, "dequant_combine": 4,
+      "dequantize": 12}, "cpu"),
+    ("hier exact 25 MiB", 8, (4, 2), "allreduce", 25 * MIB, "float32",
+     ("none", "none"), ("HIER_RS_AR_AG", "", 8), {"combine": 32}, "f64"),
+    ("hier fp16 1 MiB", 8, (4, 2), "allreduce", MIB, "float32",
+     ("float16", "float16"), ("HIER_RS_AR_AG", "", 1),
+     {"cast": 16, "combine": 4}, "cpu"),
+    ("tiered synth 160 KiB", 8, (2, 4), "allreduce", 160 * KIB, "float32",
+     None, ("SYNTHESIZED", "allreduce_w8_t2x4_lg_exchange_d1_o1_2", 1),
+     {"combine": 3}, "cpu"),
+)
+TUNED_INT8_ENTRY = "allreduce_w8_exchange_d1_2_4_int8"  # explicit plan
+
+
+def queued_device_ms(fn) -> float:
+    """device_ms over as many calls as the launch queue holds behind the
+    spin: a synthesized or two-tier call is tens to hundreds of device
+    operations, so the count is what the host enqueues in about 4 ms
+    (2 to 50 calls, by the host time of three calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    per_call = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    return device_ms(fn, count=max(2, min(50, int(4e-3 / per_call))))
+
+
+def tuned_facades(world, topology, device):
+    """(tuned, default) facades of `world` on `device`: the first
+    autotuned from the shipped model with the ring kernel's body on
+    either device (so the CPU twin runs the card's plan, plain versions),
+    the second with the default registers."""
+    from accl_tpu_torch import ACCL
+    from accl_tpu_torch.device.gpu_device import GPUDevice
+
+    tuned = ACCL(device=GPUDevice(world, device, hier_topology=topology))
+    tuned.cclo.compiler.use_ring_kernel = True
+    tuned.autotune()
+    default = ACCL(device=GPUDevice(world, device, hier_topology=topology))
+    default.cclo.compiler.use_ring_kernel = True
+    return tuned, default
+
+
+def tuned_phase(ring, qk, L):
+    """ACCL.autotune on the card and every plan it opens. (1) autotune at
+    W = 4, 8 and 16 and at W = 8 with hier_topology=(4, 2): the
+    crossovers and registers against TUNED_CROSSOVERS, the tier wires
+    (int8, int8). (2) TUNED_CASES through the facade, from/to device:
+    the plan (algorithm, library entry, stripes) as the CPU predicted it,
+    each call's kernel launches against TUNED_CASES, and the result
+    bitwise with the same plan run on CPU tensors (the plain versions),
+    or, for the exact calls at 4 and 25 MiB where the host is too slow,
+    within the float64 sum's rounding bound; the W = 8 int8 exchange
+    entry through an explicit plan the same way. (3) Each case's facade_ms and device ms beside the default
+    plan's (registers 0) at the same size: recorded, selection
+    unchanged. (4) One recorded sequence on the (4, 2) world holding a
+    HIER allreduce and a synthesized reduce_scatter, prepared as one CUDA
+    graph: bitwise with the eager calls, one graph launch a dispatch,
+    launches at compile twice the eager calls' and none at replay.
+    Returns every kernel's launches over the checked runs (counts set to
+    0 just before the path; timing runs not counted) and fails if a
+    kernel of the path was launched no time."""
+    import torch
+
+    from accl_tpu_torch import CallOptions, DataType, Operation, TuningParams
+    from accl_tpu_torch.constants import ReduceFunction
+    from accl_tpu_torch.sequencer.plan import Algorithm, Plan, Protocol
+    from accl_tpu_torch.sequencer.timing import tuning_crossovers
+    from accl_tpu_torch.telemetry import feedback
+
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(10_010)
+    S = ReduceFunction.SUM
+
+    # (1) autotune
+    facades = {}
+    for (world, topo), want in TUNED_CROSSOVERS.items():
+        tuned, default = tuned_facades(world, topo, "cuda")
+        cross = tuning_crossovers(
+            feedback.default_link(), world=world,
+            tier_links=feedback.default_tier_links(), topology=topo,
+            compute_fit=feedback.default_compute_fit())
+        got = {k: cross[k] for k in want}
+        regs = tuned.cclo.tuning()
+        want_regs = {
+            "synth_allreduce_max_count": min(
+                want["synth_allreduce_max_bytes"], TUNED_REGISTER_CAP),
+            "synth_allgather_max_count": min(
+                want["synth_allgather_max_bytes"], TUNED_REGISTER_CAP),
+            "synth_reduce_scatter_max_count": min(
+                want["synth_reduce_scatter_max_bytes"], TUNED_REGISTER_CAP),
+            "synth_latency_max_count": want["synth_latency_max_bytes"],
+            "hier_allreduce_min_count": want["hier_allreduce_min_bytes"],
+            "overlap_min_count": want["overlap_min_bytes"]}
+        got_regs = {k: getattr(regs, k) for k in want_regs}
+        wires = [w.name for w in tuned.cclo.hier_wires]
+        want_wires = ["int8", "int8"] if topo else ["none", "none"]
+        if got != want or got_regs != want_regs or wires != want_wires:
+            raise AssertionError(
+                f"autotune W={world} topology={topo}: crossovers {got}, "
+                f"registers {got_regs}, tier wires {wires}; expected "
+                f"{want}, {want_regs}, {want_wires}")
+        emit({"phase": "tuned_autotune", "world": world, "topology": topo,
+              "crossovers": got, "registers": got_regs,
+              "tier_wires": wires})
+        facades[world, topo] = tuned, default
+    facades[8, (2, 4)] = tuned_facades(8, (2, 4), "cuda")
+    cpu_twins: dict = {}
+
+    def cpu_twin(world, topo):
+        if (world, topo) not in cpu_twins:
+            cpu_twins[world, topo] = tuned_facades(world, topo, "cpu")[0]
+        return cpu_twins[world, topo]
+
+    path = dict.fromkeys(kernels, 0)
+    rows = []
+    for (label, world, topo, op, nbytes, dt, wires, plan_want, launches_want,
+         check) in TUNED_CASES:
+        tuned, default = facades[world, topo]
+        dtype = getattr(torch, dt)
+        width_in = nbytes // dtype.itemsize
+        count = width_in // world if op == "reduce_scatter" else width_in
+        width_out = count * world if op == "allgather" else count
+        x = rank_data(world, width_in, dtype, gen)
+        bufs = {}
+        for side, accl in (("tuned", tuned), ("default", default)):
+            sb = accl.create_buffer(width_in, dtype)
+            rb = accl.create_buffer(width_out, dtype)
+            sb.device.copy_(x)
+            bufs[side] = sb, rb
+        saved = tuned.cclo.hier_wires
+        if wires is not None:
+            tuned.cclo.hier_wires = tuple(DataType[w] for w in wires)
+
+        def call(side, run_async=False):
+            accl = tuned if side == "tuned" else default
+            sb, rb = bufs[side]
+            if op == "allgather":
+                return accl.allgather(sb, rb, count, from_device=True,
+                                      to_device=True, run_async=run_async)
+            return getattr(accl, op)(sb, rb, count, S, from_device=True,
+                                     to_device=True, run_async=run_async)
+
+        before = counts()
+        req = call("tuned")
+        torch.cuda.synchronize()
+        launched = delta(before)
+        for k, v in launched.items():
+            path[k] += v
+        plan = (req.plan.algorithm.name, req.plan.synth_key,
+                req.plan.stripes)
+        if plan != plan_want or launched != launches_want:
+            raise AssertionError(f"tuned {label}: plan {plan}, launches "
+                                 f"{launched}; expected {plan_want}, "
+                                 f"{launches_want}")
+        out = bufs["tuned"][1].device
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"tuned {label}: non-finite result")
+        if check == "cpu":
+            twin = cpu_twin(world, topo)
+            if wires is not None:
+                twin.cclo.hier_wires = tuned.cclo.hier_wires
+            csb = twin.create_buffer(width_in, dtype, data=x.cpu())
+            crb = twin.create_buffer(width_out, dtype)
+            if op == "allgather":
+                creq = twin.allgather(csb, crb, count)
+            else:
+                creq = getattr(twin, op)(csb, crb, count, S)
+            twin.cclo.hier_wires = saved
+            if creq.plan != req.plan or not same_bits(out.cpu(), crb.host):
+                raise AssertionError(f"tuned {label}: differs from the "
+                                     "same plan on CPU tensors")
+            twin.free_buffer(csb)
+            twin.free_buffer(crb)
+            err = 0.0
+        else:
+            err = check_against_float64(out, x, S, F32_UNIT)
+        tuned.cclo.hier_wires = saved
+        row = {"phase": "tuned", "case": label, "world": world,
+               "topology": topo, "op": op, "bytes_per_rank": nbytes,
+               "dtype": dt, "plan": plan,
+               "tier_wires": [req.plan.inner_wire_dtype.name,
+                              req.plan.outer_wire_dtype.name],
+               "launches": launched, "checked_against": check,
+               "bound_excess": err}
+        for side in ("tuned", "default"):
+            if side == "tuned" and wires is not None:
+                tuned.cclo.hier_wires = tuple(DataType[w] for w in wires)
+            dreq = call(side)
+            row[f"{side}_plan"] = dreq.plan.algorithm.name
+            row[f"{side}_facade_ms"] = median_ms(lambda: call(side))
+            row[f"{side}_device_ms"] = queued_device_ms(
+                lambda: call(side, run_async=True))
+            tuned.cclo.hier_wires = saved
+        row["bound_ms"] = (nbytes + width_out * dtype.itemsize) * world \
+            / HBM_BYTES_PER_S * 1e3
+        emit(row)
+        rows.append(row)
+        for side, accl in (("tuned", tuned), ("default", default)):
+            for b in bufs[side]:
+                accl.free_buffer(b)
+
+    # the int8 exchange entry through an explicit plan (never auto-selected)
+    tuned, default = facades[8, None]
+    count = 16 * KIB
+    plan = Plan(Protocol.EAGER, Algorithm.SYNTHESIZED, count, 1,
+                synth_key=TUNED_INT8_ENTRY)
+    opts = CallOptions(scenario=Operation.allreduce, count=count,
+                       function=0, data_type=DataType.float32)
+    body = tuned.cclo.compiler.lower(opts, plan)
+    x = rank_data(8, count, torch.float32, gen)
+    before = counts()
+    out = body(x)
+    torch.cuda.synchronize()
+    launched = delta(before)
+    for k, v in launched.items():
+        path[k] += v
+    want = {"quantize": 3, "dequant_combine": 3}
+    cpu_out = cpu_twin(8, None).cclo.compiler.lower(opts, plan)(x.cpu())
+    if launched != want or not same_bits(out.cpu(), cpu_out):
+        raise AssertionError(f"int8 entry: launches {launched} (expected "
+                             f"{want}) or differs from the CPU run")
+    sb, rb = default.create_buffer(count), default.create_buffer(count)
+    sb.device.copy_(x)
+
+    def int8_default(run_async=False):
+        return default.allreduce(sb, rb, count, S, from_device=True,
+                                 to_device=True, run_async=run_async,
+                                 compress_dtype=DataType.int8)
+
+    emit({"phase": "tuned", "case": "int8 exchange entry 64 KiB",
+          "world": 8, "plan": ("SYNTHESIZED", TUNED_INT8_ENTRY, 1),
+          "launches": launched, "checked_against": "cpu",
+          "tuned_device_ms": queued_device_ms(lambda: body(x)),
+          "tuned_body_ms": median_ms(lambda: body(x)),
+          "default_plan": int8_default().plan.algorithm.name,
+          "default_facade_ms": median_ms(int8_default),
+          "default_device_ms": queued_device_ms(lambda: int8_default(True)),
+          "bound_ms": 2 * 8 * count * 4 / HBM_BYTES_PER_S * 1e3})
+    default.free_buffer(sb)
+    default.free_buffer(rb)
+
+    # (4) a recorded sequence with HIER and SYNTHESIZED steps
+    tuned = facades[8, (4, 2)][0]
+    n, c = 25 * MIB // 4, 25 * MIB // 32
+
+    def seq_bufs():
+        return (tuned.create_buffer(n), tuned.create_buffer(n),
+                tuned.create_buffer(c), tuned.create_buffer(n))
+
+    def issue(ops, a, b, cc, d):
+        ops.allreduce(a, b, n, S)
+        ops.reduce_scatter(b, cc, c, S)
+        ops.allgather(cc, d, c)
+
+    eager, fused = seq_bufs(), seq_bufs()
+    x = rank_data(8, n, torch.float32, gen)
+    eager[0].device.copy_(x)
+    fused[0].device.copy_(x)
+
+    def run_eager():
+        issue(_Facade(tuned), *eager)
+        torch.cuda.synchronize()
+
+    before = counts()
+    run_eager()
+    eager_launches = delta(before)
+    rec = tuned.sequence()
+    issue(rec, *fused)
+    before = counts()
+    prog = rec.compile()
+    compile_launches = delta(before)
+    for k, v in eager_launches.items():
+        path[k] += 3 * v  # the eager twin, the warm-up run, the capture
+    if compile_launches != {k: 2 * v for k, v in eager_launches.items()}:
+        raise AssertionError(f"tuned sequence: launches at compile "
+                             f"{compile_launches}, the eager calls' "
+                             f"{eager_launches}")
+    before = counts()
+    req = prog.run(from_device=True, to_device=True)
+    torch.cuda.synchronize()
+    plans = [p.algorithm.name for p in req.plans]
+    if (delta(before) or req.num_dispatches != 1
+            or plans != ["HIER_RS_AR_AG", "SYNTHESIZED", "RNDZV_RING"]):
+        raise AssertionError(f"tuned sequence: plans {plans}, "
+                             f"{req.num_dispatches} dispatches, replay "
+                             f"launches {delta(before)}")
+    for got, want in zip(fused[1:], eager[1:]):
+        if not same_bits(got.device, want.device):
+            raise AssertionError("tuned sequence differs from the eager "
+                                 "calls")
+    prof = kernel_profile(lambda: prog.run(from_device=True, to_device=True))
+    if prof["graph_launches"] != 1:
+        raise AssertionError(f"tuned sequence: {prof['graph_launches']} "
+                             "graph launches a dispatch")
+    emit({"phase": "tuned_sequence", "world": 8, "topology": (4, 2),
+          "bytes_per_rank": 25 * MIB, "plans": plans,
+          "bitwise_vs_eager": True, "launches_eager": eager_launches,
+          "launches_at_compile": compile_launches, "launches_per_replay": 0,
+          "graph_launches_per_dispatch": prof["graph_launches"],
+          "device_kernels_per_dispatch": sum(prof["kernels"].values()),
+          "eager_facade_ms": median_ms(run_eager, reps=5, warmup=1),
+          "replay_facade_ms": median_ms(
+              lambda: prog.run(from_device=True, to_device=True), reps=5,
+              warmup=1)})
+    del prog, rec
+    for accls in facades.values():
+        for accl in accls:
+            accl.cclo.compiler._cache.clear()
+    facades.clear()
+    cpu_twins.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    idle = [k for k, v in path.items() if v == 0 and k not in
+            ("ring_allreduce", QUANT_RING[0])]
+    if idle:
+        raise AssertionError(f"the tuned path launched no {idle}")
+    return path
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -3607,7 +4025,8 @@ def main() -> int:
     paths = {"sequence": timed(sequence_phase, ring, qk, L),
              "p2p": timed(p2p_phase, ring, qk, L),
              "comm": timed(comm_phase, ring, qk, L),
-             "alltoall": timed(alltoall_phase, ring, qk, L)}
+             "alltoall": timed(alltoall_phase, ring, qk, L),
+             "tuned": timed(tuned_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

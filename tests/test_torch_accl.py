@@ -154,18 +154,29 @@ def test_world_one_and_zero_count():
         port.allreduce(sb, rb, 0, ReduceFunction.SUM)
 
 
-def test_register_window_of_a_later_slice_raises_through_the_facade():
-    """A tuning register that would move the reference onto a schedule the
-    port has not ported yet makes the call raise, never run another one."""
+def test_register_window_of_a_later_slice_raises_through_the_facade(mesh8):
+    """The OVERLAP_MIN_COUNT window, which raised through the facade
+    before the stripe-overlapped allreduce was ported (hence the name),
+    now runs the striped plan (its stripe count the shipped cost
+    model's), bitwise with the reference facade under the same register,
+    and register 0 restores the serial plan."""
+    from accl_tpu.constants import TuningParams as RefTuning
     from accl_tpu_torch import TuningParams
 
+    x = _data(8, 4096, np.float32, seed=11)
+    ref = RefACCL(mesh8)
+    ref.configure_tuning_parameters(RefTuning(overlap_min_count=1024))
+    want = _ref_allreduce(ref, x, 0)
     port = ACCL(world=8, torch_device="cpu")
-    sb, rb = port.create_buffer(4096), port.create_buffer(4096)
     port.configure_tuning_parameters(TuningParams(overlap_min_count=1024))
-    with pytest.raises(NotImplementedError, match="overlapped"):
-        port.allreduce(sb, rb, 4096, ReduceFunction.SUM)
+    sb = port.create_buffer(4096, torch.float32, data=x)
+    rb = port.create_buffer(4096, torch.float32)
+    req = port.allreduce(sb, rb, 4096, ReduceFunction.SUM)
+    assert req.plan.stripes > 1
+    assert torch.equal(rb.host, torch.from_numpy(want))
     port.configure_tuning_parameters(TuningParams.default())
-    port.allreduce(sb, rb, 4096, ReduceFunction.SUM)
+    req = port.allreduce(sb, rb, 4096, ReduceFunction.SUM)
+    assert req.plan.stripes == 1
 
 
 @pytest.mark.parametrize("func", [0, 1], ids=["sum", "max"])

@@ -1,7 +1,7 @@
 """Plan selection of the PyTorch port against the JAX package: identical
-Plans under the default registers, and NotImplementedError (never a
-silent substitute) wherever the reference would enter a branch whose
-slice is not ported yet."""
+Plans under the default registers and in the register-opened windows,
+and NotImplementedError (never a silent substitute) wherever the
+reference would enter a branch whose slice is not ported yet."""
 
 import dataclasses
 
@@ -96,11 +96,27 @@ def _tuning(**regs):
     ({}, dict(live_ranks=(0, 1, 2)), "resilience"),
 ])
 def test_later_slice_branches_raise(regs, extra, slice_name):
-    tuning = _tuning(**regs)[1] if regs else port_c.TuningParams.default()
-    with pytest.raises(NotImplementedError, match=slice_name):
-        port_plan.select_algorithm(
-            port_c.Operation.allreduce, 65536, 4, 8, tuning=tuning,
-            **KW, **extra)
+    """The register-opened branches of the later slices: the degraded
+    live-subset ring (resilience) still raises, naming its slice; the
+    two-tier, synthesized (standard and latency grid) and overlapped
+    branches are ported and give the reference's Plan field for field on
+    the same registers."""
+    if slice_name == "resilience":
+        with pytest.raises(NotImplementedError, match=slice_name):
+            port_plan.select_algorithm(
+                port_c.Operation.allreduce, 65536, 4, 8,
+                tuning=port_c.TuningParams.default(), **KW, **extra)
+        return
+    seen = set()
+    for count in (256, 4096, 16384, 65536, 1 << 20, 6553600):
+        ref, port = _both("allreduce", count, "float32", 8,
+                          tuning=_tuning(**regs), **extra)
+        assert _plain(port) == _plain(ref), (count, slice_name)
+        seen.add((port.algorithm.name, port.stripes))
+    want = {"hierarchical": "HIER_RS_AR_AG", "synthesized": "SYNTHESIZED",
+            "overlapped": "EAGER_RING_RS_AG"}[slice_name]
+    assert any(name == want and (s > 1 or slice_name != "overlapped")
+               for name, s in seen)
 
 
 @pytest.mark.parametrize("world", [2, 3, 5, 8])
@@ -164,3 +180,109 @@ def test_step_widths_match_reference():
                     port_seq.step_out_elems(port, world)) == (
                 ref_seq.step_in_elems(ref, world),
                 ref_seq.step_out_elems(ref, world)), (op, world)
+
+
+@pytest.mark.parametrize("world,topo", [(2, None), (4, None), (5, None),
+                                        (8, None), (16, None), (8, (4, 2)),
+                                        (8, (2, 4)), (16, (4, 4))])
+def test_tuned_register_windows_plan_sweep(world, topo):
+    """The registers ACCL.autotune writes from the shipped model open
+    every window at once: Plans field for field with the reference's, per
+    op, count and dtype, with the int8 tier wires on a two-tier world."""
+    import accl_tpu.sequencer.timing as ref_t
+    import accl_tpu.telemetry.feedback as ref_fb
+
+    cross = ref_t.tuning_crossovers(
+        ref_fb.default_link(), world=world,
+        tier_links=ref_fb.default_tier_links(), topology=topo,
+        compute_fit=ref_fb.default_compute_fit())
+    tuning = (ref_c.TuningParams.from_crossovers(cross),
+              port_c.TuningParams.from_crossovers(cross))
+    wires = {}
+    if topo is not None:
+        wires = dict(tier_wires=(1, 1))
+    for op in ("allreduce", "allgather", "reduce_scatter"):
+        for count in (1, 200, 1000, 4096, 1 << 14, 65536, 300001, 1 << 20,
+                      6553600):
+            for dtype in ("float32", "float64", "int32"):
+                ref, port = _both(op, count, dtype, world, tuning=tuning,
+                                  topology=topo, **wires)
+                assert _plain(port) == _plain(ref), (op, count, dtype)
+
+
+def test_overlap_stripes_are_the_chains_the_lowering_runs():
+    """count 100 at W = 8 under a compute-bound calibration: the argmin is
+    8 stripes, world-aligning the stripe segment to 16 merges the tail
+    into 7 chains, and the frozen Plan says 7, as the reference's; the
+    ring-kernel body then runs exactly 7 kernel calls (its plain version
+    on the CPU), one chain per stripe on the one stream."""
+    import accl_tpu.sequencer.timing as ref_t
+    import accl_tpu_torch.sequencer.timing as port_t
+    from accl_tpu_torch.ops import ring_allreduce as port_ring
+    from accl_tpu_torch.sequencer.lowering import ScheduleCompiler
+    from accl_tpu_torch.descriptor import CallOptions
+    import torch
+
+    cal = [dict(overlap_link=t.LinkParams(1e-7, 1e9),
+                overlap_compute=t.ComputeFit(1e-3, 1e5))
+           for t in (ref_t, port_t)]
+    tuning = _tuning(overlap_min_count=4)
+    ref = ref_plan.select_algorithm(
+        ref_c.Operation.allreduce, 100, 4, 8, tuning=tuning[0], **KW,
+        **cal[0])
+    port = port_plan.select_algorithm(
+        port_c.Operation.allreduce, 100, 4, 8, tuning=tuning[1], **KW,
+        **cal[1])
+    assert _plain(port) == _plain(ref)
+    assert (port.stripes, port.seg_count, port.num_segments) == (7, 16, 7)
+    comp = ScheduleCompiler(8, torch.device("cpu"), use_ring_kernel=True)
+    opts = CallOptions(scenario=port_c.Operation.allreduce, count=100,
+                       function=0, data_type=port_c.DataType.float32)
+    calls = []
+    real = port_ring.ring_allreduce_bidir
+
+    def spy(y, world, func, slot=0, out=None):
+        calls.append((y.shape[1], slot))
+        return real(y, world, func, slot=slot, out=out)
+
+    port_ring.ring_allreduce_bidir = spy
+    try:
+        x = torch.randn(8, 100)
+        out = comp.lower(opts, port)(x)
+    finally:
+        port_ring.ring_allreduce_bidir = real
+    assert calls == [(16, i % 2) for i in range(6)] + [(4, 0)]
+    torch.testing.assert_close(out, x.sum(0).expand(8, 100), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_wire_arbitration_is_the_references():
+    """select_wire and select_tier_wires pick the reference's wires under
+    the shipped calibration, across sizes, worlds and topologies."""
+    import accl_tpu.telemetry.feedback as ref_fb
+    import accl_tpu_torch.telemetry.feedback as port_fb
+
+    for world in (2, 4, 8):
+        for count in (256, 65536, 1 << 20, 1 << 23):
+            for quant in (True, False):
+                want = ref_plan.select_wire(
+                    ref_c.Operation.allreduce, count,
+                    ref_c.DataType.float32, world, ref_fb.default_link(),
+                    rx_buf_bytes=1024, tuning=ref_c.TuningParams(),
+                    quantized_ok=quant, **KW)
+                got = port_plan.select_wire(
+                    port_c.Operation.allreduce, count,
+                    port_c.DataType.float32, world, port_fb.default_link(),
+                    rx_buf_bytes=1024, tuning=port_c.TuningParams(),
+                    quantized_ok=quant, **KW)
+                assert int(got) == int(want)
+    for topo in ((4, 2), (2, 4), (2, 2)):
+        for count in (256, 1 << 18, 1 << 22):
+            for quant in (True, False):
+                want = ref_plan.select_tier_wires(
+                    count, ref_c.DataType.float32, topo,
+                    ref_fb.default_tier_links(), quantized_ok=quant)
+                got = port_plan.select_tier_wires(
+                    count, port_c.DataType.float32, topo,
+                    port_fb.default_tier_links(), quantized_ok=quant)
+                assert [int(w) for w in got] == [int(w) for w in want]
