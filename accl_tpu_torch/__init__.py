@@ -36,9 +36,15 @@ from .errors import (  # noqa: F401
     ZeroLengthBufferError,
 )
 from .arithconfig import ArithConfig, DEFAULT_ARITH_CONFIG  # noqa: F401
-from .communicator import Communicator, Rank  # noqa: F401
+from .communicator import Communicator, Rank, generate_ranks  # noqa: F401
 from .descriptor import CallOptions, SequenceDescriptor  # noqa: F401
-from .sequencer import Algorithm, Plan, Protocol, select_algorithm  # noqa: F401
-from .accl import ACCL  # noqa: F401
+from .sequencer import (  # noqa: F401
+    Algorithm,
+    Plan,
+    Protocol,
+    SequencePlan,
+    select_algorithm,
+)
+from .accl import ACCL, SequenceRecorder  # noqa: F401
 
 __version__ = "0.1.0"

@@ -57,6 +57,7 @@ from .errors import (
 )
 from .interop import tensor_from_numpy
 from .request import BaseRequest
+from .telemetry import get_tracer
 from .utils.logging import Log
 
 
@@ -424,12 +425,31 @@ class ACCL:
         to_device: bool,
         run_async: bool,
     ):
-        self._stage_in(sync_in, from_device)
-        Log.debug("call %s count=%d flags=c%x/s%x", opts.scenario.name,
-                  opts.count, int(opts.compression_flags),
-                  int(opts.stream_flags))
-        req = self.cclo.start(opts)
-        return self._complete(req, sync_out, to_device, run_async)
+        # tracer.span is the shared no-op when the tracer is inactive (one
+        # predicate). The span is a host clock: a synchronous call's
+        # covers its device time because _complete waits on the
+        # request's CUDA event; an async call's closes at dispatch
+        with get_tracer().span(opts.scenario.name, cat="call",
+                               track="facade") as sp:
+            self._stage_in(sync_in, from_device)
+            Log.debug("call %s count=%d flags=c%x/s%x", opts.scenario.name,
+                      opts.count, int(opts.compression_flags),
+                      int(opts.stream_flags))
+            req = self.cclo.start(opts)
+            ret = self._complete(req, sync_out, to_device, run_async)
+            if get_tracer().active:  # attach what the device resolved
+                sp.set(op=opts.scenario.name, count=opts.count,
+                       retcode=req.retcode)
+                if run_async:
+                    sp.set(dispatch_only=True)
+                plan = getattr(req, "plan", None)
+                if plan is not None:
+                    sp.set(algorithm=plan.algorithm.name,
+                           protocol=plan.protocol.name)
+                pred = getattr(req, "predicted_s", None)
+                if pred is not None:
+                    sp.set(predicted_s=pred)
+            return ret
 
     def wait(self, req: BaseRequest):
         """Complete an async request (sync-out deferred at start time)."""
@@ -530,6 +550,11 @@ class ACCL:
         if buf is None:
             buf = self._stream_scratch[key] = self.create_buffer(count, dtype)
         return buf
+
+    def nop(self):
+        """A no-operation call through the device (the reference's
+        nop): completes at once with retcode 0."""
+        return self.cclo.call(CallOptions(scenario=Operation.nop))
 
     def copy(self, srcbuf, dstbuf, count, *, from_device=False,
              to_device=False, run_async=False):
@@ -1093,12 +1118,26 @@ class SequenceRecorder:
         self._consume()
         accl = self._accl
         sync_in, sync_out = self._sync_sets()
-        accl._stage_in(sync_in, from_device)
-        Log.debug("sequence of %d: %s", len(self.calls),
-                  "+".join(o.scenario.name for o in self.calls))
-        req = accl.cclo.start_sequence(self.calls, lint=self._lint,
-                                       persistent=self._persistent)
-        return accl._complete(req, sync_out, to_device, run_async)
+        with get_tracer().span("sequence", cat="sequence",
+                               track="facade") as sp:
+            accl._stage_in(sync_in, from_device)
+            Log.debug("sequence of %d: %s", len(self.calls),
+                      "+".join(o.scenario.name for o in self.calls))
+            req = accl.cclo.start_sequence(self.calls, lint=self._lint,
+                                           persistent=self._persistent)
+            ret = accl._complete(req, sync_out, to_device, run_async)
+            if get_tracer().active:
+                sp.set(n_steps=len(self.calls),
+                       ops="+".join(o.scenario.name for o in self.calls))
+                if run_async:
+                    sp.set(dispatch_only=True)
+                sig = getattr(req, "signature", None)
+                if sig is not None:
+                    sp.set(signature=sig)
+                pred = getattr(req, "predicted_s", None)
+                if pred is not None:
+                    sp.set(predicted_s=pred)
+            return ret
 
 
 class SequenceProgram:
@@ -1117,6 +1156,7 @@ class SequenceProgram:
         self._accl = accl
         self._sync_in, self._sync_out = recorder._sync_sets()
         self.n_steps = len(recorder.calls)
+        self._ops = "+".join(o.scenario.name for o in recorder.calls)
         self._prepared = accl.cclo.prepare_sequence(
             recorder.calls, lint=recorder._lint,
             persistent=recorder._persistent)
@@ -1142,6 +1182,16 @@ class SequenceProgram:
         """Dispatch the prepared batch over the bound buffers' current
         contents; the same sync semantics as SequenceRecorder.run()."""
         accl = self._accl
-        accl._stage_in(self._sync_in, from_device)
-        req = accl.cclo.dispatch_sequence(self._prepared)
-        return accl._complete(req, self._sync_out, to_device, run_async)
+        with get_tracer().span("sequence", cat="sequence",
+                               track="facade") as sp:
+            accl._stage_in(self._sync_in, from_device)
+            req = accl.cclo.dispatch_sequence(self._prepared)
+            ret = accl._complete(req, self._sync_out, to_device, run_async)
+            if get_tracer().active:
+                sp.set(n_steps=self.n_steps, ops=self._ops, prepared=True)
+                if run_async:
+                    sp.set(dispatch_only=True)
+                sig = getattr(req, "signature", None)
+                if sig is not None:
+                    sp.set(signature=sig)
+            return ret

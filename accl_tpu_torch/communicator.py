@@ -109,3 +109,15 @@ def _unpack_ip(word: int) -> str:
     if word == 0:
         return ""
     return f"{(word >> 24) & 0xFF}.{(word >> 16) & 0xFF}.{(word >> 8) & 0xFF}.{word & 0xFF}"
+
+
+def generate_ranks(
+    count: int, start_port: int = 5500, base_ip: str = "127.0.0.1"
+) -> list[Rank]:
+    """Local-host rank table generator (accl_network_utils'
+    generate_ranks in the reference): rank i on base_ip, port
+    start_port + i, session id i, device index i."""
+    return [
+        Rank(ip=base_ip, port=start_port + i, session_id=i, device_index=i)
+        for i in range(count)
+    ]

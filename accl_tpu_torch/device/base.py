@@ -51,6 +51,21 @@ class CCLOAddr:
     DYNAMIC_END = 0x1FA8
 
 
+# Field names of the reference's versioned stats2 counter surface, in
+# its native index order: the classic sequencer counters, then the
+# reliable wire's health counters (CRC/dup drops, selective-retransmit
+# ack/nack traffic, fault-injection tallies, CRC+ack ns), then the
+# vectored wire's transmit shape. A device with no native wire reports
+# every one as 0 (GPUDevice.wire_stats).
+STATS2_FIELDS = (
+    "passes", "parks", "park_ns", "seek_hit", "seek_miss",
+    "tx_frames", "rx_frames", "crc_drops", "dup_drops",
+    "retx_sent", "retx_miss", "nack_sent", "nack_rx",
+    "ack_sent", "ack_rx", "rndzv_drops",
+    "inj_loss", "inj_corrupt", "inj_dup", "inj_reorder", "rely_ns",
+    "tx_syscalls", "tx_batched",
+)
+
 # The hardware id the framework reports (the same word as the reference,
 # so exchange-memory images compare word for word).
 ACCL_TPU_IDCODE = 0xACC1_7B00

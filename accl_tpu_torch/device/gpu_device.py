@@ -69,7 +69,8 @@ from ..sequencer.sequence import (
     slice_to,
     step_in_elems,
 )
-from .base import CCLOAddr, CCLODevice
+from ..telemetry import get_tracer
+from .base import STATS2_FIELDS, CCLOAddr, CCLODevice
 
 
 class GPUDevice(CCLODevice):
@@ -394,8 +395,35 @@ class GPUDevice(CCLODevice):
                     res.sync_to_device()
                 res.device = self._place(res.device, ctx, out)
 
-        return self._request(options.scenario.name, out, events, t0, place,
-                             plan)
+        req = self._request(options.scenario.name, out, events, t0, place,
+                            plan)
+        if get_tracer().active:
+            # the facade span reads it: every traced call carries its
+            # timing.predict estimate beside its measured duration
+            req.predicted_s = self._predict_call(options, plan, ctx.world)
+        return req
+
+    def _predict_call(self, options: CallOptions, plan,
+                      world: int) -> float | None:
+        """timing.predict estimate for one resolved call under the
+        shipped default link (telemetry.feedback.default_link, the
+        calibration autotune consults), in the aggregate cost shape the
+        shipped fit calibrates; None when no timing model is shipped or
+        the plan has no cost shape. Host arithmetic only: it reads no
+        device tensor."""
+        from ..sequencer.timing import predict
+        from ..telemetry.feedback import default_link
+
+        link = default_link()
+        if link is None or plan is None:
+            return None
+        try:
+            return predict(link, options.scenario, plan, options.count,
+                           dtype_nbytes(options.data_type), world,
+                           rx_buf_bytes=self.eager_rx_buf_size,
+                           aggregate=True)
+        except (ValueError, KeyError, ZeroDivisionError):
+            return None
 
     @staticmethod
     def _request(name, out, events, t0, place, plan=None) -> GPURequest:
@@ -667,29 +695,41 @@ class GPUDevice(CCLODevice):
                       for o in desc.steps)
         if steps != desc.steps:
             desc = SequenceDescriptor(steps)
+        tracer = get_tracer()
         # a content digest of the composite signature, stable across runs
-        # (enum hashes are salted per process)
+        # (enum hashes are salted per process); it tags every phase and
+        # step span, so one batch's record -> lint -> compile -> dispatch
+        # pipeline can be followed across tracks
         sig = hashlib.sha256(repr(desc.signature()).encode()).hexdigest()[:16]
-        plans, endpoints = [], []
-        for opts in desc.steps:
-            plan, producer, consumer = self._resolve_step(opts, ctx, tuning)
-            plans.append(plan)
-            endpoints.append((producer, consumer))
+        with tracer.span("record", cat="phase", track="device") as sp:
+            sp.set(signature=sig, n_steps=len(desc.steps))
+            plans, endpoints = [], []
+            for opts in desc.steps:
+                plan, producer, consumer = self._resolve_step(opts, ctx,
+                                                              tuning)
+                plans.append(plan)
+                endpoints.append((producer, consumer))
         if lint != "off":
-            self._lint_batch(desc, tuple(plans), ctx, lint,
-                             persistent=frozenset(persistent))
-        seq = SequencePlan(desc, plans, ctx.world, endpoints)
-        bufs = {addr: self._buf(addr) for addr in seq.buffer_addrs}
-        for addr, need in seq.min_widths().items():
-            have = bufs[addr].shape[-1]
-            if have < need:
-                raise ValueError(
-                    f"sequence needs {need} elements in buffer "
-                    f"{addr:#x}, which holds {have}")
-        fn = ctx.compiler.compile_sequence(seq)
-        with self._launch_mu:
-            graph = ctx.compiler.sequence_graph(
-                seq, fn, self._bound_tensors(seq, bufs, ctx))
+            with tracer.span("lint", cat="phase", track="device") as sp:
+                sp.set(signature=sig, tier=lint)
+                self._lint_batch(desc, tuple(plans), ctx, lint,
+                                 persistent=frozenset(persistent))
+        # compile covers the composed body and, on the card, its warm-up
+        # run and CUDA-graph capture
+        with tracer.span("compile", cat="phase", track="device") as sp:
+            sp.set(signature=sig)
+            seq = SequencePlan(desc, plans, ctx.world, endpoints)
+            bufs = {addr: self._buf(addr) for addr in seq.buffer_addrs}
+            for addr, need in seq.min_widths().items():
+                have = bufs[addr].shape[-1]
+                if have < need:
+                    raise ValueError(
+                        f"sequence needs {need} elements in buffer "
+                        f"{addr:#x}, which holds {have}")
+            fn = ctx.compiler.compile_sequence(seq)
+            with self._launch_mu:
+                graph = ctx.compiler.sequence_graph(
+                    seq, fn, self._bound_tensors(seq, bufs, ctx))
         return _PreparedSequence(desc=desc, plans=tuple(plans), seq=seq,
                                  graph=graph, bufs=bufs, ctx=ctx, sig=sig)
 
@@ -715,20 +755,26 @@ class GPUDevice(CCLODevice):
         completion. Safe to call repeatedly on one handle: each call is
         an independent request."""
         seq, graph, ctx = prepared.seq, prepared.graph, prepared.ctx
-        tensors = self._bound_tensors(seq, prepared.bufs, ctx)
-        events = None
-        with self._launch_mu:
-            t0 = time.perf_counter_ns()
-            graph.load(tensors)
-            if graph.graph is not None:
-                events = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                events[0].record()
-                graph.replay()
-                events[1].record()
-            else:
-                graph.replay()
-            outs = graph.results()
+        tracer = get_tracer()
+        # on the card this span times the host seam: the replay is
+        # enqueued and the span closes without waiting for it (the
+        # request's CUDA events time the replay itself)
+        with tracer.span("dispatch", cat="phase", track="device") as sp:
+            sp.set(signature=prepared.sig)
+            tensors = self._bound_tensors(seq, prepared.bufs, ctx)
+            events = None
+            with self._launch_mu:
+                t0 = time.perf_counter_ns()
+                graph.load(tensors)
+                if graph.graph is not None:
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                    graph.replay()
+                    events[1].record()
+                else:
+                    graph.replay()
+                outs = graph.results()
         out_bufs = [prepared.bufs[a] for a in seq.out_addrs]
 
         def place(req):
@@ -742,6 +788,34 @@ class GPUDevice(CCLODevice):
         if events is None:
             req._start_time = t0  # host clock around the eager CPU run
         req.signature = prepared.sig
+        if tracer.active:
+            # per-step instant markers: the steps run inside one dispatch,
+            # so each carries its timing.predict estimate and the batch
+            # signature, not a duration of its own. Predictions are a pure
+            # function of the frozen (steps, plans): computed once a handle
+            if prepared.preds is None:
+                prepared.preds = [
+                    self._predict_call(o, p, ctx.world)
+                    for o, p in zip(prepared.desc.steps, prepared.plans)]
+            preds = prepared.preds
+            known = [p for p in preds if p is not None]
+            req.predicted_s = sum(known) if known else None
+            now = time.perf_counter_ns()
+            for i, (o, p, pred) in enumerate(zip(prepared.desc.steps,
+                                                 prepared.plans, preds)):
+                step_args = {
+                    "op": o.scenario.name,
+                    "count": o.count,
+                    "step": i,
+                    "world": ctx.world,
+                    "algorithm": p.algorithm.name,
+                    "protocol": p.protocol.name,
+                    "signature": prepared.sig,
+                }
+                if pred is not None:
+                    step_args["predicted_s"] = pred
+                tracer.emit(f"step{i}:{o.scenario.name}", "step", "device",
+                            ts_ns=now, dur_ns=0, args=step_args)
         return req
 
     def _lint_batch(self, desc, plans, ctx, mode: str,
@@ -783,6 +857,13 @@ class GPUDevice(CCLODevice):
                                       persistent_addrs=persistent))
             self._lint_cache[key] = diags
         enforce(diags, mode)
+
+    def wire_stats(self) -> dict:
+        """The stats2 counter surface (STATS2_FIELDS), every field zero:
+        one card has no native wire, so there are no wire faults to
+        count, but consumers (telemetry.export.wire_health_report) read
+        one dict shape across device kinds."""
+        return {name: 0 for name in STATS2_FIELDS}
 
     # -- config calls ------------------------------------------------------
 
@@ -831,12 +912,12 @@ class _PreparedSequence:
     bound buffer objects, re-read at every dispatch so their current
     device images flow in, and the communicator context it runs on.
 
-    The reference's handle also carries `preds` (per-step timing.predict
-    estimates for traced dispatches: the cost model and telemetry,
-    ROADMAP items 9 and 13), `footprint` (the cross-program interference
-    summary, item 15's interference pass) and `cert` (the certificate of
-    a certify_concurrent set, which the scheduler admits against, item
-    17). They stay None here until those slices."""
+    `preds` holds the per-step timing.predict estimates of a traced
+    dispatch, computed at the first one. The reference's handle also
+    carries `footprint` (the cross-program interference summary, ROADMAP
+    item 15's interference pass) and `cert` (the certificate of a
+    certify_concurrent set, which the scheduler admits against, item
+    17); they stay None here until those slices."""
 
     __slots__ = ("desc", "plans", "seq", "graph", "bufs", "ctx", "sig",
                  "preds", "footprint", "cert")

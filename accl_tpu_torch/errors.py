@@ -70,7 +70,20 @@ def notify_sticky_retcode(function_name: str, retcode: int, *,
                           detail: int = 0, rank: int | None = None,
                           count: int | None = None):
     """The dump-on-error seam of the sticky-retcode contract: every path
-    that materializes a nonzero sticky error word reports it here before
-    raising. The port has no flight recorder yet (it arrives with the
-    telemetry slice), so the seam records nothing and never raises."""
-    return None
+    that materializes a nonzero sticky error word (request completion in
+    request.py) reports it here before raising. The flight recorder,
+    when armed, emits an error marker span (the failing call's op name,
+    count, rank and sticky retcode) through the span stream and freezes
+    its last-N-spans-per-track rings into a self-contained post-mortem
+    trace (telemetry.recorder.on_sticky_retcode).
+
+    Never raises and costs one armed() predicate when observability is
+    off: error reporting must not mask or slow the error."""
+    try:
+        from .telemetry import recorder
+
+        return recorder.on_sticky_retcode(function_name, int(retcode),
+                                          detail=detail, rank=rank,
+                                          count=count)
+    except Exception:
+        return None

@@ -84,8 +84,10 @@ class GPURequest(BaseRequest):
         self.outputs = outputs
         self._events = events
         self._on_complete = on_complete
-        # set by the device after plan selection: the resolved Plan
+        # set by the device after plan selection: the resolved Plan, and
+        # its timing.predict estimate when the tracer is active
         self.plan: Any = None
+        self.predicted_s: float | None = None
         self.running()
 
     def wait(self, timeout: float | None = None) -> bool:

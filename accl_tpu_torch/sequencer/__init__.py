@@ -7,4 +7,11 @@
                   composed body (and the operand widths of a step)
 """
 
-from .plan import Algorithm, Plan, Protocol, select_algorithm  # noqa: F401
+from .plan import (  # noqa: F401
+    Algorithm,
+    Plan,
+    Protocol,
+    select_algorithm,
+    select_wire,
+)
+from .sequence import SequencePlan  # noqa: F401

@@ -165,9 +165,25 @@ What it does, in order, printing one JSON object per line:
      4 MiB calls within their float64 bound), facade_ms and device ms
      beside the default plan's; a recorded sequence of a HIER and a
      synthesized step as one CUDA graph, bitwise with the eager calls;
- 14. the kernels line (with each kernel's launches on the sequence,
-     point-to-point, sub-communicator, alltoall and tuned paths); last,
-     the device line.
+ 14. telemetry phase (accl_tpu_torch/telemetry/): at W = 8, fp32,
+     allreduce at 4 KiB, 64 KiB, 1, 4 and 25 MiB per rank (5 calls
+     each), one on the int8 wire, a reduce_scatter -> allgather sequence
+     run once and as a compiled program twice, and one run_async call,
+     first with the tracer off, then on: results bitwise and launches
+     equal; the trace validates, exports to the facade and device
+     tracks, every call span names its plan and a positive prediction;
+     the copied timing model's residuals against the spans, the
+     registry's exposition and the drift sentinel's report; each exact
+     call's CUDA-event duration lifted through telemetry.native into a
+     fit of the card (calibrate_from_trace), the registers
+     autotune_from_trace sets beside autotune()'s, and for the tuned
+     phase's windows the plan and device ms each register set gives, checked
+     against the CPU twin; the always-on cost at 4 KiB (observability
+     off, live spans only, on, tracing on); a timed-out recv's
+     post-mortem from the flight recorder;
+ 15. the kernels line (with each kernel's launches on the sequence,
+     point-to-point, sub-communicator, alltoall, tuned and telemetry
+     paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -3868,6 +3884,403 @@ def tuned_phase(ring, qk, L):
     return path
 
 
+TELE_SIZES = (4 * KIB, 64 * KIB, MIB, 4 * MIB, 25 * MIB)  # bytes per rank
+TELE_CALLS = 5  # traced calls per size
+TELE_INT8 = MIB  # the int8-wire call's bytes per rank
+TELE_SEQ = MIB  # the reduce_scatter -> allgather sequence's, per rank
+TELE_PAIRS = 10  # alternating rounds of the always-on cost
+# the tuned phase's windows: (op, bytes per rank of the send buffer, how the
+# result is checked, as TUNED_CASES)
+TELE_WINDOWS = (("allreduce", KIB, "cpu"), ("allreduce", 16 * KIB, "cpu"),
+                ("allreduce", MIB, "cpu"), ("allreduce", 4 * MIB, "f64"),
+                ("allreduce", 25 * MIB, "f64"),
+                ("allgather", 256 * KIB, "cpu"))
+
+
+def tele_workload(accl, x, counts, delta, seen):
+    """The telemetry path's calls on one W = 8 facade, from/to device:
+    TELE_CALLS allreduces at each of TELE_SIZES, one on the int8 wire, a
+    reduce_scatter -> allgather sequence run once through the recorder,
+    then compiled and run twice, and one run_async allreduce waited on.
+    After each call, seen(label, request, result tensor, launches); the
+    result tensor is the buffer's own (clone it to keep it)."""
+    import torch
+
+    from accl_tpu_torch import DataType
+    from accl_tpu_torch.constants import ReduceFunction
+
+    S = ReduceFunction.SUM
+
+    def record(label, fn, buf):
+        before = counts()
+        req = fn()
+        torch.cuda.synchronize()
+        seen(label, req, buf.device, delta(before))
+
+    for nbytes in TELE_SIZES:
+        n = nbytes // 4
+        sb, rb = accl.create_buffer(n), accl.create_buffer(n)
+        sb.device.copy_(x[:, :n])
+        for i in range(TELE_CALLS):
+            record(f"allreduce {nbytes}", lambda: accl.allreduce(
+                sb, rb, n, S, from_device=True, to_device=True), rb)
+        accl.free_buffer(sb)
+        accl.free_buffer(rb)
+    n = TELE_INT8 // 4
+    sb, rb = accl.create_buffer(n), accl.create_buffer(n)
+    sb.device.copy_(x[:, :n])
+    record("allreduce int8", lambda: accl.allreduce(
+        sb, rb, n, S, from_device=True, to_device=True,
+        compress_dtype=DataType.int8), rb)
+    n = TELE_SEQ // 4
+    c = n // 8
+    a, b, d = (accl.create_buffer(n), accl.create_buffer(c),
+               accl.create_buffer(n))
+    a.device.copy_(x[:, :n])
+
+    def batch(ops):
+        ops.reduce_scatter(a, b, c, S)
+        ops.allgather(b, d, c)
+        return ops
+
+    record("sequence", lambda: batch(accl.sequence()).run(
+        from_device=True, to_device=True), d)
+    prog = batch(accl.sequence()).compile()
+    for _ in range(2):
+        d.device.zero_()
+        record("program", lambda: prog.run(from_device=True, to_device=True),
+               d)
+    n = MIB // 4
+
+    def run_async():
+        req = accl.allreduce(sb, rb, n, S, from_device=True, to_device=True,
+                             run_async=True)
+        return accl.wait(req)
+
+    record("allreduce async", run_async, rb)
+    for buf in (sb, rb, a, b, d):
+        accl.free_buffer(buf)
+
+
+def telemetry_phase(ring, qk, L):
+    """Telemetry on the card (accl_tpu_torch/telemetry/). (1) Trace: the
+    calls of tele_workload run once with the tracer off and once on,
+    each on a new facade;
+    the results bitwise and each call's kernel launches the same; the
+    trace validates (the port's own validator), exports to the facade
+    and device tracks, every call span names its request's plan and a
+    positive prediction, the phase spans share one signature, the
+    recorded sequence's prediction is the sum of its steps'. (2) The
+    copied timing model's residuals against those host-measured spans,
+    the registry's exposition and the sentinel's report. (3) Each exact
+    synchronous call's CUDA-event duration lifted into a raw record
+    through telemetry.native.native_event under the facade's own eager
+    geometry and registers (its plan must be the plan that ran),
+    calibrate_from_trace over them (the card's LinkParams),
+    residual_improvement, and autotune_from_trace's registers beside
+    autotune()'s; for TELE_WINDOWS the plan each register set selects,
+    its device ms, each call checked as tuned_phase checks it. (4) The
+    always-on cost: the 4 KiB allreduce's facade_ms with observability
+    off, with live spans and predictions only, on (the default) and
+    tracing on, in TELE_PAIRS rotating rounds.
+    (5) The flight recorder: a recv no send matches times out; the
+    sticky retcode freezes a valid post-mortem holding the error marker
+    and the preceding call span, accl_errors_total rises by one;
+    GPUDevice.wire_stats is the stats2 surface at 0. Returns each
+    kernel's launches over the checked runs of (1), (3) and (5)."""
+    import torch
+
+    from accl_tpu_torch import ACCL, ACCLError, Operation
+    from accl_tpu_torch import telemetry as T
+    from accl_tpu_torch.constants import ReduceFunction
+    from accl_tpu_torch.device.base import STATS2_FIELDS
+    from accl_tpu_torch.device.gpu_device import GPUDevice
+
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    path = dict.fromkeys(kernels, 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            path[k] += v
+
+    gen = torch.Generator(device="cuda").manual_seed(11_011)
+    x = rank_data(8, max(TELE_SIZES) // 4, torch.float32, gen)
+    S = ReduceFunction.SUM
+    tr = T.get_tracer()
+    if not T.observability_enabled() or tr.enabled:
+        raise AssertionError("telemetry: expected the defaults (ACCL_OBS "
+                             "on, tracing off)")
+
+    # (1) the workload with tracing off, then on, each on a facade of its
+    # own (a second facade compiles and captures afresh, as the first
+    # did); the traced run compares each result as it comes and keeps no
+    # clone, so its calls reuse the allocator's blocks as a loop would
+    off, on = [], []
+    tele_workload(ACCL(world=8), x, counts, delta,
+                  lambda *call: off.append((*call[:2], call[2].clone(),
+                                            call[3])))
+
+    def check(label, req, got, launched):
+        want_label, _, want, l_off = off[len(on)]
+        add(launched)
+        add(l_off)
+        if (label != want_label or not same_bits(got, want)
+                or launched != l_off):
+            raise AssertionError(f"telemetry {label}: traced result or "
+                                 f"launches {launched} differ from "
+                                 f"untraced ({l_off})")
+        on.append((label, req))
+
+    accl = ACCL(world=8)
+    tr.clear()
+    tr.enable()
+    t0 = time.perf_counter()
+    tele_workload(accl, x, counts, delta, check)
+    traced_s = time.perf_counter() - t0
+    tr.disable()
+    trace = tr.to_trace({"world": 8, "device": torch.cuda.get_device_name(0)})
+    tr.clear()
+    del off
+    T.validate_trace(trace)
+    chrome = T.to_chrome(trace)
+    tracks = {e["args"]["name"] for e in chrome["traceEvents"]
+              if e["ph"] == "M"}
+    spans = trace["spans"]
+    calls = [s for s in spans if s["cat"] == "call"]
+    reqs = [(label, req) for label, req in on
+            if label.startswith("allreduce")]
+    if tracks != {"facade", "device"} or len(calls) != len(reqs):
+        raise AssertionError(f"telemetry: tracks {tracks}, {len(calls)} "
+                             f"call spans for {len(reqs)} calls")
+    for span, (label, req) in zip(calls, reqs):
+        a = span["args"]
+        if (a.get("algorithm") != req.plan.algorithm.name
+                or not a.get("predicted_s", 0) > 0
+                or a.get("dispatch_only", False) != (label.endswith("async"))):
+            raise AssertionError(f"telemetry {label}: span args {a}, "
+                                 f"plan {req.plan.algorithm.name}")
+    sigs = {s["args"]["signature"] for s in spans if s["cat"] == "phase"}
+    recorded = next(s for s in spans if s["cat"] == "sequence")
+    steps = [s for s in spans if s["cat"] == "step"][:2]
+    if len(sigs) != 1 or recorded["args"]["predicted_s"] != sum(
+            s["args"]["predicted_s"] for s in steps):
+        raise AssertionError(f"telemetry: phase signatures {sigs}, the "
+                             f"sequence's prediction {recorded['args']}")
+    emit({"phase": "telemetry_trace", "spans": len(spans),
+          "by_cat": {c: sum(s["cat"] == c for s in spans)
+                     for c in sorted({s["cat"] for s in spans})},
+          "tracks": sorted(tracks), "signature": sigs.pop(),
+          "valid": True, "bitwise_vs_untraced": True,
+          "launches_same_as_untraced": True, "traced_workload_s": traced_s})
+
+    # (2) the copied model's residuals against the host-measured spans
+    rows = T.residual_rows(trace)
+    replay = T.replay_trace(trace)
+    per_size = {}
+    for span in calls:
+        a = span["args"]
+        if a.get("dispatch_only"):
+            continue
+        key = f"{a['op']} {a['count'] * 4} B {a['algorithm']}"
+        per_size.setdefault(key, []).append(
+            (span["dur_ns"] / 1e6, a["predicted_s"] * 1e3))
+    emit({"phase": "telemetry_residuals",
+          "summary": T.residual_summary(rows),
+          "facade_span_ms_vs_predicted_ms": {
+              k: {"measured_median": statistics.median(m for m, _ in v),
+                  "predicted": v[0][1]} for k, v in per_size.items()},
+          "exposition_lines": len(replay.registry.expose_text().splitlines()),
+          "live_exposition_lines": len(
+              T.get_registry().expose_text().splitlines()),
+          "sentinel": replay.sentinel.report()})
+
+    # (3) device durations lifted into raw records, the card's fit
+    cclo = accl.cclo
+    lifted = []
+    for label, req in on:
+        if label.startswith("allreduce") and label[10:].isdigit():
+            n = int(label[10:]) // 4
+            raw = {"opcode": int(Operation.allreduce), "count": n,
+                   "bytes": n * 4, "start_ns": 0,
+                   "end_ns": req.get_duration_ns(), "retcode": req.retcode,
+                   "detail": 0, "d_passes": 0, "d_parks": 0,
+                   "d_seek_hit": 0, "d_seek_miss": 0}
+            ev = T.native.native_event(
+                raw, world=8, track="device/events", link=T.default_link(),
+                max_eager_size=cclo.max_eager_size,
+                rx_buf_bytes=cclo.eager_rx_buf_size, tuning=cclo.tuning())
+            if ev["args"]["algorithm"] != req.plan.algorithm.name:
+                raise AssertionError(f"telemetry {label}: the lifted plan "
+                                     f"{ev['args']['algorithm']} is not "
+                                     f"{req.plan.algorithm.name}")
+            lifted.append(ev)
+    fit_trace = {"schema": T.SCHEMA_VERSION,
+                 "meta": {"world": 8, "source": "CUDA-event durations"},
+                 "spans": lifted}
+    T.validate_trace(fit_trace)
+    card = T.calibrate_from_trace(fit_trace)
+    improvement = T.residual_improvement(fit_trace)
+    copied = ACCL(device=GPUDevice(8, "cuda"))
+    fitted = ACCL(device=GPUDevice(8, "cuda"))
+    twins = {}
+    for side, facade in (("copied", copied), ("fitted", fitted)):
+        facade.cclo.compiler.use_ring_kernel = True
+        twin = ACCL(device=GPUDevice(8, "cpu"))
+        twin.cclo.compiler.use_ring_kernel = True
+        for f in (facade, twin):
+            if side == "copied":
+                f.autotune()
+            else:
+                T.autotune_from_trace(f, fit_trace)
+        if vars(twin.cclo.tuning()) != vars(facade.cclo.tuning()):
+            raise AssertionError(f"telemetry: the {side} CPU twin's "
+                                 "registers differ")
+        twins[side] = twin
+    emit({"phase": "telemetry_fit",
+          "label": "one card: prices launches and memory copies, not a link",
+          "samples": len(lifted),
+          "card_link": {"alpha_us": card.alpha * 1e6,
+                        "beta_gbps": card.beta / 1e9},
+          "residual_improvement": improvement,
+          "registers": {"copied_autotune": vars(copied.cclo.tuning()),
+                        "autotune_from_trace": vars(fitted.cclo.tuning())}})
+    for op, nbytes, check in TELE_WINDOWS:
+        n = nbytes // 4
+        width_out = n * 8 if op == "allgather" else n
+        row = {"phase": "telemetry_window", "op": op,
+               "bytes_per_rank": nbytes, "checked_against": check,
+               "bound_ms": (nbytes + width_out * 4) * 8
+               / HBM_BYTES_PER_S * 1e3}
+        for side, facade in (("copied", copied), ("fitted", fitted)):
+            sb = facade.create_buffer(n)
+            rb = facade.create_buffer(width_out)
+            sb.device.copy_(x[:, :n])
+
+            def call(run_async=False):
+                if op == "allgather":
+                    return facade.allgather(sb, rb, n, from_device=True,
+                                            to_device=True,
+                                            run_async=run_async)
+                return facade.allreduce(sb, rb, n, S, from_device=True,
+                                        to_device=True, run_async=run_async)
+
+            before = counts()
+            req = call()
+            torch.cuda.synchronize()
+            add(delta(before))
+            out = rb.device
+            if check == "cpu":
+                twin = twins[side]
+                csb = twin.create_buffer(n, data=x[:, :n].cpu())
+                crb = twin.create_buffer(width_out)
+                creq = (twin.allgather(csb, crb, n) if op == "allgather"
+                        else twin.allreduce(csb, crb, n, S))
+                if creq.plan != req.plan or not same_bits(out.cpu(),
+                                                          crb.host):
+                    raise AssertionError(f"telemetry {side} {op} {nbytes}: "
+                                         "differs from its CPU twin")
+                twin.free_buffer(csb)
+                twin.free_buffer(crb)
+            else:
+                check_against_float64(out, x[:, :n], S, F32_UNIT)
+            row[f"{side}_plan"] = (req.plan.algorithm.name,
+                                   req.plan.synth_key, req.plan.stripes)
+            row[f"{side}_device_ms"] = queued_device_ms(
+                lambda: call(run_async=True))
+            facade.free_buffer(sb)
+            facade.free_buffer(rb)
+        emit(row)
+
+    # (4) the always-on cost at 4 KiB, in rotating rounds of four states
+    n = 1024
+    sb, rb = accl.create_buffer(n), accl.create_buffer(n)
+    sb.device.copy_(x[:, :n])
+
+    def no_op(ev):
+        pass
+
+    def state(name):
+        # "spans": live spans and predictions, no metrics or recorder (a
+        # no-op observer keeps the tracer active): splits the default's
+        # cost between the emission seam and the observers
+        if name == "default" or name == "tracing":
+            T.enable_observability()
+        else:
+            T.disable_observability()
+        (tr.add_observer if name == "spans" else tr.remove_observer)(no_op)
+        (tr.enable if name == "tracing" else tr.disable)()
+
+    def fn():
+        accl.allreduce(sb, rb, n, S, from_device=True, to_device=True)
+
+    names = ("off", "spans", "default", "tracing")
+    times = {s: [] for s in names}
+    for p in range(TELE_PAIRS):
+        for s in names[p % 4:] + names[:p % 4]:
+            state(s)
+            times[s].append(median_ms(fn, reps=5, warmup=1))
+    state("default")
+    tr.clear()
+    us = {s: statistics.median(t) * 1e3 for s, t in times.items()}
+    emit({"phase": "telemetry_cost", "bytes_per_rank": 4 * KIB,
+          "facade_us_per_call": us,
+          "over_off_us": {s: us[s] - us["off"] for s in names[1:]},
+          "facade_ms_rounds": times})
+
+    # (5) the flight recorder on a timed-out recv
+    def errors_total():
+        return sum(r["value"] for r in T.get_registry().snapshot()
+                   ["counters"].get("accl_errors_total", []))
+
+    T.get_recorder().clear()
+    before_errors = errors_total()
+    before = counts()
+    fn()
+    add(delta(before))
+    accl.set_timeout(20_000)
+    try:
+        accl.recv(rb, n, src=0, dst=1, tag=77)
+    except ACCLError as e:
+        if "RECEIVE_TIMEOUT" not in str(e):
+            raise
+    else:
+        raise AssertionError("telemetry: the unmatched recv did not fail")
+    finally:
+        accl.set_timeout(1_000_000)
+    doc = T.last_error_trace()
+    T.validate_trace(doc)
+    kinds = [(s["name"], s["cat"]) for s in doc["spans"]]
+    marker = doc["spans"][-1]
+    stats = accl.cclo.wire_stats()
+    health = T.wire_health_report({0: stats})
+    T.validate_trace({"schema": T.SCHEMA_VERSION, "spans": [],
+                      "meta": {"wire_health": health}})
+    if (kinds[-2:] != [("allreduce", "call"), ("recv", "error")]
+            or errors_total() != before_errors + 1
+            or tuple(stats) != STATS2_FIELDS or any(stats.values())):
+        raise AssertionError(f"telemetry: post-mortem spans {kinds}, "
+                             f"errors {errors_total() - before_errors}, "
+                             f"wire_stats {stats}")
+    emit({"phase": "telemetry_flight", "reason": doc["meta"]["reason"],
+          "spans": kinds, "marker": marker["args"],
+          "errors_total_delta": 1, "valid": True,
+          "wire_stats_all_zero": True})
+    accl.free_buffer(sb)
+    accl.free_buffer(rb)
+    for f in (accl, copied, fitted):
+        f.cclo.compiler._cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    idle = [k for k in ("ring_allreduce_bidir", QUANT_RING[0], "combine")
+            if path[k] == 0]
+    if idle:
+        raise AssertionError(f"the telemetry path launched no {idle}")
+    return path
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -3884,8 +4297,10 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     kernel's launches over the sequence phase's checked runs (its eager
     twins, and the warm-up run and capture at compile; a replay runs
     the captured kernels without the host's wrappers); `p2p_launches`,
-    `comm_launches` and `alltoall_launches` likewise over the checked
-    runs of the point-to-point, sub-communicator and alltoall paths."""
+    `comm_launches`, `alltoall_launches`, `tuned_launches` and
+    `telemetry_launches` likewise over the checked runs of the
+    point-to-point, sub-communicator, alltoall, tuned and telemetry
+    paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -4026,7 +4441,8 @@ def main() -> int:
              "p2p": timed(p2p_phase, ring, qk, L),
              "comm": timed(comm_phase, ring, qk, L),
              "alltoall": timed(alltoall_phase, ring, qk, L),
-             "tuned": timed(tuned_phase, ring, qk, L)}
+             "tuned": timed(tuned_phase, ring, qk, L),
+             "telemetry": timed(telemetry_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

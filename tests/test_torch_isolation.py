@@ -1,6 +1,7 @@
 """The PyTorch/CUDA port stands alone: no module of accl_tpu_torch/, nor
-chip_smoke.py, imports JAX, the JAX package or the bf16 extension
-package, and the facade never falls back to the CPU on its own.
+chip_smoke.py, imports JAX, the JAX package, the bf16 extension package
+or jsonschema (absent on the card's machine: the port validates traces
+itself), and the facade never falls back to the CPU on its own.
 
 The scan reads the source (AST), not sys.modules: this container's
 interpreter start-up imports jax, so a module-table check would see it
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "accl_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "accl_tpu", "ml_dtypes", "jsonschema")
 
 
 def _port_sources():
