@@ -1,7 +1,5 @@
-"""State carried across from the JAX package to the port.
-
-This system runs no model, so what crosses over in place of weights is
-rank data and device state:
+"""State carried across from the JAX package to the port: rank data,
+device state and model weights.
 
   tensor_from_numpy(a)        a numpy rank buffer as a port tensor; a
                               bf16 array (the JAX side's bfloat16 numpy
@@ -13,6 +11,12 @@ rank data and device state:
                               `_exchmem`) into a port device, so tuning(),
                               the communicator table and the arith rows
                               read back identically
+  transformer_params_from_numpy(p, device)
+                              a transformer parameter tree of the JAX
+                              package as numpy arrays (`jax.tree.map(
+                              np.asarray, params)`) as the port's tree of
+                              tensors on `device`, the same keys and
+                              shapes, bit for bit
 """
 
 from __future__ import annotations
@@ -34,3 +38,17 @@ def load_exchange_memory(device, words: dict[int, int]) -> None:
     device._exchmem.clear()
     for addr, word in sorted(words.items()):
         device.write(int(addr), int(word))
+
+
+def transformer_params_from_numpy(params_np: dict,
+                                  device: torch.device | str = "cuda") -> dict:
+    """The parameter tree {"embed", "unembed", "layers": [{...}, ...]} of
+    numpy arrays as tensors on `device`, each a copy with the same dtype
+    and bits (how both packages are fed the same weights)."""
+    def conv(a):
+        return tensor_from_numpy(np.asarray(a)).to(device)
+
+    return {"embed": conv(params_np["embed"]),
+            "unembed": conv(params_np["unembed"]),
+            "layers": [{k: conv(v) for k, v in lyr.items()}
+                       for lyr in params_np["layers"]]}

@@ -181,9 +181,23 @@ What it does, in order, printing one JSON object per line:
      against the CPU twin; the always-on cost at 4 KiB (observability
      off, live spans only, on, tracing on); a timed-out recv's
      post-mortem from the flight recorder;
- 15. the kernels line (with each kernel's launches on the sequence,
-     point-to-point, sub-communicator, alltoall, tuned and telemetry
-     paths); last, the device line.
+ 15. serve phase (accl_tpu_torch/models/): the flagship transformer's
+     widths in fp32 (vocab 32 768, d_model 1024, 16 heads, 4 kv heads,
+     8 layers, d_ff 4096) at W = 4 tensor-parallel virtual ranks,
+     batch 8, max_len 1024, TF32 off: the fused decode step (one
+     CUDA-graph replay a token) bitwise with its eager twin over 16
+     ragged steps, within 1e-4 * max|ref| of the port's CPU run (4
+     steps) and of forward_local (32 positions), a DecodeServer's six
+     ragged requests bitwise with each decoded alone; with the default
+     registers and after autotune(): the allreduce plan, the launches
+     against it (kernel 7 sixteen times a step plus the plan's), one
+     profiled replay (one graph launch, the hand-written kernels inside
+     it), the fused and eager step's ms (events and host clock),
+     tokens/s, accl_serve_step_seconds p50/p99, the bytes staged a step
+     (xp alone) and the step's bound;
+ 16. the kernels line (with each kernel's launches on the sequence,
+     point-to-point, sub-communicator, alltoall, tuned, telemetry and
+     serve paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -2589,7 +2603,9 @@ def profile_session(fn) -> list[dict]:
     after it: the card's clock in a trace can lag the host's by more
     than that (one run of this script saw every device event of a run
     land in the run before it), so that rule is the fallback, and the
-    count of events it placed is returned with each run."""
+    count of events it placed is returned with each run, and, by name,
+    the device kernels that belong to a graph launch (`graph_kernels`)
+    and each kernel's summed device ms (`kernel_ms`)."""
     import collections
 
     import torch
@@ -2621,11 +2637,15 @@ def profile_session(fn) -> list[dict]:
         return sum(t >= s for s in starts) - 1
 
     runs = [{"graph_launches": 0, "kernels": collections.Counter(),
+             "graph_kernels": collections.Counter(),
+             "kernel_ms": collections.Counter(),
              "memcpy": 0, "busy_ms": 0.0, "placed_by_device_clock": 0}
             for _ in names]
+    graph_ids = set()
     for e in host:
         if "GraphLaunch" in e.name() and run_of(e.start_ns()) >= 0:
             runs[run_of(e.start_ns())]["graph_launches"] += 1
+            graph_ids.add(e.correlation_id())
     for e in dev:
         t = launched_at.get(e.correlation_id())
         if t is None:
@@ -2639,6 +2659,9 @@ def profile_session(fn) -> list[dict]:
             r["memcpy"] += 1
         elif not e.name().startswith("Memset"):
             r["kernels"][e.name()] += 1
+            r["kernel_ms"][e.name()] += e.duration_ns() * 1e-6
+            if e.correlation_id() in graph_ids:
+                r["graph_kernels"][e.name()] += 1
         r["busy_ms"] += e.duration_ns() * 1e-6
     return runs
 
@@ -4281,6 +4304,453 @@ def telemetry_phase(ring, qk, L):
     return path
 
 
+# the flagship transformer's widths (bench.py's flagship LM) in fp32, the
+# one dtype the fused decode step takes, at a tensor-parallel world of 4
+SERVE_CFG = dict(vocab=32768, d_model=1024, n_heads=16, n_kv_heads=4,
+                 n_layers=8, d_ff=4096)
+SERVE_WORLD, SERVE_BATCH, SERVE_LEN = 4, 8, 1024
+SERVE_STEPS = 16  # fused against eager
+SERVE_CPU_STEPS = 4  # the card against the port's CPU run
+SERVE_SEQ = 32  # decode against forward_local
+SERVE_REPS = 50  # timed steps
+SERVE_JOIN = (0, 0, 0, 0, 7, 19)  # the step each request is submitted at
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+SERVE_TOL = 1e-4  # |delta| <= SERVE_TOL * max|ref| (card against CPU/oracle)
+# the parts of a hand-written kernel's (demangled) name in a profile ->
+# its kernels-line name
+SERVE_PROFILE_NAMES = {("lane_walk<", "Combine<"): "combine",
+                       ("ring_allreduce_kernel<",): "ring_allreduce_bidir"}
+
+
+def serve_bound(cfg, world: int, batch: int, pos) -> dict:
+    """The least time of one decode step: the bytes it must move (every
+    layer weight and the unembedding read once, the embedded inputs and
+    positions read once, each slot's cache rows 0..pos read once and one
+    row written, the logits written once) over 3.35 TB/s, and its float32
+    operations (the projections, MLP and head of B tokens, each slot's
+    attention over pos+1 rows) over 67 TFLOP/s (TF32 is off), for this
+    step's positions `pos`."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    F, V, L = cfg.d_ff, cfg.vocab, cfg.n_layers
+    layer_w = D * H * hd + D * 2 * KV * hd + H * hd * D + 2 * D * F + 2 * D
+    rows = sum(int(p) + 1 for p in pos)  # cache rows attended, all slots
+    nbytes = 4 * (L * layer_w + D * V + batch * (D + 1)
+                  + L * 2 * KV * hd * (rows + batch) + batch * V)
+    flops = (2 * batch * (L * (layer_w - 2 * D) + D * V)
+             + L * 2 * 2 * H * hd * rows)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def serve_requests(vocab: int):
+    """The server's six ragged requests: prompts of 3-40 tokens, 8-48 new
+    tokens, each submitted at its SERVE_JOIN step."""
+    import numpy as np
+
+    rng = np.random.default_rng(1212)
+    return [(join, [int(t) for t in rng.integers(1, vocab,
+                                                 int(rng.integers(3, 41)))],
+             int(rng.integers(8, 49))) for join in SERVE_JOIN]
+
+
+def serve_drive(srv, requests) -> dict:
+    """Run `requests` (join step, prompt, max_new_tokens) through the
+    server, each submitted at its join step. Returns, by request index,
+    its generated tokens, the logits row of every step it took part in
+    (host copies) and the slot it held."""
+    import torch
+
+    V = srv.cfg.vocab
+    rows, slot_of, reqs = {}, {}, {}
+    pending = list(enumerate(requests))
+    while pending or srv.active:
+        while pending and pending[0][1][0] <= srv.n_steps:
+            i, (_, prompt, new) = pending.pop(0)
+            reqs[i] = srv.submit(prompt, new)
+        srv._admit()
+        slots = [(b, s.req.rid) for b, s in enumerate(srv._slots)
+                 if s is not None]
+        srv.step()
+        logits = srv._buffers.logits.host[0, :srv.batch * V].view(
+            srv.batch, V)
+        for b, rid in slots:
+            rows.setdefault(rid, []).append(logits[b].clone())
+            slot_of[rid] = b
+    return {i: (r.generated, torch.stack(rows[r.rid]), slot_of[r.rid])
+            for i, r in reqs.items()}
+
+
+def serve_alone(srv, host, slot: int, prompt, new: int):
+    """One request decoded alone through the server's program, in slot
+    `slot`, every other slot idle (token 0 at position 0, as the server
+    feeds idle slots): the prompt teacher-forced a token a step, then
+    greedy tokens until `new`. The sequential reference of the batched
+    run: an allreduce folds each element in an order set by its chunk of
+    the row, so a slot's logits are bitwise only slot for slot."""
+    import torch
+
+    from accl_tpu_torch.models import transformer as trf
+
+    B, bf = srv.batch, srv._buffers
+    generated, rows = [], []
+    for pos in range(len(prompt) + new - 1):
+        toks, at = [0] * B, [0] * B
+        toks[slot] = prompt[pos] if pos < len(prompt) else generated[-1]
+        at[slot] = pos
+        trf.write_decode_inputs(bf, host, toks, at)
+        srv._program.run(to_device=True)
+        logits = trf.read_decode_logits(bf, sync=True)[slot]
+        rows.append(logits)
+        if pos + 1 >= len(prompt):
+            generated.append(int(torch.argmax(logits)))
+    return generated, torch.stack(rows)
+
+
+def serve_phase(ring, qk, L):
+    """The serving path (accl_tpu_torch/models/) on the card at the
+    flagship transformer's widths, fp32, W = 4 tensor-parallel virtual
+    ranks, batch 8, max_len 1024, random weights from a seed. TF32 must
+    be off. (1) 16 steps at ragged per-slot positions through the fused
+    program (one CUDA-graph replay a step) and the eager twin: logits
+    and every layer's state bitwise equal. (2) The first 4 of them on
+    CPU tensors (the plain versions): within SERVE_TOL * max|ref| of the
+    card. (3) 8 sequences of 32 tokens decoded step by step (through the
+    same program: the stale caches are masked) against forward_local on
+    the card, position by position, within the same bound. (4) A fused
+    DecodeServer with six ragged requests joining and leaving at step
+    boundaries: tokens and every logits row bitwise equal to each
+    request decoded alone through the same program in the slot it held
+    (serve_alone). (5) With the default
+    registers and after autotune(): the allreduce steps' plan; a lone
+    allreduce of the step's size on the same registers gives the plan's
+    launches, and the eager step must launch kernel 7 16 times plus 16
+    times the plan's; compile (warm-up and capture) twice that, a replay
+    none; one replay profiled: one graph launch, and inside it kernel 7
+    and the ring kernel as many times as the eager step launches them.
+    (6) For each register set: the fused and the eager step's ms (median
+    of 50, CUDA events and host clock: stage xp, run, read the logits),
+    tokens/s at batch 8, accl_serve_step_seconds p50/p99 over the ragged
+    workload, the bytes staged per step (only xp: W * n_out * 4), and
+    the step's bound. Returns each kernel's launches over the checked
+    runs of (1), (4) and (5)."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import ACCL, ReduceFunction
+    from accl_tpu_torch.buffers import GPUBuffer
+    from accl_tpu_torch.models import serve
+    from accl_tpu_torch.models import transformer as trf
+    from accl_tpu_torch.telemetry.metrics import MetricsRegistry, quantile_key
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("serve: TF32 is on; fp32 products must be fp32")
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    path = dict.fromkeys(kernels, 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            path[k] += v
+
+    cfg = trf.TransformerConfig(**SERVE_CFG)
+    W, B, T, V = SERVE_WORLD, SERVE_BATCH, SERVE_LEN, cfg.vocab
+    params = trf.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(1212), "cuda")
+    host = {"embed": params["embed"].cpu()}
+    rng = np.random.default_rng(2024)
+    start = before = counts()
+
+    def fused_step(prog, bf, toks, pos):
+        trf.write_decode_inputs(bf, host, toks, pos)
+        prog.run(to_device=True)
+        return trf.read_decode_logits(bf, sync=True)
+
+    def eager_step(accl, bf, toks, pos):
+        trf.write_decode_inputs(bf, host, toks, pos)
+        trf.run_decode_step_eager(accl, cfg, bf)
+        return trf.read_decode_logits(bf)
+
+    def eager_twin(accl):
+        be = trf.create_decode_buffers(accl, cfg, B, T)
+        trf.register_decode_consumers(accl, cfg, params, be.dims)
+        return be
+
+    def states(bf):
+        return [s.device for s in bf.state]
+
+    # (1) fused against eager, 16 chained steps at ragged positions
+    accl_f, accl_e = ACCL(world=W), ACCL(world=W)
+    before = counts()
+    t0 = time.perf_counter()
+    prog, bf = trf.make_decode_step_program(accl_f, cfg, params, batch=B,
+                                            max_len=T)
+    compile_s = time.perf_counter() - t0
+    compile_launches = delta(before)
+    be = eager_twin(accl_e)
+    start_pos = rng.integers(0, T - SERVE_STEPS, B)
+    steps = [(rng.integers(1, V, B), start_pos + s)
+             for s in range(SERVE_STEPS)]
+    card = []
+    for s, (toks, pos) in enumerate(steps):
+        before = counts()
+        lf = fused_step(prog, bf, toks, pos)
+        if delta(before):
+            raise AssertionError(f"serve: a replay ticked {delta(before)}")
+        le = eager_step(accl_e, be, toks, pos)
+        if not same_bits(lf, le) or not all(
+                same_bits(a, b) for a, b in zip(states(bf), states(be))):
+            raise AssertionError(f"serve step {s}: fused != eager")
+        if not torch.isfinite(lf).all():
+            raise AssertionError(f"serve step {s}: non-finite logits")
+        if s < SERVE_CPU_STEPS:
+            card.append((lf, [t.cpu() for t in states(bf)]))
+    del be, accl_e
+
+    # (2) the card against the port's CPU run of the first steps
+    cpu = ACCL(world=W, torch_device="cpu")
+    cpu.cclo.compiler.use_ring_kernel = True  # the ring kernel's order
+    params_cpu = {"embed": host["embed"], "unembed": params["unembed"].cpu(),
+                  "layers": [{k: v.cpu() for k, v in lyr.items()}
+                             for lyr in params["layers"]]}
+    cprog, cbf = trf.make_decode_step_program(cpu, cfg, params_cpu, batch=B,
+                                              max_len=T)
+    cpu_err = 0.0
+    for s, ((toks, pos), (lf, st)) in enumerate(zip(steps, card)):
+        ref = fused_step(cprog, cbf, toks, pos)
+        for got, want in ((lf, ref), *zip(st, states(cbf))):
+            err = max_abs_err(got, want)
+            bound = SERVE_TOL * float(want.abs().max())
+            if not err <= bound:
+                raise AssertionError(f"serve step {s}: card against CPU "
+                                     f"{err} > {bound}")
+            cpu_err = max(cpu_err, err / float(want.abs().max()))
+    del cprog, cbf, cpu, params_cpu, card
+
+    # (3) decode against the full-context forward on the card
+    seqs = torch.from_numpy(rng.integers(1, V, (B, SERVE_SEQ))).cuda()
+    with torch.no_grad():
+        full = trf.forward_local(params, seqs, cfg)
+    oracle_err = 0.0
+    for t in range(SERVE_SEQ):
+        lf = fused_step(prog, bf, seqs[:, t].cpu(), [t] * B).cuda()
+        err = max_abs_err(lf, full[:, t])
+        bound = SERVE_TOL * float(full[:, t].abs().max())
+        if not err <= bound:
+            raise AssertionError(f"serve position {t}: decode against "
+                                 f"forward_local {err} > {bound}")
+        oracle_err = max(oracle_err, err / float(full[:, t].abs().max()))
+    del full
+    add(delta(start))
+
+    # (4) batched against sequential through one server's program
+    requests = serve_requests(V)
+    before = counts()
+    srv = serve.DecodeServer(ACCL(world=W), cfg, params, batch=B,
+                             max_len=T, registry=MetricsRegistry())
+    batched = serve_drive(srv, requests)
+    steps_batched = srv.n_steps
+    for i, (toks, rows, slot) in batched.items():
+        _, prompt, new = requests[i]
+        s_toks, s_rows = serve_alone(srv, host, slot, prompt, new)
+        if toks != s_toks or not same_bits(rows, s_rows):
+            raise AssertionError(
+                f"serve request {i} (slot {slot}): batched != sequential, "
+                f"tokens {toks} against {s_toks}, max |diff| "
+                f"{max_abs_err(rows, s_rows) if rows.shape == s_rows.shape else rows.shape}")
+    add(delta(before))
+    emit({"phase": "serve", "world": W, "batch": B, "max_len": T,
+          "config": {**SERVE_CFG, "dtype": "float32"},
+          "tf32": False, "compile_s": compile_s,
+          "launches_at_compile": compile_launches,
+          "fused_eq_eager_bitwise_steps": SERVE_STEPS,
+          "state_bytes_per_layer": bf.state[0].device.numel() * 4,
+          "cpu_steps": SERVE_CPU_STEPS, "card_vs_cpu_rel_err": cpu_err,
+          "decode_vs_forward_local_positions": SERVE_SEQ,
+          "decode_vs_forward_local_rel_err": oracle_err,
+          "tolerance": SERVE_TOL,
+          "requests": [{"join": j, "prompt": len(p), "new": n}
+                       for j, p, n in requests],
+          "batched_steps": steps_batched,
+          "tokens": sum(len(t) for t, _, _ in batched.values()),
+          "slots": [batched[i][2] for i in sorted(batched)],
+          "batched_eq_sequential_bitwise": True})
+    del srv, prog, bf
+
+    # (5), (6) each register set: plans, launches, profile, times
+    for regs in ("default", "autotune"):
+        def facade():
+            accl = ACCL(world=W)
+            if regs == "autotune":
+                accl.autotune()
+            return accl
+
+        one = facade()
+        a, r = one.create_buffer(B * cfg.d_model), one.create_buffer(
+            B * cfg.d_model)
+        before = counts()
+        req = one.allreduce(a, r, B * cfg.d_model, ReduceFunction.SUM,
+                            from_device=True, to_device=True)
+        torch.cuda.synchronize()
+        per_allreduce = delta(before)
+        plan = req.plan.algorithm.name + (
+            f" {req.plan.synth_key}" if req.plan.synth_key else "")
+        want = {k: 2 * cfg.n_layers * v for k, v in per_allreduce.items()}
+        want["combine"] = want.get("combine", 0) + 2 * cfg.n_layers
+        del one, a, r
+
+        accl_f, accl_e = facade(), facade()
+        before = counts()
+        prog, bf = trf.make_decode_step_program(accl_f, cfg, params,
+                                                batch=B, max_len=T)
+        at_compile = delta(before)
+        add(at_compile)
+        be = eager_twin(accl_e)
+        plans = sorted({p.algorithm.name for p, o in zip(
+            prog.plans, prog._prepared.desc.steps)
+            if o.scenario.name == "allreduce"})
+        toks, pos = steps[0]
+        fused_step(prog, bf, toks, pos)
+        before = counts()
+        eager_step(accl_e, be, toks, pos)
+        eager_launches = delta(before)
+        add(eager_launches)
+        if (eager_launches != want
+                or at_compile != {k: 2 * v for k, v in want.items()}):
+            raise AssertionError(
+                f"serve {regs}: eager step launched {eager_launches}, "
+                f"compile {at_compile}; the plan ({plan}) gives {want}")
+        before = counts()
+        prof = kernel_profile(lambda: fused_step(prog, bf, toks, pos))
+        if delta(before):
+            raise AssertionError(f"serve {regs}: a replay ticked "
+                                 f"{delta(before)}")
+        hand = {}
+        for name, n in prof["kernels"].items():
+            for parts, k in SERVE_PROFILE_NAMES.items():
+                if all(part in name for part in parts):
+                    hand[k] = hand.get(k, 0) + n
+                    if prof["graph_kernels"][name] != n:
+                        raise AssertionError(
+                            f"serve {regs}: {name} launched outside the "
+                            "graph at replay")
+        expect = {k: want[k] for k in set(SERVE_PROFILE_NAMES.values())
+                  if want.get(k)}
+        if prof["graph_launches"] != 1 or hand != expect:
+            raise AssertionError(f"serve {regs}: replay ran {hand} in "
+                                 f"{prof['graph_launches']} graph launches, "
+                                 f"the plan gives {want}; kernels "
+                                 f"{sorted(prof['kernels'])}")
+
+        # the bytes staged per step: every host-to-device buffer sync
+        staged = []
+        sync = GPUBuffer.sync_to_device
+
+        def counted(buf):
+            staged.append(buf.host.numel() * buf.host.element_size())
+            return sync(buf)
+
+        GPUBuffer.sync_to_device = counted
+        try:
+            fused_step(prog, bf, toks, pos)
+        finally:
+            GPUBuffer.sync_to_device = sync
+        if staged != [W * bf.dims.n_out * 4]:
+            raise AssertionError(f"serve {regs}: staged {staged} bytes a "
+                                 "step, not xp alone")
+
+        def timed_steps(step, accl_or_prog, buffers):
+            ev, host_ms = [], []
+            for i in range(SERVE_REPS + 3):
+                toks, pos = steps[i % SERVE_STEPS]
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                step(accl_or_prog, buffers, toks, pos)
+                e1.record()
+                e1.synchronize()
+                if i >= 3:
+                    host_ms.append((time.perf_counter() - t0) * 1e3)
+                    ev.append(e0.elapsed_time(e1))
+            return {"events_ms": statistics.median(ev),
+                    "host_ms": statistics.median(host_ms),
+                    "host_ms_min": min(host_ms), "host_ms_max": max(host_ms)}
+
+        fused = timed_steps(fused_step, prog, bf)
+        # the fused step's parts: stage xp in, copy the bound buffers into
+        # the graph's inputs, replay, clone the results out, read logits
+        replay = []
+        for _ in range(20):
+            req = prog.run(from_device=True, to_device=True)
+            replay.append(req.get_duration_ns() * 1e-6)
+        tensors = [prog._prepared.bufs[a].device
+                   for a in prog._prepared.seq.buffer_addrs]
+        parts = {"stage_xp_ms": median_ms(bf.xp.sync_to_device),
+                 "copy_in_ms": device_ms(lambda: prog.graph.load(tensors),
+                                         count=20),
+                 "replay_ms": statistics.median(replay),
+                 "results_out_ms": device_ms(prog.graph.results, count=20),
+                 "read_logits_ms": median_ms(bf.logits.sync_from_device)}
+        top = sorted(prof["kernel_ms"].items(), key=lambda kv: -kv[1])[:12]
+        eager = timed_steps(eager_step, accl_e, be)
+        reg = MetricsRegistry()
+        srv = serve.DecodeServer(facade(), cfg, params, batch=B, max_len=T,
+                                 registry=reg)
+        served = serve_drive(srv, requests)
+        hist = reg.snapshot()["histograms"]["accl_serve_step_seconds"][0]
+        tokens_total = reg.snapshot()["counters"][
+            "accl_serve_tokens_total"][0]["value"]
+        # the timed steps cycle through the 16 steps' positions
+        bounds = [serve_bound(cfg, W, B, pos) for _, pos in steps]
+        bound = {"bound_ms": statistics.mean(b["bound_ms"] for b in bounds),
+                 "bound_by": bounds[0]["bound_by"],
+                 "bytes": statistics.mean(b["bytes"] for b in bounds),
+                 "flops": statistics.mean(b["flops"] for b in bounds)}
+        emit({"phase": "serve_timing", "registers": regs,
+              "allreduce_plan": plan, "step_plans": plans,
+              "launches_per_allreduce": per_allreduce,
+              "launches_eager_step": eager_launches,
+              "launches_at_compile": at_compile,
+              "launches_per_replay": 0,
+              "replay_hand_kernels": hand,
+              "graph_launches_per_step": prof["graph_launches"],
+              "device_kernels_per_step": sum(prof["kernels"].values()),
+              "graph_kernels_per_step": sum(prof["graph_kernels"].values()),
+              "memcpy_per_step": prof["memcpy"],
+              "device_busy_ms": prof["busy_ms"],
+              "fused_step_ms": fused, "fused_step_parts": parts,
+              "replay_top_kernels": [
+                  {"name": name[:140], "ms": ms,
+                   "count": prof["kernels"][name]} for name, ms in top],
+              "eager_step_ms": eager,
+              "tokens_per_s": B / fused["host_ms"] * 1e3,
+              "server_steps": srv.n_steps, "server_tokens": tokens_total,
+              "step_seconds_p50": hist[quantile_key(0.5)],
+              "step_seconds_p99": hist[quantile_key(0.99)],
+              "server_tokens_per_s": tokens_total / hist["sum"],
+              "same_tokens_as_default": all(
+                  served[i][0] == batched[i][0] for i in batched),
+              "staged_bytes_per_step": sum(staged),
+              "graph_copy_in_bytes": prog.graph.load_bytes,
+              "bound": bound})
+        del srv, prog, bf, be, accl_f, accl_e
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    idle = [k for k in ("ring_allreduce_bidir", "combine") if path[k] == 0]
+    if idle:
+        raise AssertionError(f"the serve path launched no {idle}")
+    return path
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -4297,10 +4767,10 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     kernel's launches over the sequence phase's checked runs (its eager
     twins, and the warm-up run and capture at compile; a replay runs
     the captured kernels without the host's wrappers); `p2p_launches`,
-    `comm_launches`, `alltoall_launches`, `tuned_launches` and
-    `telemetry_launches` likewise over the checked runs of the
-    point-to-point, sub-communicator, alltoall, tuned and telemetry
-    paths."""
+    `comm_launches`, `alltoall_launches`, `tuned_launches`,
+    `telemetry_launches` and `serve_launches` likewise over the checked
+    runs of the point-to-point, sub-communicator, alltoall, tuned,
+    telemetry and serve paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -4442,7 +4912,8 @@ def main() -> int:
              "comm": timed(comm_phase, ring, qk, L),
              "alltoall": timed(alltoall_phase, ring, qk, L),
              "tuned": timed(tuned_phase, ring, qk, L),
-             "telemetry": timed(telemetry_phase, ring, qk, L)}
+             "telemetry": timed(telemetry_phase, ring, qk, L),
+             "serve": timed(serve_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

@@ -1,7 +1,8 @@
 """The port's public names against the JAX package's.
 
-Every public name of accl_tpu, its sequencer and telemetry subpackages,
-the ACCL facade and the device that the port lacks must be a known gap,
+Every public name of accl_tpu, its sequencer, telemetry and models
+subpackages, the ACCL facade and the device that the port lacks must be
+a known gap,
 listed with the ROADMAP item that brings it; a gap that closes must
 leave the list. nop() runs through both facades to the same request.
 """
@@ -17,6 +18,14 @@ KNOWN_GAPS = {
     ("ACCL", "certify_concurrent"): "item 15 (interference certifier)",
     ("ACCL", "scheduler"): "item 17 (scheduler)",
     ("device", "supports_live_subset"): "item 17 (resilience)",
+    ("models", "make_forward"): "item 16c (mesh forms)",
+    ("models", "make_decode_step"): "item 16c (mesh forms)",
+    ("models", "init_kv_cache"): "item 16c (mesh forms)",
+    ("models", "make_train_step"): "item 16b (training)",
+    ("models", "MoEConfig"): "item 16c (MoE)",
+    ("models", "init_moe_params"): "item 16c (MoE)",
+    ("models", "make_moe_forward"): "item 16c (MoE)",
+    ("models", "make_moe_train_step"): "item 16c (MoE)",
 }
 
 
@@ -36,7 +45,7 @@ def _pairs():
     for sub in ("sequencer", "telemetry", "telemetry.tracer",
                 "telemetry.export", "telemetry.metrics",
                 "telemetry.recorder", "telemetry.native",
-                "telemetry.feedback"):
+                "telemetry.feedback", "models"):
         yield sub, importlib.import_module(f"accl_tpu.{sub}"), \
             importlib.import_module(f"accl_tpu_torch.{sub}")
     yield "ACCL", RefACCL, ACCL
