@@ -17,6 +17,14 @@ device state and model weights.
                               np.asarray, params)`) as the port's tree of
                               tensors on `device`, the same keys and
                               shapes, bit for bit
+  moe_params_from_numpy(p, device)
+                              the MoE parameter tree {"embed", "router",
+                              "w_up", "w_down", "unembed"} likewise
+  stacked_train_params_from_numpy(flat, world, device)
+                              a flat train-step parameter vector (n,) (the
+                              JAX package's flatten_train_params) as the
+                              stacked (world, n) tensor every rank row of
+                              a train-step buffer starts from, bit for bit
 """
 
 from __future__ import annotations
@@ -52,3 +60,22 @@ def transformer_params_from_numpy(params_np: dict,
             "unembed": conv(params_np["unembed"]),
             "layers": [{k: conv(v) for k, v in lyr.items()}
                        for lyr in params_np["layers"]]}
+
+
+def moe_params_from_numpy(params_np: dict,
+                          device: torch.device | str = "cuda") -> dict:
+    """The MoE parameter tree of numpy arrays as tensors on `device`, each
+    a copy with the same keys, dtype and bits."""
+    return {k: tensor_from_numpy(np.asarray(v)).to(device)
+            for k, v in params_np.items()}
+
+
+def stacked_train_params_from_numpy(flat: np.ndarray, world: int,
+                                    device: torch.device | str = "cuda"
+                                    ) -> torch.Tensor:
+    """A flat train-step vector (n,) as the (world, n) tensor on `device`
+    with the same bits in every row."""
+    t = tensor_from_numpy(np.asarray(flat))
+    if t.dim() != 1:
+        raise ValueError(f"a flat (n,) vector expected, got {tuple(t.shape)}")
+    return t.to(device).expand(world, -1).contiguous()

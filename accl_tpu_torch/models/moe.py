@@ -1,0 +1,323 @@
+"""Expert-parallel Mixture-of-Experts on the facade's alltoall.
+
+Counterpart of accl_tpu/models/moe.py, its facade half. The FFN is a
+top-k routed MoE whose experts shard over the facade's ranks; the token
+dispatch and the return combine move through the facade's alltoall (or
+the capacity-bounded alltoallv), with the expert FFN spliced in as the
+dispatch leg's RES_STREAM consumer, so one layer step is ONE recorded
+call sequence (on the card one CUDA-graph replay).
+
+Routing is capacity-based top-k (fixed shapes): each token routes to its
+top_k experts (k=1 keeps the raw router probability as the gate; k>1
+normalizes gates over the chosen k), each expert accepts at most C =
+ceil(T * k / E * capacity_factor) pseudo-tokens per rank, and overflow
+passes through on the residual stream.
+
+Departures from the reference, which routes inside jit(vmap) on the host
+and hands numpy arrays across: routing and combining run as torch ops on
+the facade's device over the stacked ranks, the dispatch is placed
+straight into the dispatch buffer's device image, and
+`moe_ffn_via_sequence` returns a tensor on that device. The expert
+consumer holds each rank's expert slice, cut once at registration, where
+the reference picks it with `lax.axis_index`. The mesh forms
+(`moe_param_specs`, `place_moe_params`, `moe_ffn_local`,
+`make_moe_forward`, `make_moe_train_step`) wait for the port's parallel
+layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .transformer import _gelu
+
+# kernel-stream id the expert-FFN consumer registers under
+MOE_EXPERT_STREAM = 11
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int = 64
+    d_ff: int = 128
+    n_experts: int = 4       # total experts == world x experts_per_rank
+    experts_per_rank: int = 1
+    capacity_factor: float = 1.25
+    top_k: int = 1           # experts per token (k=1: raw-prob gate;
+                             # k>1: gates normalized over the chosen k)
+    vocab: int = 64
+    seq: int = 32
+    dtype: str = "float32"
+
+
+def init_moe_params(cfg: MoEConfig, generator: torch.Generator,
+                    device: torch.device | str = "cuda") -> dict:
+    """The reference's global parameter tree (router replicated, experts
+    stacked on the leading axis; normal weights at scale 0.02), drawn from
+    `generator` on its own device and placed on `device`. Not bitwise
+    with jax.random: interop.moe_params_from_numpy carries the JAX
+    package's weights across."""
+    dt = getattr(torch, cfg.dtype)
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32) * 0.02
+        return w.to(device=device, dtype=dt)
+
+    return {"router": dense(D, E), "w_up": dense(E, D, Fd),
+            "w_down": dense(E, Fd, D), "embed": dense(cfg.vocab, D),
+            "unembed": dense(D, cfg.vocab)}
+
+
+def _capacity(cfg: MoEConfig, tokens: int) -> int:
+    return max(1, math.ceil(tokens / cfg.n_experts * cfg.capacity_factor))
+
+
+def _route(x, params, cfg: MoEConfig, C: int):
+    """Top-k routing + capacity assignment for (..., T, D) tokens, each
+    leading index (a rank, a sequence) routed on its own. Returns
+    (dispatch (..., E, C, D), safe_e, safe_c, keep, gate), the last four
+    (..., T*k) in token-major pseudo-token order.
+
+    The top k come from a stable descending sort, so equal probabilities
+    rank the lower expert first, as lax.top_k does. Dropped pseudo-tokens
+    add +0.0 into slot (0, 0), which leaves every value exact."""
+    T, D = x.shape[-2:]
+    lead = x.shape[:-2]
+    E, k = cfg.n_experts, cfg.top_k
+    logits = x @ params["router"].to(x.device)  # (..., T, E)
+    probs = torch.softmax(logits.float(), dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    gates = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
+    assign = topi.reshape(*lead, T * k)
+    gate = gates.reshape(*lead, T * k)
+    x_rep = x.repeat_interleave(k, dim=-2)  # (..., T*k, D)
+
+    # capacity assignment: position of each pseudo-token within its expert
+    onehot = F.one_hot(assign, E)
+    pos_in_e = ((onehot.cumsum(-2) - 1) * onehot).sum(-1)
+    keep = pos_in_e < C
+
+    # dispatch (..., E, C, D): slot [e, c] = the c-th token routed to e
+    safe_e = torch.where(keep, assign, 0)
+    safe_c = torch.where(keep, pos_in_e, 0)
+    rows = x_rep.reshape(-1, T * k, D)
+    disp = torch.zeros((rows.shape[0], E, C, D), dtype=x.dtype,
+                       device=x.device)
+    b = torch.arange(rows.shape[0], device=x.device)[:, None]
+    disp.index_put_(
+        (b, safe_e.reshape(-1, T * k), safe_c.reshape(-1, T * k)),
+        torch.where(keep.reshape(-1, T * k, 1), rows, 0.0), accumulate=True)
+    return disp.reshape(*lead, E, C, D), safe_e, safe_c, keep, gate
+
+
+def _combine_tokens(back, safe_e, safe_c, keep, gate, T: int, k: int,
+                    D: int, dtype):
+    """The gather-and-gate half of the combine over (..., E, C, D) expert
+    outputs: each pseudo-token reads its slot, weights it by its gate, and
+    each token's k contributions sum. Returns (..., T, D)."""
+    lead = back.shape[:-3]
+    flat = back.reshape(-1, *back.shape[-3:])
+    b = torch.arange(flat.shape[0], device=back.device)[:, None]
+    token_out = flat[b, safe_e.reshape(-1, T * k), safe_c.reshape(-1, T * k)]
+    contrib = torch.where(
+        keep.reshape(-1, T * k, 1),
+        token_out * gate.reshape(-1, T * k, 1).to(dtype), 0.0)
+    return contrib.reshape(*lead, T, k, D).sum(-2)
+
+
+def moe_expert_consumer(cfg: MoEConfig, capacity: int, w_up, w_down,
+                        world: int, device=None):
+    """The expert-FFN stage as a RES_STREAM consumer over the dispatch
+    alltoall's stacked routed arrival (world, world * n_local * C * D):
+    row r holds the source-major blocks (world, n_local, C, D) for rank
+    r's experts, which run before the result lands. The stacked expert
+    weights (E, ...) are cut once here into each rank's (n_local, ...)
+    block; re-registering with new weights is a new endpoint (the
+    compiled-program caches key on it)."""
+    n_local, C, D = cfg.experts_per_rank, capacity, cfg.d_model
+    device = w_up.device if device is None else device
+    wu = w_up.to(device=device, dtype=torch.float32).reshape(
+        world, n_local, D, cfg.d_ff)
+    wd = w_down.to(device=device, dtype=torch.float32).reshape(
+        world, n_local, cfg.d_ff, D)
+
+    def consumer(flat):
+        recv = flat.reshape(world, world, n_local, C, D)
+        h = _gelu(torch.einsum("wslcd,wldf->wslcf", recv, wu))
+        out = torch.einsum("wslcf,wlfd->wslcd", h, wd)
+        return out.reshape(world, -1).to(flat.dtype)
+
+    return consumer
+
+
+def make_expert_program(accl, cfg: MoEConfig, capacity: int, w_up,
+                        w_down):
+    """The UNFUSED expert stage: the same body as the stream consumer, as
+    a plain function over the stacked routed rows (the reference compiles
+    it as its own jit(shard_map) program): the middle stage of the eager
+    descriptor-per-stage baseline."""
+    return moe_expert_consumer(cfg, capacity, w_up, w_down, accl.world,
+                               accl.cclo.torch_device)
+
+
+def _ensure_expert_consumer(accl, cfg: MoEConfig, capacity: int, w_up,
+                            w_down, stream_id: int) -> None:
+    """Register the expert-FFN consumer ONCE per (shape, weights): the
+    endpoint's identity keys the compiled-program caches, so a fresh
+    closure per call would rebuild (and on the card re-capture) the
+    program every iteration. The memo, held on the accl with the weights
+    kept alive (object ids cannot be reused), is keyed by stream id alone,
+    so it mirrors what the endpoint currently holds: after another config
+    overwrote the shared stream, the next call re-registers."""
+    memo = getattr(accl, "_moe_consumer_memo", None)
+    if memo is None:
+        memo = accl._moe_consumer_memo = {}
+    prev = memo.get(stream_id)
+    if (prev is not None and prev[:2] == (cfg, capacity)
+            and prev[2] is w_up and prev[3] is w_down):
+        return
+    memo[stream_id] = (cfg, capacity, w_up, w_down)
+    accl.register_stream_consumer(
+        stream_id, moe_expert_consumer(cfg, capacity, w_up, w_down,
+                                       accl.world, accl.cclo.torch_device))
+
+
+def run_moe_layer(accl, disp, mid, out, count: int, *,
+                  stream_id: int = MOE_EXPERT_STREAM, fused: bool = True,
+                  expert_fn=None, compress_dtype=None, peer_counts=(),
+                  from_device: bool = False, to_device: bool = False,
+                  lint: str = "error"):
+    """One MoE layer step over registered facade buffers: the dispatch
+    alltoall (expert FFN spliced as its RES_STREAM consumer) then the
+    combine alltoall returning expert outputs to their source ranks.
+
+    fused=True records BOTH legs as one call sequence (one dispatch; on
+    the card one CUDA-graph replay). fused=False issues the SAME two
+    descriptors eagerly, bitwise the same. fused=False with `expert_fn`
+    (make_expert_program) runs the descriptor-per-stage form: dispatch
+    alltoall, the expert function on mid's device image, combine
+    alltoall. Intermediates stay on the device.
+
+    `compress_dtype=DataType.int8` rides the blockwise-int8 wire on both
+    legs; None defers to the ALLTOALL_COMPRESS_MIN_COUNT register.
+    `peer_counts` routes both legs through the capacity-bounded alltoallv
+    (per-peer valid prefixes, overflow dropped on the wire)."""
+    def leg(tgt, a, b, **kw):
+        if peer_counts:
+            tgt.alltoallv(a, b, count, peer_counts,
+                          compress_dtype=compress_dtype, **kw)
+        else:
+            tgt.alltoall(a, b, count, compress_dtype=compress_dtype, **kw)
+
+    if fused:
+        seq = accl.sequence(lint=lint)
+        leg(seq, disp, mid, res_stream=stream_id)
+        leg(seq, mid, out)
+        return seq.run(from_device=from_device, to_device=to_device)
+    if expert_fn is not None:
+        leg(accl, disp, mid, from_device=from_device, to_device=True)
+        mid.device = expert_fn(mid.device)
+        leg(accl, mid, out, from_device=True, to_device=to_device)
+        return accl._last_request
+    leg(accl, disp, mid, res_stream=stream_id, from_device=from_device,
+        to_device=True)
+    leg(accl, mid, out, from_device=True, to_device=to_device)
+    return accl._last_request
+
+
+def make_moe_layer_program(accl, disp, mid, out, count: int, *,
+                           stream_id: int = MOE_EXPERT_STREAM,
+                           compress_dtype=None, peer_counts=(),
+                           lint: str = "error"):
+    """The steady-state fused layer step: the dispatch -> expert ->
+    combine batch recorded ONCE and frozen into a SequenceProgram (plans,
+    lint, the composed body and, on the card, its CUDA graph happen
+    here); every `program.run()` is one dispatch."""
+    seq = accl.sequence(lint=lint)
+    if peer_counts:
+        seq.alltoallv(disp, mid, count, peer_counts,
+                      compress_dtype=compress_dtype, res_stream=stream_id)
+        seq.alltoallv(mid, out, count, peer_counts,
+                      compress_dtype=compress_dtype)
+    else:
+        seq.alltoall(disp, mid, count, compress_dtype=compress_dtype,
+                     res_stream=stream_id)
+        seq.alltoall(mid, out, count, compress_dtype=compress_dtype)
+    return seq.compile()
+
+
+def create_moe_layer_buffers(accl, cfg: MoEConfig, capacity: int):
+    """(disp, mid, out) stacked rank buffers for `run_moe_layer`, each
+    (world, E * C * D) fp32."""
+    n = cfg.n_experts * capacity * cfg.d_model
+    return tuple(accl.create_buffer(n, torch.float32) for _ in range(3))
+
+
+def moe_ffn_via_sequence(accl, x, params, cfg: MoEConfig, *,
+                         buffers=None, capacity: int | None = None,
+                         fused: bool = True, compress_dtype=None,
+                         wire_capacity: int | None = None,
+                         stream_id: int = MOE_EXPERT_STREAM):
+    """The facade MoE FFN: route the stacked (world, T, D) tokens `x` on
+    the facade's device, run the dispatch -> expert -> combine round trip
+    as recorded descriptors over `accl`'s ranks, and combine. Returns the
+    stacked (world, T, D) FFN contributions, a tensor on the facade's
+    device.
+
+    `wire_capacity` (experts_per_rank == 1 only) applies the capacity
+    bound ON THE WIRE via alltoallv: the dispatch keeps its full
+    per-expert slots, but each peer accepts only the first wire_capacity
+    token rows; tokens beyond it are dropped by the schedule itself (zero
+    contribution after the gate)."""
+    world = accl.world
+    device = accl.cclo.torch_device
+    x = torch.as_tensor(x).to(device)
+    T, D = x.shape[-2:]
+    k = cfg.top_k
+    C = capacity if capacity is not None else _capacity(cfg, T * k)
+    E = cfg.n_experts
+    count = (E // world) * C * D  # per-peer chunk elements
+    peer_counts: tuple[int, ...] = ()
+    if wire_capacity is not None and wire_capacity < C:
+        if cfg.experts_per_rank != 1:
+            raise ValueError(
+                "wire_capacity needs experts_per_rank == 1 (a flat slot "
+                "prefix is a token prefix only for one expert per rank)")
+        peer_counts = (wire_capacity * D,) * world
+
+    _ensure_expert_consumer(accl, cfg, C, params["w_up"], params["w_down"],
+                            stream_id)
+    if buffers is None:
+        buffers = create_moe_layer_buffers(accl, cfg, C)
+    disp, mid, out = buffers
+    dispatch, safe_e, safe_c, keep, gate = _route(x, params, cfg, C)
+    disp.device = dispatch.reshape(world, -1).to(torch.float32)
+    run_moe_layer(accl, disp, mid, out, count, stream_id=stream_id,
+                  fused=fused, compress_dtype=compress_dtype,
+                  peer_counts=peer_counts, from_device=True, to_device=True)
+    back = out.device.reshape(world, E, C, D)
+    return _combine_tokens(back, safe_e, safe_c, keep, gate, T, k, D,
+                           back.dtype)
+
+
+def moe_reference_forward(params, tokens, cfg: MoEConfig):
+    """Single-device oracle: the same routing and capacity math with every
+    expert applied densely (no alltoall), then the residual, the
+    normalization and the unembedding. tokens (B, T) -> logits (B, T, V)."""
+    x = params["embed"][tokens]
+    T, D = x.shape[-2:]
+    k = cfg.top_k
+    C = _capacity(cfg, T * k)
+    disp, safe_e, safe_c, keep, gate = _route(x, params, cfg, C)
+    h = _gelu(torch.einsum("becd,edf->becf", disp, params["w_up"]))
+    out = torch.einsum("becf,efd->becd", h, params["w_down"])
+    x = x + _combine_tokens(out, safe_e, safe_c, keep, gate, T, k, D,
+                            x.dtype)
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6)
+    return torch.einsum("btd,dv->btv", x, params["unembed"])

@@ -1,7 +1,7 @@
-"""The transformer of the port: the axis-free forward and the fused
-KV-cache decode step over the ACCL facade.
+"""The transformer of the port: the axis-free forward, the fused train
+step and the fused KV-cache decode step over the ACCL facade.
 
-Counterpart of accl_tpu/models/transformer.py, the serving half. The
+Counterpart of accl_tpu/models/transformer.py, its facade half. The
 reference's model is one shard_map program over a (dp, sp, tp) mesh; the
 port has no mesh layer yet, so what lands here is what runs without
 one:
@@ -11,6 +11,12 @@ one:
     `_mlp_half`, `_block` with no tp or sp axis);
   - `forward_local`, the full-context forward of `local_train_loss` up to
     the logits: the oracle the decode step is held against;
+  - the data-parallel train step: the flat backward-ordered parameter
+    layout, `local_train_loss`, the fwd+bwd as a stream consumer through
+    torch.autograd, and copy -> allreduce -> combine recorded as ONE call
+    sequence (`make_train_step_program`: on the card one CUDA-graph
+    replay, forward and backward inside it) or issued eagerly
+    (`run_train_step_eager`), bitwise the same;
   - the device-resident decode step: per layer an attention consumer, a
     tensor-parallel allreduce, the residual combine, an MLP consumer, a
     second allreduce and combine, then the logits head, recorded as ONE
@@ -200,6 +206,214 @@ def forward_local(params: dict, tokens, cfg: TransformerConfig):
         x = _block(x, lyr, cfg)
     x = _rmsnorm(x, torch.ones(cfg.d_model, dtype=x.dtype, device=x.device))
     return torch.einsum("btd,dv->btv", x, params["unembed"])
+
+
+# ---------------------------------------------------------------------------
+# The device-resident train step: forward + backward + gradient allreduce +
+# SGD update recorded as ONE descriptor batch
+# ---------------------------------------------------------------------------
+
+# kernel-stream id the train step's fwd+bwd consumer registers under
+TRAIN_GRAD_STREAM = 21
+
+# per-layer leaf order of the flat gradient/parameter vector, REVERSE
+# backward-materialization order within a block: the backward produces
+# the MLP's grads before the attention's, so the flat layout (unembed,
+# layers N-1..0 each in this order, embed) puts the earliest-available
+# gradients first, where stripe 0 of an overlapped allreduce reads them
+_LAYER_BWD_ORDER = ("w_down", "w_up", "ln2", "wo", "wkv", "wq", "ln1")
+
+
+def _backward_ordered_leaves(tree: dict) -> list:
+    """The parameter/gradient leaves of the transformer tree in
+    backward-materialization order (see _LAYER_BWD_ORDER)."""
+    leaves = [tree["unembed"]]
+    for lyr in reversed(tree["layers"]):
+        leaves.extend(lyr[k] for k in _LAYER_BWD_ORDER)
+    leaves.append(tree["embed"])
+    return leaves
+
+
+def _tree_from_leaves(leaves: list, cfg: TransformerConfig) -> dict:
+    """Inverse of _backward_ordered_leaves."""
+    it = iter(leaves[1:-1])
+    rev_layers = [{k: next(it) for k in _LAYER_BWD_ORDER}
+                  for _ in range(cfg.n_layers)]
+    return {"unembed": leaves[0], "embed": leaves[-1],
+            "layers": rev_layers[::-1]}
+
+
+def _train_leaf_shapes(cfg: TransformerConfig) -> list:
+    """Leaf shapes of the flat train-step parameter vector, in the order
+    _backward_ordered_leaves uses."""
+    d, ff = cfg.d_model, cfg.d_ff
+    layer = {
+        "w_down": (ff, d), "w_up": (d, ff), "ln2": (d,),
+        "wo": (cfg.n_heads, cfg.head_dim, d),
+        "wkv": (d, 2, cfg.kv_heads, cfg.head_dim),
+        "wq": (d, cfg.n_heads, cfg.head_dim), "ln1": (d,),
+    }
+    shapes: list = [(d, cfg.vocab)]  # unembed
+    for _ in range(cfg.n_layers):
+        shapes.extend(layer[k] for k in _LAYER_BWD_ORDER)
+    shapes.append((cfg.vocab, d))  # embed
+    return shapes
+
+
+def train_param_count(cfg: TransformerConfig) -> int:
+    """Element count of the flat train-step parameter vector: the `count`
+    of every descriptor in the fused train-step batch."""
+    return sum(math.prod(s) for s in _train_leaf_shapes(cfg))
+
+
+def _split_flat(flat, cfg: TransformerConfig) -> list:
+    """A flat (n,) vector cut into its leaves, as views."""
+    parts, off = [], 0
+    for sh in _train_leaf_shapes(cfg):
+        size = math.prod(sh)
+        parts.append(flat[off:off + size].view(sh))
+        off += size
+    return parts
+
+
+def flatten_train_params(params: dict) -> torch.Tensor:
+    """Parameter/gradient tree -> flat vector in backward order, the
+    layout of every train-step buffer (bitwise the reference's)."""
+    return torch.cat([t.reshape(-1)
+                      for t in _backward_ordered_leaves(params)])
+
+
+def unflatten_train_params(flat, cfg: TransformerConfig) -> dict:
+    """Inverse of flatten_train_params; the leaves are views of `flat`."""
+    return _tree_from_leaves(_split_flat(flat, cfg), cfg)
+
+
+def local_train_loss(params: dict, tokens, targets,
+                     cfg: TransformerConfig):
+    """Mean next-token NLL of the axis-free forward (forward_local), the
+    log-softmax in fp32 and one gathered target a row."""
+    logits = forward_local(params, tokens, cfg)
+    logp = torch.log_softmax(logits.float(), -1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return nll.mean()
+
+
+def make_grad_consumer(cfg: TransformerConfig, tokens, targets,
+                       scale: float = 1.0, device="cuda"):
+    """The forward+backward as a RES_STREAM consumer over the stacked
+    copy result (world, n): row r, rank r's flat parameters, runs the
+    local fwd+bwd over its batch shard tokens[r] / targets[r] ((world, B,
+    T) ints, placed on `device` once here: the card unless the caller
+    names the CPU, so a captured step copies no index from the host) and
+    lands its flat gradient (backward order) in row r of the result.
+
+    `scale` (rounded to fp32, as the reference's np.float32) multiplies
+    the loss BEFORE the backward, so the consumer emits grad(scale *
+    loss). The train step passes -lr/world: the allreduce then sums
+    per-rank update contributions and the final combine is a pure add
+    (the reference's docstring says why: a multiply after the allreduce
+    rounds differently in the fused program than in the eager twin).
+
+    Ranks run one after another so a CUDA graph's pool reuses one rank's
+    activations. Each leaf is a view of the row made a leaf of its own,
+    so the gradients come back leaf by leaf and are concatenated once
+    into the result row (a gradient taken through the views would
+    materialize a full-width zero vector per leaf). The embedding
+    gather's backward is index_put_ with accumulate=True, which on CUDA
+    takes PyTorch's sorted, deterministic kernel, so two runs agree
+    bitwise. The scale is a Python float (no host-to-device copy) and
+    nothing syncs with the host: the consumer is capturable."""
+    tok = torch.as_tensor(tokens).to(device=device, dtype=torch.int64)
+    tgt = torch.as_tensor(targets).to(device=device, dtype=torch.int64)
+    s = torch.tensor(scale, dtype=torch.float32).item()
+
+    def consumer(params_flat):
+        out = torch.empty_like(params_flat)
+        rows = params_flat.to(torch.float32)
+        with torch.enable_grad():
+            for r in range(rows.shape[0]):
+                leaves = [p.detach().requires_grad_()
+                          for p in _split_flat(rows[r], cfg)]
+                loss = local_train_loss(_tree_from_leaves(leaves, cfg),
+                                        tok[r], tgt[r], cfg)
+                grads = torch.autograd.grad(s * loss, leaves)
+                torch.cat([g.reshape(-1) for g in grads], out=out[r])
+        return out
+
+    return consumer
+
+
+def create_train_step_buffers(accl, cfg: TransformerConfig):
+    """(params, grads, update, new_params) flat rank buffers for the
+    fused train step, each (world, train_param_count) fp32."""
+    n = train_param_count(cfg)
+    return tuple(accl.create_buffer(n, torch.float32) for _ in range(4))
+
+
+def _register_train_consumers(accl, cfg: TransformerConfig, tokens,
+                              targets, lr: float):
+    # the dp mean and the SGD learning rate fold into the backward's seed:
+    # each rank emits its UPDATE contribution grad(-lr/world * loss_r)
+    accl.register_stream_consumer(
+        TRAIN_GRAD_STREAM,
+        make_grad_consumer(cfg, tokens, targets, scale=-lr / accl.world,
+                           device=accl.cclo.torch_device))
+
+
+def record_train_step(accl, cfg: TransformerConfig, tokens, targets, *,
+                      lr: float = 1e-3, lint: str = "error",
+                      buffers=None):
+    """Record the data-parallel train step as ONE descriptor batch over
+    `accl`'s world:
+
+      1. copy(params -> grads) with the fwd+bwd as its RES_STREAM
+         consumer (the -lr/world scale rides the backward's seed);
+      2. allreduce(grads -> update, SUM): inside the OVERLAP_MIN_COUNT
+         window the plan stripes it into independent chains;
+      3. combine(SUM, params, update -> new_params): the SGD step.
+
+    Returns (recorder, buffers); `recorder.compile()` freezes it (on the
+    card one CUDA graph), and the same three descriptors issued eagerly
+    (`run_train_step_eager`) are its bitwise twin."""
+    if buffers is None:
+        buffers = create_train_step_buffers(accl, cfg)
+    pbuf, gbuf, ubuf, obuf = buffers
+    n = train_param_count(cfg)
+    _register_train_consumers(accl, cfg, tokens, targets, lr)
+    seq = accl.sequence(lint=lint)
+    seq.copy(pbuf, gbuf, n, res_stream=TRAIN_GRAD_STREAM)
+    seq.allreduce(gbuf, ubuf, n, ReduceFunction.SUM)
+    seq.combine(n, ReduceFunction.SUM, pbuf, ubuf, obuf)
+    return seq, buffers
+
+
+def make_train_step_program(accl, cfg: TransformerConfig, tokens,
+                            targets, *, lr: float = 1e-3,
+                            lint: str = "error", buffers=None):
+    """The steady-state fused train step: record once, compile once (on
+    the card one CUDA-graph capture), dispatch ONE program per iteration.
+    Returns (program, buffers); the caller's loop is `write params ->
+    program.run() -> read new_params`."""
+    seq, buffers = record_train_step(accl, cfg, tokens, targets, lr=lr,
+                                     lint=lint, buffers=buffers)
+    return seq.compile(), buffers
+
+
+def run_train_step_eager(accl, cfg: TransformerConfig, buffers):
+    """The dispatch-per-call twin: the SAME three descriptors the fused
+    batch records, issued eagerly with the intermediates kept on the
+    device. Bitwise-identical to the fused program; the consumer must be
+    registered (`_register_train_consumers`, or a recorded step on the
+    same facade)."""
+    pbuf, gbuf, ubuf, obuf = buffers
+    n = train_param_count(cfg)
+    accl.copy_to_stream(pbuf, n, res_stream=TRAIN_GRAD_STREAM,
+                        dstbuf=gbuf, from_device=True, to_device=True)
+    accl.allreduce(gbuf, ubuf, n, ReduceFunction.SUM, from_device=True,
+                   to_device=True)
+    accl.combine(n, ReduceFunction.SUM, pbuf, ubuf, obuf,
+                 from_device=True, to_device=True)
+    return accl._last_request
 
 
 # ---------------------------------------------------------------------------

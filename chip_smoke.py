@@ -195,9 +195,28 @@ What it does, in order, printing one JSON object per line:
      it), the fused and eager step's ms (events and host clock),
      tokens/s, accl_serve_step_seconds p50/p99, the bytes staged a step
      (xp alone) and the step's bound;
- 16. the kernels line (with each kernel's launches on the sequence,
-     point-to-point, sub-communicator, alltoall, tuned, telemetry and
-     serve paths); last, the device line.
+ 16. train phase (models/transformer.py's train step): the flagship
+     widths in fp32 (155 205 632 parameters), W = 4 data-parallel ranks,
+     tokens (4, 2, 1024), lr 1e-3, TF32 off: the fused step (forward,
+     backward, gradient allreduce and SGD combine in one CUDA-graph
+     replay) bitwise with its eager twin, with the default registers and
+     with the overlap register open (the plan stripes); the update within
+     1e-4 of max|update| of a plain autograd oracle and of the port's
+     CPU run (tokens (4, 1, 64)); the loss lower after the step; kernel 1
+     and 7 launches against the plan; then the fused and eager step's
+     p50/p99 (events, host clock), tokens/s, the FLOP bound (67 TFLOP/s)
+     and the step's share of it, the allreduce's and combine's device ms
+     in one profiled replay, peak device memory;
+ 17. MoE phase (models/moe.py's facade form): d_model 1024, d_ff 4096,
+     4 experts over W = 4, top-2, 2048 tokens a rank (C = 1280): fused,
+     eager and the staged expert program bitwise; within 1e-4 of a
+     plain per-rank oracle; the int8 wire within the reference's 5%
+     bound, its register form bitwise; wire capacity 640 dropping the
+     oracle's tokens; kernels 5 and 6 launches against the plan; the
+     layer step's ms, fused and eager, exact and int8, beside its bound;
+ 18. the kernels line (with each kernel's launches on the sequence,
+     point-to-point, sub-communicator, alltoall, tuned, telemetry,
+     serve, train and MoE paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -205,6 +224,7 @@ last line. It needs no network and one card.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -240,6 +260,14 @@ F32_UNIT = 2.0 ** -24
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def same_bits(a, b) -> bool:
@@ -4666,22 +4694,13 @@ def serve_phase(ring, qk, L):
                                  "step, not xp alone")
 
         def timed_steps(step, accl_or_prog, buffers):
-            ev, host_ms = [], []
-            for i in range(SERVE_REPS + 3):
-                toks, pos = steps[i % SERVE_STEPS]
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                t0 = time.perf_counter()
-                e0.record()
+            i = itertools.count()
+
+            def cycled():  # each run the next of the 16 steps' inputs
+                toks, pos = steps[next(i) % SERVE_STEPS]
                 step(accl_or_prog, buffers, toks, pos)
-                e1.record()
-                e1.synchronize()
-                if i >= 3:
-                    host_ms.append((time.perf_counter() - t0) * 1e3)
-                    ev.append(e0.elapsed_time(e1))
-            return {"events_ms": statistics.median(ev),
-                    "host_ms": statistics.median(host_ms),
-                    "host_ms_min": min(host_ms), "host_ms_max": max(host_ms)}
+
+            return timed_runs(cycled, SERVE_REPS, warmup=3)
 
         fused = timed_steps(fused_step, prog, bf)
         # the fused step's parts: stage xp in, copy the bound buffers into
@@ -4730,7 +4749,7 @@ def serve_phase(ring, qk, L):
                   {"name": name[:140], "ms": ms,
                    "count": prof["kernels"][name]} for name, ms in top],
               "eager_step_ms": eager,
-              "tokens_per_s": B / fused["host_ms"] * 1e3,
+              "tokens_per_s": B / fused["host_ms_p50"] * 1e3,
               "server_steps": srv.n_steps, "server_tokens": tokens_total,
               "step_seconds_p50": hist[quantile_key(0.5)],
               "step_seconds_p99": hist[quantile_key(0.99)],
@@ -4751,6 +4770,595 @@ def serve_phase(ring, qk, L):
     return path
 
 
+# the train step at the flagship widths in fp32: W = 4 data-parallel
+# virtual ranks, each with 2 sequences of 1024 tokens (bench.py's flagship
+# lane's global batch of 8 x 1024)
+TRAIN_WORLD, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 1024
+TRAIN_LR = 1e-3
+TRAIN_REPS = 10  # timed steps, fused and eager
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 1, 64  # the card against the port's CPU run
+# |update - oracle| <= TRAIN_TOL * max|update| + 1e-7 (card against the
+# autograd oracle and against the CPU run; new parameters one ulp more)
+TRAIN_TOL = 1e-4
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """One step's matrix operations: 6 per token (forward and backward)
+    for each parameter a product reads, which leaves out the embedding
+    (a gather) and keeps the unembedding, plus the attention term
+    12 * layers * tokens * seq * d_model. bench.py's flagship formula
+    counts the embedding too."""
+    from accl_tpu_torch.models import transformer as trf
+
+    matmul_params = trf.train_param_count(cfg) - cfg.vocab * cfg.d_model
+    return (6.0 * matmul_params * tokens
+            + 12.0 * cfg.n_layers * tokens * seq * cfg.d_model)
+
+
+def ring_launches(plan, n: int) -> int:
+    """Kernel 1's launches for one allreduce of n fp32 elements under
+    `plan`: each stripe (the whole row when unstriped) in 4 MiB
+    segments."""
+    seg = SEG_BYTES // 4
+    step = plan.seg_count if plan.stripes > 1 else n
+    return sum(-(-min(step, n - lo) // seg) for lo in range(0, n, step))
+
+
+def timed_runs(fn, reps: int, warmup: int = 1) -> dict:
+    """p50, p99, min and max of `reps` runs of fn (after `warmup`
+    untimed runs), each timed by CUDA events around it (device ms) and
+    by the host clock up to its last event's completion (host ms)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev, host = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev.append(e0.elapsed_time(e1))
+    out = {}
+    for clock, t in (("events_ms", ev), ("host_ms", host)):
+        q = statistics.quantiles(t, n=100, method="inclusive")
+        out.update({f"{clock}_p50": q[49], f"{clock}_p99": q[98],
+                    f"{clock}_min": min(t), f"{clock}_max": max(t)})
+    return out
+
+
+def train_oracle(flat, tokens, targets, cfg, lr: float, world: int):
+    """The update a step should make, with no facade: for each rank,
+    torch.autograd.grad of local_train_loss at the flat parameters,
+    scaled by -lr/world; summed over ranks with torch.sum."""
+    import torch
+
+    from accl_tpu_torch.models import transformer as trf
+
+    grads = []
+    for r in range(world):
+        leaves = [p.detach().requires_grad_()
+                  for p in trf._split_flat(flat, cfg)]
+        with torch.enable_grad():
+            loss = trf.local_train_loss(trf._tree_from_leaves(leaves, cfg),
+                                        tokens[r], targets[r], cfg)
+            g = torch.autograd.grad(loss, leaves)
+        grads.append(torch.cat([x.reshape(-1) for x in g]) * (-lr / world))
+    return torch.sum(torch.stack(grads), 0)
+
+
+def train_loss(flat, tokens, targets, cfg, world: int) -> float:
+    """The step's batch loss: the mean over ranks of local_train_loss."""
+    import torch
+
+    from accl_tpu_torch.models import transformer as trf
+
+    tree = trf.unflatten_train_params(flat, cfg)
+    with torch.no_grad():
+        return sum(float(trf.local_train_loss(tree, tokens[r], targets[r],
+                                              cfg))
+                   for r in range(world)) / world
+
+
+def check_update(got, want, what: str) -> float:
+    """|got - want| <= TRAIN_TOL * max|want| + 1e-7 on every element;
+    returns the error relative to max|want|."""
+    scale = float(want.abs().max())
+    err = max_abs_err(got, want)
+    if not err <= TRAIN_TOL * scale + 1e-7:
+        raise AssertionError(f"train: {what} {err} > "
+                             f"{TRAIN_TOL * scale + 1e-7}")
+    return err / scale
+
+
+def train_phase(ring, qk, L):
+    """The training path (accl_tpu_torch/models/transformer.py) on the
+    card: the data-parallel train step at the flagship transformer's
+    widths in fp32 (155 205 632 parameters), W = 4 virtual ranks with
+    tokens (4, 2, 1024) from a seed, targets the tokens rolled by one, lr
+    1e-3, TF32 off. Gates, each failing the run: (1) the fused step (one
+    CUDA-graph replay: forward, backward, allreduce and combine) bitwise
+    with run_train_step_eager, with the default registers and with
+    OVERLAP_MIN_COUNT open (the plan must stripe); (2) the update within
+    TRAIN_TOL of a plain oracle (train_oracle); (3) the card's step
+    within TRAIN_TOL of the port's CPU run of the same step at tokens
+    (4, 1, 64); (4) the batch's loss lower after the step; (5) kernel 1
+    launched ring_launches(plan) times a step and kernel 7 once, twice
+    that at compile (warm-up and capture), none at a replay. Numbers:
+    the fused and eager step's p50/p99 (CUDA events, host clock),
+    tokens/s, the FLOP bound and the step's share of it, the allreduce's
+    and the combine's device ms inside one profiled replay, peak memory.
+    Returns each kernel's launches over the checked runs."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import ACCL
+    from accl_tpu_torch.constants import TuningParams
+    from accl_tpu_torch.models import transformer as trf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("train: TF32 is on; fp32 products must be fp32")
+    emit({"phase": "train_setup",
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision()})
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    path = dict.fromkeys(kernels, 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            path[k] += v
+
+    mem = {}
+
+    def mark(tag):
+        mem[tag] = torch.cuda.memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    mark("entry")
+    cfg = trf.TransformerConfig(**SERVE_CFG)
+    W, B, T, V = TRAIN_WORLD, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab
+    n = trf.train_param_count(cfg)
+    flat = trf.flatten_train_params(trf.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1313), "cuda"))
+    rng = np.random.default_rng(1313)
+    tokens = rng.integers(0, V, (W, B, T)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=2)
+    tok, tgt = (torch.from_numpy(a).cuda().long() for a in (tokens, targets))
+
+    def facade(overlap: bool):
+        accl = ACCL(world=W)
+        if overlap:
+            tp = TuningParams.default()
+            tp.overlap_min_count = 1
+            accl.configure_tuning_parameters(tp)
+        bufs = trf.create_train_step_buffers(accl, cfg)
+        bufs[0].device = flat.expand(W, n).contiguous()
+        return accl, bufs
+
+    def want_launches(plan):
+        return {"ring_allreduce_bidir": ring_launches(plan, n), "combine": 1}
+
+    # (3) first, the card's side of the CPU comparison: the eager step at
+    # tokens (4, 1, 64) on a facade of its own
+    small_t = tokens[:, :TRAIN_CPU_BATCH, :TRAIN_CPU_SEQ]
+    small_g = targets[:, :TRAIN_CPU_BATCH, :TRAIN_CPU_SEQ]
+    accl, bufs = facade(False)
+    trf._register_train_consumers(accl, cfg, small_t, small_g, TRAIN_LR)
+    before = counts()
+    trf.run_train_step_eager(accl, cfg, bufs)
+    torch.cuda.synchronize()
+    add(delta(before))
+    card_upd, card_new = bufs[2].device.cpu(), bufs[3].device.cpu()
+    del accl, bufs
+    mark("start")
+
+    result = {"phase": "train", "gpu": card_name(), "world": W,
+              "tokens": [W, B, T],
+              "lr": TRAIN_LR, "params": n,
+              "config": {**SERVE_CFG, "dtype": "float32"}}
+    for regs in ("default", "overlap"):
+        accl, bufs = facade(regs == "overlap")
+        mark(f"{regs}_facade")
+        before = counts()
+        t0 = time.perf_counter()
+        prog, _ = trf.make_train_step_program(accl, cfg, tokens, targets,
+                                              lr=TRAIN_LR, buffers=bufs)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        mark(f"{regs}_compiled")
+        at_compile = delta(before)
+        add(at_compile)
+        plan = prog.plans[1]
+        want = want_launches(plan)
+        if regs == "overlap" and plan.stripes < 2:
+            raise AssertionError(f"train: the overlap register gave {plan}")
+        before = counts()
+        prog.run(from_device=True, to_device=True)
+        if delta(before):
+            raise AssertionError(f"train {regs}: a replay ticked "
+                                 f"{delta(before)}")
+        fused_upd, fused_new = bufs[2].device.clone(), bufs[3].device.clone()
+        before = counts()
+        trf.run_train_step_eager(accl, cfg, bufs)
+        torch.cuda.synchronize()
+        eager_launches = delta(before)
+        add(eager_launches)
+        if (eager_launches != want
+                or at_compile != {k: 2 * v for k, v in want.items()}):
+            raise AssertionError(
+                f"train {regs}: eager step launched {eager_launches}, "
+                f"compile {at_compile}; the plan ({plan.stripes} stripes) "
+                f"gives {want}")
+        if not (same_bits(bufs[3].device, fused_new)
+                and same_bits(bufs[2].device, fused_upd)):
+            raise AssertionError(f"train {regs}: fused != eager")
+        if not torch.isfinite(fused_new).all():
+            raise AssertionError(f"train {regs}: non-finite parameters")
+        row = {"registers": regs, "stripes": plan.stripes,
+               "allreduce_plan": plan.algorithm.name,
+               "compile_s": compile_s, "warmup_s": prog.graph.warmup_s,
+               "capture_s": prog.graph.capture_s,
+               "launches_at_compile": at_compile,
+               "launches_eager_step": eager_launches,
+               "launches_per_replay": 0, "fused_eq_eager_bitwise": True}
+        mark(f"{regs}_fused_and_eager")
+        if regs == "default":
+            oracle = train_oracle(flat, tok, tgt, cfg, TRAIN_LR, W)
+            row["update_vs_oracle_rel_err"] = max(
+                check_update(fused_upd[r], oracle, f"rank {r} update "
+                             "against the oracle") for r in range(W))
+            del oracle
+            loss0 = train_loss(flat, tok, tgt, cfg, W)
+            loss1 = train_loss(fused_new[0], tok, tgt, cfg, W)
+            if not loss1 < loss0:
+                raise AssertionError(f"train: loss {loss0} -> {loss1}")
+            row.update(loss_before=loss0, loss_after=loss1)
+            default_new = fused_new
+        else:
+            row["striped_vs_unstriped_max_abs"] = max_abs_err(fused_new,
+                                                              default_new)
+            del default_new
+        del fused_upd, fused_new
+
+        def fused_step():
+            prog.run(from_device=True, to_device=True)
+
+        def eager_step():
+            trf.run_train_step_eager(accl, cfg, bufs)
+
+        reps = TRAIN_REPS if regs == "default" else TRAIN_REPS // 2
+        before = counts()
+        fused = timed_runs(fused_step, reps)
+        replay = []
+        for _ in range(5):
+            replay.append(prog.run(from_device=True, to_device=True)
+                          .get_duration_ns() * 1e-6)
+        mark(f"{regs}_timed_fused")
+        if delta(before):
+            raise AssertionError(f"train {regs}: a replay ticked "
+                                 f"{delta(before)}")
+        eager = timed_runs(eager_step, reps)
+        mark(f"{regs}_timed_eager")
+        flops = train_flops(cfg, W * B * T, T)
+        bound_ms = flops / FP32_FLOPS_PER_S * 1e3
+        row.update(fused_step_ms=fused, eager_step_ms=eager,
+                   replay_ms_p50=statistics.median(replay),
+                   tokens_per_s=W * B * T / fused["host_ms_p50"] * 1e3,
+                   flops=flops, bound_ms=bound_ms, bound_by="operations",
+                   bound_share=bound_ms / fused["events_ms_p50"],
+                   graph_copy_in_bytes=prog.graph.load_bytes)
+        if regs == "default":
+            prof = kernel_profile(fused_step)
+            mark("default_profiled")
+            parts = {}
+            for name, ms in prof["kernel_ms"].items():
+                for keys, k in SERVE_PROFILE_NAMES.items():
+                    if all(part in name for part in keys):
+                        parts[k] = parts.get(k, 0.0) + ms
+                        if prof["graph_kernels"][name] != \
+                                prof["kernels"][name]:
+                            raise AssertionError(f"train: {name} launched "
+                                                 "outside the graph")
+            hand = {k: sum(c for name, c in prof["kernels"].items()
+                           if all(p in name for p in keys))
+                    for keys, k in SERVE_PROFILE_NAMES.items()}
+            if prof["graph_launches"] != 1 or hand != want:
+                raise AssertionError(f"train: a replay ran {hand} in "
+                                     f"{prof['graph_launches']} graph "
+                                     f"launches; the plan gives {want}")
+            top = sorted(prof["kernel_ms"].items(), key=lambda kv: -kv[1])
+            row.update(
+                allreduce_device_ms=parts["ring_allreduce_bidir"],
+                combine_device_ms=parts["combine"],
+                device_busy_ms=prof["busy_ms"],
+                device_kernels_per_step=sum(prof["kernels"].values()),
+                memcpy_per_step=prof["memcpy"],
+                replay_top_kernels=[
+                    {"name": name[:140], "ms": ms,
+                     "count": prof["kernels"][name]}
+                    for name, ms in top[:12]],
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+        row["memory_allocated"] = dict(mem)
+        emit({**result, **row})
+        del prog, bufs, accl
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    cpu = ACCL(world=W, torch_device="cpu")
+    cpu.cclo.compiler.use_ring_kernel = True  # the ring kernel's fold order
+    cbufs = trf.create_train_step_buffers(cpu, cfg)
+    flat_cpu = flat.cpu()
+    cbufs[0].device = flat_cpu.expand(W, n).contiguous()
+    trf._register_train_consumers(cpu, cfg, small_t, small_g, TRAIN_LR)
+    trf.run_train_step_eager(cpu, cfg, cbufs)
+    cpu_err = check_update(card_upd, cbufs[2].device, "card against CPU")
+    ulp = 2.0 ** -23 * cbufs[3].device.abs()
+    new_err = (card_new - cbufs[3].device).abs()
+    if not bool((new_err <= TRAIN_TOL * float(cbufs[2].device.abs().max())
+                 + 1e-7 + ulp).all()):
+        raise AssertionError("train: card's new parameters against CPU")
+    emit({"phase": "train_cpu", "gpu": result["gpu"],
+          "tokens": [W, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ],
+          "card_vs_cpu_update_rel_err": cpu_err,
+          "card_vs_cpu_new_max_abs": float(new_err.max()),
+          "tolerance": TRAIN_TOL, "cpu_s": time.perf_counter() - t0,
+          "max_memory_allocated": result["max_memory_allocated"]})
+    del cpu, cbufs, flat_cpu, card_upd, card_new, flat
+    torch.cuda.empty_cache()
+    idle = [k for k in ("ring_allreduce_bidir", "combine") if path[k] == 0]
+    if idle:
+        raise AssertionError(f"the train path launched no {idle}")
+    return path
+
+
+# the MoE layer step at the flagship FFN widths: W = 4 ranks of one expert
+# each, top-2 routing, 2048 tokens a rank; C = 1280, so a peer's chunk is
+# 1280 x 1024 fp32 (5.24 MB) and a rank's dispatch 21 MB
+MOE_CFG = dict(d_model=1024, d_ff=4096, n_experts=4, experts_per_rank=1,
+               top_k=2, capacity_factor=1.25)
+MOE_WORLD, MOE_TOKENS = 4, 2048
+MOE_WIRE_CAPACITY = 640  # half of C: the alltoallv's dropping case
+MOE_REPS = 20
+MOE_TOL = 1e-4  # |delta| <= MOE_TOL * max|ref| (card against the oracle)
+MOE_INT8_BOUND = 0.05  # the reference's: 0 < err < 0.05 * max|ref|
+
+
+def int8_alltoall_launches(steps, plans, world: int) -> dict:
+    """Kernels 5 and 6's launches for one run of a recorded batch, from
+    its descriptors and the plans they resolved to: per alltoall leg on
+    the int8 wire, one quantize and one dequantize pass when the plan is
+    the dense alltoall and a slot is a whole number of 256-element
+    blocks (the whole buffer encoded and decoded once), else one of each
+    a hop (world - 1)."""
+    from accl_tpu_torch import DataType, Operation
+    from accl_tpu_torch.constants import QUANT_BLOCK_ELEMS
+    from accl_tpu_torch.sequencer.plan import Algorithm
+
+    n = 0
+    for opts, plan in zip(steps, plans):
+        if (opts.scenario != Operation.alltoall
+                or opts.compress_dtype != DataType.int8):
+            continue
+        aligned = (plan.algorithm == Algorithm.FLAT_ALLTOALL
+                   and opts.count % QUANT_BLOCK_ELEMS == 0)
+        n += 1 if aligned else world - 1
+    return {"quantize": n, "dequantize": n} if n else {}
+
+
+def moe_oracle(x, params, cfg, capacity: int):
+    """The stacked FFN contributions with no facade and no dispatch
+    buffer: per rank, the router's softmax, the top k by a stable sort
+    (lower expert first on ties, as lax.top_k), each expert's first
+    `capacity` pseudo-tokens in token order through gelu(x @ w_up) @
+    w_down, weighted by the gate and added into the token's row."""
+    import torch
+    import torch.nn.functional as F
+
+    W, T, D = x.shape
+    k, E = cfg.top_k, cfg.n_experts
+    out = torch.zeros_like(x)
+    for r in range(W):
+        probs = torch.softmax((x[r] @ params["router"]).float(), -1)
+        topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+        topv, topi = topv[:, :k], topi[:, :k]
+        gates = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
+        assign, gate = topi.reshape(-1), gates.reshape(-1)
+        for e in range(E):
+            idx = (assign == e).nonzero()[:capacity, 0]
+            tok = idx // k
+            h = F.gelu(x[r, tok] @ params["w_up"][e], approximate="tanh")
+            out[r].index_add_(0, tok, (h @ params["w_down"][e])
+                              * gate[idx, None])
+    return out
+
+
+def moe_phase(ring, qk, L):
+    """The MoE layer step's facade form (accl_tpu_torch/models/moe.py) on
+    the card at the flagship FFN widths: MoEConfig(d_model=1024,
+    d_ff=4096, n_experts=4, experts_per_rank=1, top_k=2,
+    capacity_factor=1.25), W = 4, 2048 tokens a rank from a seed, TF32
+    off. Gates, each failing the run: (1) fused (one recorded sequence),
+    eager and eager with make_expert_program bitwise on the exact wire;
+    (2) the FFN contributions within MOE_TOL of a plain per-rank oracle
+    (moe_oracle); (3) the int8 wire within the reference's bound, 0 <
+    err < 0.05 * max|ref|, its explicit, eager and register-selected
+    forms bitwise; (4) wire_capacity 640 drops exactly the pseudo-tokens the
+    oracle at capacity 640 drops (zero rows where it gives zero, within
+    MOE_TOL elsewhere); (5) an eager int8 layer step launches kernels 5
+    and 6 as its plan gives (int8_alltoall_launches), the fused one twice
+    that at compile (warm-up and capture) and none at a replay, and the
+    exact wire none. Numbers: the layer step's
+    device ms (events) and host ms, fused against eager, exact against
+    int8, beside its bound. Returns each kernel's launches over the
+    checked runs."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import ACCL, DataType
+    from accl_tpu_torch.constants import TuningParams
+    from accl_tpu_torch.models import moe
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("moe: TF32 is on; fp32 products must be fp32")
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    start = counts()
+    cfg = moe.MoEConfig(**MOE_CFG)
+    W, T, D = MOE_WORLD, MOE_TOKENS, cfg.d_model
+    params = moe.init_moe_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1414), "cuda")
+    rng = np.random.default_rng(1414)
+    x = torch.from_numpy(rng.standard_normal((W, T, D)).astype(
+        np.float32)).cuda()
+    C = moe._capacity(cfg, T * cfg.top_k)
+    count = cfg.experts_per_rank * C * D
+    accl = ACCL(world=W)
+    bufs = moe.create_moe_layer_buffers(accl, cfg, C)
+
+    def ffn(**kw):
+        before = counts()
+        y = moe.moe_ffn_via_sequence(accl, x, params, cfg, buffers=bufs,
+                                     **kw)
+        torch.cuda.synchronize()
+        return y, delta(before)
+
+    # (1) exact wire: fused, eager, descriptor-per-stage
+    fused, l_fused = ffn()
+    eager, l_eager = ffn(fused=False)
+    dispatch, safe_e, safe_c, keep, gate = moe._route(x, params, cfg, C)
+    disp, mid, out = bufs
+    disp.device = dispatch.reshape(W, -1)
+    expert = moe.make_expert_program(accl, cfg, C, params["w_up"],
+                                     params["w_down"])
+    moe.run_moe_layer(accl, disp, mid, out, count, fused=False,
+                      expert_fn=expert, from_device=True, to_device=True)
+    staged = moe._combine_tokens(out.device.reshape(W, cfg.n_experts, C, D),
+                                 safe_e, safe_c, keep, gate, T, cfg.top_k,
+                                 D, torch.float32)
+    if not (same_bits(fused, eager) and same_bits(fused, staged)):
+        raise AssertionError("moe: fused, eager and staged differ")
+    if l_fused or l_eager:
+        raise AssertionError(f"moe: the exact wire launched {l_fused} "
+                             f"fused, {l_eager} eager")
+    # (2) against the oracle
+    ref = moe_oracle(x, params, cfg, C)
+    scale = float(ref.abs().max())
+    oracle_err = max_abs_err(fused, ref)
+    if not (torch.isfinite(fused).all() and oracle_err <= MOE_TOL * scale):
+        raise AssertionError(f"moe: against the oracle {oracle_err} > "
+                             f"{MOE_TOL * scale}")
+    # (3) the int8 wire, explicit and through the register; (5) its
+    # launches against the layer step's plan
+    int8, l_int8 = ffn(compress_dtype=DataType.int8)
+    int8_eager, l_int8_eager = ffn(compress_dtype=DataType.int8,
+                                   fused=False)
+    accl.configure_tuning_parameters(
+        TuningParams(alltoall_compress_min_count=1))
+    via_register, l_register = ffn()
+    accl.configure_tuning_parameters(TuningParams())
+    # the fused int8 call compiled this batch: recording it again reads
+    # its descriptors and plans from the cache, launching nothing
+    before = counts()
+    prog8 = moe.make_moe_layer_program(accl, disp, mid, out, count,
+                                       compress_dtype=DataType.int8)
+    if delta(before):
+        raise AssertionError(f"moe: re-recording the int8 step launched "
+                             f"{delta(before)}")
+    want = int8_alltoall_launches(prog8._prepared.desc.steps, prog8.plans, W)
+    del prog8
+    int8_err = max_abs_err(int8, fused)
+    if not 0 < int8_err < MOE_INT8_BOUND * float(fused.abs().max()):
+        raise AssertionError(f"moe: int8 error {int8_err} against max "
+                             f"{float(fused.abs().max())}")
+    if not (same_bits(via_register, int8) and same_bits(int8_eager, int8)):
+        raise AssertionError("moe: int8 register, explicit and eager forms "
+                             "differ")
+    # the register writes the explicit form's descriptors, so its batch
+    # replays the program the explicit call compiled: no launch
+    if (set(want) != {"quantize", "dequantize"} or l_int8_eager != want
+            or l_int8 != {k: 2 * v for k, v in want.items()}
+            or l_register):
+        raise AssertionError(f"moe: int8 launches {l_int8} fused, "
+                             f"{l_int8_eager} eager, {l_register} register; "
+                             f"the plan gives {want} a step")
+    # (4) capacity on the wire
+    trimmed, _ = ffn(wire_capacity=MOE_WIRE_CAPACITY)
+    ref_cap = moe_oracle(x, params, cfg, MOE_WIRE_CAPACITY)
+    zero = (ref_cap == 0).all(-1)
+    cap_err = max_abs_err(trimmed, ref_cap)
+    if not (bool((trimmed[zero] == 0).all()) and bool(zero.any())
+            and cap_err <= MOE_TOL * float(ref_cap.abs().max())):
+        raise AssertionError(f"moe: wire capacity {MOE_WIRE_CAPACITY}: "
+                             f"{cap_err}, dropped rows not zero")
+    dropped_rows = int(zero.sum())
+    path = delta(start)
+    gpu = card_name()
+    emit({"phase": "moe", "gpu": gpu, "world": W, "tokens_per_rank": T,
+          "capacity": C,
+          "config": MOE_CFG, "chunk_bytes": count * 4,
+          "dispatch_bytes_per_rank": W * count * 4,
+          "fused_eq_eager_eq_staged_bitwise": True,
+          "oracle_rel_err": oracle_err / scale, "tolerance": MOE_TOL,
+          "int8_rel_err": int8_err / float(fused.abs().max()),
+          "int8_register_eq_explicit_bitwise": True,
+          "wire_capacity": MOE_WIRE_CAPACITY,
+          "wire_capacity_dropped_token_rows": dropped_rows,
+          "wire_capacity_rel_err": cap_err / float(ref_cap.abs().max()),
+          "launches_int8_plan": want,
+          "launches_int8_layer_step": l_int8_eager,
+          "launches_int8_at_compile": l_int8})
+    del ref, ref_cap, trimmed, staged, eager, int8, int8_eager, via_register
+
+    # the layer step alone: routed dispatch in place, programs compiled
+    timing = {}
+    disp.device = dispatch.reshape(W, -1)
+    for wire in ("exact", "int8"):
+        cd = DataType.int8 if wire == "int8" else None
+        prog = moe.make_moe_layer_program(accl, disp, mid, out, count,
+                                          compress_dtype=cd)
+        before = counts()
+        timing[wire] = {
+            "fused": timed_runs(lambda: prog.run(from_device=True,
+                                                 to_device=True), MOE_REPS),
+            "eager": timed_runs(lambda: moe.run_moe_layer(
+                accl, disp, mid, out, count, fused=False, compress_dtype=cd,
+                from_device=True, to_device=True), MOE_REPS)}
+        launched = delta(before)
+        if wire == "exact" and launched:
+            raise AssertionError(f"moe: exact layer steps launched "
+                                 f"{launched}")
+    rows = W * W * cfg.experts_per_rank * C
+    flops = rows * 2 * 2 * D * cfg.d_ff
+    nbytes = 4 * (2 * W * W * count + 2 * cfg.n_experts * D * cfg.d_ff)
+    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    emit({"phase": "moe_timing", "gpu": gpu, "layer_step_ms": timing,
+          "bound_ms": max(t_ops, t_bytes) * 1e3,
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "flops": flops, "bytes": nbytes})
+    del accl, bufs, params, x, dispatch, fused
+    torch.cuda.empty_cache()
+    idle = [k for k in ("quantize", "dequantize") if not path.get(k)]
+    if idle:
+        raise AssertionError(f"the moe path launched no {idle}")
+    return {name: path.get(name, 0) for name in kernels}
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -4768,9 +5376,10 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     twins, and the warm-up run and capture at compile; a replay runs
     the captured kernels without the host's wrappers); `p2p_launches`,
     `comm_launches`, `alltoall_launches`, `tuned_launches`,
-    `telemetry_launches` and `serve_launches` likewise over the checked
-    runs of the point-to-point, sub-communicator, alltoall, tuned,
-    telemetry and serve paths."""
+    `telemetry_launches`, `serve_launches`, `train_launches` and
+    `moe_launches` likewise over the checked runs of the point-to-point,
+    sub-communicator, alltoall, tuned, telemetry, serve, train and MoE
+    paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -4856,10 +5465,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     print(smi, flush=True)
     t0 = time.perf_counter()
     sources = ("ring_allreduce", "quant_wire", "lanes")
@@ -4904,6 +5510,10 @@ def main() -> int:
     ring_row = timed(quant_ring_breakdown_phase, qk)
     lane_rows = timed(lane_breakdown_phase, L)
     timed(lane_cold_phase, L)
+    # the timing phases' facades and kept results are done with: the
+    # train phase needs most of the card's memory
+    del accl, kept, qaccl, qkept, caccls, ctiming, qtiming, qshapes
+    torch.cuda.empty_cache()
     # call sequences: every kernel inside one CUDA graph per batch; then
     # point-to-point, sub-communicators and alltoall, each path with every
     # kernel's count set to 0 just before it
@@ -4913,7 +5523,9 @@ def main() -> int:
              "alltoall": timed(alltoall_phase, ring, qk, L),
              "tuned": timed(tuned_phase, ring, qk, L),
              "telemetry": timed(telemetry_phase, ring, qk, L),
-             "serve": timed(serve_phase, ring, qk, L)}
+             "serve": timed(serve_phase, ring, qk, L),
+             "train": timed(train_phase, ring, qk, L),
+             "moe": timed(moe_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)
