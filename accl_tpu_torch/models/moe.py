@@ -13,16 +13,20 @@ normalizes gates over the chosen k), each expert accepts at most C =
 ceil(T * k / E * capacity_factor) pseudo-tokens per rank, and overflow
 passes through on the residual stream.
 
+The mesh forms (`moe_param_specs`, `place_moe_params`, `moe_ffn_local`,
+`make_moe_forward`, `make_moe_train_step`) run over a (dp, ep) mesh of
+virtual ranks (parallel/mesh.py): tokens shard over both axes, experts
+over ep, and both legs are parallel/collectives.py's differentiable
+alltoall along ep, vmapped over each rank's sequences as extra leading
+dimensions of the exchange.
+
 Departures from the reference, which routes inside jit(vmap) on the host
 and hands numpy arrays across: routing and combining run as torch ops on
 the facade's device over the stacked ranks, the dispatch is placed
 straight into the dispatch buffer's device image, and
 `moe_ffn_via_sequence` returns a tensor on that device. The expert
 consumer holds each rank's expert slice, cut once at registration, where
-the reference picks it with `lax.axis_index`. The mesh forms
-(`moe_param_specs`, `place_moe_params`, `moe_ffn_local`,
-`make_moe_forward`, `make_moe_train_step`) wait for the port's parallel
-layer.
+the reference picks it with `lax.axis_index`.
 """
 
 from __future__ import annotations
@@ -33,7 +37,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .transformer import _gelu
+from ..parallel import collectives
+from ..parallel.mesh import P
+from ..sequencer import schedules
+from .transformer import _gelu, _grad_allreduce, _tree_map
 
 # kernel-stream id the expert-FFN consumer registers under
 MOE_EXPERT_STREAM = 11
@@ -71,6 +78,22 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator,
     return {"router": dense(D, E), "w_up": dense(E, D, Fd),
             "w_down": dense(E, Fd, D), "embed": dense(cfg.vocab, D),
             "unembed": dense(D, cfg.vocab)}
+
+
+def moe_param_specs(cfg: MoEConfig) -> dict:
+    return {
+        "embed": P(),
+        "router": P(),
+        "w_up": P("ep"),
+        "w_down": P("ep"),
+        "unembed": P(),
+    }
+
+
+def place_moe_params(params, cfg: MoEConfig, mesh) -> dict:
+    """Place a global MoE parameter tree according to moe_param_specs:
+    each leaf the mesh's stacked (R, *local) tensor."""
+    return _tree_map(mesh.shard, params, moe_param_specs(cfg))
 
 
 def _capacity(cfg: MoEConfig, tokens: int) -> int:
@@ -321,3 +344,117 @@ def moe_reference_forward(params, tokens, cfg: MoEConfig):
                             x.dtype)
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6)
     return torch.einsum("btd,dv->btv", x, params["unembed"])
+
+
+# ---------------------------------------------------------------------------
+# The mesh forms over a (dp, ep) mesh of virtual ranks
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn_local(x, params, cfg: MoEConfig, *, mesh, ep_axis: str, wire):
+    """The stacked per-rank MoE FFN: each rank routes its (R, S, T, D)
+    tokens (S sequences, each routed on its own, as the reference vmaps
+    the body) to the experts across the ep axis through the alltoall,
+    applies its local experts, and alltoalls the results back. Returns
+    (R, S, T, D) expert outputs weighted by router probability (zeros
+    for capacity-dropped tokens). params are the stacked leaves of
+    place_moe_params: the expert stacks each rank's (R, n_local, ...)
+    block."""
+    R, S, T, D = x.shape
+    ep_world = mesh.axis_size(ep_axis)
+    n_local = cfg.experts_per_rank
+    E = ep_world * n_local
+    assert E == cfg.n_experts, (E, cfg.n_experts)
+    k = cfg.top_k
+    C = _capacity(cfg, T * k)
+
+    routed_params = {"router": params["router"][:, None]}  # (R, 1, D, E)
+    dispatch, safe_e, safe_c, keep, gate = _route(x, routed_params, cfg, C)
+    # dispatch alltoall: destination rank r gets experts [r*n_local, ...)
+    routed = collectives.axis_alltoall(dispatch.reshape(R, S, -1), mesh,
+                                       ep_axis, wire)
+    # (R, S, ep_world, n_local, C, D): source-rank-major blocks for MY
+    # experts
+    recv = routed.reshape(R, S, ep_world, n_local, C, D)
+    w_up, w_down = params["w_up"], params["w_down"]
+    assert w_up.shape[1] == n_local, (w_up.shape, n_local)
+    h = _gelu(torch.einsum("rsplcd,rldf->rsplcf", recv, w_up))
+    out = torch.einsum("rsplcf,rlfd->rsplcd", h, w_down)
+    # return alltoall: send block s back to source rank s
+    back = collectives.axis_alltoall(out.reshape(R, S, -1), mesh, ep_axis,
+                                     wire).reshape(R, S, E, C, D)
+    return _combine_tokens(back, safe_e, safe_c, keep, gate, T, k, D,
+                           x.dtype)
+
+
+def _moe_logits(params, tok, cfg: MoEConfig, mesh, wire):
+    r = torch.arange(mesh.size, device=tok.device)
+    x = params["embed"][r[:, None, None], tok]  # (R, B_local, T, D)
+    x = x + moe_ffn_local(x, params, cfg, mesh=mesh, ep_axis="ep",
+                          wire=wire)
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6)
+    return torch.einsum("rbtd,rdv->rbtv", x, params["unembed"])
+
+
+_TOKEN_SPEC = P(("dp", "ep"))
+
+
+def make_moe_forward(cfg: MoEConfig, mesh):
+    """The mesh forward: fn(params, tokens (B, T)) -> logits (B, T, V);
+    tokens shard over BOTH axes (every rank routes a distinct batch
+    shard), experts over ep. params are place_moe_params' stacked
+    tree."""
+    wire = schedules.Wire(None)
+
+    def fn(params, tokens):
+        tok = mesh.shard(torch.as_tensor(tokens).long(), _TOKEN_SPEC)
+        return mesh.unshard(_moe_logits(params, tok, cfg, mesh, wire),
+                            _TOKEN_SPEC)
+
+    return fn
+
+
+def make_moe_train_step(cfg: MoEConfig, mesh, lr: float = 1e-2):
+    """SGD step with the dp mean and the ep-aware gradient sync:
+    step(params, tokens, targets) -> (new_params, loss). The backward is
+    seeded with the SUM of the ranks' losses (each rank's cotangent its
+    own loss's); expert-sharded grads stay on their ep shard, rescaled by
+    1/ep (the alltoall's transpose gathers every shard's cotangent on the
+    owning rank), replicated params (embed, router, unembed) are
+    mean-allreduced over both axes through the ring.
+    `step.grads(params, tokens, targets)` is the step before its update:
+    (the synced gradients, the loss)."""
+    wire = schedules.Wire(None)
+    specs = moe_param_specs(cfg)
+    ep_world = mesh.axis_size("ep")
+
+    def sync(g, spec):
+        g = _grad_allreduce(g, "dp", wire, mesh)
+        if "ep" in tuple(spec):
+            return g / ep_world
+        return _grad_allreduce(g, "ep", wire, mesh)
+
+    def grads(params, tokens, targets):
+        tok = mesh.shard(torch.as_tensor(tokens).long(), _TOKEN_SPEC)
+        tgt = mesh.shard(torch.as_tensor(targets).long(), _TOKEN_SPEC)
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            logits = _moe_logits(leaves, tok, cfg, mesh, wire)
+            logp = torch.log_softmax(logits.float(), -1)
+            nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+            loss = nll.mean(dim=(1, 2))  # (R,): each rank's own loss
+            g = torch.autograd.grad(loss.sum(), list(leaves.values()))
+        g = _tree_map(sync, dict(zip(leaves, g)), specs)
+        loss = loss.detach()[:, None]
+        for ax in ("dp", "ep"):
+            loss = collectives.allreduce(loss, mesh, ax, wire) \
+                / mesh.axis_size(ax)
+        return g, loss[0, 0]
+
+    def step(params, tokens, targets):
+        g, loss = grads(params, tokens, targets)
+        return {k: params[k] - lr * g[k].to(params[k].dtype)
+                for k in params}, loss
+
+    step.grads = grads
+    return step

@@ -1,35 +1,46 @@
-"""The transformer of the port: the axis-free forward, the fused train
-step and the fused KV-cache decode step over the ACCL facade.
+"""The transformer of the port: the mesh forms, the axis-free forward, the
+fused train step and the fused KV-cache decode step over the ACCL facade.
 
-Counterpart of accl_tpu/models/transformer.py, its facade half. The
-reference's model is one shard_map program over a (dp, sp, tp) mesh; the
-port has no mesh layer yet, so what lands here is what runs without
-one:
+Counterpart of accl_tpu/models/transformer.py. The reference's model is
+one shard_map program over a (dp, sp, tp[, pp]) mesh; here it runs over
+the port's mesh of virtual ranks (parallel/mesh.py), every per-rank
+tensor stacked (R, ...), with the same pieces:
 
   - the configuration, the parameter tree and the math helpers
     (`_rmsnorm`, `_rope`, `_rope_slots`, `_qkv`, `_local_attention`,
-    `_mlp_half`, `_block` with no tp or sp axis);
-  - `forward_local`, the full-context forward of `local_train_loss` up to
-    the logits: the oracle the decode step is held against;
-  - the data-parallel train step: the flat backward-ordered parameter
-    layout, `local_train_loss`, the fwd+bwd as a stream consumer through
-    torch.autograd, and copy -> allreduce -> combine recorded as ONE call
-    sequence (`make_train_step_program`: on the card one CUDA-graph
-    replay, forward and backward inside it) or issued eagerly
+    `_mlp_half`, `_block`): with a mesh, ring attention over sp and the
+    tp partial sums through parallel/collectives.py's differentiable
+    allreduce (on the card every fold a launch of kernel 7); with none,
+    the axis-free forms;
+  - the mesh forms: the specs (`param_specs`, `pp_param_specs`,
+    `shard_params`, `stack_layer_params`), `make_forward` (the GPipe
+    pipeline over pp), `make_decode_step` with `init_kv_cache`, and
+    `make_train_step` (autograd through the collectives; the leaf,
+    striped and striped_serial gradient syncs; remat; pp);
+  - `forward_local`, the axis-free full-context forward of
+    `local_train_loss` up to the logits: the oracle the mesh forms and
+    the decode step are held against;
+  - the data-parallel train step over the facade: the flat
+    backward-ordered parameter layout, `local_train_loss`, the fwd+bwd
+    as a stream consumer through torch.autograd, and copy -> allreduce
+    -> combine recorded as ONE call sequence (`make_train_step_program`:
+    on the card one CUDA-graph replay) or issued eagerly
     (`run_train_step_eager`), bitwise the same;
-  - the device-resident decode step: per layer an attention consumer, a
-    tensor-parallel allreduce, the residual combine, an MLP consumer, a
-    second allreduce and combine, then the logits head, recorded as ONE
-    call sequence (`make_decode_step_program`: on the card one CUDA-graph
-    replay) or issued eagerly (`run_decode_step_eager`), bitwise the same.
+  - the device-resident decode step over the facade: per layer an
+    attention consumer, a tensor-parallel allreduce, the residual
+    combine, an MLP consumer, a second allreduce and combine, then the
+    logits head, recorded as ONE call sequence
+    (`make_decode_step_program`) or issued eagerly
+    (`run_decode_step_eager`), bitwise the same.
 
-The facade world is the tensor-parallel world. The reference's consumer
-runs per rank and picks its head and d_ff slice with `lax.axis_index`;
-the port's consumer gets the stacked (world, n) state (ops/streams.py)
-and contracts it against weights stacked once, at registration, into
-per-rank slices: wq (D, H, hd) becomes (W, D, H/W, hd), and so on, so no
-rank holds the full weights. Parameters are torch tensors; interop.
-transformer_params_from_numpy converts the JAX package's.
+In the facade forms the facade world is the tensor-parallel world (the
+data-parallel world for training). The reference's consumer runs per
+rank and picks its head and d_ff slice with `lax.axis_index`; the port's
+consumer gets the stacked (world, n) state (ops/streams.py) and
+contracts it against weights stacked once, at registration, into
+per-rank slices: wq (D, H, hd) becomes (W, D, H/W, hd), and so on.
+Parameters are torch tensors; interop.transformer_params_from_numpy
+converts the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,10 +48,17 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import ReduceFunction
+from ..parallel import collectives
+from ..parallel.mesh import P
+from ..parallel.pipeline import gpipe_schedule
+from ..parallel.ring_attention import ring_attention
+from ..sequencer import schedules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,11 +144,14 @@ def _rotate(x, cos, sin):
 
 def _rope(x, pos, theta: float):
     """Rotate (B, T, H, D) by absolute positions `pos` (T,): rotary
-    embeddings in fp32, half-split form."""
+    embeddings in fp32, half-split form. On a mesh x is the stacked (R,
+    B, T, H, D) and pos (R, T), each rank's global positions (under
+    sequence parallelism a shard offsets by its sp coordinate)."""
     D = x.shape[-1]
     assert D % 2 == 0, "rope needs an even head_dim"
-    ang = pos.float()[:, None] * _inv_freq(D // 2, theta, x.device)[None, :]
-    return _rotate(x, ang.cos()[None, :, None, :], ang.sin()[None, :, None, :])
+    ang = pos.float()[..., None] * _inv_freq(D // 2, theta, x.device)
+    return _rotate(x, ang.cos()[..., None, :, None, :],
+                   ang.sin()[..., None, :, None, :])
 
 
 def _rope_slots(x, pos, theta: float):
@@ -147,10 +168,16 @@ def _rope_slots(x, pos, theta: float):
 
 def _qkv(h, lyr, cfg: TransformerConfig, pos):
     """Project q / k / v (k and v at kv_heads: grouped-query layout) and
-    rotate q, k by the positions `pos`."""
-    q = torch.einsum("btd,dhk->bthk", h, lyr["wq"])
-    kv = torch.einsum("btd,dchk->btchk", h, lyr["wkv"])
-    k, v = kv[:, :, 0], kv[:, :, 1]
+    rotate q, k by the positions `pos`. h is (B, T, D), or on a mesh the
+    stacked (R, B, T, D) with each leaf stacked (R, ...) and its heads
+    the rank's tp slice."""
+    if h.dim() == 3:
+        q = torch.einsum("btd,dhk->bthk", h, lyr["wq"])
+        kv = torch.einsum("btd,dchk->btchk", h, lyr["wkv"])
+    else:
+        q = torch.einsum("rbtd,rdhk->rbthk", h, lyr["wq"])
+        kv = torch.einsum("rbtd,rdchk->rbtchk", h, lyr["wkv"])
+    k, v = kv[..., 0, :, :], kv[..., 1, :, :]
     if cfg.rope:
         q = _rope(q, pos, cfg.rope_theta)
         k = _rope(k, pos, cfg.rope_theta)
@@ -176,24 +203,69 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _mlp_half(x, lyr):
-    """ln2 + gelu MLP + residual: the axis-free form (identity partial
-    sum) of the reference's _mlp_half."""
-    h = _rmsnorm(x, lyr["ln2"])
-    up = _gelu(torch.einsum("btd,df->btf", h, lyr["w_up"]))
-    return x + torch.einsum("btf,fd->btd", up, lyr["w_down"])
+def _ranked(g):
+    """A stacked (R, D) norm gain shaped for (R, B, T, D) activations."""
+    return g[:, None, None]
 
 
-def _block(x, lyr, cfg: TransformerConfig):
-    """One transformer block with no tp or sp axis: local causal
-    attention at positions 0..T-1, identity partial sums (the
-    reference's _block with tp_axis=sp_axis=None)."""
-    h = _rmsnorm(x, lyr["ln1"])
-    pos = torch.arange(h.shape[1], device=h.device)
+def _tp_allreduce(x, wire, axis: str | None = "tp", mesh=None):
+    """Tensor-parallel partial-sum reduction through the sequencer's ring
+    reduce-scatter + allgather schedule along `axis` of `mesh`
+    (differentiable: its backward is the same allreduce, JAX's
+    transpose). axis=None is the single-shard degenerate: identity."""
+    if axis is None:
+        return x
+    return collectives.axis_allreduce(x, mesh, axis, wire)
+
+
+def _grad_allreduce(g, axis: str, wire, mesh):
+    """Mean over the replicas of `axis`: the ring allreduce SUM, / size."""
+    world = mesh.axis_size(axis)
+    if world == 1:
+        return g
+    return collectives.allreduce(g, mesh, axis, wire) / world
+
+
+def _mlp_half(x, lyr, wire=None, tp_axis: str | None = None, mesh=None):
+    """ln2 + gelu MLP + tp partial-sum residual, shared by the training
+    block and the decode block so the two cannot silently diverge. With
+    no mesh the axis-free form (identity partial sum)."""
+    if mesh is None:
+        h = _rmsnorm(x, lyr["ln2"])
+        up = _gelu(torch.einsum("btd,df->btf", h, lyr["w_up"]))
+        return x + torch.einsum("btf,fd->btd", up, lyr["w_down"])
+    h = _rmsnorm(x, _ranked(lyr["ln2"]))
+    up = _gelu(torch.einsum("rbtd,rdf->rbtf", h, lyr["w_up"]))
+    down_partial = torch.einsum("rbtf,rfd->rbtd", up, lyr["w_down"])
+    return x + _tp_allreduce(down_partial, wire, tp_axis, mesh)
+
+
+def _block(x, lyr, cfg: TransformerConfig, wire=None,
+           tp_axis: str | None = None, sp_axis: str | None = None,
+           mesh=None):
+    """One transformer block. With no mesh the axis-free form: local
+    causal attention at positions 0..T-1, identity partial sums (the
+    reference's _block with tp_axis=sp_axis=None). On a mesh, x is the
+    stacked (R, B, T_local, D): ring attention over sp_axis at global
+    positions (each shard offset by its sp coordinate) and the tp
+    partial sums through the ring allreduce over tp_axis."""
+    if mesh is None:
+        h = _rmsnorm(x, lyr["ln1"])
+        pos = torch.arange(h.shape[1], device=h.device)
+        q, k, v = _qkv(h, lyr, cfg, pos)
+        attn = _local_attention(q, k, v)
+        x = x + torch.einsum("bthk,hkd->btd", attn, lyr["wo"])
+        return _mlp_half(x, lyr)
+    h = _rmsnorm(x, _ranked(lyr["ln1"]))
+    T = h.shape[2]
+    pos = (mesh.axis_index(sp_axis)[:, None] * T
+           + torch.arange(T, device=h.device))
     q, k, v = _qkv(h, lyr, cfg, pos)
-    attn = _local_attention(q, k, v)
-    x = x + torch.einsum("bthk,hkd->btd", attn, lyr["wo"])
-    return _mlp_half(x, lyr)
+    attn = ring_attention(q, k, v, mesh=mesh, axis_name=sp_axis, causal=True)
+    o_partial = torch.einsum("rbthk,rhkd->rbtd", attn, lyr["wo"])
+    # heads are sharded over tp: partial sums reduce on the ring
+    x = x + _tp_allreduce(o_partial, wire, tp_axis, mesh)
+    return _mlp_half(x, lyr, wire, tp_axis, mesh)
 
 
 def forward_local(params: dict, tokens, cfg: TransformerConfig):
@@ -206,6 +278,444 @@ def forward_local(params: dict, tokens, cfg: TransformerConfig):
         x = _block(x, lyr, cfg)
     x = _rmsnorm(x, torch.ones(cfg.d_model, dtype=x.dtype, device=x.device))
     return torch.einsum("btd,dv->btv", x, params["unembed"])
+
+
+# ---------------------------------------------------------------------------
+# The mesh forms: one program over a (dp, sp, tp[, pp]) mesh of virtual
+# ranks (parallel/mesh.py), every per-rank tensor stacked (R, ...)
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """PartitionSpecs: tp shards heads/ff, everything else replicated."""
+    layer = {
+        "wq": P(None, "tp", None),
+        "wkv": P(None, None, "tp", None),
+        "wo": P("tp", None, None),
+        "w_up": P(None, "tp"),
+        "w_down": P("tp", None),
+        "ln1": P(),
+        "ln2": P(),
+    }
+    return {"embed": P(), "unembed": P(), "layers": [layer] * cfg.n_layers}
+
+
+def stack_layer_params(params) -> dict:
+    """Convert the per-layer parameter list into stacked (n_layers, ...)
+    leaves so the layer dim can shard over a `pp` mesh axis (stage i =
+    layers [i*L/P, (i+1)*L/P))."""
+    layers = params["layers"]
+    return {"embed": params["embed"], "unembed": params["unembed"],
+            "layers": {k: torch.stack([lyr[k] for lyr in layers])
+                       for k in layers[0]}}
+
+
+def unstack_layer_params(params, n_layers: int) -> dict:
+    """Inverse of stack_layer_params: stacked (n_layers, ...) leaves back
+    to the per-layer list form (checkpoint interop across mesh shapes)."""
+    layers = [{k: v[i] for k, v in params["layers"].items()}
+              for i in range(n_layers)]
+    return {"embed": params["embed"], "unembed": params["unembed"],
+            "layers": layers}
+
+
+def pp_param_specs(cfg: TransformerConfig) -> dict:
+    """PartitionSpecs for the stacked form: layer dim over pp, head/ff
+    dims over tp as in param_specs, embeddings replicated."""
+    layer = param_specs(cfg)["layers"][0]
+    return {"embed": P(), "unembed": P(),
+            "layers": {k: P("pp", *s) for k, s in layer.items()}}
+
+
+def _tree_map(fn, tree, *rest):
+    """fn over the leaves of a parameter tree (dicts and lists of
+    tensors) and trees of the same structure (specs, gradients)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, list):
+        return [_tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _tree_leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _pp_world(mesh) -> int:
+    return mesh.shape.get("pp", 1)
+
+
+def _spec_has_axis(spec, axis: str) -> bool:
+    """True if a PartitionSpec shards any dimension over `axis`."""
+    for part in spec:
+        if part is None:
+            continue
+        parts = part if isinstance(part, tuple) else (part,)
+        if axis in parts:
+            return True
+    return False
+
+
+def shard_params(params, cfg: TransformerConfig, mesh) -> dict:
+    """Place a global parameter tree according to param_specs: each leaf
+    the mesh's stacked (R, *local) tensor on its device (a replicated
+    leaf a copy per rank, each with its own gradient in the train step).
+    On a mesh with a pp axis the layer list is first stacked
+    (stack_layer_params) and the layer dim sharded over pp."""
+    if _pp_world(mesh) > 1:
+        if cfg.n_layers % _pp_world(mesh):
+            raise ValueError(
+                f"n_layers {cfg.n_layers} must divide over pp "
+                f"{_pp_world(mesh)}")
+        params = stack_layer_params(params)
+        specs = pp_param_specs(cfg)
+    else:
+        specs = param_specs(cfg)
+    return _tree_map(mesh.shard, params, specs)
+
+
+def _embed(embed, tokens):
+    """Each rank's rows of its stacked (R, V, D) embedding at its (R, B,
+    T) tokens."""
+    r = torch.arange(embed.shape[0], device=embed.device)
+    return embed[r[:, None, None], tokens]
+
+
+def _head(x, unembed, cfg: TransformerConfig):
+    x = _rmsnorm(x, torch.ones(cfg.d_model, dtype=x.dtype, device=x.device))
+    return torch.einsum("rbtd,rdv->rbtv", x, unembed)
+
+
+def _block_fn(cfg: TransformerConfig, wire, remat: bool, mesh):
+    """The per-layer body over the mesh, optionally rematerialized:
+    torch.utils.checkpoint drops the block's activations (attention
+    scores, MLP hidden) in the forward pass and recomputes them during
+    the backward, the ring hops and the attention's tp allreduce
+    included. The recompute stops at the block's last saved activation,
+    so the MLP's allreduce, on whose result none depends, runs once: one
+    allreduce more a block, as in the reference's rematerialized step."""
+    def fn(x, lyr):
+        return _block(x, lyr, cfg, wire, "tp", "sp", mesh)
+
+    if not remat:
+        return fn
+    return lambda x, lyr: checkpoint(fn, x, lyr, use_reentrant=False)
+
+
+def _forward_local(params, tokens, cfg: TransformerConfig, wire,
+                   remat: bool = False, *, mesh):
+    """The stacked per-rank forward: tokens (R, B_local, T_local) ->
+    logits (R, B_local, T_local, V); heads are each rank's tp slice, the
+    sequence its sp shard."""
+    blk = _block_fn(cfg, wire, remat, mesh)
+    x = _embed(params["embed"], tokens)  # (R, B, T, D)
+    for lyr in params["layers"]:
+        x = blk(x, lyr)
+    return _head(x, params["unembed"], cfg)
+
+
+def _forward_local_pp(params, tokens, cfg: TransformerConfig, wire,
+                      n_microbatches: int, remat: bool = False, *, mesh):
+    """The pipelined stacked forward: params["layers"] leaves are each
+    rank's (R, L_local, ...) stage slice; microbatches flow through the
+    GPipe schedule (parallel/pipeline.py), each stage running its local
+    layers, and the last stage's activations come back on every rank for
+    the (pp-replicated) unembedding."""
+    x = _embed(params["embed"], tokens)  # (R, B, T, D)
+    R, B = x.shape[:2]
+    M = n_microbatches
+    assert B % M == 0, (B, M)
+    mb = x.reshape(R, M, B // M, *x.shape[2:])
+    blk = _block_fn(cfg, wire, remat, mesh)
+    stage_layers = params["layers"]
+    n_local = stage_layers["wq"].shape[1]
+
+    def stage(h):
+        for i in range(n_local):
+            h = blk(h, {k: v[:, i] for k, v in stage_layers.items()})
+        return h
+
+    out = gpipe_schedule(mb, stage, mesh=mesh, axis="pp", wire=wire)
+    return _head(out.reshape(x.shape), params["unembed"], cfg)
+
+
+def _tokens(mesh, tokens, spec):
+    return mesh.shard(torch.as_tensor(tokens).long(), spec)
+
+
+def make_forward(cfg: TransformerConfig, mesh,
+                 n_microbatches: int | None = None):
+    """The mesh forward: fn(params, tokens (B, T)) -> logits (B, T, V),
+    batch over dp, sequence over sp, heads over tp; with a `pp` axis the
+    layer stack pipelines over it. params are shard_params' stacked
+    tree; the logits are read back from the tp (and pp) coordinate-0
+    ranks, as the reference's out_specs P("dp", "sp") reads them."""
+    wire = schedules.Wire(None)
+    pp = _pp_world(mesh)
+    M = n_microbatches or pp
+
+    def fn(params, tokens):
+        tok = _tokens(mesh, tokens, P("dp", "sp"))
+        if pp > 1:
+            logits = _forward_local_pp(params, tok, cfg, wire, M, mesh=mesh)
+        else:
+            logits = _forward_local(params, tok, cfg, wire, mesh=mesh)
+        return mesh.unshard(logits, P("dp", "sp"))
+
+    return fn
+
+
+# KV-cache layout: (batch over dp, seq, heads over tp, head_dim): ONE
+# constant shared by allocation and the decode step
+_KV_SPEC = P("dp", None, "tp", None)
+
+
+def init_kv_cache(cfg: TransformerConfig, mesh, batch: int, max_len: int):
+    """Per-layer KV cache for incremental decode, the mesh's stacked
+    (R, batch/dp, max_len, kv_heads/tp, head_dim) zeros: batch over dp,
+    kv heads over tp (decode emits one token at a time, so sp must be 1
+    on the decode mesh)."""
+    shape = mesh.local_shape(_KV_SPEC, (batch, max_len, cfg.kv_heads,
+                                        cfg.head_dim))
+    dt = _torch_dtype(cfg)
+    return [{"k": torch.zeros((mesh.size, *shape), dtype=dt,
+                              device=mesh.device),
+             "v": torch.zeros((mesh.size, *shape), dtype=dt,
+                              device=mesh.device)}
+            for _ in range(cfg.n_layers)]
+
+
+def _decode_block(x, lyr, cfg: TransformerConfig, ck, cv, pos, wire, mesh):
+    """One block for a single new token position over the stacked (R, B,
+    1, D) x: write this position's (rotated, grouped) k/v into the cache
+    at pos, in place (the counterpart of the donated cache; pos clamped
+    into [0, max_len-1] as dynamic_update_slice clamps it), and attend
+    over cache[:pos+1] (a masked full-length product, so every step has
+    the same shapes). pos is a 0-d int64 tensor on the mesh's device:
+    nothing here waits for the host."""
+    h = _rmsnorm(x, _ranked(lyr["ln1"]))
+    # pos[None]: the (1,) absolute position of this token
+    q, k_new, v_new = _qkv(h, lyr, cfg, pos[None])
+    T = ck.shape[2]
+    at = pos.clamp(0, T - 1)[None]
+    ck.index_copy_(2, at, k_new)
+    cv.index_copy_(2, at, v_new)
+    R, B = q.shape[:2]
+    groups = cfg.n_heads // cfg.kv_heads
+    # (R, B, 1, Hkv, G, hd) x (R, B, T, Hkv, hd) -> (R, B, Hkv, G, T)
+    qg = q.reshape(R, B, 1, -1, groups, q.shape[-1])
+    scores = torch.einsum("rbqhgk,rbthk->rbhgt", qg, ck) / math.sqrt(
+        q.shape[-1])
+    mask = torch.arange(T, device=ck.device) > pos
+    scores = torch.where(mask, -math.inf, scores.float())
+    attn = torch.softmax(scores, dim=-1).to(cv.dtype)
+    ctx = torch.einsum("rbhgt,rbthk->rbhgk", attn, cv)
+    ctx = ctx.reshape(R, B, 1, -1, ctx.shape[-1])  # (R, B, 1, H, hd)
+    o_partial = torch.einsum("rbthk,rhkd->rbtd", ctx, lyr["wo"])
+    x = x + _tp_allreduce(o_partial, wire, "tp", mesh)
+    return _mlp_half(x, lyr, wire, "tp", mesh), ck, cv
+
+
+def make_decode_step(cfg: TransformerConfig, mesh):
+    """One incremental-decode step (the inference half of the model
+    family): step(params, cache, tokens (B, 1), pos) -> (logits (B, 1,
+    V), cache). Batch over dp, heads + ffn over tp, the same tp partial
+    sums as training. sp/pp must be 1 on the decode mesh. The cache is
+    updated in place (the reference donates it); `pos` may be a (1,)
+    tensor on the mesh's device, and then no step waits for the host."""
+    for ax in ("sp", "pp"):
+        if mesh.shape.get(ax, 1) != 1:
+            raise ValueError(f"decode mesh must have {ax}=1")
+    wire = schedules.Wire(None)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, pos):
+        tok = _tokens(mesh, tokens, P("dp", None))[:, :, :1]
+        x = _embed(params["embed"], tok)
+        p = torch.as_tensor(pos, device=mesh.device).reshape(-1)[0].long()
+        for lyr, c in zip(params["layers"], cache):
+            x, _, _ = _decode_block(x, lyr, cfg, c["k"], c["v"], p, wire,
+                                    mesh)
+        logits = _head(x, params["unembed"], cfg)
+        return mesh.unshard(logits, P("dp", None)), cache
+
+    return step
+
+
+def _striped_grad_sync(grads: dict, pspecs: dict, wire, stripes: int,
+                       mesh) -> dict:
+    """Bucketed gradient sync, the stripe-overlapped form: per-leaf tp
+    treatment first (the rescale-vs-allreduce logic is per spec), then
+    ONE flat dp+sp mean-allreduce over the concatenated gradient rows in
+    backward order, cut into `stripes` stripes, each its own allreduce
+    chain. The reference's serial twin (order-barriered stripes) has no
+    counterpart: on one CUDA stream the stripes already run in turn."""
+    tp_world = mesh.axis_size("tp")
+
+    def tp_fix(g, spec):
+        if tp_world > 1:
+            if _spec_has_axis(spec, "tp"):
+                return g / tp_world
+            return _grad_allreduce(g, "tp", wire, mesh)
+        return g
+
+    grads = _tree_map(tp_fix, grads, pspecs)
+    leaves = _backward_ordered_leaves(grads)
+    R = leaves[0].shape[0]
+    flat = torch.cat([g.reshape(R, -1) for g in leaves], dim=1)
+    n = flat.shape[-1]
+    per = -(-n // max(stripes, 1))
+    outs = []
+    for lo in range(0, n, per):
+        seg = flat[:, lo:lo + per]
+        for ax in ("dp", "sp"):
+            seg = _grad_allreduce(seg, ax, wire, mesh)
+        outs.append(seg)
+    flat = torch.cat(outs, dim=1)
+    parts, off = [], 0
+    for g in leaves:
+        size = g[0].numel()
+        parts.append(flat[:, off:off + size].reshape(g.shape))
+        off += size
+    it = iter(parts[1:-1])
+    rev = [{k: next(it) for k in _LAYER_BWD_ORDER} for _ in grads["layers"]]
+    # the parameter tree's own key order
+    return {"embed": parts[-1], "unembed": parts[0],
+            "layers": [{k: lyr[k] for k in grads["layers"][0]}
+                       for lyr in rev[::-1]]}
+
+
+def _default_grad_stripes(cfg: TransformerConfig, mesh) -> int:
+    """The cost model's stripe count under the shipped calibration
+    (timing.best_overlap_stripes with the shaped link and the measured
+    compute term); no calibration gives 1, never a made-up depth."""
+    from ..sequencer.timing import best_overlap_stripes
+    from ..telemetry import feedback as _fb
+
+    tl = _fb.default_tier_links()
+    link = tl.outer if tl is not None else _fb.default_link()
+    fit = _fb.default_compute_fit()
+    if link is None or fit is None:
+        return 1
+    nbytes = train_param_count(cfg) * 4
+    sync_world = max(mesh.shape.get("dp", 1), mesh.shape.get("sp", 1))
+    return best_overlap_stripes(
+        link, nbytes // 4, 4, max(sync_world, 2),
+        compute_s=fit.seconds(nbytes), rx_buf_bytes=1024)
+
+
+def make_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-3,
+                    n_microbatches: int | None = None, remat: bool = False,
+                    grad_sync: str = "leaf",
+                    grad_stripes: int | None = None):
+    """One SGD step over the mesh: step(params, tokens (B, T), targets)
+    -> (new_params, loss), params and new_params shard_params' stacked
+    tree. Forward, backward (torch.autograd through the differentiable
+    collectives: a tp allreduce's backward is an allreduce, as JAX
+    transposes it), gradient sync and update all run on the mesh's
+    device. The backward is seeded with the SUM of the ranks' losses, so
+    each rank's cotangent is the one its own loss gives in the reference.
+    With a `pp` axis the layers pipeline over it (GPipe microbatches)
+    and params take the stacked form (stack_layer_params /
+    pp_param_specs). remat=True recomputes each block in the backward.
+
+    grad_sync picks the dp/sp gradient-sync shape: "leaf" (per-leaf
+    allreduces), "striped" (one flat backward-ordered gradient vector
+    allreduced as `grad_stripes` stripes, _striped_grad_sync) or
+    "striped_serial" (the reference's order-barriered twin: on one CUDA
+    stream the same values and the same launch order as "striped").
+    grad_stripes=None takes the cost model's count
+    (_default_grad_stripes). `step.grads(params, tokens, targets)` is the
+    step before its update: (the synced gradient tree, the loss); the
+    step returns p - lr * g of those."""
+    if grad_sync not in ("leaf", "striped", "striped_serial"):
+        raise ValueError(f"unknown grad_sync {grad_sync!r}")
+    wire = schedules.Wire(None)
+    pp = _pp_world(mesh)
+    M = (n_microbatches or pp) if pp > 1 else 1
+    pspecs = pp_param_specs(cfg) if pp > 1 else param_specs(cfg)
+    if grad_sync != "leaf" and pp > 1:
+        raise NotImplementedError(
+            "striped grad sync covers the pp=1 layer-list form")
+    if grad_sync != "leaf" and grad_stripes is None:
+        grad_stripes = _default_grad_stripes(cfg, mesh)
+    tp_world = mesh.axis_size("tp")
+
+    def sync(g, spec):
+        # every param saw only its dp batch shard and sp sequence shard:
+        # mean-reduce over both axes
+        g = _grad_allreduce(g, "dp", wire, mesh)
+        g = _grad_allreduce(g, "sp", wire, mesh)
+        if tp_world > 1:
+            # the ring allreduce's transpose is itself an allreduce, so a
+            # replicated cotangent entering a tp branch comes back tp x:
+            # tp-sharded weight grads are rescaled, tp-replicated params
+            # (which saw only their rank's head/ff slice) mean-allreduced
+            if _spec_has_axis(spec, "tp"):
+                g = g / tp_world
+            else:
+                g = _grad_allreduce(g, "tp", wire, mesh)
+        return g
+
+    def grads(params, tokens, targets):
+        tok = _tokens(mesh, tokens, P("dp", "sp"))
+        tgt = _tokens(mesh, targets, P("dp", "sp"))
+        leaves = [p.detach().requires_grad_() for p in _tree_leaves(params)]
+        it = iter(leaves)
+        tree = _tree_map(lambda _: next(it), params)
+        with torch.enable_grad():
+            if pp > 1:
+                logits = _forward_local_pp(tree, tok, cfg, wire, M,
+                                           remat=remat, mesh=mesh)
+            else:
+                logits = _forward_local(tree, tok, cfg, wire, remat=remat,
+                                        mesh=mesh)
+            logp = torch.log_softmax(logits.float(), -1)
+            del logits
+            nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+            loss = nll.mean(dim=(1, 2))  # (R,): each rank's own loss
+            g = torch.autograd.grad(loss.sum(), leaves)
+        del logp, nll
+        it = iter(g)
+        g = _tree_map(lambda _: next(it), params)
+        if grad_sync == "leaf":
+            g = _tree_map(sync, g, pspecs)
+        else:
+            g = _striped_grad_sync(g, pspecs, wire,
+                                   stripes=int(grad_stripes or 1), mesh=mesh)
+        if pp > 1:
+            # microbatches enter on pp coordinate 0 only, so the embed
+            # cotangent lands there (zeros elsewhere): SUM over pp
+            # replicates it; unembed's is already the same on every pp
+            # rank, stage leaves are stage-local
+            g["embed"] = collectives.allreduce(g["embed"], mesh, "pp", wire)
+        loss = loss.detach()[:, None]
+        for ax in ("dp", "sp"):
+            loss = collectives.allreduce(loss, mesh, ax, wire) \
+                / mesh.axis_size(ax)
+        return g, loss[0, 0]
+
+    def step(params, tokens, targets):
+        g, loss = grads(params, tokens, targets)
+        return _tree_map(lambda p, gi: p - lr * gi.to(p.dtype), params,
+                         g), loss
+
+    step.grads = grads
+    return step
+
+
+def demo_batch(cfg: TransformerConfig, mesh, batch=4, seq=64, seed=0):
+    """Tokens from a seed and the next-token targets (the tokens rolled
+    by one), global (batch, seq) int64 tensors on the mesh's device."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (batch, seq))
+    targets = np.roll(tokens, -1, axis=1)
+    return (torch.as_tensor(tokens, device=mesh.device),
+            torch.as_tensor(targets, device=mesh.device))
 
 
 # ---------------------------------------------------------------------------

@@ -556,7 +556,11 @@ def alltoall_schedule(x: torch.Tensor, *, world: int,
                       wire: Wire) -> torch.Tensor:
     """Pairwise rotation exchange: at step k every rank sends slot me+k to
     rank me+k and files the arrival from rank me-k into slot me-k; W-1
-    steps cover all peers. x and the result are (world, world*count).
+    steps cover all peers. x and the result are (world, *lead,
+    world*count): each (rank, lead) row is one buffer of the exchange, so
+    leading dimensions between the rank axis and the slots (the sequences
+    an MoE body vmaps the exchange over, a mesh's other axes:
+    parallel/collectives.py) ride along, each row blocked on its own.
 
     Together the W-1 steps put slot s of rank r into slot r of rank s: a
     transpose of the [rank, slot] grid, which is how the exact and cast
@@ -568,7 +572,8 @@ def alltoall_schedule(x: torch.Tensor, *, world: int,
     blocks, when the whole buffer is encoded and decoded once
     (`_alltoall_quant_aligned`)."""
     count = x.shape[-1] // world
-    grid = x.reshape(world, world, count)
+    # [rank, slot, *lead, elem]
+    grid = x.reshape(*x.shape[:-1], world, count).movedim(-2, 1)
     if wire.quantized:
         if count % QUANT_BLOCK_ELEMS == 0:
             return _alltoall_quant_aligned(x, world=world, wire=wire)
@@ -577,24 +582,24 @@ def alltoall_schedule(x: torch.Tensor, *, world: int,
         out[me, me] = grid[me, me]
         for k in range(1, world):
             _alltoall_hop(out, grid[me, (me + k) % world], k, wire)
-        return out.reshape(x.shape)
+        return out.movedim(1, -2).reshape(x.shape)
     out = grid.transpose(0, 1).contiguous()
     if wire.cfg is not None:
         me = torch.arange(world, device=x.device)
         out = wire.transfer(out)
         out[me, me] = grid[me, me]
-    return out.reshape(x.shape)
+    return out.movedim(1, -2).reshape(x.shape)
 
 
 def _alltoall_hop(out: torch.Tensor, sent: torch.Tensor, k: int,
                   wire: Wire) -> None:
     """Step k of the rotation: `sent` holds, per rank, the (prefix of the)
     slot it sends to rank me+k; each arrival lands in slot me-k of its
-    receiver's row of the [rank, slot, elem] grid `out`."""
+    receiver's row of the [rank, slot, *lead, elem] grid `out`."""
     world = out.shape[0]
     me = torch.arange(world, device=out.device)
     recv = torch.roll(wire.transfer(sent), k, 0)  # row d: from rank d-k
-    out[me, (me - k) % world, :sent.shape[-1]] = recv
+    out[me, (me - k) % world, ..., :sent.shape[-1]] = recv
 
 
 def _alltoall_quant_aligned(x: torch.Tensor, *, world: int,
@@ -608,13 +613,19 @@ def _alltoall_quant_aligned(x: torch.Tensor, *, world: int,
     once. The local slot is spliced in exact after the decode."""
     count = x.shape[-1] // world
     nb = count // QUANT_BLOCK_ELEMS
+    lead = x.shape[1:-1]
+
+    def exchange(t: torch.Tensor, width: int) -> torch.Tensor:
+        return t.reshape(world, *lead, world, width).transpose(
+            0, -2).reshape(t.shape)
+
     q, s = wire.encode(x)
-    q_recv = q.reshape(world, world, count).transpose(0, 1).reshape(q.shape)
-    s_recv = s.reshape(world, world, nb).transpose(0, 1).reshape(s.shape)
-    out = wire.decode((q_recv, s_recv), x.shape[-1], x.dtype)
+    out = wire.decode((exchange(q, count), exchange(s, nb)), x.shape[-1],
+                      x.dtype)
     me = torch.arange(world, device=x.device)
-    grid = x.reshape(world, world, count)
-    out.view(world, world, count)[me, me] = grid[me, me]
+    grid = x.reshape(world, *lead, world, count).movedim(-2, 1)
+    out.view(world, *lead, world, count).movedim(-2, 1)[me, me] = \
+        grid[me, me]
     return out
 
 

@@ -214,9 +214,22 @@ What it does, in order, printing one JSON object per line:
      bound, its register form bitwise; wire capacity 640 dropping the
      oracle's tokens; kernels 5 and 6 launches against the plan; the
      layer step's ms, fused and eager, exact and int8, beside its bound;
- 18. the kernels line (with each kernel's launches on the sequence,
+ 18. mesh phase (accl_tpu_torch/parallel/ and the mesh forms of
+     models/transformer.py and models/moe.py): the flagship widths in
+     fp32, tokens (8, 1024), TF32 off: make_forward on dp2.sp2.tp2 (8
+     virtual ranks) against forward_local; make_train_step there (the
+     leaf, striped and remat syncs) against an autograd oracle and each
+     other; the pipelined forward and step on dp2.tp2.pp2; 32 decode
+     positions on dp2.tp2 against make_forward; Ulysses at B 4, T 1024
+     over sp 4 on the exact and int8 wires; the MoE forward and step on
+     dp2.ep2 against the oracle and the dp1.ep1 step; kernel 7's
+     launches against each step's schedule, kernels 5 and 6 against the
+     int8 alltoalls' plan; each form's ms, tokens/s, the train step's
+     share of its FLOP bound, kernel 7's device ms in a profiled step,
+     peak memory;
+ 19. the kernels line (with each kernel's launches on the sequence,
      point-to-point, sub-communicator, alltoall, tuned, telemetry,
-     serve, train and MoE paths); last, the device line.
+     serve, train, MoE and mesh paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -5359,6 +5372,497 @@ def moe_phase(ring, qk, L):
     return {name: path.get(name, 0) for name in kernels}
 
 
+# the mesh forms (parallel/, models/ over a dp x sp x tp (x pp) mesh of
+# virtual ranks) at the flagship widths: 8 sequences of 1024 tokens
+MESH_AXES = {"dp": 2, "sp": 2, "tp": 2}
+MESH_PP_AXES = {"dp": 2, "sp": 1, "tp": 2, "pp": 2}
+MESH_DECODE_AXES = {"dp": 2, "sp": 1, "tp": 2}
+MESH_BATCH, MESH_SEQ = 8, 1024
+MESH_MICROBATCHES = 4  # the pipelined step's, 4 layers a stage
+MESH_STRIPES = 4  # the striped gradient sync's
+MESH_DECODE_LEN, MESH_DECODE_STEPS = 1024, 32  # cache length, positions
+MESH_REPS = 5  # timed runs of each form
+# Ulysses at the flagship attention widths: B 4, T 1024 over sp 4
+MESH_ULYSSES = dict(batch=4, seq=1024, heads=16, head_dim=64, sp=4)
+MESH_ULYSSES_STRIPES = 4  # head groups of 4: each still divides over sp
+MESH_MOE_AXES = {"dp": 2, "ep": 2}
+MESH_MOE_CFG = dict(MOE_CFG, n_experts=4, experts_per_rank=2, vocab=32768,
+                    seq=1024)
+
+
+def ring_folds(n: int) -> int:
+    """Kernel 7's launches in one ring allreduce over an axis of n ranks:
+    n - 1 folds (the reduce-scatter's), each one launch over every rank's
+    row; one segment, as the mesh forms' seg_count is the whole row."""
+    return n - 1
+
+
+def mesh_step_folds(cfg, axes, *, remat=False, stripes=None,
+                    n_microbatches=None) -> int:
+    """Kernel 7's launches in one make_train_step step on a mesh of
+    `axes`, from the step's schedule: each block's two tp allreduces in
+    the forward and again in the backward (their transpose; a pipelined
+    stage runs its layers at every one of its M + P - 1 steps); with
+    remat, the attention's allreduce once more in the recompute
+    (torch.utils.checkpoint stops at the block's last saved activation,
+    so the MLP's allreduce, on which none depends, is not run again, as
+    in the reference's rematerialized step); the pipeline bcast's
+    transpose (one fold a tree round); the gradient sync (per leaf, or
+    per stripe after the tp treatment) and the pp embedding sum; the
+    loss's dp and sp means."""
+    dp, sp, tp, pp = (axes.get(a, 1) for a in ("dp", "sp", "tp", "pp"))
+    L = cfg.n_layers
+    if pp > 1:
+        block_runs = ((n_microbatches or pp) + pp - 1) * (L // pp)
+        leaves, tp_replicated = 2 + 7, 2 + 2  # stacked layer leaves
+    else:
+        block_runs = L
+        leaves, tp_replicated = 2 + 7 * L, 2 + 2 * L
+    n = block_runs * ring_folds(tp) * (5 if remat else 4)
+    if pp > 1:
+        n += (pp - 1).bit_length()  # the bcast transpose's tree rounds
+    mean = ring_folds(dp) + ring_folds(sp)
+    if stripes:
+        n += tp_replicated * ring_folds(tp) + stripes * mean
+    else:
+        n += leaves * mean + tp_replicated * ring_folds(tp)
+    if pp > 1:
+        n += ring_folds(pp)  # the embedding's SUM over pp
+    return n + mean  # the loss
+
+
+def mesh_global(trf, mesh, tree, cfg):
+    """The stacked parameter tree read back as the global list form."""
+    pp = mesh.shape.get("pp", 1) > 1
+    specs = trf.pp_param_specs(cfg) if pp else trf.param_specs(cfg)
+    tree = trf._tree_map(mesh.unshard, tree, specs)
+    return trf.unstack_layer_params(tree, cfg.n_layers) if pp else tree
+
+
+def mesh_flat(trf, tree):
+    import torch
+
+    return torch.cat([t.reshape(-1) for t in trf._tree_leaves(tree)])
+
+
+def mesh_oracle_grads(trf, params, tokens, targets, cfg):
+    """The gradient with no mesh: torch.autograd of local_train_loss (the
+    axis-free forward) over the whole batch, flat in the tree's leaf
+    order, and the loss."""
+    import torch
+
+    leaves = [p.detach().requires_grad_() for p in trf._tree_leaves(params)]
+    it = iter(leaves)
+    tree = trf._tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss = trf.local_train_loss(tree, tokens, targets, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    return torch.cat([g.reshape(-1) for g in grads]), float(loss.detach())
+
+
+def check_mesh_update(lr: float, got, want, what: str) -> float:
+    """The update -lr * got within TRAIN_TOL * max|lr * want| of -lr *
+    want on every element, that is got within TRAIN_TOL * max|want| of
+    want; returns the error relative to max|want|."""
+    scale = float(want.abs().max())
+    err = max_abs_err(got, want)
+    if not err <= TRAIN_TOL * scale:
+        raise AssertionError(f"mesh: {what}: the update differs by "
+                             f"{lr * err} > {TRAIN_TOL * lr * scale}")
+    return err / scale
+
+
+def check_applied(new, old, grads, lr: float, what: str) -> int:
+    """The step's new parameters are p - lr * g of its own synced
+    gradients, to one rounding of the parameter; returns how many
+    elements differ at all."""
+    import torch
+
+    want = old - lr * grads
+    diff = (new - want).abs()
+    if not (bool(torch.isfinite(new).all())
+            and bool((diff <= 2.0 ** -23 * want.abs()).all())):
+        raise AssertionError(f"mesh: {what}: new parameters are not "
+                             f"p - lr * g ({float(diff.max())})")
+    return int((diff != 0).sum())
+
+
+def check_logits(got, want, what: str) -> float:
+    """|got - want| <= TRAIN_TOL * max|want|; the error relative to it."""
+    scale = float(want.abs().max())
+    err = max_abs_err(got, want)
+    if not err <= TRAIN_TOL * scale:
+        raise AssertionError(f"mesh: {what}: {err} > {TRAIN_TOL * scale}")
+    return err / scale
+
+
+def ulysses_int8_launches(batch, seq, heads, head_dim, sp, stripes=1):
+    """Kernels 5 and 6's launches in one int8-wire ulysses_attention:
+    per head group, three in-alltoalls (q, k, v) and one out-alltoall,
+    each one quantize and one dequantize pass when its slot (B * T_local
+    * heads_a_group/sp * head_dim elements) is a whole number of
+    256-element blocks, else one of each a hop (sp - 1)."""
+    from accl_tpu_torch.constants import QUANT_BLOCK_ELEMS
+
+    slot = batch * (seq // sp) * (heads // stripes // sp) * head_dim
+    per = 1 if slot % QUANT_BLOCK_ELEMS == 0 else sp - 1
+    n = stripes * 4 * per
+    return {"quantize": n, "dequantize": n}
+
+
+def plain_attention(q, k, v):
+    """Causal attention over the whole sequence, (B, T, H, D), in fp32
+    torch ops: the Ulysses oracle."""
+    import torch
+
+    T = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(torch.where(mask, s, -math.inf), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def mesh_phase(ring, qk, L):
+    """The mesh forms (accl_tpu_torch/parallel/, the mesh half of
+    models/transformer.py and models/moe.py) on the card at the flagship
+    transformer's widths in fp32 (SERVE_CFG), tokens (8, 1024) from a
+    seed, TF32 off. Gates, each failing the run:
+      (1) make_forward on dp2.sp2.tp2 (R = 8) within TRAIN_TOL *
+          max|ref| of forward_local over the same global weights;
+      (2) make_train_step on dp2.sp2.tp2, lr 1e-3: the leaf step's new
+          parameters within TRAIN_TOL * max|update| (+ 1e-7 + an ulp of
+          the parameter) of a plain autograd oracle of local_train_loss
+          over the global batch, its loss within 1e-5 of the oracle's;
+          the striped sync (4 stripes) and remat=True within the same
+          bound of the leaf step; kernel 7 launched mesh_step_folds()
+          times a step in each;
+      (3) the pipelined forward and step on dp2.tp2.pp2 (4 layers a
+          stage, 4 microbatches) against the same oracles, its launches
+          likewise;
+      (4) make_decode_step on dp2.tp2, batch 8, init_kv_cache at max_len
+          1024: 32 positions decoded token by token within TRAIN_TOL *
+          max|ref| of make_forward's logits on the same mesh, kernel 7
+          16 times a step;
+      (5) ulysses_attention at B 4, T 1024 over sp 4, 16 heads of 64:
+          the exact wire within TRAIN_TOL * max|ref| of plain causal
+          attention, 4 head stripes within 1e-6 * max|ref| of it (and
+          whether bitwise, printed); the int8 wire within the reference's 5e-2 * max|ref|
+          of the exact wire and not equal to it, kernels 5 and 6 launched
+          as its alltoalls' plan gives (ulysses_int8_launches);
+      (6) the MoE mesh forms at MOE_CFG's widths with vocab 32 768, seq
+          1024, batch 8 on dp2.ep2 with 2 experts a rank: make_moe_forward
+          within TRAIN_TOL of moe_reference_forward, one
+          make_moe_train_step within TRAIN_TOL * max|update| of the same
+          step on dp1.ep1 with 4 experts a rank.
+    Numbers: each form's ms (CUDA events, p50 of MESH_REPS), tokens/s,
+    the train step's share of train_flops over 67 TFLOP/s, kernel 7's
+    device ms and the top device operations in one profiled step, peak
+    memory. Returns each kernel's launches over the checked runs (the
+    timed and profiled runs not counted)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG
+    from accl_tpu_torch.constants import DataType
+    from accl_tpu_torch.models import moe
+    from accl_tpu_torch.models import transformer as trf
+    from accl_tpu_torch.parallel import make_mesh, ulysses_attention
+    from accl_tpu_torch.parallel.mesh import P
+    from accl_tpu_torch.sequencer import schedules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("mesh: TF32 is on; fp32 products must be fp32")
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    gpu = card_name()
+    cfg = trf.TransformerConfig(**SERVE_CFG)
+    B, T, lr = MESH_BATCH, MESH_SEQ, TRAIN_LR
+    params = trf.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(1515), "cuda")
+    rng = np.random.default_rng(1515)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T))).cuda()
+    targets = torch.roll(tokens, -1, 1)
+    times, gates = {}, {}
+    path = dict.fromkeys(kernels, 0)  # launches over the checked runs
+
+    def launched(fn, what, want):
+        """fn's result; its launches, added to the path's, must be
+        `want` of kernel 7 and none of another kernel."""
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = delta(before)
+        for k, v in got.items():
+            path[k] += v
+        if got != ({"combine": want} if want else {}):
+            raise AssertionError(f"mesh: {what} launched {got}; the "
+                                 f"schedule gives {want} of kernel 7")
+        return out
+
+    # (1) the forward on dp2.sp2.tp2
+    mesh = make_mesh(MESH_AXES)
+    sharded = trf.shard_params(params, cfg, mesh)
+    forward = trf.make_forward(cfg, mesh)
+    fold = ring_folds(MESH_AXES["tp"])
+    logits = launched(lambda: forward(sharded, tokens), "the forward",
+                      2 * cfg.n_layers * fold)
+    with torch.no_grad():
+        ref = trf.forward_local(params, tokens, cfg)
+    gates["forward_rel_err"] = check_logits(logits, ref, "forward")
+    del logits
+    times["forward"] = timed_runs(lambda: forward(sharded, tokens),
+                                  MESH_REPS)
+
+    # (2) the train step on dp2.sp2.tp2 against the oracle
+    want_g, want_loss = mesh_oracle_grads(trf, params, tokens, targets, cfg)
+    old = mesh_flat(trf, params)
+
+    def checked_step(step, mesh, folds, what):
+        """One step and its synced gradients, each launching kernel 7
+        `folds` times; the step's new parameters checked to be p - lr * g
+        of those gradients; the gradients flat and the loss returned."""
+        new, loss = launched(lambda: step(sharded, tokens, targets),
+                             f"the {what} step", folds)
+        g, _ = launched(lambda: step.grads(sharded, tokens, targets),
+                        f"the {what} step's gradients", folds)
+        g = mesh_flat(trf, mesh_global(trf, mesh, g, cfg))
+        gates[f"train_{what}_new_params_off_by_an_ulp"] = check_applied(
+            mesh_flat(trf, mesh_global(trf, mesh, new, cfg)), old, g, lr,
+            what)
+        gates[f"train_{what}_kernel7_per_step"] = folds
+        loss = float(loss)
+        if not abs(loss - want_loss) <= 1e-5 * abs(want_loss):
+            raise AssertionError(f"mesh: the {what} step's loss {loss} "
+                                 f"against the oracle's {want_loss}")
+        return g, loss
+
+    steps = {}
+    for name, kw in (("leaf", {}),
+                     ("striped", dict(grad_sync="striped",
+                                      grad_stripes=MESH_STRIPES)),
+                     ("remat", dict(remat=True))):
+        step = steps[name] = trf.make_train_step(cfg, mesh, lr=lr, **kw)
+        g, loss = checked_step(
+            step, mesh, mesh_step_folds(cfg, MESH_AXES,
+                                        remat=name == "remat",
+                                        stripes=kw.get("grad_stripes")),
+            name)
+        if name == "leaf":
+            gates["train_leaf_vs_oracle_rel_err"] = check_mesh_update(
+                lr, g, want_g, "the leaf step against the oracle")
+            gates.update(train_loss=loss, oracle_loss=want_loss)
+            leaf_g = g
+        else:
+            gates[f"train_{name}_vs_leaf_rel_err"] = check_mesh_update(
+                lr, g, leaf_g, f"the {name} step against the leaf step")
+        del g
+    del leaf_g
+    for name in ("leaf", "striped"):
+        times[f"train_{name}"] = timed_runs(
+            lambda: steps[name](sharded, tokens, targets), MESH_REPS)
+    prof = kernel_profile(lambda: steps["leaf"](sharded, tokens, targets))
+    combine_ms = sum(ms for n, ms in prof["kernel_ms"].items()
+                     if "lane_walk<" in n and "Combine<" in n)
+    combine_n = sum(c for n, c in prof["kernels"].items()
+                    if "lane_walk<" in n and "Combine<" in n)
+    if combine_n != gates["train_leaf_kernel7_per_step"]:
+        raise AssertionError(f"mesh: a profiled step ran {combine_n} "
+                             "kernel 7 launches")
+    top = sorted(prof["kernel_ms"].items(), key=lambda kv: -kv[1])[:12]
+    del steps, sharded, forward, mesh
+
+    # (3) the pipelined forward and step on dp2.tp2.pp2
+    mesh = make_mesh(MESH_PP_AXES)
+    sharded = trf.shard_params(params, cfg, mesh)
+    M = MESH_MICROBATCHES
+    pp_runs = (M + MESH_PP_AXES["pp"] - 1) * (cfg.n_layers
+                                              // MESH_PP_AXES["pp"])
+    forward = trf.make_forward(cfg, mesh, n_microbatches=M)
+    logits = launched(lambda: forward(sharded, tokens), "the pp forward",
+                      2 * pp_runs * ring_folds(MESH_PP_AXES["tp"]))
+    gates["pp_forward_rel_err"] = check_logits(logits, ref, "pp forward")
+    del logits, forward
+    step = trf.make_train_step(cfg, mesh, lr=lr, n_microbatches=M)
+    g, _ = checked_step(step, mesh,
+                        mesh_step_folds(cfg, MESH_PP_AXES, n_microbatches=M),
+                        "pp")
+    gates["train_pp_vs_oracle_rel_err"] = check_mesh_update(
+        lr, g, want_g, "the pp step against the oracle")
+    del g, want_g, old, ref
+    times["train_pp"] = timed_runs(lambda: step(sharded, tokens, targets),
+                                   MESH_REPS)
+    del step, sharded, mesh
+    torch.cuda.empty_cache()
+
+    # (4) decode on dp2.tp2 against make_forward on the same mesh
+    mesh = make_mesh(MESH_DECODE_AXES)
+    sharded = trf.shard_params(params, cfg, mesh)
+    dec_tok = tokens[:, :MESH_DECODE_STEPS]
+    with torch.no_grad():
+        ref = trf.make_forward(cfg, mesh)(sharded, dec_tok)
+    decode = trf.make_decode_step(cfg, mesh)
+    cache = trf.init_kv_cache(cfg, mesh, B, MESH_DECODE_LEN)
+    positions = torch.arange(MESH_DECODE_LEN, device=tokens.device)
+    outs = []
+    dfold = 2 * cfg.n_layers * ring_folds(MESH_DECODE_AXES["tp"])
+    for t in range(MESH_DECODE_STEPS):
+        lg, cache = launched(
+            lambda: decode(sharded, cache, dec_tok[:, t:t + 1],
+                           positions[t:t + 1]), "a decode step", dfold)
+        outs.append(lg)
+    gates["decode_vs_forward_rel_err"] = check_logits(
+        torch.cat(outs, 1), ref, "decode against make_forward")
+    gates["decode_kernel7_per_step"] = dfold
+    del outs, ref
+    t_next = [MESH_DECODE_STEPS]
+
+    def decode_one():
+        t = t_next[0]
+        t_next[0] += 1
+        decode(sharded, cache, tokens[:, t:t + 1], positions[t:t + 1])
+
+    times["decode_step"] = timed_runs(decode_one, MESH_REPS)
+    del cache, sharded, decode, mesh, params
+    torch.cuda.empty_cache()
+
+    # (5) Ulysses at the flagship attention widths
+    u = MESH_ULYSSES
+    mesh = make_mesh({"sp": u["sp"]})
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (u["batch"], u["seq"], u["heads"], u["head_dim"])).astype(
+            np.float32)).cuda() for _ in range(3))
+    args = [mesh.shard(t, P(None, "sp")) for t in (q, k, v)]
+    exact = launched(lambda: ulysses_attention(*args, mesh=mesh,
+                                               axis_name="sp"),
+                     "exact Ulysses", 0)
+    exact = mesh.unshard(exact, P(None, "sp"))
+    gates["ulysses_exact_rel_err"] = check_logits(
+        exact, plain_attention(q, k, v), "Ulysses against attention")
+    striped = mesh.unshard(launched(
+        lambda: ulysses_attention(*args, mesh=mesh, axis_name="sp",
+                                  stripes=MESH_ULYSSES_STRIPES),
+        "striped Ulysses", 0), P(None, "sp"))
+    serr = max_abs_err(striped, exact)
+    if not serr <= 1e-6 * float(exact.abs().max()):
+        raise AssertionError(f"mesh: striped Ulysses {serr} from unstriped")
+    gates.update(ulysses_striped_rel_err=serr / float(exact.abs().max()),
+                 ulysses_striped_bitwise=same_bits(striped, exact))
+    del striped
+    wire = schedules.Wire(DEFAULT_ARITH_CONFIG[(DataType.float32,
+                                                DataType.int8)])
+    before = counts()
+    quant = ulysses_attention(*args, mesh=mesh, axis_name="sp", wire=wire)
+    torch.cuda.synchronize()
+    got = delta(before)
+    for k, v in got.items():
+        path[k] += v
+    want = ulysses_int8_launches(u["batch"], u["seq"], u["heads"],
+                                 u["head_dim"], u["sp"])
+    if got != want:
+        raise AssertionError(f"mesh: int8 Ulysses launched {got}; its "
+                             f"alltoalls' plan gives {want}")
+    quant = mesh.unshard(quant, P(None, "sp"))
+    qerr = max_abs_err(quant, exact)
+    if not 0 < qerr < MOE_INT8_BOUND * float(exact.abs().max()):
+        raise AssertionError(f"mesh: int8 Ulysses error {qerr}")
+    gates.update(ulysses_int8_rel_err=qerr / float(exact.abs().max()),
+                 ulysses_int8_launches=want)
+    times["ulysses_exact"] = timed_runs(
+        lambda: ulysses_attention(*args, mesh=mesh, axis_name="sp"),
+        MESH_REPS)
+    times["ulysses_int8"] = timed_runs(
+        lambda: ulysses_attention(*args, mesh=mesh, axis_name="sp",
+                                  wire=wire), MESH_REPS)
+    del q, k, v, args, exact, quant, mesh
+
+    # (6) the MoE mesh forms on dp2.ep2, 2 experts a rank
+    mcfg = moe.MoEConfig(**MESH_MOE_CFG)
+    mparams = moe.init_moe_params(mcfg, torch.Generator(device="cuda")
+                                  .manual_seed(1516), "cuda")
+    mtok = torch.from_numpy(rng.integers(0, mcfg.vocab,
+                                         (B, mcfg.seq))).cuda()
+    mtgt = torch.roll(mtok, -1, 1)
+    mesh = make_mesh(MESH_MOE_AXES)
+    placed = moe.place_moe_params(mparams, mcfg, mesh)
+    with torch.no_grad():
+        ref = moe.moe_reference_forward(mparams, mtok, mcfg)
+    out = launched(lambda: moe.make_moe_forward(mcfg, mesh)(placed, mtok),
+                   "the MoE forward", 0)
+    gates["moe_forward_rel_err"] = check_logits(out, ref, "MoE forward")
+    del out, ref
+    one = dataclasses.replace(mcfg, experts_per_rank=mcfg.n_experts)
+    mesh1 = make_mesh({"dp": 1, "ep": 1})
+    specs = moe.moe_param_specs(mcfg)
+    names = list(mparams)
+
+    def flat(m, tree):
+        return torch.cat([m.unshard(tree[n], specs[n]).reshape(-1)
+                          for n in names])
+
+    want_g, _ = moe.make_moe_train_step(one, mesh1, lr=lr).grads(
+        moe.place_moe_params(mparams, one, mesh1), mtok, mtgt)
+    want_g = flat(mesh1, want_g)
+    step = moe.make_moe_train_step(mcfg, mesh, lr=lr)
+    # per leaf the dp mean, the three replicated leaves the ep mean; the
+    # loss's dp and ep means
+    mfolds = 5 * ring_folds(MESH_MOE_AXES["dp"]) \
+        + 3 * ring_folds(MESH_MOE_AXES["ep"]) \
+        + ring_folds(MESH_MOE_AXES["dp"]) + ring_folds(MESH_MOE_AXES["ep"])
+    new, _ = launched(lambda: step(placed, mtok, mtgt), "the MoE step",
+                      mfolds)
+    g, _ = launched(lambda: step.grads(placed, mtok, mtgt),
+                    "the MoE step's gradients", mfolds)
+    g = flat(mesh, g)
+    old = torch.cat([mparams[n].reshape(-1) for n in names])
+    gates["moe_step_new_params_off_by_an_ulp"] = check_applied(
+        flat(mesh, new), old, g, lr, "the MoE step")
+    gates["moe_step_vs_dp1_ep1_rel_err"] = check_mesh_update(
+        lr, g, want_g, "the MoE step against dp1.ep1")
+    gates["moe_kernel7_per_step"] = mfolds
+    del new, want_g, g, old
+    times["moe_step"] = timed_runs(lambda: step(placed, mtok, mtgt),
+                                   MESH_REPS)
+    del placed, mparams, step, mesh, mesh1
+    idle = [k for k in ("combine", "quantize", "dequantize") if not path[k]]
+    if idle:
+        raise AssertionError(f"the mesh path launched no {idle}")
+
+    flops = train_flops(cfg, B * T, T)
+    bound_ms = flops / FP32_FLOPS_PER_S * 1e3
+    leaf_ms = times["train_leaf"]["events_ms_p50"]
+    emit({"phase": "mesh", "gpu": gpu, "config": {**SERVE_CFG,
+                                                  "dtype": "float32"},
+          "tokens": [B, T], "axes": MESH_AXES, "pp_axes": MESH_PP_AXES,
+          "decode_axes": MESH_DECODE_AXES, "ulysses": MESH_ULYSSES,
+          "moe_axes": MESH_MOE_AXES, "moe_config": MESH_MOE_CFG,
+          "lr": lr, "tolerance": TRAIN_TOL, "gates": gates,
+          "launches": path})
+    emit({"phase": "mesh_timing", "gpu": gpu,
+          "ms_p50": {k: v["events_ms_p50"] for k, v in times.items()},
+          "timed_runs": times,
+          "train_tokens_per_s": B * T / leaf_ms * 1e3,
+          "train_flops": flops, "train_bound_ms": bound_ms,
+          "bound_by": "operations", "train_bound_share": bound_ms / leaf_ms,
+          "profiled_step_kernel7_ms": combine_ms,
+          "profiled_step_kernel7_launches": combine_n,
+          "profiled_step_device_busy_ms": prof["busy_ms"],
+          "profiled_step_kernels": sum(prof["kernels"].values()),
+          "profiled_step_top": [{"name": n[:140], "ms": ms,
+                                 "count": prof["kernels"][n]}
+                                for n, ms in top],
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    torch.cuda.empty_cache()
+    return path
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -5376,10 +5880,10 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     twins, and the warm-up run and capture at compile; a replay runs
     the captured kernels without the host's wrappers); `p2p_launches`,
     `comm_launches`, `alltoall_launches`, `tuned_launches`,
-    `telemetry_launches`, `serve_launches`, `train_launches` and
-    `moe_launches` likewise over the checked runs of the point-to-point,
-    sub-communicator, alltoall, tuned, telemetry, serve, train and MoE
-    paths."""
+    `telemetry_launches`, `serve_launches`, `train_launches`,
+    `moe_launches` and `mesh_launches` likewise over the checked runs of
+    the point-to-point, sub-communicator, alltoall, tuned, telemetry,
+    serve, train, MoE and mesh paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -5525,7 +6029,8 @@ def main() -> int:
              "telemetry": timed(telemetry_phase, ring, qk, L),
              "serve": timed(serve_phase, ring, qk, L),
              "train": timed(train_phase, ring, qk, L),
-             "moe": timed(moe_phase, ring, qk, L)}
+             "moe": timed(moe_phase, ring, qk, L),
+             "mesh": timed(mesh_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

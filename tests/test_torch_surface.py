@@ -1,10 +1,10 @@
 """The port's public names against the JAX package's.
 
-Every public name of accl_tpu, its sequencer, telemetry and models
-subpackages (the model modules' own names, not those they import), the
-ACCL facade and the device that the port lacks must be a known gap,
-listed with the ROADMAP item that brings it; a gap that closes must
-leave the list. nop() runs through both facades to the same request.
+Every public name of accl_tpu, its sequencer, telemetry, models and
+parallel subpackages (the model and parallel modules' own names, not
+those they import), the ACCL facade and the device that the port lacks
+must be a known gap, listed with the ROADMAP item that brings it; a gap
+that closes must leave the list. nop() runs through both facades to the same request.
 """
 
 import importlib
@@ -18,19 +18,6 @@ KNOWN_GAPS = {
     ("ACCL", "certify_concurrent"): "item 15 (interference certifier)",
     ("ACCL", "scheduler"): "item 17 (scheduler)",
     ("device", "supports_live_subset"): "item 17 (resilience)",
-    **{(where, name): "item 16c (mesh forms)" for where, names in (
-        ("models", ("make_forward", "make_decode_step", "init_kv_cache",
-                    "make_train_step", "make_moe_forward",
-                    "make_moe_train_step")),
-        ("models.transformer", (
-            "make_forward", "make_decode_step", "init_kv_cache",
-            "make_train_step", "param_specs", "pp_param_specs",
-            "shard_params", "stack_layer_params", "unstack_layer_params",
-            "demo_batch")),
-        ("models.moe", ("moe_param_specs", "place_moe_params",
-                        "moe_ffn_local", "make_moe_forward",
-                        "make_moe_train_step")))
-       for name in names},
 }
 
 
@@ -61,7 +48,9 @@ def _pairs():
                 "telemetry.export", "telemetry.metrics",
                 "telemetry.recorder", "telemetry.native",
                 "telemetry.feedback", "models", "models.transformer",
-                "models.moe", "models.serve"):
+                "models.moe", "models.serve", "parallel", "parallel.mesh",
+                "parallel.ring_attention", "parallel.ulysses",
+                "parallel.pipeline"):
         yield sub, importlib.import_module(f"accl_tpu.{sub}"), \
             importlib.import_module(f"accl_tpu_torch.{sub}")
     yield "ACCL", RefACCL, ACCL
@@ -71,7 +60,8 @@ def _pairs():
 @pytest.mark.parametrize("where", [p[0] for p in _pairs()])
 def test_port_has_every_public_name_but_the_known_gaps(where):
     ref, port = next((r, p) for w, r, p in _pairs() if w == where)
-    names = _defined_in if where.startswith("models.") else _public
+    names = (_defined_in if where.startswith(("models.", "parallel."))
+             else _public)
     missing = names(ref) - _public(port)
     if where == "package":  # the reference's lazy facade names
         missing |= {n for n in ("ACCL", "SequenceRecorder")
