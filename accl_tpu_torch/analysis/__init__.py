@@ -1,10 +1,9 @@
-"""Static analysis for descriptor batches: the lint gate in front of a
-call sequence's compile.
+"""Static analysis for descriptor batches, per-rank programs and hop-DAGs.
 
 Counterpart of accl_tpu/analysis/. A mis-recorded batch would otherwise
-fail after dispatch, as a silently wrong buffer; these passes check a
-recorded `SequenceDescriptor` batch before anything is built or touches
-the card, with the reference's stable diagnostic codes:
+fail after dispatch, as a hang or a silently wrong buffer; these passes
+check it before anything is built or touches the card, with the
+reference's stable diagnostic codes:
 
   validate.py    descriptor structure: roots, counts, dtypes,
                  communicators, sequenceable kinds   (ACCL401-404)
@@ -12,12 +11,60 @@ the card, with the reference's stable diagnostic codes:
                  compression lanes over the canonical address renaming
                                                       (ACCL101-103, 401,
                                                        405, 406)
+  protocol.py    per-rank send/recv matching and deadlock cycles over
+                 given event programs                 (ACCL201-204)
+  modelcheck.py  exhaustive-interleaving model checking: wildcard races
+                 and schedule-dependent deadlocks over ALL legal match
+                 orders, budgeted                     (ACCL205-207)
+  slots.py       overlap-slot collective_id liveness  (ACCL301-302)
+  hopdag.py      the hop-DAG IR: schedules as data, executable and
+                 mutable
+  semantics.py   contribution-set abstract interpretation proving a
+                 hop-DAG computes its DECLARED collective (ACCL501-504)
   diagnostics.py the code table, `Diagnostic`, `make` and `enforce`
-  linter.py      `SequenceLinter`, the default tier
+  linter.py      `SequenceLinter` (the default tier and the deep check
+                 over given programs) and `lint_sequence`
 
-The reference's protocol, slot, model-check, semantic and interference
-passes are not here yet (see linter.py).
+Not here yet (ROADMAP queue 1, item 15 part 2): lifting a schedule body
+into its hops and DAG (the entry points that do so raise
+NotImplementedError), the deep tier over a recorded batch, and the
+cross-program interference certifier (interference.py, ACCL601-604).
 """
 
 from ..errors import LintError  # noqa: F401  (canonical home: errors.py)
 from .diagnostics import CODES, Diagnostic, enforce, make  # noqa: F401
+from .hazards import analyze_dataflow  # noqa: F401
+from .hopdag import HopDag  # noqa: F401
+from .linter import SequenceLinter, lint_sequence  # noqa: F401
+from .modelcheck import (  # noqa: F401
+    Budget,
+    CheckResult,
+    check_interleavings,
+    diagnose_programs,
+)
+from .protocol import (  # noqa: F401
+    ANY_SRC,
+    Event,
+    MatchNote,
+    batch_rank_programs,
+    interpret_schedule,
+    rank_programs_from_options,
+    simulate,
+    trace_schedule_hops,
+    trace_schedule_jaxpr,
+)
+from .semantics import (  # noqa: F401
+    UnsupportedSchedule,
+    certify,
+    certify_call,
+    check_batch_semantics,
+    collective_spec,
+    lift_call,
+)
+from .slots import (  # noqa: F401
+    SlotInstance,
+    SlotTimeline,
+    check_slots,
+    ring_slot_timeline,
+)
+from .validate import validate_steps  # noqa: F401

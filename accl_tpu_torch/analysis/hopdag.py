@@ -1,12 +1,13 @@
 """Hop-DAG IR: one call's schedule as data.
 
-Counterpart of accl_tpu/analysis/hopdag.py (everything but the fault
-mutations, which serve the semantic certifier). A `HopDag` is a
+Counterpart of accl_tpu/analysis/hopdag.py. A `HopDag` is a
 rank-tagged, program-ordered list of nodes describing every cross-rank
 move and every arithmetic fold of ONE call's schedule, plus the per-rank
 output composition. The synthesized schedule library
-(sequencer/synthesis.py) ships its entries in this form, and the
-lowering compiles them into schedule bodies.
+(sequencer/synthesis.py) ships its entries in this form, the lowering
+compiles them into schedule bodies, the semantic certifier
+(semantics.py) interprets them, and `rank_programs` lowers their hops to
+the Event programs protocol.simulate and the model checker explore.
 
 Node kinds (each output is a flat run of `length` elements):
 
@@ -29,12 +30,17 @@ The IR is executable: `execute` evaluates a DAG with numpy (encode and
 decode through the port's blockwise int8 lanes on the CPU), the
 reference the lowered program is held against. A node reading a node
 that has not run yet (`validate_order` -> ACCL504) reads zeros.
+
+The mutations (`mutate`, `MUTATIONS`) are the fault injector the
+certifier is held against: each seeds one wrong-result class into a
+DAG, drawing from the caller's `random.Random` exactly as the
+reference does, so one seed gives the reference's mutant.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 
@@ -58,6 +64,8 @@ __all__ = [
     "execute",
     "to_json",
     "from_json",
+    "mutate",
+    "MUTATIONS",
 ]
 
 DATA = "data"
@@ -220,24 +228,19 @@ def validate_order(dag: HopDag) -> list[Diagnostic]:
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class HopEvent:
-    """One blocking step of a rank's program: the reference protocol
-    Event's kind, peer and tag."""
-
-    kind: str  # "send" | "recv"
-    peer: int
-    tag: int
-
-
 def rank_programs(dag: HopDag) -> list[list[Any]]:
-    """Per-rank blocking programs over the DAG's hops (tag = hop
-    channel): the event lists the reference's protocol simulation and
-    interleaving model checker consume."""
+    """Per-rank blocking Event programs over the DAG's hops (tag = hop
+    channel), the input `protocol.simulate` and the interleaving model
+    checker consume."""
+    from .protocol import recv as _recv
+    from .protocol import send as _send
+
     programs: list[list[Any]] = [[] for _ in range(dag.world)]
     for n in dag.nodes:
-        if n.kind in ("send", "recv"):
-            programs[n.rank].append(HopEvent(n.kind, n.peer, n.hop))
+        if n.kind == "send":
+            programs[n.rank].append(_send(n.peer, tag=n.hop))
+        elif n.kind == "recv":
+            programs[n.rank].append(_recv(n.peer, tag=n.hop))
     return programs
 
 
@@ -393,3 +396,140 @@ def from_json(d: dict) -> HopDag:
         nodes=tuple(nodes),
         outputs=tuple(tuple(_piece_from(p) for p in v)
                       for v in d["outputs"]))
+
+
+# ---------------------------------------------------------------------------
+# Mutations (the fuzz harness's fault injector)
+# ---------------------------------------------------------------------------
+
+
+def _remap_value(value: Value, remap: dict[int, int]) -> Value:
+    return tuple(p if p.node == CONST
+                 else dataclasses.replace(p, node=remap[p.node])
+                 for p in value)
+
+
+def _rebuild(dag: HopDag, nodes: list[Node],
+             remap: dict[int, int]) -> HopDag:
+    """Renumber `nodes` (listed in their NEW program order, carrying
+    their old ids) under old-id -> new-id `remap`."""
+    new_nodes = tuple(
+        dataclasses.replace(n, id=i,
+                            value=_remap_value(n.value, remap),
+                            value2=_remap_value(n.value2, remap))
+        for i, n in enumerate(nodes))
+    outputs = tuple(_remap_value(v, remap) for v in dag.outputs)
+    return HopDag(dag.world, dag.n_in, dag.in_elems, dag.out_elems,
+                  new_nodes, outputs)
+
+
+def _combines(dag: HopDag, func: str | None = None) -> list[Node]:
+    return [n for n in dag.nodes if n.kind == "combine"
+            and (func is None or n.func == func)]
+
+
+def mutate_drop_combine(dag: HopDag, rng: Any) -> HopDag | None:
+    """Drop one reduction fold: the combine becomes an identity pass of
+    its first operand, so the second operand's contribution never
+    reaches the output (the ACCL502 class)."""
+    cands = _combines(dag)
+    if not cands:
+        return None
+    c = cands[rng.randrange(len(cands))]
+    nodes = list(dag.nodes)
+    nodes[c.id] = dataclasses.replace(c, kind="cast", value2=(), func="",
+                                      dtype="")
+    ident = {n.id: n.id for n in dag.nodes}
+    return _rebuild(dag, nodes, ident)
+
+
+def mutate_duplicate_combine(dag: HopDag, rng: Any) -> HopDag | None:
+    """Fold one combine's second operand in twice (the ACCL503 class:
+    a contribution double-counted into a non-idempotent reduction)."""
+    cands = _combines(dag, "sum")
+    if not cands:
+        return None
+    c = cands[rng.randrange(len(cands))]
+    dup = Node(id=-1, kind="combine", rank=c.rank, length=c.length,
+               value=(Piece(c.length, c.id),), value2=c.value2,
+               func=c.func)
+    order = list(dag.nodes[: c.id + 1]) + [dup] + list(dag.nodes[c.id + 1:])
+    remap = {}
+    for i, n in enumerate(order):
+        if n.id >= 0:
+            remap[n.id] = i
+    # consumers of c now read the duplicated fold
+    dup_new = remap[c.id] + 1
+
+    def redirect(value: Value, skip_dup: bool = False) -> Value:
+        return tuple(
+            p if p.node == CONST else dataclasses.replace(
+                p, node=(dup_new if p.node == c.id and not skip_dup
+                         else remap[p.node]))
+            for p in value)
+
+    new_nodes = []
+    for i, n in enumerate(order):
+        if n is dup:
+            new_nodes.append(dataclasses.replace(
+                dup, id=i, value=(Piece(c.length, remap[c.id]),),
+                value2=_remap_value(c.value2, remap)))
+        else:
+            skip = n.id <= c.id  # nodes at/before c keep their wiring
+            new_nodes.append(dataclasses.replace(
+                n, id=i, value=redirect(n.value, skip_dup=skip),
+                value2=redirect(n.value2, skip_dup=skip)))
+    outputs = tuple(redirect(v) for v in dag.outputs)
+    return HopDag(dag.world, dag.n_in, dag.in_elems, dag.out_elems,
+                  tuple(new_nodes), outputs)
+
+
+def mutate_reorder_combine(dag: HopDag, rng: Any) -> HopDag | None:
+    """Hoist a combine above the recv it folds: the fold now reads the
+    arrival before the wire delivers it (the ACCL504 class)."""
+    cands = [c for c in _combines(dag)
+             if any(dag.nodes[p.node].kind == "recv" for p in c.refs())]
+    if not cands:
+        return None
+    c = cands[rng.randrange(len(cands))]
+    first_recv = min(p.node for p in c.refs()
+                     if dag.nodes[p.node].kind == "recv")
+    order = list(dag.nodes)
+    order.remove(c)
+    order.insert(first_recv, c)
+    remap = {n.id: i for i, n in enumerate(order)}
+    return _rebuild(dag, order, remap)
+
+
+def mutate_swap_send_values(dag: HopDag, rng: Any) -> HopDag | None:
+    """Swap the payloads of two sends in one hop: every endpoint still
+    matches (the protocol passes stay clean) but two destinations get
+    each other's region (the ACCL501 class)."""
+    by_hop: dict[int, list[Node]] = {}
+    for n in dag.nodes:
+        if n.kind == "send":
+            by_hop.setdefault(n.hop, []).append(n)
+    hops = [ns for ns in by_hop.values()
+            if len(ns) >= 2 and ns[0].length == ns[1].length
+            and ns[0].value != ns[1].value]
+    if not hops:
+        return None
+    ns = hops[rng.randrange(len(hops))]
+    a, b = ns[0], ns[1]
+    nodes = list(dag.nodes)
+    nodes[a.id] = dataclasses.replace(a, value=b.value)
+    nodes[b.id] = dataclasses.replace(b, value=a.value)
+    ident = {n.id: n.id for n in dag.nodes}
+    return _rebuild(dag, nodes, ident)
+
+
+MUTATIONS: dict[str, Callable[[HopDag, Any], HopDag | None]] = {
+    "drop_combine": mutate_drop_combine,  # expect ACCL502
+    "duplicate_combine": mutate_duplicate_combine,  # expect ACCL503
+    "reorder_combine": mutate_reorder_combine,  # expect ACCL504
+    "swap_send_values": mutate_swap_send_values,  # expect ACCL501
+}
+
+
+def mutate(dag: HopDag, kind: str, rng: Any) -> HopDag | None:
+    return MUTATIONS[kind](dag, rng)

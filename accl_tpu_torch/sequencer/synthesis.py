@@ -8,8 +8,8 @@ the tiered `t_<inner>_<outer>` families on a factored inner x outer
 world), certifies every winner and ships it as a JSON hop-DAG under
 `synthesized/`. The port carries that library's metadata
 (accl_tpu_torch/sequencer/synthesized/: each entry's spec, window and
-canonical count, without the DAG body, which `instantiate` regenerates
-at the call's count) and everything the call path needs from it:
+canonical count, and the digest of the DAG body in its place, which
+`instantiate` regenerates at the call's count) and everything the call path needs from it:
 
   - the generators behind `instantiate`, which regenerate an entry's
     DAG at any count (the lowering's source; `canonical_count`,
@@ -18,12 +18,24 @@ at the call's count) and everything the call path needs from it:
     `tiered_phase_costs`, `hand_written_best(_tiered)`, which
     timing.tuning_crossovers and the hierarchical arbitration use;
   - the library: `library`, `select_entry`, `entry_for_key`;
-  - the lowering: `lower_plan` / `lower_dag`.
+  - the lowering: `lower_plan` / `lower_dag` (`round_launches` reads
+    the kernel launches of one lowered run off its round plan).
 
-The search and the certification (`search`, `enumerate_*`,
-`score_window*`, `certify_*`, `export_entry`, `verify_library`) need the
-semantic certifier and the deep model checker, which the port does not
-have yet: they raise NotImplementedError naming the analysis slice.
+It also searches and certifies as the reference does:
+`enumerate_candidates`, `enumerate_tiered_candidates`,
+`score_window(_tiered)`,
+`search` (score, beam-prune, then certify every survivor),
+`certify_dag` / `certify_spec` (semantics.certify against
+collective_spec, the canonical protocol simulation and the interleaving
+model checker), `export_entry`, and `verify_library`, the gate that
+keeps a stale or uncertified entry from shipping.
+
+Drift check. The reference's library entries commit the canonical DAG
+and `verify_library` compares the regenerated DAG with it byte for
+byte. The port's copies carry `dag_sha256` in its place: the SHA-256 of
+`json.dumps(to_json(dag), sort_keys=True)` of that committed DAG
+(`dag_digest`), which `verify_library` compares with the regenerated
+DAG's digest.
 
 Lowering. The reference compiles a DAG into one per-rank chain under
 shard_map: a rank-symmetric DAG as one rank-relative chain, any other
@@ -44,10 +56,11 @@ into one fused multiply-add.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import pathlib
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 from ..constants import (
     QUANT_BLOCK_ELEMS,
@@ -56,7 +69,7 @@ from ..constants import (
     Operation,
     ReduceFunction,
 )
-from ..errors import not_ported
+from ..analysis.diagnostics import Diagnostic
 from ..analysis.hopdag import (
     CONST,
     DATA,
@@ -67,7 +80,12 @@ from ..analysis.hopdag import (
     Value,
     concat_values,
     slice_value,
+    to_json,
 )
+
+# the ops a synthesized schedule can implement today
+SYNTH_OPS = (Operation.allreduce, Operation.allgather,
+             Operation.reduce_scatter)
 
 # predicted-score grid: payload bytes per (world, size) cell
 SIZE_GRID = tuple(1 << k for k in range(10, 25, 2))  # 1 KB .. 16 MB
@@ -146,6 +164,20 @@ class SynthSpec:
                    grid=str(d.get("grid", "std")))
 
 
+def _spec_key(op: str, world: int, family: str,
+              distances: tuple[int, ...], wire: str) -> str:
+    d = "_".join(str(x) for x in distances)
+    w = f"_{wire}" if wire else ""
+    return f"{op}_w{world}_{family}_d{d}{w}"
+
+
+def _tiered_key(world: int, tiers: tuple[int, int], family: str,
+                di: tuple[int, ...], do: tuple[int, ...]) -> str:
+    L, P = tiers
+    return (f"allreduce_w{world}_t{L}x{P}_{family[2:]}"
+            f"_d{'_'.join(map(str, di))}_o{'_'.join(map(str, do))}")
+
+
 def _tier_kinds(family: str) -> tuple[str, str]:
     """('lg'|'ring', 'exchange'|'rs_ag'|'ring') of a tiered family."""
     if not family.startswith("t_"):
@@ -188,6 +220,39 @@ def coverage_sets(world: int,
         cur = sets[-1]
         sets.append(cur | {(s + d) % world for s in cur})
     return sets
+
+
+def _valid_distance_tuples(world: int, k: int) -> Iterator[tuple[int, ...]]:
+    """Strictly-increasing k-tuples whose 2^k subset sums are pairwise
+    distinct mod `world`, in lexicographic order — enumerated by
+    branch-and-bound DFS: a prefix dies the moment its sums collide, so
+    the first valid tuple at w256 costs ~k*world set extensions instead
+    of the millions of complete tuples a combinations scan would build
+    and re-check (the scaling lever for w16-w256 enumeration)."""
+
+    def rec(start: int, sums: frozenset, prefix: tuple[int, ...],
+            ) -> Iterator[tuple[int, ...]]:
+        if len(prefix) == k:
+            yield prefix
+            return
+        for d in range(start, world):
+            shifted = {(s + d) % world for s in sums}
+            if sums & shifted:
+                continue  # collision: every extension collides too
+            yield from rec(d + 1, frozenset(sums | shifted),
+                           prefix + (d,))
+
+    yield from rec(1, frozenset({0}), ())
+
+
+def _first_valid_tuple(world: int) -> tuple[int, ...] | None:
+    """The lexicographically first valid k=log2(world) tuple (the
+    dominance representative: valid tuples within a family share the
+    per-step byte profile, so they are cost-identical)."""
+    if world < 2 or world & (world - 1):
+        return None
+    k = world.bit_length() - 1
+    return next(_valid_distance_tuples(world, k), None)
 
 
 # ---------------------------------------------------------------------------
@@ -702,49 +767,61 @@ def canonical_count(spec: SynthSpec) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Search and certification: the analysis slice of the port
+# Certification: the existing prove stack, candidate by candidate
 # ---------------------------------------------------------------------------
 
 
-def _analysis(name: str) -> NotImplementedError:
-    return not_ported(f"synthesis.{name} (it needs the semantic certifier "
-                      "and the deep model checker)", "analysis")
+def _call_options(spec: SynthSpec, count: int,
+                  func: ReduceFunction = ReduceFunction.SUM) -> Any:
+    from ..constants import DataType
+    from ..descriptor import CallOptions
+
+    return CallOptions(scenario=spec.scenario, count=count,
+                       function=int(func), data_type=DataType.float32)
 
 
-def certify_dag(*args, **kwargs):
-    raise _analysis("certify_dag")
+def certify_dag(dag: HopDag, spec: SynthSpec, count: int,
+                func: ReduceFunction = ReduceFunction.SUM,
+                ) -> list[Diagnostic]:
+    """Run one candidate instance through the full prove stack:
+    semantic certification (ACCL501-504) against the declared
+    collective, the canonical protocol simulation, and the exhaustive-
+    interleaving model checker (ACCL205-207). Returns every diagnostic;
+    an empty list is the only shippable verdict."""
+    from ..analysis import semantics
+    from ..analysis.hopdag import rank_programs, validate_order
+    from ..analysis.linter import SequenceLinter
+    from ..analysis.protocol import simulate
+
+    opts = _call_options(spec, count, func)
+    spec_map = semantics.collective_spec(opts, dag.world)
+    diags = list(validate_order(dag))
+    diags += semantics.certify(dag, spec_map, spec.op)
+    programs = rank_programs(dag)
+    diags += simulate(programs, blocking_sends=False)
+    if not diags:
+        diags += SequenceLinter(dag.world).check_interleavings(programs)
+    return diags
 
 
-def certify_spec(*args, **kwargs):
-    raise _analysis("certify_spec")
-
-
-def enumerate_candidates(*args, **kwargs):
-    raise _analysis("enumerate_candidates")
-
-
-def enumerate_tiered_candidates(*args, **kwargs):
-    raise _analysis("enumerate_tiered_candidates")
-
-
-def score_window(*args, **kwargs):
-    raise _analysis("score_window")
-
-
-def score_window_tiered(*args, **kwargs):
-    raise _analysis("score_window_tiered")
-
-
-def search(*args, **kwargs):
-    raise _analysis("search")
-
-
-def export_entry(*args, **kwargs):
-    raise _analysis("export_entry")
-
-
-def verify_library(*args, **kwargs):
-    raise _analysis("verify_library")
+def certify_spec(spec: SynthSpec,
+                 counts: tuple[int, ...] = (),
+                 ) -> tuple[bool, list[Diagnostic]]:
+    """Certify a spec at its canonical count (and any extra counts).
+    False means DISCARD: the caller must not ship the candidate."""
+    all_diags: list[Diagnostic] = []
+    for count in (canonical_count(spec),) + tuple(counts):
+        try:
+            dag = instantiate(spec, count)
+        except SynthesisError:
+            return False, all_diags
+        all_diags += certify_dag(dag, spec, count)
+        if spec.op == "allreduce" and spec.wire != "int8":
+            # MAX folds certify too (idempotent reduction class)
+            dag_max = instantiate(spec, count, func="max")
+            all_diags += certify_dag(dag_max, spec, count,
+                                     ReduceFunction.MAX)
+    return not all_diags, all_diags
 
 
 # ---------------------------------------------------------------------------
@@ -984,6 +1061,287 @@ def hand_written_tiered_best(tier_links: Any, count: int,
 
 
 # ---------------------------------------------------------------------------
+# Search: enumerate -> prune -> certify -> score
+# ---------------------------------------------------------------------------
+
+
+def enumerate_candidates(op: Operation, world: int,
+                         include_wire: bool = True,
+                         ) -> Iterator[SynthSpec]:
+    """All valid FLAT candidates for (op, world) in deterministic
+    lexicographic order. Distances are strictly increasing (two equal
+    distances always collide in the subset-sum check) and k is pinned
+    to log2(world) by the exact-cover condition; candidates with the
+    same per-step byte profile are cost-equivalent, so dominance
+    pruning keeps only the lexicographically first of each family —
+    found by the branch-and-bound DFS (`_valid_distance_tuples`), which
+    is what keeps enumeration O(k*world) at w64-w256 instead of the
+    combinations scan's millions of dead tuples."""
+    if world < 2 or world & (world - 1):
+        return  # the symmetric families need 2^k == world
+    op_name = op.name
+    families = {"allreduce": ("exchange", "rs_ag"),
+                "allgather": ("doubling",),
+                "reduce_scatter": ("halving",)}[op_name]
+    distances = _first_valid_tuple(world)
+    if distances is None:
+        return
+    for family in families:
+        yield SynthSpec(
+            key=_spec_key(op_name, world, family, distances, ""),
+            op=op_name, world=world, family=family,
+            distances=distances)
+        if include_wire and family == "exchange":
+            yield SynthSpec(
+                key=_spec_key(op_name, world, family, distances,
+                              "int8"),
+                op=op_name, world=world, family=family,
+                distances=distances, wire="int8")
+
+
+def enumerate_tiered_candidates(world: int, tiers: tuple[int, int],
+                                ) -> Iterator[SynthSpec]:
+    """All tiered allreduce candidates for one (inner, outer) factoring
+    of `world`, deterministic order: the per-tier family product
+    {lg, ring} x {exchange, rs_ag, ring}, each at its dominance-
+    representative distance tuple. The log-step kinds need a
+    power-of-two axis; the ring kinds serve ANY axis extent (d = 1),
+    which is what keeps non-power-of-two pod slices searchable.
+    Degenerate duplicates are skipped (at an axis extent of 2 the ring
+    and the log-step member emit the same hops; ring == rs_ag on the
+    outer shard at P = 2)."""
+    L, P = tiers
+    if L < 2 or P < 2 or L * P != world:
+        return
+    inner_kinds: list[tuple[str, tuple[int, ...]]] = []
+    i_tuple = _first_valid_tuple(L)
+    if i_tuple is not None:
+        inner_kinds.append(("lg", i_tuple))
+    if L > 2 or i_tuple is None:
+        inner_kinds.append(("ring", (1,)))
+    outer_kinds: list[tuple[str, tuple[int, ...]]] = []
+    o_tuple = _first_valid_tuple(P)
+    if o_tuple is not None:
+        outer_kinds.append(("exchange", o_tuple))
+        outer_kinds.append(("rs_ag", o_tuple))
+    if P > 2 or o_tuple is None:
+        outer_kinds.append(("ring", (1,)))
+    for ik, di in inner_kinds:
+        for ok, do in outer_kinds:
+            family = f"t_{ik}_{ok}"
+            yield SynthSpec(
+                key=_tiered_key(world, (L, P), family, di, do),
+                op="allreduce", world=world, family=family,
+                distances=di, tiers=(L, P), outer_distances=do)
+
+
+@dataclasses.dataclass
+class SearchResult:
+    """One library-ready winner: its spec, certified canonical DAG, and
+    the predicted winning byte window under the scoring link."""
+
+    spec: SynthSpec
+    dag: HopDag
+    win_bytes: tuple[int, int]
+    predicted: dict[int, tuple[float, float]]  # bytes -> (synth, hand)
+
+
+def _narrow_contiguous(wins: list[int], size_grid: tuple[int, ...],
+                       key: str, say: Callable[[str], None],
+                       ) -> tuple[int, int]:
+    """Longest contiguous grid run of a win set: select_entry treats
+    every payload inside [lo, hi] as a predicted win, so a win set with
+    a losing cell in the middle must not overclaim the whole span."""
+    runs: list[list[int]] = [[wins[0]]]
+    for prev, nbytes in zip(wins, wins[1:]):
+        if size_grid.index(nbytes) - size_grid.index(prev) == 1:
+            runs[-1].append(nbytes)
+        else:
+            runs.append([nbytes])
+    run = max(runs, key=len)
+    if len(run) < len(wins):
+        say(f"narrow {key}: win cells non-contiguous across "
+            f"the grid; keeping [{run[0]}, {run[-1]}]")
+    return run[0], run[-1]
+
+
+def score_window(link: Any, spec: SynthSpec, *,
+                 elem_bytes: int = 4,
+                 size_grid: tuple[int, ...] | None = None,
+                 aggregate: bool = False,
+                 log: Callable[[str], None] | None = None,
+                 ) -> tuple[tuple[int, int] | None,
+                            dict[int, tuple[float, float]]]:
+    """Score one FLAT spec per size-grid cell against the best
+    hand-written prediction (strict inequality wins) and narrow the win
+    set to its longest CONTIGUOUS grid run. The ONE window rule shared
+    by search/--export and verify_library — a scoring change lands here
+    or nowhere. `size_grid` defaults to the spec's OWN grid
+    (`grid_for`: SIZE_GRID_LAT for grid="lat" entries), so a lat
+    entry's window re-scores on the cells it was searched over.
+    Returns (window or None, per-cell predictions)."""
+    say = log or (lambda m: None)
+    if size_grid is None:
+        size_grid = grid_for(spec)
+    wins: list[int] = []
+    predicted: dict[int, tuple[float, float]] = {}
+    op = Operation[spec.op]
+    for nbytes in size_grid:
+        count = max(nbytes // elem_bytes, 1)
+        t_synth = predict_spec(link, spec, count, elem_bytes,
+                               aggregate=aggregate)
+        # an int8 candidate competes against the hand-written
+        # QUANTIZED ring — never against the exact fp32 zoo (a
+        # lossy schedule must not displace an exact one)
+        t_hand = hand_written_best(link, op, count, elem_bytes,
+                                   spec.world, aggregate=aggregate,
+                                   wire=spec.wire)
+        predicted[nbytes] = (t_synth, t_hand)
+        if t_synth < t_hand:
+            wins.append(nbytes)
+    if not wins:
+        return None, predicted
+    return _narrow_contiguous(wins, size_grid, spec.key, say), predicted
+
+
+def score_window_tiered(tier_links: Any, spec: SynthSpec, *,
+                        elem_bytes: int = 4,
+                        size_grid: tuple[int, ...] = SIZE_GRID,
+                        aggregate: bool = False,
+                        log: Callable[[str], None] | None = None,
+                        ) -> tuple[tuple[int, int] | None,
+                                   dict[int, tuple[float, float]]]:
+    """The tiered-entry window rule: per size-grid cell, the spec's
+    per-tier prediction (every hop charged to ITS link) must strictly
+    beat `hand_written_tiered_best` — the striped hierarchical
+    composition at the model's own stripe count AND the flat zoo on the
+    outer link. Shared by search/--export and verify_library's tiered
+    leg exactly like `score_window` is for flat entries.
+
+    A win needs a (tiny) relative MARGIN, not one ULP: the composition
+    re-discovered (the ring x ring member) predicts EXACTLY the striped
+    composition's serial form, differing only in summation order — a
+    tie is a keep-out, never a shippable entry, and a summation-order
+    artifact must not flip windows between hosts."""
+    say = log or (lambda m: None)
+    wins: list[int] = []
+    predicted: dict[int, tuple[float, float]] = {}
+    L, P = spec.tiers
+    for nbytes in size_grid:
+        count = max(nbytes // elem_bytes, 1)
+        t_synth = predict_spec_tiered(tier_links, spec, count,
+                                      elem_bytes, aggregate=aggregate)
+        t_hand = hand_written_tiered_best(tier_links, count, elem_bytes,
+                                          (L, P), aggregate=aggregate)
+        predicted[nbytes] = (t_synth, t_hand)
+        if t_synth < t_hand * (1.0 - 1e-9):
+            wins.append(nbytes)
+    if not wins:
+        return None, predicted
+    return _narrow_contiguous(wins, size_grid, spec.key, say), predicted
+
+
+def search(op: Operation, world: int, link: Any, *,
+           elem_bytes: int = 4,
+           size_grid: tuple[int, ...] | None = None,
+           aggregate: bool = False,
+           log: Callable[[str], None] | None = None,
+           beam: int | None = None,
+           tiers: tuple[int, int] | None = None,
+           tier_links: Any = None,
+           grid: str = "std",
+           ) -> list[SearchResult]:
+    """The full synthesize -> score -> prune -> certify loop for one
+    (op, world) — flat by default, or the factored space for one
+    (inner, outer) factoring when `tiers` is given (then `tier_links`
+    supplies the per-tier scoring calibration).
+
+    Candidates are SCORED FIRST with the alpha-beta model (per-tier
+    charged for tiered candidates) — the model's exact serial cost of
+    the emitted DAG, so pruning on it is admissible (see module
+    docstring) — and only the survivors pay certification: losers are
+    reported as keep-outs without ever instantiating a DAG, and
+    `beam` keeps only the beam best predicted advantages (ranked by
+    best hand/synth ratio over the window; ties break to key order so
+    the prune is deterministic). Every survivor is then CERTIFIED with
+    the existing stack; a candidate with any diagnostic is discarded
+    LOUDLY (reported through `log`) and can never reach the library.
+    Winners are returned in enumeration order with their contiguous
+    winning windows."""
+    say = log or (lambda m: None)
+    if grid not in ("std", "lat"):
+        raise SynthesisError(f"unknown scoring grid {grid!r}")
+    if grid == "lat" and tiers is not None:
+        raise SynthesisError(
+            "the latency grid scores FLAT candidates only: tiered "
+            "windows are per-tier predictions selected through the "
+            "hier register, not the latency window")
+    if size_grid is None:
+        size_grid = SIZE_GRID_LAT if grid == "lat" else SIZE_GRID
+    if tiers is not None and op != Operation.allreduce:
+        raise SynthesisError(
+            f"the tiered families implement allreduce only; a tiered "
+            f"{op.name} search has no candidates to return (and must "
+            "not silently hand back allreduce schedules)")
+    if tiers is not None and tier_links is None:
+        raise SynthesisError(
+            "tiered search needs tier_links (per-tier scoring "
+            "calibration): pass timing.TierLinks, e.g. "
+            "shipped_tier_links()")
+    scored: list[tuple[SynthSpec, tuple[int, int],
+                       dict[int, tuple[float, float]], float]] = []
+    cands = (enumerate_tiered_candidates(world, tiers)
+             if tiers is not None else enumerate_candidates(op, world))
+    if grid == "lat":
+        # the same candidate space re-scored on the latency grid: keys
+        # get a "_lat" suffix so a member can ship BOTH a bandwidth
+        # window and a latency window without colliding in the library
+        cands = (dataclasses.replace(s, key=s.key + "_lat", grid="lat")
+                 for s in cands)
+    for spec in cands:
+        if spec.tiers:
+            window, predicted = score_window_tiered(
+                tier_links, spec, elem_bytes=elem_bytes,
+                size_grid=size_grid, aggregate=aggregate, log=say)
+        else:
+            window, predicted = score_window(
+                link, spec, elem_bytes=elem_bytes, size_grid=size_grid,
+                aggregate=aggregate, log=say)
+        if window is None:
+            say(f"keep-out {spec.key}: never beats the hand-written "
+                "baselines on this link (pruned before certification)")
+            continue
+        advantage = max(
+            hand / synth
+            for nb, (synth, hand) in predicted.items()
+            if window[0] <= nb <= window[1] and synth > 0)
+        scored.append((spec, window, predicted, advantage))
+    if beam is not None and len(scored) > beam:
+        ranked = sorted(scored, key=lambda s: (-s[3], s[0].key))
+        kept = {id(s) for s in ranked[:beam]}
+        for spec, _w, _p, adv in ranked[beam:]:
+            say(f"PRUNE {spec.key}: outside the beam of {beam} "
+                f"(predicted advantage {adv:.2f}x) — never certified")
+        scored = [s for s in scored if id(s) in kept]
+    results: list[SearchResult] = []
+    for spec, window, predicted, _adv in scored:
+        ok, diags = certify_spec(spec)
+        if not ok:
+            say(f"DISCARD {spec.key}: candidate failed certification: "
+                + "; ".join(str(d) for d in diags[:4]))
+            continue
+        dag = instantiate(spec, canonical_count(spec))
+        results.append(SearchResult(
+            spec=spec, dag=dag, win_bytes=window, predicted=predicted))
+        n_cells = (size_grid.index(window[1])
+                   - size_grid.index(window[0]) + 1)
+        say(f"WINNER {spec.key}: beats hand-written on "
+            f"[{window[0]}, {window[1]}] bytes "
+            f"({n_cells}/{len(size_grid)} cells)")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Library: the committed synthesized/ directory
 # ---------------------------------------------------------------------------
 
@@ -998,6 +1356,14 @@ class LibraryEntry:
     win_bytes: tuple[int, int]
     canonical_count: int
     path: pathlib.Path
+    dag_sha256: str = ""  # dag_digest of the canonical DAG
+
+
+def dag_digest(dag: HopDag) -> str:
+    """The library's drift digest of a DAG: SHA-256 of its JSON form with
+    sorted keys (the module docstring's drift check)."""
+    return hashlib.sha256(json.dumps(to_json(dag), sort_keys=True)
+                          .encode()).hexdigest()
 
 
 _LIBRARY: dict[str, LibraryEntry] | None = None
@@ -1025,7 +1391,7 @@ def library() -> dict[str, LibraryEntry]:
                         spec=spec, win_bytes=(int(lo), int(hi)),
                         canonical_count=int(doc.get(
                             "canonical_count", canonical_count(spec))),
-                        path=p)
+                        path=p, dag_sha256=str(doc.get("dag_sha256", "")))
                 except (OSError, ValueError, KeyError) as e:
                     raise SynthesisError(
                         f"unreadable synthesized library entry {p}: "
@@ -1077,6 +1443,24 @@ def entry_for_key(key: str) -> LibraryEntry:
     return entry
 
 
+def export_entry(result: SearchResult,
+                 out_dir: pathlib.Path | None = None) -> pathlib.Path:
+    """Write one winner to the library in the port's form: the spec, its
+    window and canonical count, and the canonical DAG's digest in place
+    of its body."""
+    out = out_dir or library_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    doc = result.spec.to_json()
+    doc["schema"] = 1
+    doc["canonical_count"] = canonical_count(result.spec)
+    doc["win_bytes"] = list(result.win_bytes)
+    doc["cert"] = {"semantic": "clean", "modelcheck": "clean"}
+    doc["dag_sha256"] = dag_digest(result.dag)
+    path = out / f"{result.spec.key}.json"
+    path.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
+    return path
+
+
 def shipped_link() -> Any:
     """LinkParams of the port's copy of the shipped timing model
     (timing.emulator_link, the reference's one resolution rule)."""
@@ -1103,6 +1487,61 @@ def shipped_tier_links() -> Any:
             "the shipped timing model carries no link_tiers (the "
             "calibration tiered library windows are scored under)")
     return tiers
+
+
+def verify_library(log: Callable[[str], None] | None = None,
+                   link: Any = None, tier_links: Any = None) -> bool:
+    """Re-certify every committed entry from scratch: the spec must
+    regenerate the committed DAG (its digest equal to the entry's
+    `dag_sha256`: the generator drift check), the DAG must pass
+    semantics + deep modelcheck clean, and the committed win_bytes
+    window must equal a fresh `score_window` under `link` (default: the
+    shipped calibrated model), so a timing-model or cost-model change
+    that leaves stale selection windows fails here instead of silently
+    steering `select_entry`. TIERED entries re-score under `tier_links`
+    (default: the shipped `link_tiers` calibration). The gate that keeps
+    a stale library or a checker change from shipping an uncertified
+    schedule."""
+    say = log or print
+    ok = True
+    entries = library()
+    if not entries:
+        say("synthesized library is EMPTY")
+        return False
+    if link is None:
+        link = shipped_link()
+    for key, entry in sorted(entries.items()):
+        regen = instantiate(entry.spec, entry.canonical_count)
+        if dag_digest(regen) != entry.dag_sha256:
+            say(f" FAIL {key}: regenerated DAG's digest != committed "
+                "dag_sha256 (generator drift — re-export the library)")
+            ok = False
+            continue
+        diags = certify_dag(regen, entry.spec, entry.canonical_count)
+        if diags:
+            say(f" FAIL {key}: committed DAG no longer certifies: "
+                + "; ".join(str(d) for d in diags[:4]))
+            ok = False
+            continue
+        if entry.spec.tiers:
+            if tier_links is None:
+                tier_links = shipped_tier_links()
+            window, _ = score_window_tiered(tier_links, entry.spec)
+        else:
+            window, _ = score_window(link, entry.spec)
+        if window != entry.win_bytes:
+            say(f" FAIL {key}: committed win_bytes "
+                f"{list(entry.win_bytes)} != fresh scoring "
+                f"{list(window) if window else None} under the scoring "
+                "link (stale selection window — re-export the library)")
+            ok = False
+            continue
+        tier_note = (f", tiers {entry.spec.tiers[0]}x"
+                     f"{entry.spec.tiers[1]}" if entry.spec.tiers else "")
+        say(f"  ok  {key}: regenerates + certifies clean, win window "
+            f"current ({len(regen.nodes)} nodes, "
+            f"world {entry.spec.world}{tier_note})")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -1360,14 +1799,20 @@ def _rounds_read(plan) -> set[int]:
     return {s.round for s in plan if s.round >= 0}
 
 
-def lower_dag(dag: HopDag) -> Callable[[Any], Any]:
-    """Compile a library hop-DAG into a schedule body: (world, in_elems)
-    rank rows -> (world, out_elems), one operation per round (the
-    module docstring has the design). Hops go through
-    schedules._permute (a roll for a rotation, a gather for a tier
-    ring), folds through reduce_ops.combine_op (the lane kernel),
-    encode and decode through the blockwise int8 lanes, casts through
-    the cast lane."""
+@dataclasses.dataclass(frozen=True)
+class _RoundPlan:
+    """What lower_dag runs: per round (index, its rank-0 node, the plans
+    of its two values, a recv's (send round, pairs)), the fold rounds
+    fused with the decode round they read, the rounds read unfused, and
+    the plan of the outputs."""
+
+    steps: tuple
+    fused: dict[int, int]
+    read_unfused: frozenset[int]
+    out_plan: Any
+
+
+def _round_plan(dag: HopDag) -> _RoundPlan:
     _check_same_rank_dataflow(dag)
     rounds = _rounds(dag)
     round_of = {n.id: i for i, r in enumerate(rounds) for n in r}
@@ -1411,6 +1856,43 @@ def lower_dag(dag: HopDag) -> Callable[[Any], Any]:
         read_unfused |= _rounds_read(val)
         if i not in fused:
             read_unfused |= _rounds_read(val2)
+    return _RoundPlan(tuple(steps), fused, frozenset(read_unfused),
+                      out_plan)
+
+
+def round_launches(dag: HopDag) -> dict[str, int]:
+    """The kernel launches one run of lower_dag(dag)'s body makes on the
+    card, read off its round plan: an unfused fold round launches the
+    combine lane kernel, a fused decode+fold round dequant_combine, an
+    encode round quantize, a decode round read unfused dequantize, a cast
+    round with a dtype the cast lane kernel. Raises SynthesisError where
+    lower_dag does."""
+    plan = _round_plan(dag)
+    out = dict.fromkeys(("combine", "dequant_combine", "quantize",
+                         "dequantize", "cast"), 0)
+    for i, n0, *_ in plan.steps:
+        if n0.kind == "combine":
+            out["dequant_combine" if i in plan.fused else "combine"] += 1
+        elif n0.kind == "encode":
+            out["quantize"] += 1
+        elif n0.kind == "decode" and i in plan.read_unfused:
+            out["dequantize"] += 1
+        elif n0.kind == "cast" and n0.dtype:
+            out["cast"] += 1
+    return out
+
+
+def lower_dag(dag: HopDag) -> Callable[[Any], Any]:
+    """Compile a library hop-DAG into a schedule body: (world, in_elems)
+    rank rows -> (world, out_elems), one operation per round (the
+    module docstring has the design). Hops go through
+    schedules._permute (a roll for a rotation, a gather for a tier
+    ring), folds through reduce_ops.combine_op (the lane kernel),
+    encode and decode through the blockwise int8 lanes, casts through
+    the cast lane."""
+    plan = _round_plan(dag)
+    steps, fused, read_unfused = plan.steps, plan.fused, plan.read_unfused
+    out_plan = plan.out_plan
 
     def body(x: Any) -> Any:
         import torch

@@ -227,9 +227,21 @@ What it does, in order, printing one JSON object per line:
      int8 alltoalls' plan; each form's ms, tokens/s, the train step's
      share of its FLOP bound, kernel 7's device ms in a profiled step,
      peak memory;
- 19. the kernels line (with each kernel's launches on the sequence,
+ 19. analysis phase (accl_tpu_torch/analysis/ and synthesis's certify/
+     search/verify_library): verify_library over the 31 library entries
+     (each regenerates to its dag_sha256, certifies clean, keeps its
+     window); search at W = 4 and 8 and tiered (2, 4) finds the
+     library's winners; every entry at 1, 5 and 37 times its canonical
+     count, SUM and (exact-wire allreduce) MAX, certified and lowered on
+     the card: the exact wire bitwise with hopdag.execute and the numpy
+     oracle, the int8 wire within the reference's bound and bitwise with
+     the CPU lowering, kernels 7, 4, 5 and 6 launched as each DAG's round
+     plan gives (synthesis.round_launches); the reference's mutants of
+     every entry against the certifier's verdicts (0 disagreements); the
+     27 program-level lint fixtures, deep off and on;
+ 20. the kernels line (with each kernel's launches on the sequence,
      point-to-point, sub-communicator, alltoall, tuned, telemetry,
-     serve, train, MoE and mesh paths); last, the device line.
+     serve, train, MoE, mesh and analysis paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -5863,6 +5875,315 @@ def mesh_phase(ring, qk, L):
     return path
 
 
+# the analysis path: each library entry at these multiples of its
+# canonical count (multiples keep every family's chunking rule), the
+# mutant seeds, and the class code each mutation kind must carry when
+# the certifier flags it (the reference's tests/test_semantics.py)
+ANALYSIS_COUNTS = (1, 5, 37)
+ANALYSIS_SEEDS = (0, 1, 2)
+ANALYSIS_MUTATION_CODE = {"drop_combine": "ACCL502",
+                          "duplicate_combine": "ACCL503",
+                          "reorder_combine": "ACCL504",
+                          "swap_send_values": "ACCL501"}
+# round_launches' names -> the kernels line's
+ANALYSIS_KERNELS = {"combine": "combine", "dequant_combine": "dequant_combine",
+                    "quantize": "quantize", "dequantize": "dequantize",
+                    "cast": "cast"}
+
+
+def analysis_payload(dag, quantized, rng):
+    """The reference's _payloads (tests/test_semantics.py) as
+    (world, in_elems) rows: unique integer-valued fp32 on the exact wire
+    (every sum exact in fp32, a misroute visible), small positive
+    integers on the int8 wire."""
+    import numpy as np
+
+    w, n = dag.world, dag.in_elems
+    if quantized:
+        return rng.integers(1, 9, (w, n)).astype(np.float32)
+    return np.arange(w * n, dtype=np.float32).reshape(w, n) + 1.0
+
+
+def analysis_oracle(op, x, count, func):
+    """The numpy meaning of a library collective over rows x."""
+    import numpy as np
+
+    red = np.max if func == "max" else np.sum
+    w = x.shape[0]
+    if op == "allreduce":
+        return np.tile(red(x, axis=0), (w, 1))
+    if op == "allgather":
+        return np.tile(x.reshape(-1), (w, 1))
+    full = red(x, axis=0)  # reduce_scatter
+    return np.stack([full[r * count:(r + 1) * count] for r in range(w)])
+
+
+def analysis_mutations(dag, quantized):
+    """The reference's _applicable_mutations (tests/test_semantics.py)."""
+    kinds = []
+    combines = [n for n in dag.nodes if n.kind == "combine"]
+    if combines:
+        kinds.append("drop_combine")
+        if any(any(dag.nodes[p.node].kind == "recv" for p in n.refs())
+               for n in combines):
+            kinds.append("reorder_combine")
+    if any(n.func == "sum" for n in combines):
+        kinds.append("duplicate_combine")
+    if not quantized:
+        kinds.append("swap_send_values")
+    return kinds
+
+
+def analysis_phase(ring, qk, L):
+    """The analysis stack's program and DAG half (accl_tpu_torch/
+    analysis/, synthesis's certify/search/verify_library) with the
+    certified library checked against its lowered run on the card.
+    Gates, each failing the run:
+      (1) synthesis.verify_library(): all 31 entries regenerate to their
+          dag_sha256, certify clean and keep their windows;
+      (2) search for flat allreduce at W = 4 and 8 under shipped_link()
+          and tiered at (2, 4) under shipped_tier_links() finds the
+          library's entries for those cells, keys and win_bytes;
+      (3) every entry at ANALYSIS_COUNTS x its canonical count, SUM and,
+          for the exact-wire allreduce entries, MAX: certify_dag clean;
+          lower_dag(dag) on CUDA tensors of the reference's payloads,
+          each call launching kernels 7, 4, 5, 6 (and the cast kernel)
+          exactly as synthesis.round_launches reads off the lowering's
+          round plan; the exact wire bitwise equal to hopdag.execute and
+          to the numpy oracle; the int8 wire within (W+1)·W·max|x|/254 +
+          1e-5 of the oracle and bitwise equal to the same lowering on
+          the CPU (the kernels' plain versions); the int8 exchange
+          entries are rank-divergent by design (each rank rounds its own
+          partials), which is counted, not gated;
+      (4) per entry, each mutation kind the reference's
+          _applicable_mutations allows and ANALYSIS_SEEDS: certify the
+          mutant; run it on the card where lower_dag accepts it (launches
+          as its round plan gives, the exact wire bitwise with
+          hopdag.execute), else through hopdag.execute on the host; the
+          reference's rule: clean-certified computes the oracle's values,
+          a flagged mutant carries its class code, a flagged drop,
+          duplicate or swap under SUM computes wrong values (outside the
+          bound, or on the int8 wire other values than the clean DAG on
+          the same path: from W = 15 the bound exceeds one
+          contribution); 0 disagreements;
+      (5) the 27 rank_programs/slots/hopdag fixtures of tools/
+          lint_corpus/ give their expect/expect_semantic codes through
+          analysis.corpus.lint_fixture, deep off and on.
+    Prints one "analysis" line (counts, seconds, launches by kernel) and
+    returns each kernel's launches over the phase's runs on the card."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch.analysis import corpus, hopdag, semantics
+    from accl_tpu_torch.constants import Operation, ReduceFunction
+    from accl_tpu_torch.sequencer import synthesis
+
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    gpu = card_name()
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    # (1) the library gate
+    t = time.perf_counter()
+    msgs = []
+    if not synthesis.verify_library(log=msgs.append):
+        raise AssertionError("analysis: verify_library failed:\n"
+                             + "\n".join(m for m in msgs if "FAIL" in m))
+    seconds["verify_library"] = time.perf_counter() - t
+
+    # (2) the search finds the library's winners
+    t = time.perf_counter()
+    link, tier_links = synthesis.shipped_link(), synthesis.shipped_tier_links()
+    lib = synthesis.library()
+    winners = {}
+    for world, tiers in ((4, None), (8, None), (8, (2, 4))):
+        kw = {} if tiers is None else {"tiers": tiers,
+                                       "tier_links": tier_links}
+        found = {r.spec.key: r.win_bytes for r in synthesis.search(
+            Operation.allreduce, world, link, **kw)}
+        want = {k: e.win_bytes for k, e in lib.items()
+                if e.spec.op == "allreduce" and e.spec.world == world
+                and e.spec.grid == "std"
+                and e.spec.tiers == (tiers or ())}
+        if found != want or not found:
+            raise AssertionError(f"analysis: search W={world} tiers={tiers} "
+                                 f"found {found}, library {want}")
+        winners[f"w{world}" + (f"_t{tiers[0]}x{tiers[1]}" if tiers else "")] \
+            = sorted(found)
+    seconds["search"] = time.perf_counter() - t
+
+    path = dict.fromkeys(kernels, 0)
+
+    def lowered_on_card(dag, x, what):
+        """lower_dag(dag) over x on the card; its launches, added to the
+        path's, must be the round plan's."""
+        want = {ANALYSIS_KERNELS[k]: n
+                for k, n in synthesis.round_launches(dag).items() if n}
+        before = counts()
+        out = synthesis.lower_dag(dag)(torch.from_numpy(x).cuda())
+        torch.cuda.synchronize()
+        got = delta(before)
+        if got != want:
+            raise AssertionError(f"analysis: {what} launched {got}, its "
+                                 f"round plan {want}")
+        for name, n in got.items():
+            path[name] += n
+        return out.cpu().numpy()
+
+    # (3) certifier against execution
+    t = time.perf_counter()
+    runs = divergent = 0
+    worst_over_bound = 0.0
+    for key, entry in sorted(lib.items()):
+        spec = entry.spec
+        quantized = spec.wire == "int8"
+        funcs = ["sum"] + (["max"] if spec.op == "allreduce"
+                           and not quantized else [])
+        rng = np.random.default_rng(sum(map(ord, key)))
+        for mult in ANALYSIS_COUNTS:
+            count = mult * entry.canonical_count
+            for func in funcs:
+                what = f"{key} count {count} {func}"
+                fn = (ReduceFunction.MAX if func == "max"
+                      else ReduceFunction.SUM)
+                dag = synthesis.instantiate(spec, count, func)
+                diags = synthesis.certify_dag(dag, spec, count, fn)
+                if diags:
+                    raise AssertionError(f"analysis: {what} does not "
+                                         f"certify: {diags[:2]}")
+                x = analysis_payload(dag, quantized, rng)
+                want = analysis_oracle(spec.op, x, count, func)
+                got = lowered_on_card(dag, x, what)
+                if quantized:
+                    bound = ((dag.world + 1) * dag.world
+                             * float(np.abs(x).max()) / 254.0 + 1e-5)
+                    err = float(np.abs(got - want).max())
+                    cpu = synthesis.lower_dag(dag)(torch.from_numpy(x))
+                    if err > bound or not same_bits(torch.from_numpy(got),
+                                                    cpu):
+                        raise AssertionError(
+                            f"analysis: {what}: int8 error {err} (bound "
+                            f"{bound}), bitwise with the CPU lowering: "
+                            f"{same_bits(torch.from_numpy(got), cpu)}")
+                    worst_over_bound = max(worst_over_bound, err / bound)
+                    divergent += not all(np.array_equal(got[0], row)
+                                         for row in got)
+                else:
+                    ex = np.stack(hopdag.execute(dag, [[r] for r in x]))
+                    if not (np.array_equal(got, ex)
+                            and np.array_equal(got, want)):
+                        raise AssertionError(
+                            f"analysis: {what}: lowered on the card is not "
+                            "bitwise hopdag.execute and the oracle")
+                runs += 1
+    seconds["certify_vs_execution"] = time.perf_counter() - t
+
+    # (4) mutants
+    t = time.perf_counter()
+    mutants = flagged = on_card = refused = 0
+    disagreements = []
+    for key, entry in sorted(lib.items()):
+        spec = entry.spec
+        quantized = spec.wire == "int8"
+        count = entry.canonical_count
+        dag = synthesis.instantiate(spec, count)
+        sem_spec = semantics.collective_spec(
+            synthesis._call_options(spec, count), spec.world)
+        x = analysis_payload(dag, quantized,
+                             np.random.default_rng(sum(map(ord, key))))
+        want = analysis_oracle(spec.op, x, count, "sum")
+        bound = ((dag.world + 1) * dag.world * float(np.abs(x).max())
+                 / 254.0 + 1e-5)
+        clean = np.stack(hopdag.execute(dag, [[r] for r in x]))
+        clean_card = None
+        for kind in analysis_mutations(dag, quantized):
+            for seed in ANALYSIS_SEEDS:
+                mut = hopdag.mutate(dag, kind, random.Random(seed))
+                if mut is None:
+                    continue
+                mutants += 1
+                what = f"{key} {kind} seed {seed}"
+                codes = {d.code for d in semantics.certify(mut, sem_spec,
+                                                           spec.op)}
+                flagged += bool(codes)
+                out = np.stack(hopdag.execute(mut, [[r] for r in x]))
+                same_path = clean
+                try:
+                    synthesis.round_launches(mut)
+                except synthesis.SynthesisError:
+                    refused += 1
+                else:
+                    card = lowered_on_card(mut, x, what)
+                    on_card += 1
+                    if not quantized and not np.array_equal(card, out):
+                        disagreements.append(f"{what}: lowered on the card "
+                                             "!= hopdag.execute")
+                    if clean_card is None:
+                        clean_card = lowered_on_card(dag, x, key)
+                    out, same_path = card, clean_card
+                broken = (not np.allclose(out, want, rtol=0, atol=bound)
+                          if quantized else not np.array_equal(out, want))
+                if not codes:
+                    if broken:
+                        disagreements.append(f"{what}: certified clean, "
+                                             "computes wrong values")
+                    continue
+                if ANALYSIS_MUTATION_CODE[kind] not in codes or not all(
+                        c.startswith("ACCL5") for c in codes):
+                    disagreements.append(f"{what}: flagged {sorted(codes)}")
+                if (kind in ("drop_combine", "duplicate_combine",
+                             "swap_send_values") and not broken
+                        and not (quantized
+                                 and not np.array_equal(out, same_path))):
+                    disagreements.append(f"{what}: flagged, computes the "
+                                         "oracle's values")
+    seconds["mutants"] = time.perf_counter() - t
+    if disagreements:
+        raise AssertionError("analysis: certifier/execution disagreements: "
+                             + "; ".join(disagreements[:8]))
+
+    # (5) the corpus's program-level fixtures
+    t = time.perf_counter()
+    fixtures = 0
+    for fpath in sorted(corpus.CORPUS_DIR.glob("*.json")):
+        fx = json.loads(fpath.read_text())
+        if fx.get("kind", "sequence") not in corpus.PROGRAM_KINDS:
+            continue
+        for deep in (False, True):
+            diags = corpus.lint_fixture(fx, deep=deep)
+            if not corpus.fixture_ok(fx, diags):
+                raise AssertionError(
+                    f"analysis: fixture {fpath.name} deep={deep} gave "
+                    f"{[d.code for d in diags]}")
+        fixtures += 1
+    if fixtures != 27:
+        raise AssertionError(f"analysis: {fixtures} program fixtures, not 27")
+    seconds["fixtures"] = time.perf_counter() - t
+
+    # the library's round plans fold (kernel 7), fuse decode+fold (4) and
+    # encode (5); none reads a decode round unfused (kernel 6) or casts
+    idle = [k for k in ("combine", "dequant_combine", "quantize")
+            if not path[k]]
+    if idle:
+        raise AssertionError(f"the analysis path launched no {idle}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "analysis", "gpu": gpu, "entries": len(lib),
+          "verify_library": True, "search_winners": winners,
+          "runs": runs, "counts": list(ANALYSIS_COUNTS),
+          "int8_rank_divergent_runs": divergent,
+          "int8_worst_err_over_bound": worst_over_bound,
+          "mutants": mutants, "flagged": flagged, "lowered_on_card": on_card,
+          "refused_by_lowering": refused, "disagreements": 0,
+          "fixtures": fixtures, "fixture_runs": 2 * fixtures,
+          "seconds": seconds, "launches": path})
+    return path
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -5881,9 +6202,9 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     the captured kernels without the host's wrappers); `p2p_launches`,
     `comm_launches`, `alltoall_launches`, `tuned_launches`,
     `telemetry_launches`, `serve_launches`, `train_launches`,
-    `moe_launches` and `mesh_launches` likewise over the checked runs of
-    the point-to-point, sub-communicator, alltoall, tuned, telemetry,
-    serve, train, MoE and mesh paths."""
+    `moe_launches`, `mesh_launches` and `analysis_launches` likewise over
+    the checked runs of the point-to-point, sub-communicator, alltoall,
+    tuned, telemetry, serve, train, MoE, mesh and analysis paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -6030,7 +6351,8 @@ def main() -> int:
              "serve": timed(serve_phase, ring, qk, L),
              "train": timed(train_phase, ring, qk, L),
              "moe": timed(moe_phase, ring, qk, L),
-             "mesh": timed(mesh_phase, ring, qk, L)}
+             "mesh": timed(mesh_phase, ring, qk, L),
+             "analysis": timed(analysis_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

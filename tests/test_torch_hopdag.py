@@ -1,9 +1,12 @@
 """The port's hop-DAG IR against the JAX package's: every entry of the
 synthesized library regenerates to the DAG the JAX package commits
-for it (the port's copies carry only the entries' metadata), round-trips
-through JSON, orders and lowers to hop programs the same way, and
-evaluates (`execute`) to the same bits on the same numpy inputs."""
+for it (the port's copies carry the entries' metadata and that DAG's
+digest), round-trips through JSON, orders and lowers to the same hop
+programs (protocol Events, field for field), and evaluates (`execute`)
+to the same bits on the same numpy inputs."""
 
+import dataclasses
+import hashlib
 import json
 
 import numpy as np
@@ -19,14 +22,18 @@ KEYS = sorted(ref_synth.library())
 
 def test_library_is_the_references():
     """The port's copy of the library holds the same 31 entries, each the
-    reference's file without its DAG body."""
+    reference's file with its DAG body replaced by the body's digest
+    (SHA-256 of its JSON with sorted keys)."""
     assert sorted(synthesis.library()) == KEYS and len(KEYS) == 31
     for key in KEYS:
         mine = synthesis.entry_for_key(key)
         theirs = ref_synth.entry_for_key(key)
         doc = json.loads(theirs.path.read_text())
-        del doc["dag"]
+        body = doc.pop("dag")
+        doc["dag_sha256"] = hashlib.sha256(
+            json.dumps(body, sort_keys=True).encode()).hexdigest()
         assert json.loads(mine.path.read_text()) == doc
+        assert mine.dag_sha256 == doc["dag_sha256"]
         assert mine.win_bytes == theirs.win_bytes
         assert mine.canonical_count == theirs.canonical_count
 
@@ -42,10 +49,11 @@ def test_entry_dag_executes_like_the_reference(key):
         json.loads(ref_entry.path.read_text())["dag"]
     assert hopdag.to_json(hopdag.from_json(doc)) == doc
     assert hopdag.validate_order(dag) == []
-    assert [[(e.kind, e.peer, e.tag) for e in prog]
+    assert [[dataclasses.astuple(e) for e in prog]
             for prog in hopdag.rank_programs(dag)] == \
-        [[(e.kind, e.peer, e.tag) for e in prog]
+        [[dataclasses.astuple(e) for e in prog]
          for prog in ref_hopdag.rank_programs(ref_dag)]
+    assert synthesis.dag_digest(dag) == entry.dag_sha256
     rng = np.random.default_rng(sum(map(ord, key)))
     x = (rng.standard_normal((dag.world, dag.in_elems)) * 4).astype(
         np.float32)

@@ -6,6 +6,8 @@ ScheduleCompiler on the CPU mesh, the JAX facade's compiler; W = 16,
 beyond the mesh's 8 devices: the reference's lowered body jitted under
 vmap, and its hopdag.execute for the exact entries)."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from accl_tpu.sequencer import synthesis as ref_synth
 from accl_tpu.sequencer.lowering import ScheduleCompiler as RefCompiler
 import accl_tpu_torch.constants as port_c
 import accl_tpu_torch.telemetry.feedback as port_fb
+from accl_tpu_torch.analysis import hopdag
 from accl_tpu_torch.descriptor import CallOptions
 from accl_tpu_torch.sequencer import plan as port_plan
 from accl_tpu_torch.sequencer import synthesis
@@ -161,7 +164,10 @@ def test_lowered_w16_entry_bitwise_with_the_reference_body(key):
 
 def test_lowering_guards():
     """A plan naming an entry of another world or collective raises, and
-    the search and certification need the analysis slice."""
+    a DAG with a cross-rank piece reference neither lowers nor yields a
+    launch plan (the reference's test_lower_dag_rejects_cross_rank_
+    reference); the search and certification run (test_torch_certify.py
+    holds them against the reference)."""
     spec = synthesis.entry_for_key("allreduce_w4_exchange_d1_2").spec
     plan = port_plan.Plan(port_plan.Protocol.EAGER,
                           port_plan.Algorithm.SYNTHESIZED, 64, 1,
@@ -176,7 +182,16 @@ def test_lowering_guards():
         synthesis.lower_plan(plan, opts_ag, 4)
     with pytest.raises(synthesis.SynthesisError, match="no synthesized"):
         synthesis.entry_for_key("allreduce_w3_nothing")
-    for fn in (synthesis.search, synthesis.certify_spec,
-               synthesis.verify_library, synthesis.enumerate_candidates):
-        with pytest.raises(NotImplementedError, match="analysis"):
-            fn()
+    dag = synthesis.instantiate(spec, 64)
+    victim = next(n for n in dag.nodes
+                  if any(pc.node != hopdag.CONST for pc in n.value))
+    other = next(n for n in dag.nodes if n.rank != victim.rank)
+    value = tuple(pc if pc.node == hopdag.CONST
+                  else dataclasses.replace(pc, node=other.id)
+                  for pc in victim.value)
+    bad = dataclasses.replace(dag, nodes=tuple(
+        dataclasses.replace(n, value=value) if n.id == victim.id else n
+        for n in dag.nodes))
+    for fn in (synthesis.lower_dag, synthesis.round_launches):
+        with pytest.raises(synthesis.SynthesisError, match="cross-rank"):
+            fn(bad)
