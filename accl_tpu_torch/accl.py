@@ -53,7 +53,6 @@ from .errors import (
     InvalidRootError,
     SequenceReuseError,
     ZeroLengthBufferError,
-    not_ported,
 )
 from .interop import tensor_from_numpy
 from .request import BaseRequest
@@ -98,6 +97,8 @@ class ACCL:
         self._last_request: BaseRequest | None = None
         # placeholder buffers of the buffer-less stream forms, by shape
         self._stream_scratch: dict = {}
+        # the long-lived pairwise verdict cache of certify_concurrent
+        self._interference = None
         self.initialize()
 
     # ------------------------------------------------------------------ #
@@ -924,21 +925,69 @@ class ACCL:
         `lint` runs the batch through the static analyzer (analysis/)
         before it is built: "error" (default) raises errors.LintError on
         hazardous batches, "warn" logs the diagnostics and proceeds,
-        "off" opts out. "deep" (the reference's exhaustive-interleaving
-        tier) is not ported yet and raises.
+        "off" opts out. "deep" adds the exhaustive-interleaving tier
+        (each step's hops model-checked over every legal match order) and
+        enforces like "error".
 
         `persistent` declares device-resident state buffers: buffers
         whose tails carry results from one dispatch to the next (a KV
         cache, an optimizer state), refreshed partial-width inside the
         batch by design. The hazard pass waives ACCL101 for exactly
         those buffers."""
-        if lint == "deep":
-            raise not_ported("the deep lint tier", "analysis")
-        if lint not in ("error", "warn", "off"):
+        if lint not in ("error", "warn", "off", "deep"):
             raise ValueError(
                 f"lint must be 'error'|'warn'|'off'|'deep', got {lint!r}")
         return SequenceRecorder(self, comm, lint=lint,
                                 persistent=persistent)
+
+    def certify_concurrent(self, programs, mode: str = "error"):
+        """Prove a set of compiled SequencePrograms safe to dispatch
+        CONCURRENTLY: pairwise non-interference over their footprint
+        summaries (O(N^2) dict-sized checks), escalating a pair to the
+        bounded cross-program product model check only when its
+        summaries overlap (analysis/interference.py, ACCL601-604).
+
+        A clean verdict means any interleaving of the set is equivalent
+        to its serial composition. On success every program is stamped
+        with the set's certificate id (`SequenceProgram.certificate`),
+        which then rides its dispatch spans.
+
+        `programs` may mix SequenceProgram handles and raw
+        ProgramFootprint summaries. `mode` follows the lint gate: "error"
+        raises LintError on findings, "warn" logs them, "off" skips
+        enforcement; all modes return the diagnostic list. Verdicts are
+        cached per pair on this ACCL, keyed by the two footprint
+        signatures."""
+        from .analysis.diagnostics import enforce
+        from .analysis.interference import (
+            InterferenceCertifier,
+            ProgramFootprint,
+            certificate_id,
+        )
+
+        if self._interference is None:
+            self._interference = InterferenceCertifier()
+        footprints = []
+        handles = []
+        for p in programs:
+            if isinstance(p, ProgramFootprint):
+                footprints.append(p)
+                continue
+            fp = getattr(p, "footprint", None)
+            if fp is None:
+                raise ValueError(
+                    f"{type(p).__name__} carries no interference "
+                    "footprint (pass SequenceProgram handles or "
+                    "ProgramFootprint summaries)")
+            footprints.append(fp)
+            handles.append(p)
+        diags = self._interference.certify(footprints)
+        if not diags:
+            cert = certificate_id(footprints)
+            for h in handles:
+                h._prepared.cert = cert
+        enforce(diags, mode)
+        return diags
 
 
 class SequenceRecorder:
@@ -1178,6 +1227,19 @@ class SequenceProgram:
         graph, its capture time and the bytes its copy-in moves)."""
         return self._prepared.graph
 
+    @property
+    def footprint(self):
+        """The program's interference summary (ProgramFootprint), the
+        input to ACCL.certify_concurrent."""
+        return self._prepared.footprint
+
+    @property
+    def certificate(self):
+        """Certificate id of the pairwise-clean concurrent set this
+        program was last admitted into (None until certify_concurrent
+        passes it)."""
+        return self._prepared.cert
+
     def run(self, *, from_device=False, to_device=False, run_async=False):
         """Dispatch the prepared batch over the bound buffers' current
         contents; the same sync semantics as SequenceRecorder.run()."""
@@ -1194,4 +1256,7 @@ class SequenceProgram:
                 sig = getattr(req, "signature", None)
                 if sig is not None:
                     sp.set(signature=sig)
+                cert = getattr(req, "interference_cert", None)
+                if cert is not None:
+                    sp.set(interference_cert=cert)
             return ret

@@ -19,22 +19,36 @@ reference's stable diagnostic codes:
   slots.py       overlap-slot collective_id liveness  (ACCL301-302)
   hopdag.py      the hop-DAG IR: schedules as data, executable and
                  mutable
-  semantics.py   contribution-set abstract interpretation proving a
-                 hop-DAG computes its DECLARED collective (ACCL501-504)
+  semantics.py   the lifter (a schedule body evaluated over symbolic
+                 operands into its hop-DAG) and contribution-set
+                 abstract interpretation proving each batch computes
+                 its DECLARED collective            (ACCL501-504)
+  interference.py cross-program non-interference: footprint summaries
+                 per program, O(N^2) pairwise certification with bounded
+                 product-modelcheck escalation       (ACCL601-604)
   diagnostics.py the code table, `Diagnostic`, `make` and `enforce`
-  linter.py      `SequenceLinter` (the default tier and the deep check
-                 over given programs) and `lint_sequence`
+  linter.py      `SequenceLinter` (the default tier with its semantic
+                 pass, and the deep tier) and `lint_sequence`
 
-Not here yet (ROADMAP queue 1, item 15 part 2): lifting a schedule body
-into its hops and DAG (the entry points that do so raise
-NotImplementedError), the deep tier over a recorded batch, and the
-cross-program interference certifier (interference.py, ACCL601-604).
+Wired in at the `lint=` stage of `ACCL.sequence()` (enforced in
+GPUDevice.prepare_sequence, cached by composite signature; "deep" opts
+into the interleaving tier), at `ACCL.certify_concurrent`, and in the
+corpus replay (corpus.py).
 """
 
 from ..errors import LintError  # noqa: F401  (canonical home: errors.py)
 from .diagnostics import CODES, Diagnostic, enforce, make  # noqa: F401
 from .hazards import analyze_dataflow  # noqa: F401
 from .hopdag import HopDag  # noqa: F401
+from .interference import (  # noqa: F401
+    InterferenceCertifier,
+    ProgramFootprint,
+    TrafficSummary,
+    certificate_id,
+    certify_concurrent,
+    footprint_from_rank_programs,
+    footprint_from_steps,
+)
 from .linter import SequenceLinter, lint_sequence  # noqa: F401
 from .modelcheck import (  # noqa: F401
     Budget,

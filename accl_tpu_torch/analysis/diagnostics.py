@@ -148,16 +148,17 @@ def make(code: str, message: str, step: int | None = None,
 def enforce(diagnostics, mode: str) -> None:
     """Apply a lint mode to a diagnostic list: `"error"` raises LintError
     on error-severity findings (warnings are logged), `"warn"` logs
-    everything, `"off"` is a no-op. (The reference's `"deep"` tier is
-    refused before any pass runs.) The full diagnostic list, warnings
+    everything, `"off"` is a no-op. `"deep"` enforces like `"error"`: the
+    mode names select which passes run (the deep tier adds the
+    interleaving model checker). The full diagnostic list, warnings
     included, rides any raised LintError."""
-    if mode not in ("error", "warn", "off"):
-        raise ValueError(f"lint mode must be 'error'|'warn'|'off', "
+    if mode not in ("error", "warn", "off", "deep"):
+        raise ValueError(f"lint mode must be 'error'|'warn'|'off'|'deep', "
                          f"got {mode!r}")
     if mode == "off" or not diagnostics:
         return
     errors = [d for d in diagnostics if d.severity == "error"]
-    if mode == "error" and errors:
+    if mode in ("error", "deep") and errors:
         raise LintError(diagnostics)
     for d in diagnostics:
         Log.warning("lint: %s", d)

@@ -255,7 +255,8 @@ def execute(dag: HopDag, operands: list[list[np.ndarray]]) -> list[np.ndarray]:
 
     Combines are numpy adds and maxes; encode and decode run the port's
     blockwise int8 lanes on the CPU (their plain versions), unfused, as
-    the reference evaluates them eagerly. Reads of not-yet-produced
+    the reference evaluates them eagerly. A bfloat16 cast's output is
+    carried as the float32 values it rounds to (`_cast`). Reads of not-yet-produced
     nodes (the ACCL504 class) evaluate as zeros — stale memory."""
 
     done: dict[tuple[int, str], np.ndarray] = {}
@@ -303,12 +304,24 @@ def execute(dag: HopDag, operands: list[list[np.ndarray]]) -> list[np.ndarray]:
             out = _dequantize(q, s, n.length)
         elif n.kind == "cast":
             x = materialize(n.value)
-            out = x.astype(np.dtype(n.dtype)) if n.dtype else x
+            out = _cast(x, n.dtype) if n.dtype else x
         else:  # pragma: no cover - guarded by from_json/lift
             raise ValueError(f"unknown node kind {n.kind!r}")
         done[(n.id, DATA)] = np.asarray(out)
 
     return [materialize(dag.outputs[r]) for r in range(dag.world)]
+
+
+def _cast(x: np.ndarray, dtype: str) -> np.ndarray:
+    """A cast node's output. numpy has no bfloat16: a bfloat16 value is
+    carried as the float32 it rounds to (round to nearest even, through
+    torch), which every later cast or fold reads exactly."""
+    if dtype != "bfloat16":
+        return x.astype(np.dtype(dtype))
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
 
 
 def _quantize(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -412,13 +425,17 @@ def _remap_value(value: Value, remap: dict[int, int]) -> Value:
 def _rebuild(dag: HopDag, nodes: list[Node],
              remap: dict[int, int]) -> HopDag:
     """Renumber `nodes` (listed in their NEW program order, carrying
-    their old ids) under old-id -> new-id `remap`."""
+    their old ids) under old-id -> new-id `remap`. Under an identity
+    remap a node already at its position is kept as it is."""
+    identity = all(k == v for k, v in remap.items())
     new_nodes = tuple(
+        n if identity and n.id == i else
         dataclasses.replace(n, id=i,
                             value=_remap_value(n.value, remap),
                             value2=_remap_value(n.value2, remap))
         for i, n in enumerate(nodes))
-    outputs = tuple(_remap_value(v, remap) for v in dag.outputs)
+    outputs = (dag.outputs if identity else
+               tuple(_remap_value(v, remap) for v in dag.outputs))
     return HopDag(dag.world, dag.n_in, dag.in_elems, dag.out_elems,
                   new_nodes, outputs)
 

@@ -19,11 +19,10 @@ is clean under both. Stuck states decompose into ACCL202 deadlock-cycle
 ACCL201 unmatched-sendrecv (waiting on a rank that already finished, or
 events left over at exit).
 
-The reference also reads a schedule body's hops by tracing it
-(`trace_schedule_jaxpr`, `trace_schedule_hops`, `iter_ppermute_eqns`,
-`batch_rank_programs`, `interpret_schedule`). The port has no lifting
-seam yet: those five raise NotImplementedError naming the analysis
-slice.
+A schedule body's hops come from recording it (`trace_schedule_jaxpr`,
+the seam the semantic certifier shares; `trace_schedule_hops`,
+`iter_ppermute_eqns`), per call (`interpret_schedule`) or per batch
+(`batch_rank_programs`).
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 
 from ..constants import Operation, TAG_ANY
-from ..errors import not_ported
 from .diagnostics import Diagnostic, make
 
 __all__ = [
@@ -392,29 +390,74 @@ def rank_programs_from_options(per_rank) -> list[list[Event]]:
 
 
 # ---------------------------------------------------------------------------
-# Schedule interpretation: the lifting half, not ported yet
+# Schedule interpretation (the one-call path)
 # ---------------------------------------------------------------------------
-
-
-def _lifting(name: str) -> NotImplementedError:
-    return not_ported(f"protocol.{name} (it reads a schedule body's hops "
-                      "through a lifting seam)", "analysis")
 
 
 def trace_schedule_jaxpr(options, plan, world: int,
                          axis_name: str = "ccl", *,
                          arith_table: dict | None = None,
                          semantic_marks: bool = False):
-    raise _lifting("trace_schedule_jaxpr")
+    """Record ONE call's schedule body, the real lowering-built callable,
+    and return `(trace, n_in, in_elems)`. THE seam every body-level pass
+    shares, named as the reference's: the protocol pass reads hop perms
+    from it and the semantic certifier its hop-DAG, so there is exactly
+    one model of what the compiler builds. Where the reference returns a
+    closed jaxpr, `trace` is the port's recorded body
+    (semantics.ScheduleTrace: the DAG the lifter records by evaluating
+    the body over symbolic operands, and its hops). Where the reference's
+    `semantic_marks` turns on the compression lanes' named boundaries for
+    the certifier's lift, the port's lifter always stops at them, and the
+    switch selects what the trace is for: True records the whole DAG;
+    False records the hops, evaluating a mapped body once as the
+    reference traces it (the trace's DAG is then partial). Needs no
+    device."""
+    import torch
+
+    from ..constants import DataType, to_torch_dtype
+    from ..sequencer.lowering import analysis_body
+    from ..sequencer.sequence import step_in_elems
+    from .semantics import _Lifter
+
+    body, n_in = analysis_body(options, plan, world, axis_name,
+                               arith_table=arith_table)
+    if options.scenario == Operation.barrier:
+        elems, dtype = 1, torch.float32
+    else:
+        elems = step_in_elems(options, world)
+        dtype = (to_torch_dtype(options.data_type)
+                 if options.data_type != DataType.none else torch.float32)
+    trace = _Lifter(world, semantic_marks).run(body, n_in, elems, dtype)
+    return trace, n_in, elems
 
 
 def trace_schedule_hops(options, plan, world: int,
                         axis_name: str = "ccl") -> list[tuple]:
-    raise _lifting("trace_schedule_hops")
+    """Record ONE call's schedule body and return its cross-rank hops in
+    program order: each hop is the perm tuple ((src, dst), ...). The ring
+    kernel is off: the torch-op ring expresses the same wire pattern hop
+    by hop. Hops inside a segmented body the reference maps (lax.map)
+    appear once."""
+    trace, _, _ = trace_schedule_jaxpr(options, plan, world, axis_name)
+    hops: list[tuple] = []
+    _collect_ppermutes(trace, hops)
+    return hops
 
 
-def iter_ppermute_eqns(jaxpr):
-    raise _lifting("iter_ppermute_eqns")
+def iter_ppermute_eqns(trace):
+    """Yield every hop record of a recorded body (trace_schedule_jaxpr's
+    `trace`) in program order, a mapped body's hops once. THE walker for
+    the 'every cross-rank hop is a permute' invariant: each record's
+    `params["perm"]` is the hop's perm, as a ppermute equation's."""
+    for hop in trace.hops:
+        if not hop.repeat:
+            yield hop
+
+
+def _collect_ppermutes(trace, hops: list) -> None:
+    """Perm tuples of every hop, in program order."""
+    for eqn in iter_ppermute_eqns(trace):
+        hops.append(tuple(tuple(p) for p in eqn.params["perm"]))
 
 
 def check_hops(hops, world: int, step: int | None = None):
@@ -488,9 +531,21 @@ def batch_programs_from_hops(hops_per_step, world: int) -> list[list[Event]]:
 
 def batch_rank_programs(steps, plans, world: int,
                         axis_name: str = "ccl") -> list[list[Event]]:
-    raise _lifting("batch_rank_programs")
+    """Per-rank event programs for a WHOLE descriptor batch: each step's
+    schedule body is recorded (trace_schedule_hops) and its hops appended
+    in step order via `batch_programs_from_hops`."""
+    return batch_programs_from_hops(
+        [trace_schedule_hops(opts, plan, world, axis_name)
+         for opts, plan in zip(steps, plans)], world)
 
 
 def interpret_schedule(options, plan, world: int,
                        axis_name: str = "ccl") -> list[Diagnostic]:
-    raise _lifting("interpret_schedule")
+    """The deep protocol pass for one call: record the schedule body,
+    validate its hops, and run the per-rank matching game over them."""
+    hops = trace_schedule_hops(options, plan, world, axis_name)
+    diags = check_hops(hops, world)
+    if not diags:  # malformed perms would confuse the matcher
+        diags = simulate(rank_programs_from_hops(hops, world),
+                         blocking_sends=False)
+    return diags

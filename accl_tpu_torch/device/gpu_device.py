@@ -52,7 +52,6 @@ from ..constants import (
     dtype_nbytes,
 )
 from ..descriptor import CallOptions, SequenceDescriptor
-from ..errors import not_ported
 from ..ops.streams import StreamRegistry, splice_consumer, splice_producer
 from ..request import (
     BaseRequest,
@@ -664,9 +663,9 @@ class GPUDevice(CCLODevice):
         `lint` gates the batch through the static analyzer (analysis/)
         before anything is built: "error" rejects hazardous batches with
         a typed LintError, "warn" logs the diagnostics and proceeds,
-        "off" skips the stage; "deep" (the reference's interleaving
-        tier) raises not_ported. Verdicts are cached under the composite
-        signature, so a re-recorded batch re-lints nothing.
+        "off" skips the stage; "deep" adds the exhaustive-interleaving
+        tier and enforces like "error". Verdicts are cached under the
+        composite signature, so a re-recorded batch re-lints nothing.
 
         `persistent` (buffer addresses) declares device-resident state
         the batch refreshes partial-width by design: the hazard pass
@@ -681,11 +680,10 @@ class GPUDevice(CCLODevice):
         with the live registers (read once for the batch), the lint gate,
         the dataflow resolution, the composed body and, on the card, its
         CUDA graph, captured over the bound buffers' current device
-        images. The handle pins the registers it was resolved under:
-        re-prepare after retuning. A batch on a sub-communicator runs its
-        steps over the member rows: its context's compiler and world."""
-        if lint == "deep":
-            raise not_ported("the deep lint tier", "analysis")
+        images, and the batch's interference footprint. The handle pins
+        the registers it was resolved under: re-prepare after retuning. A
+        batch on a sub-communicator runs its steps over the member rows:
+        its context's compiler and world."""
         desc = SequenceDescriptor(tuple(options_list))
         ctx = self._comm_ctx(desc.comm_addr)
         tuning = self.tuning()
@@ -730,8 +728,17 @@ class GPUDevice(CCLODevice):
             with self._launch_mu:
                 graph = ctx.compiler.sequence_graph(
                     seq, fn, self._bound_tensors(seq, bufs, ctx))
-        return _PreparedSequence(desc=desc, plans=tuple(plans), seq=seq,
-                                 graph=graph, bufs=bufs, ctx=ctx, sig=sig)
+        prepared = _PreparedSequence(desc=desc, plans=tuple(plans), seq=seq,
+                                     graph=graph, bufs=bufs, ctx=ctx, sig=sig)
+        # the interference summary rides every prepared program: pure
+        # Python over the descriptors (the exact-event thunk defers any
+        # lift to an escalated pair); the port's ring holds no slots
+        from ..analysis.interference import footprint_from_steps
+
+        prepared.footprint = footprint_from_steps(
+            desc.steps, ctx.world, persistent=frozenset(persistent),
+            use_pallas_ring=False, plans=tuple(plans), signature=sig)
+        return prepared
 
     def _bound_tensors(self, seq, bufs, ctx) -> list[torch.Tensor]:
         """The current device image of every buffer of the batch's table
@@ -761,6 +768,10 @@ class GPUDevice(CCLODevice):
         # request's CUDA events time the replay itself)
         with tracer.span("dispatch", cat="phase", track="device") as sp:
             sp.set(signature=prepared.sig)
+            if prepared.cert is not None:
+                # a certify_concurrent-stamped tenant: the flight recorder
+                # can name the admitted set a wedged dispatch belonged to
+                sp.set(interference_cert=prepared.cert)
             tensors = self._bound_tensors(seq, prepared.bufs, ctx)
             events = None
             with self._launch_mu:
@@ -788,6 +799,8 @@ class GPUDevice(CCLODevice):
         if events is None:
             req._start_time = t0  # host clock around the eager CPU run
         req.signature = prepared.sig
+        if prepared.cert is not None:
+            req.interference_cert = prepared.cert
         if tracer.active:
             # per-step instant markers: the steps run inside one dispatch,
             # so each carries its timing.predict estimate and the batch
@@ -826,8 +839,9 @@ class GPUDevice(CCLODevice):
         persistent set in canonical order, and the arithmetic table's
         lanes (ACCL406 reads them), so steady state pays a dict lookup.
         Buffer widths come from the registry, enabling the static
-        underflow check; the batch is linted at its communicator's
-        world."""
+        underflow check; the batch is linted at its communicator's world,
+        with its plans (the semantic pass; "deep" adds the interleaving
+        tier)."""
         from ..analysis.diagnostics import enforce
         from ..analysis.linter import SequenceLinter
 
@@ -848,12 +862,16 @@ class GPUDevice(CCLODevice):
         canon_persist = tuple(sorted(
             rename[a] for a in persistent if a in rename))
         table = ctx.compiler.arith_table
+        deep = mode == "deep"
         key = (desc.signature(), plans, ctx.world, tuple(canon),
-               canon_persist, frozenset(table))
+               canon_persist, frozenset(table), deep)
         diags = self._lint_cache.get(key)
         if diags is None:
-            linter = SequenceLinter(ctx.world, arith_table=table)
-            diags = tuple(linter.lint(desc.steps, buffer_widths=widths,
+            # lint against the lanes this device lowers with: a custom
+            # arith_config's rows reach the certifier's lift too
+            linter = SequenceLinter(ctx.world, arith_table=table, deep=deep)
+            diags = tuple(linter.lint(desc.steps, plans,
+                                      buffer_widths=widths,
                                       persistent_addrs=persistent))
             self._lint_cache[key] = diags
         enforce(diags, mode)
@@ -913,11 +931,10 @@ class _PreparedSequence:
     device images flow in, and the communicator context it runs on.
 
     `preds` holds the per-step timing.predict estimates of a traced
-    dispatch, computed at the first one. The reference's handle also
-    carries `footprint` (the cross-program interference summary, ROADMAP
-    item 15's interference pass) and `cert` (the certificate of a
-    certify_concurrent set, which the scheduler admits against, item
-    17); they stay None here until those slices."""
+    dispatch, computed at the first one. `footprint` is the batch's
+    cross-program interference summary (analysis/interference.py) and
+    `cert` the certificate of the certify_concurrent set it was last
+    admitted into (None until then), which its dispatch spans carry."""
 
     __slots__ = ("desc", "plans", "seq", "graph", "bufs", "ctx", "sig",
                  "preds", "footprint", "cert")

@@ -47,11 +47,17 @@ Compressor lane numbering (referenced from ArithConfig rows):
   0: fp32 -> fp16     1: fp16 -> fp32
   2: fp32 -> bf16     3: bf16 -> fp32
   4: fp32 -> int8 blockwise quantize   5: int8 -> fp32 blockwise dequantize
+
+The four transforms take part in the torch-function protocol
+(`torch.overrides`), so the analysis lifter (analysis/semantics.py) sees
+each as an encode, decode or fused decode-combine node of a schedule's
+hop-DAG.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..arithconfig import (
     QUANT_COMPRESSOR_LANE,
@@ -130,6 +136,8 @@ def quantize_blockwise(x: torch.Tensor):
     """Encode rows of fp32 as (int8 codes, per-block fp32 scales). The
     codes keep the row's own length: the tail block is zero-padded only
     for the scale reduction, never on the wire."""
+    if has_torch_function((x,)):
+        return handle_torch_function(quantize_blockwise, (x,), x)
     from .quant_kernels import quantize
 
     return quantize(x)
@@ -138,6 +146,9 @@ def quantize_blockwise(x: torch.Tensor):
 def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor, n: int,
                          out_dtype: torch.dtype = torch.float32):
     """Decode (codes, scales) back to n elements per row of out_dtype."""
+    if has_torch_function((q, scales)):
+        return handle_torch_function(dequantize_blockwise, (q, scales), q,
+                                     scales, n, out_dtype)
     from .quant_kernels import dequantize
 
     return dequantize(q[..., :n], scales).to(out_dtype)
@@ -147,6 +158,9 @@ def dequant_combine(q, scales, local, func_op: str):
     """Fused dequantize -> reduce: decode an arriving quantized partial and
     combine it with the local fp32 operand (the terminal ring hop). The
     element count is local's."""
+    if has_torch_function((q, scales, local)):
+        return handle_torch_function(dequant_combine, (q, scales, local), q,
+                                     scales, local, func_op)
     from .quant_kernels import dequant_combine as kernel
 
     return kernel(q[..., :local.shape[-1]], scales, local, func_op)
@@ -156,6 +170,10 @@ def dequant_combine_requant(q, scales, local, func_op: str):
     """The fused ring step: dequantize -> reduce (fp32) -> requantize, so
     only (codes, scales) leave for the next hop while the accumulation
     never drops below fp32."""
+    if has_torch_function((q, scales, local)):
+        return handle_torch_function(dequant_combine_requant,
+                                     (q, scales, local), q, scales, local,
+                                     func_op)
     from .quant_kernels import dequant_combine_requant as kernel
 
     return kernel(q[..., :local.shape[-1]], scales, local, func_op)

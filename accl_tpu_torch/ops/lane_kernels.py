@@ -38,6 +38,11 @@ The numeric contract is what the JAX package's functions give on XLA
   - A cast rounds to nearest even and does not flush: float32 1e-39
     becomes a bfloat16 subnormal. A NaN stays a NaN, but its payload may
     differ between the kernel, torch and XLA.
+
+The three wrappers take part in the torch-function protocol
+(`torch.overrides`), so the analysis lifter (analysis/semantics.py) can
+evaluate a schedule body over symbolic operands: each fold and cast is
+then one node of the body's hop-DAG.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import ctypes
 import functools
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..constants import from_torch_dtype
 from ._vector import vector_path
@@ -211,6 +217,8 @@ def _stream(t: torch.Tensor) -> int:
 def combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
     """Elementwise SUM ("sum") or MAX ("max") of two operands of one shape
     and dtype (float32, float64, int32, int64)."""
+    if has_torch_function((a, b)):
+        return handle_torch_function(combine, (a, b), a, b, op)
     if _on_cpu(a, b):
         if a.dtype not in COMBINE_DTYPES:
             raise TypeError(f"combine kernel has no {a.dtype} lane")
@@ -233,6 +241,9 @@ def combine_cast(a: torch.Tensor, b: torch.Tensor, op: str,
     """Both operands widened to `acc` (float32), combined ("sum"/"max"),
     rounded once to `out` (default: the operands' dtype); operands and
     result in float32, float16 or bfloat16."""
+    if has_torch_function((a, b)):
+        return handle_torch_function(combine_cast, (a, b), a, b, op, acc,
+                                     out)
     out = out or a.dtype
     if acc != torch.float32:
         raise TypeError(f"combine_cast accumulates in float32, not {acc}")
@@ -260,6 +271,8 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     cast to the tensor's own dtype returns it unchanged (no launch)."""
     if x.dtype == dtype:
         return x
+    if has_torch_function((x,)):
+        return handle_torch_function(cast, (x,), x, dtype)
     if (x.dtype, dtype) not in CAST_PAIRS:
         raise TypeError(f"cast kernel has no {x.dtype} -> {dtype} lane")
     if _on_cpu(x):

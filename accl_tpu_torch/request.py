@@ -139,6 +139,9 @@ class SequenceRequest(GPURequest):
         # content hash of the recorded batch (the compile and lint cache
         # key), set by the device on every dispatch
         self.signature: str | None = None
+        # certificate id of the pairwise-clean set this program was
+        # admitted into by ACCL.certify_concurrent, if any
+        self.interference_cert: str | None = None
         # exactly one dispatch happened for the whole batch
         self.num_dispatches = 1
 

@@ -410,6 +410,26 @@ class ScheduleCompiler:
         return graph
 
 
+def analysis_body(options: CallOptions, plan: Plan, world: int,
+                  axis_name: str = "ccl",
+                  arith_table: dict | None = None) -> tuple[Callable, int]:
+    """The IR-extraction hook for the static analyzers: the SAME schedule
+    body `ScheduleCompiler._body` builds for the call (nothing
+    re-modelled) and its operand count. The ring kernel is off, as the
+    reference forces Pallas off: the torch-op ring expresses the wire
+    pattern hop by hop, which is what the analyses read. The compiler is
+    a CPU one and building the body touches no device; the analysis
+    lifter (analysis/semantics.py) evaluates it over symbolic operands.
+    `axis_name` is the reference's mesh axis, kept for its signature."""
+    comp = ScheduleCompiler(world, torch.device("cpu"),
+                            arith_table=arith_table, use_ring_kernel=False)
+    arithcfg = None
+    if options.data_type != DataType.none:
+        arithcfg = _arithcfg_for(comp.arith_table, options)
+    n_in = 2 if options.scenario == Operation.combine else 1
+    return comp._body(options, plan, arithcfg), n_in
+
+
 def _arithcfg_for(table, options: CallOptions):
     dt = options.data_type
     if options.compress_dtype != DataType.none:

@@ -32,6 +32,7 @@ import functools
 from typing import Callable
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..constants import QUANT_BLOCK_ELEMS, ReduceFunction
 from ..ops.compression import (
@@ -137,7 +138,13 @@ class Wire:
         wire; on the quantized wire the reference's encode -> pack one
         message -> unpack -> decode, where the quantize kernel writes the
         message and the dequantize kernel reads it (an all-zero message
-        decodes to zeros)."""
+        decodes to zeros).
+
+        A hop's boundary: it and `exchange` take part in the torch-function
+        protocol, so the analysis lifter (analysis/semantics.py) sees each
+        call as one wire crossing, sent where its rows land."""
+        if has_torch_function((rows,)):
+            return handle_torch_function(Wire.transfer, (rows,), self, rows)
         if self.quantized:
             n = rows.shape[-1]
             return dequantize_wire(quantize_wire(rows), n, rows.dtype)
@@ -172,6 +179,15 @@ class Wire:
         q, s = enc
         return _permute(q, perm), _permute(s, perm)
 
+    def exchange(self, enc, world: int):
+        """The block-aligned int8 exchange's hops: slot s of rank r's codes
+        and scales go to slot r of rank s, one transpose of each. The
+        reference ships each hop's codes and scales as one packed message,
+        which the bytes round-trip exactly."""
+        if has_torch_function(enc):
+            return handle_torch_function(Wire.exchange, enc, self, enc, world)
+        return tuple(_exchange_slots(t, world) for t in enc)
+
     def decode(self, enc, n: int, out_dtype: torch.dtype) -> torch.Tensor:
         q, s = enc
         return dequantize_blockwise(q, s, n, out_dtype)
@@ -193,6 +209,13 @@ class Wire:
 def quant_op(func: ReduceFunction) -> str:
     """The quantized kernels' name of a reduce function."""
     return "sum" if func == ReduceFunction.SUM else "max"
+
+
+def _exchange_slots(t: torch.Tensor, world: int) -> torch.Tensor:
+    """Slot s of row r to slot r of row s: the transpose of the [rank,
+    slot] grid of the last dimension (leading dimensions ride along)."""
+    return t.reshape(world, *t.shape[1:-1], world,
+                     t.shape[-1] // world).transpose(0, -2).reshape(t.shape)
 
 
 def _fast_log2(x: int) -> int:
@@ -528,7 +551,18 @@ def segmented_apply(one_segment: Callable, x: torch.Tensor, seg_count: int,
     i%k, for bodies whose resources come in k slots (the slot-keyed ring
     kernel). The reference orders only slot reuse so k segments can be in
     flight; PyTorch issues the segments in order on one stream, which
-    keeps that ordering."""
+    keeps that ordering.
+
+    It takes part in the torch-function protocol, so the analysis lifter
+    can tell which segments the reference maps with one body."""
+    if has_torch_function((x,)):
+        return handle_torch_function(segmented_apply, (x,), one_segment, x,
+                                     seg_count, overlap_slots)
+    return _segmented_apply(one_segment, x, seg_count, overlap_slots)
+
+
+def _segmented_apply(one_segment: Callable, x: torch.Tensor, seg_count: int,
+                     overlap_slots: int = 0) -> torch.Tensor:
     count = x.shape[-1]
     if count <= seg_count:
         return one_segment(x, 0) if overlap_slots else one_segment(x)
@@ -612,15 +646,8 @@ def _alltoall_quant_aligned(x: torch.Tensor, *, world: int,
     hops are one transpose of each), and the received buffer is decoded
     once. The local slot is spliced in exact after the decode."""
     count = x.shape[-1] // world
-    nb = count // QUANT_BLOCK_ELEMS
     lead = x.shape[1:-1]
-
-    def exchange(t: torch.Tensor, width: int) -> torch.Tensor:
-        return t.reshape(world, *lead, world, width).transpose(
-            0, -2).reshape(t.shape)
-
-    q, s = wire.encode(x)
-    out = wire.decode((exchange(q, count), exchange(s, nb)), x.shape[-1],
+    out = wire.decode(wire.exchange(wire.encode(x), world), x.shape[-1],
                       x.dtype)
     me = torch.arange(world, device=x.device)
     grid = x.reshape(world, *lead, world, count).movedim(-2, 1)

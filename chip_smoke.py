@@ -239,9 +239,24 @@ What it does, in order, printing one JSON object per line:
      plan gives (synthesis.round_launches); the reference's mutants of
      every entry against the certifier's verdicts (0 disagreements); the
      27 program-level lint fixtures, deep off and on;
- 20. the kernels line (with each kernel's launches on the sequence,
+ 20. lift phase (analysis/semantics.py's lifter, protocol.py's recorded
+     hops, the linter's semantic pass and deep tier, interference.py):
+     the reference's family grid (26 calls) and the probe set (8
+     operations x W 2/4/5/8 x counts 7/1000/300 000) lifted and
+     certified strictly, cold and cached; each call through the facade
+     on the card (every kernel of its lowering) equal to hopdag.execute
+     of its lifted DAG and the numpy oracle, bitwise on the exact and
+     cast wires, within the reference's bound on int8; each DAG's
+     mutants (seeds 3-8) against execution, 0 disagreements; tenant
+     sequences on the card: a disjoint pair certified with no escalation,
+     stamped, and bitwise with its serial composition from two threads;
+     a write/write pair and a shared stream endpoint rejected (ACCL601),
+     A;B != B;A; the flagship decode-step and train-step batches
+     prepared with lint="error" and lint="deep", each tier's host ms;
+ 21. the kernels line (with each kernel's launches on the sequence,
      point-to-point, sub-communicator, alltoall, tuned, telemetry,
-     serve, train, MoE, mesh and analysis paths); last, the device line.
+     serve, train, MoE, mesh, analysis and lift paths); last, the device
+     line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -2638,7 +2653,10 @@ def seq_facade(kind: str):
 
 
 PROFILE_RUNS = 5      # runs of fn in one kernel_profile session
-PROFILE_SESSIONS = 3  # sessions kernel_profile may take to get one whole
+PROFILE_SESSIONS = 5  # sessions kernel_profile may take to get one whole
+# the runtime calls whose device work carries their correlation id
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cudaGraphLaunch")
 
 
 def profile_session(fn) -> list[dict]:
@@ -2658,7 +2676,11 @@ def profile_session(fn) -> list[dict]:
     land in the run before it), so that rule is the fallback, and the
     count of events it placed is returned with each run, and, by name,
     the device kernels that belong to a graph launch (`graph_kernels`)
-    and each kernel's summed device ms (`kernel_ms`)."""
+    and each kernel's summed device ms (`kernel_ms`). Each run also
+    counts its runtime launches (cudaLaunchKernel, cudaLaunchKernelExC,
+    cudaGraphLaunch) that no device event answers (`lost_launches`):
+    every such launch runs before the run's synchronize, so a nonzero
+    count means the trace lost the card's side of it."""
     import collections
 
     import torch
@@ -2685,6 +2707,7 @@ def profile_session(fn) -> list[dict]:
             f"the profile holds {len(starts)} of {PROFILE_RUNS} runs")
     launched_at = {e.correlation_id(): e.start_ns() for e in host
                    if e.name().startswith("cu") and e.correlation_id() > 0}
+    answered = {e.correlation_id() for e in dev}
 
     def run_of(t: int) -> int:  # the index of the run a host time lies in
         return sum(t >= s for s in starts) - 1
@@ -2692,8 +2715,14 @@ def profile_session(fn) -> list[dict]:
     runs = [{"graph_launches": 0, "kernels": collections.Counter(),
              "graph_kernels": collections.Counter(),
              "kernel_ms": collections.Counter(),
-             "memcpy": 0, "busy_ms": 0.0, "placed_by_device_clock": 0}
+             "memcpy": 0, "busy_ms": 0.0, "placed_by_device_clock": 0,
+             "lost_launches": 0}
             for _ in names]
+    for e in host:
+        if (e.name() in RUNTIME_LAUNCHES and e.correlation_id() > 0
+                and e.correlation_id() not in answered
+                and run_of(e.start_ns()) >= 0):
+            runs[run_of(e.start_ns())]["lost_launches"] += 1
     graph_ids = set()
     for e in host:
         if "GraphLaunch" in e.name() and run_of(e.start_ns()) >= 0:
@@ -2724,9 +2753,10 @@ def kernel_profile(fn) -> dict:
     of fn, from profile_session. A session's first and last runs are not
     read: device events at a session's edges can go missing (one run of
     this script lost one kernel of each eager chain and two copies of
-    each dispatch at the start). Its three middle runs must agree, and
-    the first of them is returned. A session whose middle runs disagree
-    is taken again, up to PROFILE_SESSIONS sessions in all, and then the
+    each dispatch at the start, and another lost every device event of a
+    session's eager calls). Its three middle runs must agree and hold no
+    lost launch, and the first of them is returned. Any other session is
+    taken again, up to PROFILE_SESSIONS sessions in all, and then the
     profile fails with every session's runs; the returned dict says how
     many sessions it took."""
     def key(r):
@@ -2735,11 +2765,12 @@ def kernel_profile(fn) -> dict:
     seen = []
     for session in range(1, PROFILE_SESSIONS + 1):
         middle = profile_session(fn)[1:-1]
-        if all(key(r) == key(middle[0]) for r in middle):
+        if (all(key(r) == key(middle[0]) for r in middle)
+                and not any(r["lost_launches"] for r in middle)):
             return {**middle[0], "profile_sessions": session}
         seen.append(middle)
-    raise AssertionError(f"the profiled runs differ in each of "
-                         f"{PROFILE_SESSIONS} sessions: {seen}")
+    raise AssertionError(f"no session of {PROFILE_SESSIONS} gave three "
+                         f"whole runs that agree: {seen}")
 
 
 def launch_counter(kernels):
@@ -6184,6 +6215,533 @@ def analysis_phase(ring, qk, L):
     return path
 
 
+# the lifting half: the reference's family grid (analysis.corpus.
+# FAMILY_GRID) and the probe set below, each call lifted and certified
+LIFT_OPS = ("allreduce", "allgather", "reduce_scatter", "bcast", "scatter",
+            "gather", "reduce", "alltoall")
+LIFT_WORLDS = (2, 4, 5, 8)
+LIFT_COUNTS = (7, 1000, 300_000)
+LIFT_SEEDS = range(3, 9)  # hopdag.mutate seeds, the reference's kind rule
+LIFT_TENANT_COUNT = 1 << 18  # elements a rank of each tenant's allreduce
+LIFT_STREAM = 77  # the shared stream endpoint of the rejected tenant pair
+
+
+def lift_payload(world: int, elems: int, quantized: bool):
+    """Integer-valued fp32 rows whose every sum is exact in fp32 (so any
+    fold order gives the same bits and a misrouted element is visible):
+    (w*n + j) mod 131071 + 1 on the exact and cast wires, small positive
+    integers on the int8 wire, as the reference's _payloads."""
+    import numpy as np
+
+    if quantized:
+        return (np.arange(world * elems, dtype=np.int64) % 8 + 1).astype(
+            np.float32).reshape(world, elems)
+    return (np.arange(world * elems, dtype=np.int64) % 131071 + 1).astype(
+        np.float32).reshape(world, elems)
+
+
+def lift_oracle(opts, x):
+    """The numpy meaning of a one-call collective over rows x (None where
+    the collective leaves a rank's output unspecified)."""
+    import numpy as np
+
+    from accl_tpu_torch.constants import Operation, ReduceFunction
+
+    w, scen, count = x.shape[0], opts.scenario, opts.count
+    root = opts.root_src_dst
+    red = (np.max if ReduceFunction(opts.function) == ReduceFunction.MAX
+           else np.sum)
+    if scen == Operation.bcast:
+        return [x[root]] * w
+    if scen == Operation.scatter:
+        return [x[root, r * count:(r + 1) * count] for r in range(w)]
+    if scen == Operation.gather:
+        return [x.reshape(-1) if r == root else None for r in range(w)]
+    if scen == Operation.allgather:
+        return [x.reshape(-1)] * w
+    if scen == Operation.reduce:
+        return [red(x, axis=0) if r == root else None for r in range(w)]
+    if scen == Operation.allreduce:
+        return [red(x, axis=0)] * w
+    if scen == Operation.reduce_scatter:
+        full = red(x, axis=0)
+        return [full[r * count:(r + 1) * count] for r in range(w)]
+    if scen == Operation.send:
+        src, dst = root & 0xFFFF, (root >> 16) & 0xFFFF
+        return [x[src] if r == dst else x[r] for r in range(w)]
+    assert scen == Operation.alltoall
+    pc = opts.peer_counts or (count,) * w
+    out = []
+    for r in range(w):
+        row = np.zeros(w * count, np.float32)
+        for c in range(w):
+            row[c * count:c * count + pc[r]] = \
+                x[c, r * count:r * count + pc[r]]
+        out.append(row)
+    return out
+
+
+def lift_class_codes(kind: str) -> set:
+    """The codes a flagged mutant of `kind` may carry: its class's
+    (ANALYSIS_MUTATION_CODE), and for a swap of two sends' payloads also
+    ACCL502. A swap misroutes: the certifier reports foreign data
+    (ACCL501) where a receiver keeps the misrouted region, but only the
+    missing contribution (ACCL502) where the payload it keeps is zero fill
+    (a tree gather sends its whole buffer, a ring its padding) or the
+    misrouted region is dropped. The reference's rule expects ACCL501
+    alone: its lift fails on the bodies that show this (queue 3)."""
+    codes = {ANALYSIS_MUTATION_CODE[kind]}
+    if kind == "swap_send_values":
+        codes.add("ACCL502")
+    return codes
+
+
+def lift_calls(counts=LIFT_COUNTS):
+    """(label, options, plan, world, trees) of the family grid (each at
+    its own world and count) and the probe set."""
+    from accl_tpu_torch.analysis import corpus
+    from accl_tpu_torch.constants import Operation
+
+    calls = []
+    for scen, count, world, kw in corpus.FAMILY_GRID:
+        tags = ",".join(f"{k}={getattr(v, 'name', v)}"
+                        for k, v in kw.items())
+        opts, plan = corpus.family_call(scen, count, world, **kw)
+        calls.append((f"grid {scen.name} {count} W{world} {tags}", opts,
+                      plan, world, bool(kw.get("trees"))))
+    for op in LIFT_OPS:
+        for world in LIFT_WORLDS:
+            for count in counts:
+                opts, plan = corpus.family_call(Operation[op], count, world)
+                calls.append((f"probe {op} {count} W{world}", opts, plan,
+                              world, False))
+    return calls
+
+
+def lift_facade_run(accl, opts, x):
+    """One call through the facade's collective methods on rows x, the
+    card's lowering (kernels and all), device to device; returns (the
+    result rows, the request)."""
+    import torch
+
+    from accl_tpu_torch.constants import DataType, Operation, ReduceFunction
+    from accl_tpu_torch.sequencer.sequence import step_out_elems
+
+    scen, count, world = opts.scenario, opts.count, accl.world
+    root, f = opts.root_src_dst, ReduceFunction(opts.function)
+    cd = opts.compress_dtype if opts.compress_dtype != DataType.none \
+        else None
+    src = accl.create_buffer(x.shape[1])
+    src.device.copy_(x)
+    res = accl.create_buffer(max(step_out_elems(opts, world), x.shape[1]))
+    kw = dict(from_device=True, to_device=True, compress_dtype=cd)
+    if scen == Operation.bcast:
+        req, res = accl.bcast(src, count, root, **kw), src
+    elif scen == Operation.scatter:
+        req = accl.scatter(src, res, count, root, **kw)
+    elif scen == Operation.gather:
+        req = accl.gather(src, res, count, root, **kw)
+    elif scen == Operation.allgather:
+        req = accl.allgather(src, res, count, **kw)
+    elif scen == Operation.reduce:
+        req = accl.reduce(src, res, count, root, f, **kw)
+    elif scen == Operation.allreduce:
+        req = accl.allreduce(src, res, count, f, **kw)
+    elif scen == Operation.reduce_scatter:
+        req = accl.reduce_scatter(src, res, count, f, **kw)
+    elif scen == Operation.alltoall and opts.peer_counts:
+        req = accl.alltoallv(src, res, count, list(opts.peer_counts), **kw)
+    elif scen == Operation.alltoall:
+        req = accl.alltoall(src, res, count, **kw)
+    else:
+        s, d = root & 0xFFFF, (root >> 16) & 0xFFFF
+        accl.send(src, count, s, d, run_async=True, from_device=True,
+                  compress_dtype=cd)
+        req = accl.recv(res, count, s, d, to_device=True, compress_dtype=cd)
+    out = res.device.clone()
+    for b in {id(src): src, id(res): res}.values():
+        accl.free_buffer(b)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    return out, req
+
+
+def lift_phase(ring, qk, L, *, device="cuda", counts=LIFT_COUNTS,
+               model_cfg=None):
+    """The analysis stack's lifting half (analysis/semantics.py's lifter,
+    protocol.py's recorded hops, linter.py's semantic pass and deep tier,
+    interference.py) against the card. Gates, each failing the run:
+      (1) every call of the reference's family grid (26, at their own
+          world and count) and of the probe set (LIFT_OPS x LIFT_WORLDS x
+          LIFT_COUNTS) lifts and certifies clean (an unliftable call
+          fails), host ms of the lift and certification; on the calls
+          inside the in-band budget also certify_call through
+          check_batch_semantics(strict=True), cold and cached;
+      (2) each call through the facade on the card, the real lowering
+          with its kernels, on lift_payload rows: equal to hopdag.execute
+          of the lifted DAG and to the numpy oracle, bitwise on the exact
+          and cast wires (the payloads' sums are exact in fp32, so any
+          fold order gives the same bits), within the reference's bound
+          (W+1)*W*max|x|/254 + 1e-5 on the int8 wire; on random normal
+          rows, the calls whose card result is bitwise hopdag.execute's
+          are counted (the fold order), not gated;
+      (3) per DAG, hopdag.mutate with seeds 3-8 (kind by the reference's
+          rule): a mutant that certifies clean computes the oracle's
+          values, a flagged one carries its class code (lift_class_codes:
+          a swap may show as a missing contribution), a
+          flagged drop/duplicate/swap under SUM computes wrong values; 0
+          disagreements;
+      (4) tenant sequences prepared on the card (W 8, LIFT_TENANT_COUNT
+          elements a rank): a disjoint pair certifies with 0 escalations
+          and is stamped, its two programs dispatched from two threads
+          equal their serial composition bitwise; a write/write pair and
+          a shared stream endpoint reject ACCL601, and the write/write
+          pair's A;B and B;A differ;
+      (5) the flagship transformer's decode-step batch (W 4, batch 8,
+          max_len 1024) and train-step batch (W 4, 155 205 632
+          parameters), each prepared with lint="error" (the default
+          tier's semantic pass: its host ms in the first prepare) and
+          with lint="deep" (the interleaving tier) on the card, clean.
+    Prints one "lift" line and returns each kernel's launches over the
+    checked runs of (2)."""
+    import random
+    import threading
+
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import ACCL, ReduceFunction, telemetry
+    from accl_tpu_torch.analysis import (
+        InterferenceCertifier,
+        corpus,
+        hopdag,
+        semantics,
+    )
+    from accl_tpu_torch.constants import DataType, TuningParams
+    from accl_tpu_torch.models import transformer as trf
+
+    on_card = device == "cuda"
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts_of, delta = launch_counter(kernels)
+    path = dict.fromkeys(kernels, 0)
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    # (1) lift and certify every call (a certify_call miss: the lift and
+    # the certification); the strict entry point, cold and cached, on
+    # the calls inside the in-band budget (the default tier's)
+    t = time.perf_counter()
+    calls = lift_calls(counts)
+    semantics.clear_cache()
+    lifted, cold, cached, dags = [], [], [], []
+    for label, opts, plan, world, trees in calls:
+        t0 = time.perf_counter()
+        dag = semantics.lift_call(opts, plan, world)
+        diags = semantics.certify(dag, semantics.collective_spec(
+            opts, world), opts.scenario.name)
+        lifted.append((time.perf_counter() - t0) * 1e3)
+        if diags:
+            raise AssertionError(f"lift: {label} does not certify: "
+                                 f"{[str(d) for d in diags[:2]]}")
+        if semantics._within_inband_budget(opts, plan, world):
+            t0 = time.perf_counter()
+            diags = semantics.check_batch_semantics([opts], [plan], world,
+                                                    strict=True)
+            t1 = time.perf_counter()
+            diags += semantics.check_batch_semantics([opts], [plan], world,
+                                                     strict=True)
+            cold.append((t1 - t0) * 1e3)
+            cached.append((time.perf_counter() - t1) * 1e3)
+            if diags:
+                raise AssertionError(f"lift: {label}: certify_call gave "
+                                     f"{[str(d) for d in diags[:2]]}")
+        dags.append(dag)
+    seconds["certify"] = time.perf_counter() - t
+    emit({"phase": "lift_progress", "gate": 1, "calls": len(calls),
+          "seconds": seconds["certify"]})
+
+    # (2) the card against the lifted DAG and the oracle
+    t = time.perf_counter()
+    facades = {}
+
+    def facade(world, trees):
+        if (world, trees) not in facades:
+            accl = ACCL(world=world, torch_device=device)
+            if trees:
+                accl.configure_tuning_parameters(
+                    TuningParams(**corpus._TREES))
+            facades[(world, trees)] = accl
+        return facades[(world, trees)]
+
+    random_bitwise = random_runs = 0
+    worst_int8 = 0.0
+    nodes = 0
+    checked = []
+    for (label, opts, plan, world, trees), dag in zip(calls, dags):
+        nodes += len(dag.nodes)
+        quantized = opts.compress_dtype == DataType.int8
+        x = lift_payload(world, dag.in_elems, quantized)
+        want = lift_oracle(opts, x)
+        ex = hopdag.execute(dag, [[r] for r in x])
+        accl = facade(world, trees)
+        before = counts_of()
+        got, req = lift_facade_run(accl, opts,
+                                   torch.from_numpy(x).to(device))
+        for name, n in delta(before).items():
+            path[name] += n
+        req_plan = getattr(req, "plan", None)
+        if req_plan is not None and req_plan.algorithm != plan.algorithm:
+            raise AssertionError(f"lift: {label}: the facade chose "
+                                 f"{req_plan.algorithm.name}, the lift "
+                                 f"{plan.algorithm.name}")
+        got = got.cpu().numpy()
+        bound = (world + 1) * world * float(np.abs(x).max()) / 254 + 1e-5
+        for r in range(world):
+            if want[r] is None:
+                continue
+            n = len(want[r])
+            g, e = got[r, :n], ex[r][:n]
+            if quantized:
+                err = max(float(np.abs(g - want[r]).max()),
+                          float(np.abs(e - want[r]).max()))
+                worst_int8 = max(worst_int8, err / bound)
+                ok = err <= bound
+            else:
+                ok = np.array_equal(g, e) and np.array_equal(g, want[r])
+            if not ok:
+                raise AssertionError(f"lift: {label}: rank {r} on the card "
+                                     "disagrees with hopdag.execute or the "
+                                     "oracle")
+        if not quantized and dag.in_elems * world <= 1 << 16:
+            xr = np.random.default_rng(world).standard_normal(
+                (world, dag.in_elems)).astype(np.float32)
+            exr = hopdag.execute(dag, [[r] for r in xr])
+            gotr, _ = lift_facade_run(accl, opts,
+                                      torch.from_numpy(xr).to(device))
+            gotr = gotr.cpu().numpy()
+            random_runs += 1
+            random_bitwise += all(
+                np.array_equal(gotr[r, :len(exr[r])], exr[r])
+                for r in range(world) if want[r] is not None)
+        checked.append((label, opts, dag, x, want, quantized))
+    del facades, dags
+    seconds["card_vs_dag"] = time.perf_counter() - t
+    emit({"phase": "lift_progress", "gate": 2,
+          "seconds": seconds["card_vs_dag"]})
+
+    # (3) mutants against execution
+    t = time.perf_counter()
+    mutants = flagged = 0
+    disagreements = []
+    for label, opts, dag, x, want, quantized in checked:
+        spec = semantics.collective_spec(opts, dag.world)
+        kinds = analysis_mutations(dag, quantized)
+        bound = (dag.world + 1) * dag.world * float(np.abs(x).max()) / 254 \
+            + 1e-5
+        for seed in LIFT_SEEDS:
+            if not kinds:
+                break
+            kind = kinds[seed % len(kinds)]
+            mut = hopdag.mutate(dag, kind, random.Random(seed))
+            if mut is None:
+                continue
+            mutants += 1
+            codes = {d.code for d in semantics.certify(
+                mut, spec, opts.scenario.name)}
+            flagged += bool(codes)
+            outs = hopdag.execute(mut, [[r] for r in x])
+            broken = False
+            for r in range(dag.world):
+                if want[r] is None:
+                    continue
+                o = outs[r][:len(want[r])]
+                broken |= (not np.allclose(o, want[r], rtol=0, atol=bound)
+                           if quantized else not np.array_equal(o, want[r]))
+            what = f"{label} {kind} seed {seed}"
+            if not codes:
+                if broken:
+                    disagreements.append(f"{what}: certified clean, "
+                                         "computes wrong values")
+                continue
+            if not codes & lift_class_codes(kind) \
+                    or not all(c.startswith("ACCL5") for c in codes):
+                disagreements.append(f"{what}: flagged {sorted(codes)}")
+            if (ReduceFunction(opts.function) == ReduceFunction.SUM
+                    and kind in ("drop_combine", "duplicate_combine",
+                                 "swap_send_values") and not broken):
+                disagreements.append(f"{what}: flagged, computes the "
+                                     "oracle's values")
+    if disagreements:
+        raise AssertionError("lift: certifier/execution disagreements: "
+                             + "; ".join(disagreements[:8]))
+    seconds["mutants"] = time.perf_counter() - t
+    emit({"phase": "lift_progress", "gate": 3, "mutants": mutants,
+          "seconds": seconds["mutants"]})
+
+    # (4) tenants on the card
+    t = time.perf_counter()
+    accl = ACCL(world=8, torch_device=device)
+    n = LIFT_TENANT_COUNT
+    a_in, a_out, b_in, b_out, shared = (accl.create_buffer(n)
+                                        for _ in range(5))
+
+    def program(src, dst):
+        seq = accl.sequence()
+        seq.allreduce(src, dst, n, ReduceFunction.SUM)
+        return seq.compile()
+
+    pa, pb = program(a_in, a_out), program(b_in, b_out)
+    cert = InterferenceCertifier()
+    accl._interference = cert
+    t0 = time.perf_counter()
+    if accl.certify_concurrent([pa, pb]) != []:
+        raise AssertionError("lift: the disjoint tenants do not certify")
+    pair_cold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    accl.certify_concurrent([pa, pb])
+    pair_cached_ms = (time.perf_counter() - t0) * 1e3
+    if cert.escalations or pa.certificate is None \
+            or pa.certificate != pb.certificate:
+        raise AssertionError("lift: the disjoint pair escalated or is not "
+                             "stamped")
+    gen = torch.Generator(device=device).manual_seed(1616)
+    threads_equal = 0
+    for _ in range(3):
+        xa = torch.randn((8, n), generator=gen, device=device)
+        xb = torch.randn((8, n), generator=gen, device=device)
+        a_in.device, b_in.device = xa.clone(), xb.clone()
+        pa.run(from_device=True, to_device=True)
+        pb.run(from_device=True, to_device=True)
+        serial = (a_out.device.clone(), b_out.device.clone())
+        a_in.device, b_in.device = xa.clone(), xb.clone()
+        a_out.device.zero_()
+        b_out.device.zero_()
+        errs = []
+
+        def drive(prog):
+            try:
+                prog.run(from_device=True, to_device=True)
+            except Exception as e:  # surfaced below
+                errs.append(e)
+
+        ts = [threading.Thread(target=drive, args=(p,)) for p in (pa, pb)]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join()
+        if errs or not (same_bits(a_out.device, serial[0])
+                        and same_bits(b_out.device, serial[1])):
+            raise AssertionError(f"lift: two-thread dispatch differs from "
+                                 f"the serial composition ({errs})")
+        threads_equal += 1
+    pw, pv = program(a_in, shared), program(b_in, shared)
+    t0 = time.perf_counter()
+    ww = accl.certify_concurrent([pw, pv], mode="off")
+    ww_ms = (time.perf_counter() - t0) * 1e3
+    if [d.code for d in ww] != ["ACCL601"] or pw.certificate is not None:
+        raise AssertionError(f"lift: the write/write pair gave {ww}")
+    orders = []
+    for first, second in ((pw, pv), (pv, pw)):
+        a_in.device, b_in.device = xa.clone(), xb.clone()
+        first.run(from_device=True, to_device=True)
+        second.run(from_device=True, to_device=True)
+        orders.append(shared.device.clone())
+    if same_bits(*orders):
+        raise AssertionError("lift: the rejected pair's A;B equals B;A")
+    accl.register_stream_consumer(LIFT_STREAM, lambda y: y)
+    streamed = []
+    for src, dst in ((a_in, a_out), (b_in, b_out)):
+        seq = accl.sequence()
+        seq.copy(src, dst, n, res_stream=LIFT_STREAM)
+        streamed.append(seq.compile())
+    t0 = time.perf_counter()
+    st = accl.certify_concurrent(streamed, mode="off")
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    if [d.code for d in st] != ["ACCL601"] \
+            or "stream endpoint" not in st[0].message:
+        raise AssertionError(f"lift: the shared stream pair gave {st}")
+    del accl, pa, pb, pw, pv, streamed
+    seconds["tenants"] = time.perf_counter() - t
+
+    # (5) the flagship batches, default and deep tiers
+    t = time.perf_counter()
+    cfg = trf.TransformerConfig(**(model_cfg or SERVE_CFG))
+    tracer = telemetry.get_tracer()
+    tier_ms = {}
+
+    def prepare_tiers(name, record):
+        semantics.clear_cache()
+        tracer.clear()
+        tracer.enable()
+        try:
+            for lint in ("error", "deep"):
+                seq = record(lint)
+                seq.compile()
+        finally:
+            spans = tracer.snapshot()
+            tracer.clear()
+            tracer.disable()
+        lints = [s for s in spans if s["cat"] == "phase"
+                 and s["name"] == "lint"]
+        if [s["args"].get("tier") for s in lints] != ["error", "deep"]:
+            raise AssertionError(f"lift: {name}: lint spans {lints}")
+        tier_ms[name] = {s["args"]["tier"]: s["dur_ns"] / 1e6 for s in lints}
+
+    params = trf.init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(1717), device)
+    saccl = ACCL(world=SERVE_WORLD, torch_device=device)
+    sbufs = trf.create_decode_buffers(saccl, cfg, SERVE_BATCH, SERVE_LEN)
+    prepare_tiers("serve", lambda lint: trf.record_decode_step(
+        saccl, cfg, params, batch=SERVE_BATCH, max_len=SERVE_LEN,
+        lint=lint, buffers=sbufs)[0])
+    del saccl, sbufs
+    torch.cuda.empty_cache() if on_card else None
+    taccl = ACCL(world=TRAIN_WORLD, torch_device=device)
+    tbufs = trf.create_train_step_buffers(taccl, cfg)
+    tok = np.random.default_rng(1717).integers(
+        0, cfg.vocab, (TRAIN_WORLD, 1, 16)).astype(np.int32)
+    prepare_tiers("train", lambda lint: trf.record_train_step(
+        taccl, cfg, tok, np.roll(tok, -1, axis=2), lint=lint,
+        buffers=tbufs)[0])
+    del taccl, tbufs, params
+    torch.cuda.empty_cache() if on_card else None
+    seconds["flagship_tiers"] = time.perf_counter() - t
+
+    if on_card:
+        idle = [k for k in ("ring_allreduce_bidir", "quantize", "dequantize",
+                            "dequant_combine", "dequant_combine_requant",
+                            "quant_ring_allreduce", "combine", "cast")
+                if not path[k]]
+        if idle:
+            raise AssertionError(f"the lift path launched no {idle}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "lift", "gpu": card_name() if on_card else "cpu",
+          "calls": len(calls), "grid": len(corpus.FAMILY_GRID),
+          "counts": list(counts), "dag_nodes": nodes,
+          "lift_and_certify_ms": {"total": sum(lifted), "median":
+                                  statistics.median(lifted),
+                                  "max": max(lifted)},
+          "inband_calls": len(cold),
+          "certify_call_cold_ms": {"total": sum(cold), "median":
+                                   statistics.median(cold),
+                                   "max": max(cold)},
+          "certify_call_cached_ms": {"total": sum(cached), "median":
+                                     statistics.median(cached),
+                                     "max": max(cached)},
+          "int8_worst_err_over_bound": worst_int8,
+          "random_bitwise": f"{random_bitwise}/{random_runs}",
+          "mutants": mutants, "flagged": flagged, "disagreements": 0,
+          "tenants": {"pair_cold_ms": pair_cold_ms,
+                      "pair_cached_ms": pair_cached_ms,
+                      "write_write_ms": ww_ms, "stream_pair_ms": stream_ms,
+                      "escalations": cert.escalations,
+                      "two_thread_runs_bitwise": threads_equal},
+          "lint_tier_ms": tier_ms, "seconds": seconds, "launches": path})
+    return path
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -6202,9 +6760,10 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     the captured kernels without the host's wrappers); `p2p_launches`,
     `comm_launches`, `alltoall_launches`, `tuned_launches`,
     `telemetry_launches`, `serve_launches`, `train_launches`,
-    `moe_launches`, `mesh_launches` and `analysis_launches` likewise over
-    the checked runs of the point-to-point, sub-communicator, alltoall,
-    tuned, telemetry, serve, train, MoE, mesh and analysis paths."""
+    `moe_launches`, `mesh_launches`, `analysis_launches` and
+    `lift_launches` likewise over the checked runs of the point-to-point,
+    sub-communicator, alltoall, tuned, telemetry, serve, train, MoE,
+    mesh, analysis and lift paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -6352,7 +6911,8 @@ def main() -> int:
              "train": timed(train_phase, ring, qk, L),
              "moe": timed(moe_phase, ring, qk, L),
              "mesh": timed(mesh_phase, ring, qk, L),
-             "analysis": timed(analysis_phase, ring, qk, L)}
+             "analysis": timed(analysis_phase, ring, qk, L),
+             "lift": timed(lift_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

@@ -1,13 +1,18 @@
 """The port's lint gate against the reference's, over the lint corpus.
 
 Every tools/lint_corpus/ fixture of kind "sequence" is linted by the
-port's SequenceLinter (the default tier: validate, then the dataflow
-hazards) and by the reference's SequenceLinter at its default tier
-(`deep=False`, `use_pallas_ring=False`, with the fixture's default
-plans, so its semantic certifier runs too); both give the same codes,
-which include the fixture's expected ones. Then the gate through the
-port's facade: the diagnostics' fields match the reference's, and
-`lint="deep"` raises not_ported.
+port's SequenceLinter and by the reference's at their default tiers
+(validate, the dataflow hazards, then the semantic certifier over the
+fixture's default plans; the reference with `use_pallas_ring=False`):
+both give the same diagnostics, which include the fixture's expected
+codes. Through each package's corpus runner, deep off and on, the
+sequence fixtures give the same diagnostics too. Then the wiring the
+reference's TestLinterWiring pins: the default tier runs the semantic
+pass, warnings do not skip it, its ACCL50x codes are errors, and a
+batch whose plan drops contributions is rejected with the reference's
+code at the facade. Then the gate through the port's facade: the
+diagnostics' fields match the reference's, with `lint="deep"` as with
+the default tier.
 """
 
 import json
@@ -21,6 +26,7 @@ from accl_tpu.analysis.linter import SequenceLinter as RefLinter
 from accl_tpu.descriptor import CallOptions as RefOpts
 from accl_tpu.sequencer.plan import select_algorithm
 from accl_tpu_torch import ACCL
+from accl_tpu_torch.analysis import corpus, semantics
 from accl_tpu_torch.analysis.diagnostics import CODES, enforce, make
 from accl_tpu_torch.analysis.linter import SequenceLinter
 from accl_tpu_torch.descriptor import CallOptions
@@ -87,7 +93,9 @@ def test_default_tier_codes_match_reference(path):
         widths = {int(k, 0): int(v) for k, v in fx["buffer_widths"].items()}
     port_steps = [_step(port_c, CallOptions, d) for d in fx["steps"]]
     ref_steps = [_step(ref_c, RefOpts, d) for d in fx["steps"]]
-    got = SequenceLinter(world).lint(port_steps, buffer_widths=widths)
+    got = SequenceLinter(world).lint(
+        port_steps, [corpus.default_plan(o, world) for o in port_steps],
+        buffer_widths=widths)
     plans = [_ref_plan(o, world) for o in ref_steps]
     want = RefLinter(world, use_pallas_ring=False).lint(
         ref_steps, plans, buffer_widths=widths)
@@ -119,10 +127,142 @@ def test_codes_table_and_enforce_modes():
         enforce([], "strict")
 
 
+@pytest.mark.parametrize("deep", [False, True], ids=["default", "deep"])
+@pytest.mark.parametrize("path", FIXTURES, ids=lambda p: p.stem)
+def test_corpus_runner_matches_reference(path, deep):
+    from tools.accl_lint import lint_fixture as ref_lint_fixture
+
+    fx = json.loads(path.read_text())
+    got = corpus.lint_fixture(fx, deep=deep)
+    want = ref_lint_fixture(fx, deep=deep)
+    assert [(d.code, d.step, d.message) for d in got] == [
+        (d.code, d.step, d.message) for d in want]
+    assert corpus.fixture_ok(fx, got)
+
+
+def _wiring_batch(world=4):
+    steps = [CallOptions(scenario=port_c.Operation.allreduce, count=16,
+                         root_src_dst=0,
+                         function=int(port_c.ReduceFunction.SUM),
+                         data_type=port_c.DataType.float32,
+                         addr_0=0x10, addr_2=0x20)]
+    return steps, [corpus.default_plan(o, world) for o in steps]
+
+
+def _spy(monkeypatch):
+    calls = []
+    orig = semantics.check_batch_semantics
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(semantics, "check_batch_semantics", spy)
+    return calls
+
+
+def test_default_tier_runs_semantics(monkeypatch):
+    calls = _spy(monkeypatch)
+    steps, plans = _wiring_batch()
+    assert SequenceLinter(4).lint(steps, plans) == []
+    assert calls  # the pass ran without deep=True
+    calls.clear()
+    SequenceLinter(4).lint(steps)
+    assert not calls  # no plans, no semantic pass
+
+
+def test_warning_predecessors_do_not_skip_semantics(monkeypatch):
+    """A WAR/WAW-warned batch still dispatches under lint="error", so it
+    must still get its answer certified; only error-severity
+    predecessors (whose batch never ships) skip the pass."""
+    calls = _spy(monkeypatch)
+
+    def opt(scen, count, a0, a2):
+        return CallOptions(scenario=scen, count=count, function=0,
+                           data_type=port_c.DataType.float32,
+                           addr_0=a0, addr_2=a2)
+
+    war = [opt(port_c.Operation.copy, 16, 1, 2),
+           opt(port_c.Operation.copy, 16, 3, 1)]
+    diags = SequenceLinter(4).lint(
+        war, [corpus.default_plan(o, 4) for o in war])
+    assert [d.severity for d in diags] == ["warning"]
+    assert calls, "warning-only batch skipped semantic certification"
+    calls.clear()
+    raw = [opt(port_c.Operation.reduce_scatter, 8, 1, 2),
+           opt(port_c.Operation.bcast, 32, 2, 2)]
+    diags = SequenceLinter(4).lint(
+        raw, [corpus.default_plan(o, 4) for o in raw])
+    assert any(d.severity == "error" for d in diags)
+    assert not calls, "error-poisoned batch still ran semantics"
+
+
+def test_semantic_diag_enforced_as_error(monkeypatch):
+    monkeypatch.setattr(
+        semantics, "check_batch_semantics",
+        lambda *a, **kw: [make("ACCL501", "planted", step=0)])
+    steps, plans = _wiring_batch()
+    diags = SequenceLinter(4).lint(steps, plans)
+    assert [d.code for d in diags] == ["ACCL501"]
+    assert diags[0].severity == "error"
+    with pytest.raises(LintError):
+        enforce(diags, "error")
+    with pytest.raises(LintError):
+        enforce(diags, "deep")
+    for code in ("ACCL501", "ACCL502", "ACCL503", "ACCL504"):
+        assert CODES[code][1] == "error"
+
+
+def test_plan_that_drops_contributions_is_rejected(monkeypatch):
+    """A dense alltoall recorded through the facade, its plan swapped for
+    the capacity-bounded one: the body drops every slot's tail, so the
+    default tier's semantic pass rejects the batch before it is built
+    (ACCL502, a missing contribution). The reference's certifier, handed
+    the port's lifted DAG, reports the same diagnostics (its own lift of
+    this body fails here, so its facade would skip the step)."""
+    from accl_tpu.analysis import hopdag as ref_hopdag
+    from accl_tpu.analysis import semantics as ref_sem
+    from accl_tpu_torch.analysis import hopdag
+    from accl_tpu_torch.sequencer.plan import select_algorithm
+
+    pc = (8, 3, 7, 1)
+    accl = ACCL(world=4, torch_device="cpu")
+    dev = accl.cclo
+    orig = dev._resolve_step
+    swapped = []
+
+    def resolve(opts, ctx, tuning=None):
+        plan, prod, cons = orig(opts, ctx, tuning)
+        plan = select_algorithm(
+            opts.scenario, opts.count, 4, 4, opts.compression_flags,
+            max_eager_size=1 << 20, eager_rx_buf_size=1 << 20,
+            tuning=dev.tuning(), peer_counts=pc)
+        swapped.append((opts, plan))
+        return plan, prod, cons
+
+    monkeypatch.setattr(dev, "_resolve_step", resolve)
+    a, b = accl.create_buffer(32), accl.create_buffer(32)
+    rec = accl.sequence()
+    rec.alltoall(a, b, 8)
+    with pytest.raises(LintError) as e:
+        rec.run()
+    got = [(d.code, d.step, d.message) for d in e.value.diagnostics]
+    assert {c for c, _, _ in got} == {"ACCL502"}
+    opts, plan = swapped[0]
+    dag = semantics.lift_call(opts, plan, 4)
+    ref_dag = ref_hopdag.from_json(hopdag.to_json(dag))
+    ref_opts = RefOpts(scenario=ref_c.Operation.alltoall, count=8,
+                       function=0, data_type=ref_c.DataType.float32)
+    want = ref_sem.certify(ref_dag, ref_sem.collective_spec(ref_opts, 4),
+                           "alltoall")
+    assert [(c, m) for c, _, m in got] == [(d.code, d.message)
+                                           for d in want]
+
+
 def test_facade_gate_reports_the_reference_diagnostic(mesh4):
     """A mis-recorded batch fails at run() with the diagnostics the
-    reference's facade reports for the same calls, and lint="deep"
-    raises not_ported on the port."""
+    reference's facade reports for the same calls, under lint="deep" as
+    under the default tier; a clean batch runs under both tiers."""
     from accl_tpu.accl import ACCL as RefACCL
     from accl_tpu.errors import LintError as RefLintError
     from accl_tpu_torch import ReduceFunction
@@ -131,15 +271,20 @@ def test_facade_gate_reports_the_reference_diagnostic(mesh4):
     for accl, F, err in ((RefACCL(mesh4), ref_c.ReduceFunction, RefLintError),
                          (ACCL(world=4, torch_device="cpu"), ReduceFunction,
                           LintError)):
-        a, b, c = (accl.create_buffer(64), accl.create_buffer(16),
-                   accl.create_buffer(64))
-        rec = accl.sequence()
-        rec.reduce_scatter(a, b, 4, F.SUM)  # writes 4 of b's 16
-        rec.bcast(b, 16, 0)  # reads all 16
-        rec.copy(c, a, 64)  # overwrites a, which step 0 reads, unordered
-        with pytest.raises(err) as e:
-            rec.run()
-        errors.append([(d.code, d.step) for d in e.value.diagnostics])
-    assert errors[0] == errors[1] == [("ACCL101", 1), ("ACCL102", 2)]
-    with pytest.raises(NotImplementedError, match="analysis"):
-        ACCL(world=4, torch_device="cpu").sequence(lint="deep")
+        for lint in ("error", "deep"):
+            a, b, c = (accl.create_buffer(64), accl.create_buffer(16),
+                       accl.create_buffer(64))
+            rec = accl.sequence(lint=lint)
+            rec.reduce_scatter(a, b, 4, F.SUM)  # writes 4 of b's 16
+            rec.bcast(b, 16, 0)  # reads all 16
+            rec.copy(c, a, 64)  # overwrites a, which step 0 reads
+            with pytest.raises(err) as e:
+                rec.run()
+            errors.append([(d.code, d.step, d.message)
+                           for d in e.value.diagnostics])
+            ok = accl.sequence(lint=lint)
+            ok.reduce_scatter(a, b, 4, F.SUM).allgather(b, c, 4)
+            ok.run()
+    assert errors[0] == errors[1] == errors[2] == errors[3]
+    assert [(c, s) for c, s, _ in errors[0]] == [("ACCL101", 1),
+                                                 ("ACCL102", 2)]

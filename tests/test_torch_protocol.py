@@ -10,7 +10,10 @@ count and communicator mismatches, peers out of range) gives the
 reference's `simulate` diagnostics, MatchNotes and outcome under both
 regimes; `check_hops`, `rank_programs_from_hops`,
 `batch_programs_from_hops` and `rank_programs_from_options` agree on a
-few hop lists and descriptor chains; the lifting entry points raise.
+few hop lists and descriptor chains; the lifting entry points
+(`trace_schedule_jaxpr` and the four that read its hops) give the
+reference's hops and diagnostics (tests/test_torch_lift.py holds the
+lift itself).
 """
 
 import dataclasses
@@ -159,7 +162,47 @@ def test_rank_programs_from_options_matches_reference():
                                   "batch_rank_programs",
                                   "interpret_schedule"])
 def test_lifting_entry_points_raise(name):
-    fn = getattr(protocol, name)
-    args = (None,) if name == "iter_ppermute_eqns" else (None, None, 4)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        fn(*args)
+    """The lifting entry points run now (they raised until the lifting
+    slice): each gives the reference's result on a two-step batch, a
+    segmented ring allreduce and a tree reduce at W 5."""
+    calls = [corpus.family_call(port_c.Operation.allreduce, 600, 5),
+             corpus.family_call(port_c.Operation.reduce, 16, 5, root=3,
+                                trees=True)]
+    ref_calls = []
+    for (o, plan) in calls:
+        ro = RefOpts(scenario=ref_c.Operation(int(o.scenario)),
+                     count=o.count, root_src_dst=o.root_src_dst,
+                     function=o.function, data_type=ref_c.DataType.float32)
+        from accl_tpu.sequencer.plan import select_algorithm
+
+        tun = (ref_c.TuningParams(**corpus._TREES) if o.scenario ==
+               port_c.Operation.reduce else
+               ref_c.TuningParams.default(ref_c.DEFAULT_MAX_RENDEZVOUS_SIZE))
+        rp = select_algorithm(
+            ro.scenario, ro.count, 4, 5, ro.compression_flags,
+            max_eager_size=ref_c.DEFAULT_MAX_EAGER_SIZE,
+            eager_rx_buf_size=ref_c.DEFAULT_EAGER_RX_BUF_SIZE, tuning=tun)
+        assert rp.algorithm.name == plan.algorithm.name
+        ref_calls.append((ro, rp))
+    fn, ref_fn = getattr(protocol, name), getattr(ref, name)
+    if name == "batch_rank_programs":
+        got = fn([c[0] for c in calls], [c[1] for c in calls], 5)
+        want = ref_fn([c[0] for c in ref_calls], [c[1] for c in ref_calls],
+                      5)
+        assert _events(got) == _events(want)
+        return
+    for (o, plan), (ro, rp) in zip(calls, ref_calls):
+        if name == "interpret_schedule":
+            assert _diags(fn(o, plan, 5)) == _diags(ref_fn(ro, rp, 5)) == []
+        elif name == "trace_schedule_hops":
+            assert fn(o, plan, 5) == ref_fn(ro, rp, 5)
+        else:
+            trace, n_in, elems = protocol.trace_schedule_jaxpr(o, plan, 5)
+            closed, r_in, r_elems = ref.trace_schedule_jaxpr(ro, rp, 5)
+            assert (n_in, elems) == (r_in, r_elems)
+            if name == "iter_ppermute_eqns":
+                assert [tuple(e.params["perm"]) for e in fn(trace)] == [
+                    tuple(tuple(p) for p in e.params["perm"])
+                    for e in ref_fn(closed)]
+            else:
+                assert trace.dag.world == 5 and trace.dag.n_in == n_in

@@ -468,8 +468,8 @@ def test_dispatch_results_survive_the_next_dispatch(port4):
 
 
 def test_unported_steps_and_tiers_raise(port4):
-    """The deep lint tier raises NotImplementedError naming its slice, at
-    record and at prepare time. What else used to raise here runs now:
+    """What used to raise here runs now: the deep lint tier records and
+    prepares (an empty batch is refused as the reference refuses it),
     alltoall(v) steps record, stream_put on an unregistered producer is a
     KeyError as in the reference, and a batch addressing a two-rank
     communicator table runs over rows 0 and 2 only."""
@@ -479,9 +479,12 @@ def test_unported_steps_and_tiers_raise(port4):
     a, b = _mk(port4, 4 * n), _mk(port4, 4 * n)
     assert len(port4.sequence().alltoall(a, b, n)) == 1
     assert len(port4.sequence().alltoallv(a, b, n, [n, 1, 2, 3])) == 1
-    with pytest.raises(NotImplementedError, match="analysis"):
-        port4.sequence(lint="deep")
-    with pytest.raises(NotImplementedError, match="analysis"):
+    deep = port4.sequence(lint="deep")
+    deep.reduce_scatter(a, b, n, ReduceFunction.SUM).allgather(b, a, n)
+    prog = deep.compile()
+    assert prog.footprint is not None and prog.certificate is None
+    prog.run()
+    with pytest.raises(ValueError, match="empty call sequence"):
         port4.cclo.prepare_sequence([], lint="deep")
     with pytest.raises(KeyError, match="no producer registered on stream 5"):
         port4.stream_put(n, 5, 0, 1, a)

@@ -1,11 +1,13 @@
 """The port's public names against the JAX package's.
 
 Every public name of accl_tpu, its sequencer, telemetry, models and
-parallel subpackages, the synthesis module and the analysis modules of
-the programs-and-DAGs half (the model, parallel, synthesis and analysis
-modules' own names, not those they import), the ACCL facade and the
-device that the port lacks must be a known gap, listed with the ROADMAP item that brings it; a gap
-that closes must leave the list. nop() runs through both facades to the same request.
+parallel subpackages, the synthesis module and the analysis package and
+modules (the model, parallel, synthesis and analysis modules' own
+names, not those they import: the lifting entry points of protocol and
+semantics and the interference certifier among them), the ACCL facade,
+its SequenceProgram and the device that the port lacks must be a known
+gap, listed with the ROADMAP item that brings it; a gap that closes must
+leave the list. nop() runs through both facades to the same request.
 """
 
 import importlib
@@ -16,7 +18,6 @@ import pytest
 # (where, name) -> the ROADMAP queue-1 item that brings it to the port
 KNOWN_GAPS = {
     ("ACCL", "arm_resilience"): "item 17 (resilience)",
-    ("ACCL", "certify_concurrent"): "item 15 part 2 (interference certifier)",
     ("ACCL", "scheduler"): "item 17 (scheduler)",
     ("device", "supports_live_subset"): "item 17 (resilience)",
 }
@@ -39,8 +40,9 @@ def _defined_in(module) -> set[str]:
 
 def _pairs():
     from accl_tpu.accl import ACCL as RefACCL
+    from accl_tpu.accl import SequenceProgram as RefProgram
     from accl_tpu.device.tpu_device import TPUDevice
-    from accl_tpu_torch.accl import ACCL
+    from accl_tpu_torch.accl import ACCL, SequenceProgram
     from accl_tpu_torch.device.gpu_device import GPUDevice
 
     yield "package", importlib.import_module("accl_tpu"), \
@@ -54,10 +56,11 @@ def _pairs():
                 "parallel.pipeline", "sequencer.synthesis",
                 "analysis.protocol", "analysis.modelcheck",
                 "analysis.slots", "analysis.semantics", "analysis.hopdag",
-                "analysis.linter"):
+                "analysis.linter", "analysis.interference", "analysis"):
         yield sub, importlib.import_module(f"accl_tpu.{sub}"), \
             importlib.import_module(f"accl_tpu_torch.{sub}")
     yield "ACCL", RefACCL, ACCL
+    yield "SequenceProgram", RefProgram, SequenceProgram
     yield "device", TPUDevice, GPUDevice
 
 
