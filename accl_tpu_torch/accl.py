@@ -23,6 +23,7 @@ batch, compile it once, run it as one CUDA-graph replay on the card).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -40,12 +41,14 @@ from .constants import (
     DataType,
     HostFlags,
     Operation,
+    ReduceFunction,
     StreamFlags,
     TAG_ANY,
     TuningParams,
+    dtype_nbytes,
     to_torch_dtype,
 )
-from .descriptor import CallOptions
+from .descriptor import CallOptions, normalize_live_ranks
 from .device.base import CCLOAddr
 from .device.gpu_device import GPUDevice
 from .errors import (
@@ -97,8 +100,13 @@ class ACCL:
         self._last_request: BaseRequest | None = None
         # placeholder buffers of the buffer-less stream forms, by shape
         self._stream_scratch: dict = {}
-        # the long-lived pairwise verdict cache of certify_concurrent
+        # the long-lived pairwise verdict cache of certify_concurrent (the
+        # scheduler's admission shares it)
         self._interference = None
+        # an armed resilience.ResilienceManager: every synchronous
+        # data-plane call is checked against its derived deadline after it
+        # completes (None: one attribute check a call)
+        self._resilience = None
         self.initialize()
 
     # ------------------------------------------------------------------ #
@@ -426,6 +434,13 @@ class ACCL:
         to_device: bool,
         run_async: bool,
     ):
+        # the armed resilience seam times a synchronous call end to end
+        # (its completion waits on the request's CUDA event) for the
+        # manager's post-completion deadline check; an async call has no
+        # end-to-end time on the host
+        mgr = self._resilience
+        t0 = (time.perf_counter()
+              if mgr is not None and not run_async else None)
         # tracer.span is the shared no-op when the tracer is inactive (one
         # predicate). The span is a host clock: a synchronous call's
         # covers its device time because _complete waits on the
@@ -438,6 +453,11 @@ class ACCL:
                       int(opts.stream_flags))
             req = self.cclo.start(opts)
             ret = self._complete(req, sync_out, to_device, run_async)
+            if t0 is not None:
+                mgr.observe_call(opts.scenario, opts.count,
+                                 dtype_nbytes(opts.data_type)
+                                 if opts.data_type != DataType.none else 4,
+                                 time.perf_counter() - t0)
             if get_tracer().active:  # attach what the device resolved
                 sp.set(op=opts.scenario.name, count=opts.count,
                        retcode=req.retcode)
@@ -725,7 +745,7 @@ class ACCL:
     def allreduce(self, sendbuf, recvbuf, count, function, *,
                   from_device=False, to_device=False, run_async=False,
                   compress_dtype=None, comm=None, op0_stream=None,
-                  res_stream=None):
+                  res_stream=None, mode="all", live_ranks=None):
         """Every rank's recvbuf receives the elementwise reduction
         (ReduceFunction SUM/MAX) of all ranks' sendbufs. compress_dtype
         names a wire dtype: fp16/bf16 (cast lanes), or int8 on float32
@@ -734,13 +754,54 @@ class ACCL:
         element's result is within W quantization passes of the exact
         sum, and identical on every rank). An int8 call is always eager,
         cut into egr_rx_buf_size/4-element segments, so large calls want
-        an ACCL built with a large egr_rx_buf_size."""
+        an ACCL built with a large egr_rx_buf_size.
+
+        mode="live_subset" is the certified degraded form: `live_ranks`
+        declares the surviving contributors, every other rank's operand is
+        masked to exact zeros at the source inside the schedule (the
+        torch-op ring), and the semantic certifier proves the answer sums
+        exactly the survivors. SUM only, exact wire only; a full survivor
+        set is the ordinary allreduce, bit for bit."""
         opts = self._prepare(Operation.allreduce, sendbuf, None, recvbuf,
                              count, function=int(function),
                              compress_dtype=compress_dtype, comm=comm)
+        opts.live_ranks = self._live_subset(mode, live_ranks, function,
+                                            compress_dtype, comm)
         self._stream_opts(opts, op0_stream, res_stream)
         return self._execute(opts, [sendbuf], [recvbuf], from_device,
                              to_device, run_async)
+
+    def _live_subset(self, mode, live_ranks, function, compress_dtype,
+                     comm) -> tuple:
+        """Validate the degraded-mode arguments before anything is built
+        or launched; returns the descriptor's normalized live_ranks, ()
+        for the ordinary collective."""
+        if mode not in ("all", "live_subset"):
+            raise ValueError(
+                f"allreduce mode must be 'all'|'live_subset', got {mode!r}")
+        if mode == "all":
+            if live_ranks is not None:
+                raise ValueError("live_ranks requires mode='live_subset'")
+            return ()
+        if not live_ranks:
+            raise ValueError(
+                "mode='live_subset' needs a non-empty live_ranks set")
+        comm_size = (comm or self.communicators[0]).size
+        lr = normalize_live_ranks(live_ranks, comm_size)
+        if ReduceFunction(function) != ReduceFunction.SUM:
+            raise ValueError(
+                "live-subset allreduce is SUM-only: the zero mask is the "
+                "fold identity for SUM, nothing else is certified")
+        if compress_dtype is not None:
+            raise NotImplementedError(
+                "live-subset allreduce is exact-wire only")
+        if lr == tuple(range(comm_size)):
+            return ()  # every rank lives: the ordinary allreduce's program
+        if not getattr(self.cclo, "supports_live_subset", False):
+            raise NotImplementedError(
+                f"{type(self.cclo).__name__} has no masked live-subset "
+                "ring; the degraded allreduce needs the torch-op ring")
+        return lr
 
     def reduce_scatter(self, sendbuf, recvbuf, count, function, *,
                        from_device=False, to_device=False, run_async=False,
@@ -892,12 +953,27 @@ class ACCL:
         queues."""
         return self.cclo.dump_eager_rx_buffers()
 
+    def arm_resilience(self, manager) -> None:
+        """Arm per-call deadlines on this facade with a
+        resilience.ResilienceManager that holds a DeadlinePolicy: every
+        synchronous data-plane call is checked against its derived
+        deadline after it completes, and a miss becomes a DeadlineMissed
+        verdict on the manager (flight-recorder post-mortem attached); it
+        never fails the completed call. The first call of each shape is a
+        warm-up and is not checked (on the card it builds the kernels and
+        schedules). `arm_resilience(None)` disarms."""
+        self._resilience = manager
+
     def soft_reset(self):
         """The reset_periph config call: drains parked sends and recvs
         (each parked recv completes with RECEIVE_TIMEOUT_ERROR) and the
         built-schedule caches, leaving the device configured (unlike
         deinit, which also clears CFGRDY)."""
         self._config_call(CfgFunc.reset_periph, 0)
+        # the schedules are rebuilt at their next call: an armed manager
+        # exempts each shape's next call again
+        if self._resilience is not None:
+            self._resilience.reset_warmup()
 
     # ------------------------------------------------------------------ #
     # call sequences: record a batch, dispatch it as one program
@@ -988,6 +1064,18 @@ class ACCL:
                 h._prepared.cert = cert
         enforce(diags, mode)
         return diags
+
+    def scheduler(self, **kwargs) -> "MultiTenantScheduler":
+        """A multi-tenant scheduler over this facade (scheduler/):
+        admission with interference certificates (sharing this facade's
+        certifier, so verdicts cached by certify_concurrent serve admission
+        and back), strict priority classes with weighted fair queueing
+        over predicted cost, typed backpressure, and per-tenant accounting
+        through the metrics registry. Keywords go to
+        MultiTenantScheduler (capacity_s, registry, ...)."""
+        from .scheduler import MultiTenantScheduler
+
+        return MultiTenantScheduler(self, **kwargs)
 
 
 class SequenceRecorder:
@@ -1091,10 +1179,13 @@ class SequenceRecorder:
         return self._record(opts, [sendbuf], [recvbuf])
 
     def allreduce(self, sendbuf, recvbuf, count, function, *,
-                  compress_dtype=None, op0_stream=None, res_stream=None):
+                  compress_dtype=None, op0_stream=None, res_stream=None,
+                  mode="all", live_ranks=None):
         opts = self._prep(Operation.allreduce, sendbuf, None, recvbuf, count,
                           op0_stream, res_stream, function=int(function),
                           compress_dtype=compress_dtype)
+        opts.live_ranks = self._accl._live_subset(
+            mode, live_ranks, int(function), compress_dtype, self._comm)
         return self._record(opts, [sendbuf], [recvbuf])
 
     def reduce_scatter(self, sendbuf, recvbuf, count, function, *,

@@ -23,6 +23,19 @@ from .constants import (
 DESCRIPTOR_WORDS = 15
 
 
+def normalize_live_ranks(live_ranks, world: int) -> tuple[int, ...]:
+    """The one validation of a degraded live-subset survivor set, shared by
+    the facade and plan selection: sorted, free of duplicates, every member
+    inside the world. Callers decide what a full set means (the facade
+    folds it into the ordinary collective)."""
+    lr = tuple(sorted(int(r) for r in live_ranks))
+    if len(set(lr)) != len(lr):
+        raise ValueError(f"duplicate ranks in live_ranks {live_ranks}")
+    if any(not 0 <= r < world for r in lr):
+        raise ValueError(f"live_ranks {lr} outside world of {world}")
+    return lr
+
+
 @dataclasses.dataclass
 class CallOptions:
     """Host-side form of a call descriptor."""

@@ -1,6 +1,8 @@
 """Device backends: where call descriptors are executed.
 
   GPUDevice  - virtual ranks on one CUDA device (or on the CPU when asked)
+  EmuRank, EmuWorld - the native multi-rank emulator of native/src, over
+               host memory (device/emu_device.py; not imported here)
 """
 
 from .base import CCLODevice, CCLOAddr  # noqa: F401

@@ -78,6 +78,9 @@ class GPUDevice(CCLODevice):
     supports_quantized_wire = True
     # the capacity-masked alltoallv rotation (schedules.alltoallv_schedule)
     supports_alltoallv = True
+    # the degraded live-subset allreduce: the torch-op ring with its
+    # survivor mask at the source (schedules.allreduce_ring_schedule)
+    supports_live_subset = True
     # the ALLTOALL_COMPRESS_MIN_COUNT register applies the int8 wire to
     # eligible fp32 alltoall(v) calls (_apply_alltoall_wire)
     auto_alltoall_wire = True

@@ -57,15 +57,6 @@ class LintError(ACCLValidationError):
         return tuple(d.code for d in self.diagnostics)
 
 
-def not_ported(what: str, slice_name: str) -> NotImplementedError:
-    """The error for a feature of the reference whose slice of the port
-    has not landed: raised where the reference would run it, so nothing
-    silently takes another path."""
-    return NotImplementedError(
-        f"{what} is not ported yet (the {slice_name} slice of the PyTorch "
-        "port)")
-
-
 def notify_sticky_retcode(function_name: str, retcode: int, *,
                           detail: int = 0, rank: int | None = None,
                           count: int | None = None):

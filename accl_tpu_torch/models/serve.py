@@ -34,7 +34,6 @@ from collections import deque
 
 import torch
 
-from ..errors import not_ported
 from ..telemetry import metrics
 from . import transformer as trf
 
@@ -68,18 +67,21 @@ class DecodeServer:
     `params` is the parameter tree as torch tensors (interop.
     transformer_params_from_numpy converts the JAX package's); the
     consumers hold their weights on the facade's device and the server
-    keeps a host copy of the embedding for staging. `scheduler=` (the
-    multi-tenant admission and dispatch seam of the reference) is not
-    ported and raises."""
+    keeps a host copy of the embedding for staging.
+
+    With a `scheduler` (scheduler.MultiTenantScheduler), request admission
+    goes through its backpressure (SchedulerSaturatedError before a
+    request is queued) and every fused step through its metered
+    `dispatch_now` as tenant `tenant` (registered at priority 0 if new):
+    the same program and the same run(to_device=True), so the tokens are
+    the server's without a scheduler, bit for bit."""
 
     def __init__(self, accl, cfg, params, *, batch: int, max_len: int,
                  mode: str = "fused", lint: str = "error",
                  registry=None, time_fn=time.perf_counter,
-                 scheduler=None):
+                 scheduler=None, tenant: str = "serve"):
         if mode not in ("fused", "eager"):
             raise ValueError(f"mode must be 'fused'|'eager', got {mode!r}")
-        if scheduler is not None:
-            raise not_ported("DecodeServer(scheduler=)", "scheduler")
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -96,6 +98,14 @@ class DecodeServer:
             self._program = None
             trf.register_decode_consumers(accl, cfg, params,
                                           self._buffers.dims)
+        self._scheduler = scheduler
+        self._tenant = tenant
+        self._step_cost_s: float | None = None
+        if scheduler is not None:
+            if tenant not in scheduler.tenants:
+                scheduler.register_tenant(tenant, priority=0)
+            if self._program is not None:
+                self._step_cost_s = scheduler.predict_cost_s(self._program)
         self._slots: list[_Slot | None] = [None] * batch
         self._queue: deque[DecodeRequest] = deque()
         self._next_rid = 0
@@ -121,6 +131,15 @@ class DecodeServer:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_len {self.max_len}")
+        if self._scheduler is not None:
+            # the request's predicted cost: the steps it will hold a slot
+            # for, at one fused step's price; a saturated scheduler
+            # refuses it here, before it is queued
+            step_cost = (self._step_cost_s
+                         if self._step_cost_s is not None else 1e-5)
+            self._scheduler.admit_request(
+                self._tenant,
+                cost_s=step_cost * (len(prompt) + int(max_new_tokens)))
         req = DecodeRequest(rid=self._next_rid, prompt=prompt,
                             max_new_tokens=int(max_new_tokens))
         self._next_rid += 1
@@ -167,7 +186,11 @@ class DecodeServer:
         t0 = self._time()
         if self._program is not None:
             # steady state: one dispatch; the kv caches stay on the device
-            self._program.run(to_device=True)
+            if self._scheduler is not None:
+                self._scheduler.dispatch_now(self._tenant, self._program,
+                                             to_device=True)
+            else:
+                self._program.run(to_device=True)
             logits = trf.read_decode_logits(self._buffers, sync=True)
         else:
             trf.run_decode_step_eager(self._accl, self.cfg, self._buffers)

@@ -281,6 +281,14 @@ class ScheduleCompiler:
                 return _bc(_rb(x), root=0, **_c)
 
             return _ar_composed
+        if plan.live_ranks:
+            # the degraded live-subset mode runs the torch-op ring, where
+            # the source mask is part of the body the certifier lifts (the
+            # ring kernel has no masked form); its folds are lane kernels
+            return functools.partial(
+                schedules.allreduce_ring_schedule,
+                func=func, world=world, wire=wire, seg_count=plan.seg_count,
+                live_ranks=plan.live_ranks)
         eth_active = bool(
             arithcfg is not None
             and options.compression_flags & CompressionFlags.ETH_COMPRESSED

@@ -23,7 +23,7 @@ from ..constants import (
     StreamFlags,
     TuningParams,
 )
-from ..errors import not_ported
+from ..descriptor import normalize_live_ranks
 
 
 class Protocol(enum.IntEnum):
@@ -176,8 +176,22 @@ def select_algorithm(
     if world_size == 1 and scenario != Operation.barrier:
         return Plan(proto, Algorithm.NONE, count, 1)
 
+    # the degraded live-subset allreduce: checked before every performance
+    # window (two-tier, synthesized, overlap, the rendezvous composition),
+    # all calibrated for the full set of contributors. A full survivor set
+    # is the ordinary allreduce and falls through (the facade folds it to
+    # () so the two share one compiled program)
     if scenario == Operation.allreduce and live_ranks:
-        raise not_ported("the degraded live-subset allreduce", "resilience")
+        lr = normalize_live_ranks(live_ranks, world_size)
+        if lr != tuple(range(world_size)):
+            if compression != CompressionFlags.NO_COMPRESSION:
+                raise ValueError(
+                    "live-subset allreduce is exact-wire only: the "
+                    "certified degraded mode does not compose with "
+                    "compression lanes")
+            base = eager_plan(Algorithm.EAGER_RING_RS_AG,
+                              world_align=world_size)
+            return dataclasses.replace(base, live_ranks=lr)
 
     # the striped two-tier allreduce: inside the HIER_ALLREDUCE_MIN_COUNT
     # window on a declared two-tier world, checked before the flat

@@ -89,6 +89,16 @@ def _row_tensor(rows: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64, device=device)
 
 
+@functools.cache
+def _live_mask(live_ranks: tuple[int, ...], world: int,
+               device: torch.device) -> torch.Tensor:
+    """(world, 1) booleans, True on the rows of `live_ranks`; made once per
+    set and device, so a captured body never copies from the host."""
+    mask = torch.zeros((world, 1), dtype=torch.bool)
+    mask[list(live_ranks)] = True
+    return mask.to(device)
+
+
 def _permute(y: torch.Tensor, perm, transfer=None) -> torch.Tensor:
     """Row dst of the result is row src of y for each (src, dst) pair of
     perm, passed through `transfer` (what crossing the wire does to the
@@ -524,11 +534,23 @@ def reduce_bin_tree_schedule(x: torch.Tensor, *, root: int, func,
 
 
 def allreduce_ring_schedule(x: torch.Tensor, *, func, world: int, wire: Wire,
-                            seg_count: int, ring=None) -> torch.Tensor:
+                            seg_count: int, ring=None,
+                            live_ranks=None) -> torch.Tensor:
     """Segmented ring allreduce: per segment, a ring reduce-scatter over
     world-size chunks followed by a ring allgather; `ring` embeds both
     onto sub-rings (_ring_ctx). A stripe-overlapped plan's stripes are
-    its segments (seg_count = the stripe width)."""
+    its segments (seg_count = the stripe width).
+
+    `live_ranks` (the degraded live-subset mode, Plan.live_ranks) declares
+    the surviving contributors: every other rank's row is masked to exact
+    zeros here, at the source, before any hop, so the folds accumulate
+    exactly the survivors' data and the certifier can hold the lifted
+    body to the survivor sum (a dead rank's stale buffer never leaks a
+    ghost contribution). Every rank still relays its ring position; SUM
+    only, where zero is the fold's identity (the facade enforces it)."""
+    if live_ranks is not None:
+        x = torch.where(_live_mask(tuple(live_ranks), world, x.device), x,
+                        torch.zeros_like(x))
 
     def one_segment(seg: torch.Tensor) -> torch.Tensor:
         padded = _pad_to_multiple(seg, world)

@@ -18,7 +18,8 @@ phase). To the record the lift attaches what only the host knows:
   - the timing.predict estimate under a given LinkParams.
 
 Tracks are named "emu/r<rank>" unless the caller names one. drain_world
-(the emulator's ring drain) waits for the port's native emulator.
+drains every rank of a native EmuWorld (device/emu_device.py) through the
+same lift, one track per rank.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from __future__ import annotations
 import time
 
 from ..constants import Operation, TuningParams, dtype_nbytes, DataType
-from ..errors import not_ported
 from ..sequencer.plan import select_algorithm
 from ..sequencer.timing import LinkParams, coefficients_aggregate
 
@@ -160,10 +160,45 @@ def native_event(
     }
 
 
-def drain_world(emu_world, **_kw):
-    """The reference drains every rank of a native EmuWorld; the port
-    has no native emulator yet."""
-    raise not_ported("drain_world", "native-emulator")
+def drain_world(
+    emu_world,
+    *,
+    link: LinkParams | None = None,
+    max_eager_size: int = DEFAULT_MAX_EAGER,
+    rx_buf_bytes: int = DEFAULT_RX_BUF,
+    tuning: TuningParams | None = None,
+    tracer=None,
+    logp_shape: bool | None = None,
+    tier: str | None = None,
+    track_prefix: str = "emu",
+) -> tuple[list[dict], int]:
+    """Drain every rank of an EmuWorld into SPAN v1 events, one track per
+    rank. Returns (events, total_dropped); with a `tracer` the events are
+    also appended to its ring. `tier` tags every drained span (a whole
+    EmuWorld plays one tier of an emulated two-tier world); `track_prefix`
+    keeps the tiers' tracks apart in the export."""
+    events: list[dict] = []
+    dropped = 0
+    now = time.perf_counter_ns()
+    for rank in emu_world.ranks:
+        if rank is None:
+            continue
+        raw, d = rank.trace_read()
+        dropped += d
+        # anchor each rank's runtime-relative clock so its LAST span ends
+        # now: ranks are ordered well enough for a timeline, and exactly
+        # within each rank
+        base = now - max((int(r["end_ns"]) for r in raw), default=0)
+        for r in raw:
+            events.append(native_event(
+                r, world=len(emu_world.ranks),
+                track=f"{track_prefix}/r{r.get('rank', 0)}",
+                link=link, max_eager_size=max_eager_size,
+                rx_buf_bytes=rx_buf_bytes, tuning=tuning,
+                ts_base_ns=base, logp_shape=logp_shape, tier=tier))
+    if tracer is not None:
+        tracer.extend(events)
+    return events, dropped
 
 
 def default_wire_dtype() -> DataType:

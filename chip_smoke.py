@@ -253,10 +253,32 @@ What it does, in order, printing one JSON object per line:
      a write/write pair and a shared stream endpoint rejected (ACCL601),
      A;B != B;A; the flagship decode-step and train-step batches
      prepared with lint="error" and lint="deep", each tier's host ms;
- 21. the kernels line (with each kernel's launches on the sequence,
+ 21. resilience phase (device/emu_device.py, drain_world, resilience/,
+     the live-subset allreduce, the armed facade seam): the port's own
+     g++ build of native/src (its seconds; started beside the nvcc
+     builds); EmuWorld(4, "local") over CPU tensors, five collectives at
+     1024 and 65 536 elements bitwise with the card facade on the same
+     integer-valued rows, drain_world one span a call a rank, a CUDA
+     operand refused; a rank killed mid-stream: every survivor misses its
+     NativeDeadlineGuard deadline, attribute_silent names it, the
+     certified ring replan over 3 survivors installs generation 1, and
+     after flush_rx the recovered allreduce is the survivor sum bitwise;
+     allreduce(mode="live_subset") at W = 8 for three survivor sets at
+     1024 and 1 048 576 elements bitwise with the survivor oracle,
+     kernel 7 (W-1) times a segment and kernel 1 never, certify_call
+     clean, a ghost contribution exactly ACCL501, its ms beside the ring
+     kernel's full allreduce; the armed seam over the card's own fit:
+     bitwise, no miss, its cost on a 4 KiB allreduce in alternating
+     pairs, a tight policy's miss once the shape is warm;
+ 22. scheduler phase (scheduler/): two tenants on disjoint split()
+     groups under drain(workers=2), certified, bitwise with their serial
+     composition; a write/write pair serialized with nothing dropped; the
+     DecodeServer at serve_phase's widths with and without a scheduler,
+     tokens bitwise; report()'s fairness and certificate counts;
+ 23. the kernels line (with each kernel's launches on the sequence,
      point-to-point, sub-communicator, alltoall, tuned, telemetry,
-     serve, train, MoE, mesh, analysis and lift paths); last, the device
-     line.
+     serve, train, MoE, mesh, analysis, lift, resilience and scheduler
+     paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -270,6 +292,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 MIB = 1 << 20
@@ -6742,6 +6765,734 @@ def lift_phase(ring, qk, L, *, device="cuda", counts=LIFT_COUNTS,
     return path
 
 
+RES_WORLD = 4  # the emulated world's ranks
+RES_COUNTS = (1024, 1 << 16)  # elements a rank of the emulator's calls
+RES_RECOVERY_COUNT = 1024  # the recovery allreduce (the lift stays small)
+RES_VICTIM = 2
+RES_LIVE_WORLD = 8
+RES_LIVE_SETS = ((0, 1, 2, 3, 4, 5, 6), (1, 3, 5, 7), (2,))
+RES_LIVE_COUNTS = (1024, 1 << 20)
+RES_LIVE_EAGER = 4 * MIB  # the facade's eager buffer: one segment a call
+RES_SEAM_COUNT = 1024  # the 4 KiB allreduce the seam's cost is read on
+RES_SEAM_CALLS = 100  # calls a side of each alternating pair
+RES_FIT_COUNTS = (1024, 16384, 1 << 18, 1 << 20)  # the card's own fit
+SCHED_COUNT = 1 << 18  # elements a rank of each tenant's allreduce
+SCHED_REPEATS = 4
+SCHED_GROUPS = ((0, 1, 2, 3), (4, 5, 6, 7))
+
+
+def emu_rows(world: int, count: int, seed: int):
+    """Integer-valued fp32 rows from a seed: their sums are exact in any
+    fold order, so every schedule gives the same bits."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(-64, 64, size=(world, count)).astype(np.float32)
+
+
+def emu_collectives(world, xs, count):
+    """Run allreduce, bcast (root 2), allgather, alltoall and
+    reduce_scatter on every rank of a native world over CPU tensors;
+    returns {op: per-rank results}. xs is (W, W*count)."""
+    import torch
+
+    from accl_tpu_torch.constants import ReduceFunction
+
+    W = len(world.ranks)
+
+    def body(rank, i):
+        row = torch.from_numpy(xs[i])
+        head = row[:count].clone()
+        out = {}
+        out["allreduce"] = torch.zeros(count)
+        rank.allreduce(head.clone(), out["allreduce"], count,
+                       ReduceFunction.SUM)
+        out["bcast"] = head.clone()
+        rank.bcast(out["bcast"], count, root=2)
+        out["allgather"] = torch.zeros(W * count)
+        rank.allgather(head.clone(), out["allgather"], count)
+        out["alltoall"] = torch.zeros(W * count)
+        rank.alltoall(row.clone(), out["alltoall"], count)
+        out["reduce_scatter"] = torch.zeros(count)
+        rank.reduce_scatter(row.clone(), out["reduce_scatter"], count,
+                            ReduceFunction.SUM)
+        return out
+
+    return world.run(body, timeout_s=60)
+
+
+def facade_collectives(accl, xs, count):
+    """The same five collectives through the GPUDevice facade on the same
+    rows (staged to the card); returns {op: (W, n) host tensors}."""
+    import torch
+
+    from accl_tpu_torch.constants import ReduceFunction
+
+    W = accl.world
+    full = torch.from_numpy(xs)
+    head = full[:, :count].contiguous()
+    out = {}
+
+    def run(name, send, n_out, call):
+        sb = accl.create_buffer(send.shape[1], torch.float32, send)
+        rb = accl.create_buffer(n_out, torch.float32)
+        call(sb, rb)
+        out[name] = rb.host.clone()
+        accl.free_buffer(sb)
+        accl.free_buffer(rb)
+
+    run("allreduce", head, count, lambda s, r: accl.allreduce(
+        s, r, count, ReduceFunction.SUM))
+    b = accl.create_buffer(count, torch.float32, head)
+    accl.bcast(b, count, 2)
+    out["bcast"] = b.host.clone()
+    accl.free_buffer(b)
+    run("allgather", head, W * count,
+        lambda s, r: accl.allgather(s, r, count))
+    run("alltoall", full, W * count,
+        lambda s, r: accl.alltoall(s, r, count))
+    run("reduce_scatter", full, count, lambda s, r: accl.reduce_scatter(
+        s, r, count, ReduceFunction.SUM))
+    return out
+
+
+def card_link(accl, counts=RES_FIT_COUNTS, reps: int = 20):
+    """A LinkParams of the card's own synchronous allreduce: host seconds
+    of device-resident calls (the median of `reps`) fitted by
+    timing.calibrate against each call's aggregate cost coefficients.
+    Returns (link, samples, median relative residual)."""
+    import torch
+
+    from accl_tpu_torch.constants import Operation, ReduceFunction
+    from accl_tpu_torch.sequencer import timing
+    from accl_tpu_torch.sequencer.plan import select_algorithm
+
+    W, dev = accl.world, accl.cclo
+    rows = []
+    for n in counts:
+        sb = accl.create_buffer(n, torch.float32)
+        rb = accl.create_buffer(n, torch.float32)
+        accl.allreduce(sb, rb, n, ReduceFunction.SUM)  # built, staged
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            accl.allreduce(sb, rb, n, ReduceFunction.SUM, from_device=True,
+                           to_device=True)
+            times.append(time.perf_counter() - t0)
+        plan = select_algorithm(
+            Operation.allreduce, n, 4, W, max_eager_size=dev.max_eager_size,
+            eager_rx_buf_size=dev.eager_rx_buf_size, tuning=dev.tuning())
+        m, b = timing.coefficients_aggregate(
+            Operation.allreduce, plan, n, 4, W,
+            rx_buf_bytes=dev.eager_rx_buf_size)
+        rows.append((m, b, statistics.median(times), plan))
+        accl.free_buffer(sb)
+        accl.free_buffer(rb)
+    link = timing.calibrate([(m, b, t) for m, b, t, _ in rows])
+    rel = [abs(link.seconds(m, b) - t) / t for m, b, t, _ in rows]
+    return link, [{"count": n, "host_s": t} for n, (_, _, t, _) in
+                  zip(counts, rows)], statistics.median(rel)
+
+
+def resilience_phase(ring, qk, L, native_build, *, device="cuda"):
+    """The native emulator, resilience and the degraded allreduce
+    (device/emu_device.py, telemetry/native.py's drain_world,
+    resilience/, the live-subset allreduce and the armed facade seam).
+    Gates, each failing the run:
+      (1) libacclrt built by the port from native/src (its seconds, in a
+          thread started with the kernels' builds); EmuWorld(4, "local")
+          over CPU tensors runs allreduce, bcast, allgather, alltoall and
+          reduce_scatter on integer-valued fp32 rows at 1024 and 65 536
+          elements a rank, each equal bitwise to the card facade's answer
+          on the same rows; drain_world gives one span a call a rank; a
+          CUDA tensor operand raises TypeError;
+      (2) a rank of the EmuWorld killed mid-stream: every survivor misses
+          its NativeDeadlineGuard deadline (the shipped emulator link),
+          attribute_silent names the victim, the manager excludes it,
+          replans over the 3 survivors (the ring, lifted from the port's
+          body), certifies with 0 diagnostics and installs generation 1;
+          after flush_rx the survivors' allreduce on the recovery
+          communicator equals the numpy survivor oracle bitwise;
+      (3) allreduce(mode="live_subset") on the card at W = 8 for three
+          survivor sets at 1024 and 1 048 576 elements: equal to the
+          numpy survivor oracle bitwise, kernel 7 launched (W-1) times a
+          segment, kernel 1 never; certify_call clean on each set at
+          1024 and a ghost contribution exactly ACCL501; the call's ms
+          beside the ring kernel's full allreduce at the same size;
+      (4) the armed seam: a DeadlinePolicy over the card's own fit
+          (card_link); armed and disarmed calls bitwise equal with no
+          miss; its cost on a 4 KiB allreduce in alternating pairs; a
+          tight policy's miss recorded once the shape is warm.
+    Prints one "resilience" line and returns each kernel's launches over
+    the checked runs of (1) and (3)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import ACCL, ReduceFunction
+    from accl_tpu_torch.analysis import semantics
+    from accl_tpu_torch.communicator import Communicator, Rank
+    from accl_tpu_torch.constants import DataType, Operation
+    from accl_tpu_torch.descriptor import CallOptions
+    from accl_tpu_torch.device import emu_device as emu
+    from accl_tpu_torch.device.base import CCLOAddr
+    from accl_tpu_torch.resilience import (
+        DeadlineMissedError,
+        DeadlinePolicy,
+        NativeDeadlineGuard,
+        ResilienceManager,
+        RetryBudget,
+    )
+    from accl_tpu_torch.sequencer.plan import select_algorithm
+    from accl_tpu_torch.sequencer.timing import LinkParams
+    from accl_tpu_torch.telemetry import native
+    from accl_tpu_torch.telemetry.feedback import default_link
+
+    on_card = device == "cuda"
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts_of, delta = launch_counter(kernels)
+    path = dict.fromkeys(kernels, 0)
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    def add(launched):
+        for k, v in launched.items():
+            path[k] += v
+
+    # (1) the port's build, its binding, and the emulator against the card
+    t = time.perf_counter()
+    native_build.join()
+    if native_build.error is not None:
+        raise AssertionError(f"resilience: libacclrt did not build: "
+                             f"{native_build.error}")
+    emu.load_native()
+    build = {"seconds": native_build.seconds,
+             "library": str(emu.library_path().relative_to(
+                 emu.BUILD_DIR.parent.parent))}
+    W = RES_WORLD
+    prev = os.environ.get("ACCL_RT_TRACE")
+    os.environ["ACCL_RT_TRACE"] = "1"
+    try:
+        world = emu.EmuWorld(W, transport="local")
+    finally:
+        if prev is None:
+            os.environ.pop("ACCL_RT_TRACE")
+        else:
+            os.environ["ACCL_RT_TRACE"] = prev
+    accl = ACCL(world=W, torch_device=device)
+    emu_calls = 0
+    try:
+        for n in RES_COUNTS:
+            xs = emu_rows(W, W * n, 40 + n)
+            got = emu_collectives(world, xs, n)
+            before = counts_of()
+            want = facade_collectives(accl, xs, n)
+            add(delta(before))
+            for op, rows in want.items():
+                for r in range(W):
+                    if not same_bits(got[r][op], rows[r].cpu()):
+                        raise AssertionError(
+                            f"resilience: emulator {op} at {n} differs "
+                            f"from the card facade on rank {r}")
+            emu_calls += len(want)
+        events, dropped = native.drain_world(world)
+        tracks = {}
+        for e in events:
+            tracks[e["track"]] = tracks.get(e["track"], 0) + 1
+        if dropped or tracks != {f"emu/r{r}": emu_calls for r in range(W)}:
+            raise AssertionError(f"resilience: drain_world gave {tracks} "
+                                 f"(dropped {dropped}), not {emu_calls} "
+                                 "spans a rank")
+        if on_card:
+            try:
+                world.ranks[0].start(
+                    CallOptions(scenario=Operation.copy, count=4,
+                                data_type=DataType.float32),
+                    op0=torch.zeros(4, device="cuda"), res=torch.zeros(4))
+            except TypeError as e:
+                card_refused = ".cpu().contiguous()" in str(e)
+            else:
+                card_refused = False
+            if not card_refused:
+                raise AssertionError("resilience: a CUDA operand was "
+                                     "not refused")
+    finally:
+        world.close()
+    del accl
+    seconds["emulator"] = time.perf_counter() - t
+
+    # (2) kill one rank mid-stream; detect, exclude, replan, recover
+    t = time.perf_counter()
+    n = RES_RECOVERY_COUNT
+    link = default_link()
+    pol = DeadlinePolicy(link, world=W)
+    pol.arm_reference("allreduce", 0.3)
+    budget = RetryBudget(max_retries=1, backoff_base_s=0.01)
+    mgr = ResilienceManager(W, policy=pol, budget=budget)
+    guard = NativeDeadlineGuard(pol)
+    xs = torch.from_numpy(emu_rows(W, n, 77))
+    victim = RES_VICTIM
+    opts = CallOptions(scenario=Operation.allreduce, count=n,
+                       function=int(ReduceFunction.SUM),
+                       data_type=DataType.float32)
+    world = emu.EmuWorld(W, transport="local")
+    try:
+        def healthy(rank, i):
+            guard.arm(rank, "allreduce", n)
+            out = torch.zeros(n)
+            h = rank.start(opts, op0=xs[i].clone(), res=out)
+            return guard.wait(rank, h, "allreduce", n), out
+
+        for miss, out in world.run(healthy, timeout_s=60):
+            if miss is not None or not torch.equal(out, xs.sum(0)):
+                raise AssertionError("resilience: the healthy allreduce")
+        world.ranks[victim].kill()
+        t_detect = time.perf_counter()
+        action, attempts, misses = None, 0, []
+        while action != "exclude":
+            attempts += 1
+            if attempts > budget.max_retries + 1:
+                raise AssertionError("resilience: the victim was never "
+                                     "excluded")
+
+            def attempt(rank, i):
+                if i == victim:
+                    return None
+                guard.arm(rank, "allreduce", n)
+                h = rank.start(opts, op0=xs[i].clone(), res=torch.zeros(n))
+                try:
+                    guard.wait(rank, h, "allreduce", n)
+                except DeadlineMissedError as e:
+                    return e.miss
+                return None
+
+            verdicts = world.run(attempt, timeout_s=60)
+            reporters = [i for i, v in enumerate(verdicts) if v is not None]
+            if reporters != [r for r in range(W) if r != victim]:
+                raise AssertionError(f"resilience: survivors {reporters} "
+                                     "missed, not every survivor")
+            suspect = mgr.attribute_silent(reporters)
+            if suspect != victim:
+                raise AssertionError(f"resilience: attribute_silent named "
+                                     f"{suspect}, not {victim}")
+            misses.append(verdicts[reporters[0]])
+            action = mgr.record_miss(dataclasses.replace(
+                verdicts[reporters[0]], suspect_rank=suspect,
+                attribution="silent"))
+        detect_s = time.perf_counter() - t_detect
+        survivors = mgr.exclude(victim)
+        world.run(lambda rank, i: rank.flush_rx() if i != victim else None,
+                  timeout_s=60)
+        t0 = time.perf_counter()
+        rp = mgr.replan(Operation.allreduce, count=n)
+        replan_ms = (time.perf_counter() - t0) * 1e3
+        if (rp.certificate["diagnostics"] != 0 or rp.world != W - 1
+                or rp.source != "ring" or mgr.install(rp) != 1):
+            raise AssertionError(f"resilience: replan {rp}")
+        addr = int(CCLOAddr.DYNAMIC_BASE)
+        comm = Communicator([Rank(device_index=g, session_id=g)
+                             for g in survivors], 0, addr)
+        want = xs[list(survivors)].sum(0)
+
+        def recover(rank, i):
+            if i == victim:
+                return None
+            rank.write_communicator(comm)
+            guard.arm(rank, "allreduce", n)
+            out = torch.zeros(n)
+            h = rank.start(dataclasses.replace(opts, comm_addr=addr),
+                           op0=xs[i].clone(), res=out)
+            if guard.wait(rank, h, "allreduce", n) is not None:
+                raise AssertionError("resilience: a recovery call was late")
+            return out
+
+        for i, out in enumerate(world.run(recover, timeout_s=60)):
+            if i != victim and not torch.equal(out, want):
+                raise AssertionError(f"resilience: rank {i}'s recovered "
+                                     "allreduce is not the survivor sum")
+    finally:
+        world.close()
+    recovery = {"victim": victim, "survivors": list(survivors),
+                "attempts": attempts, "detect_s": detect_s,
+                "deadline_s": misses[0].deadline_s,
+                "predicted_s": misses[0].predicted_s,
+                "replan_ms": replan_ms, "certificate": rp.certificate,
+                "generation": mgr.generation,
+                "link": {"alpha": link.alpha, "beta": link.beta}}
+    seconds["kill_recover"] = time.perf_counter() - t
+
+    # (3) the degraded allreduce on the card
+    t = time.perf_counter()
+    LW = RES_LIVE_WORLD
+    accl = ACCL(world=LW, torch_device=device,
+                egr_rx_buf_size=RES_LIVE_EAGER)
+    live_rows, live_launches = [], dict.fromkeys(("combine",
+                                                  "ring_allreduce_bidir"), 0)
+    sel = dict(max_eager_size=accl.cclo.max_eager_size,
+               eager_rx_buf_size=accl.cclo.eager_rx_buf_size,
+               tuning=accl.cclo.tuning())
+    for cnt in RES_LIVE_COUNTS:
+        data = emu_rows(LW, cnt, 90 + cnt)
+        sb = accl.create_buffer(cnt, torch.float32, torch.from_numpy(data))
+        rb = accl.create_buffer(cnt, torch.float32)
+        for live in RES_LIVE_SETS:
+            before = counts_of()
+            req = accl.allreduce(sb, rb, cnt, ReduceFunction.SUM,
+                                 mode="live_subset", live_ranks=live)
+            launched = delta(before)
+            add(launched)
+            want = np.tile(data[list(live)].sum(0), (LW, 1))
+            if not np.array_equal(rb.host.numpy(), want):
+                raise AssertionError(f"resilience: live_subset {live} at "
+                                     f"{cnt} is not the survivor oracle")
+            folds = req.plan.num_segments * (LW - 1)
+            if on_card and (launched.get("combine", 0) != folds
+                            or launched.get("ring_allreduce_bidir", 0)):
+                raise AssertionError(f"resilience: live_subset launched "
+                                     f"{launched}, not {folds} combines")
+            for k in live_launches:
+                live_launches[k] += launched.get(k, 0)
+            if cnt == RES_LIVE_COUNTS[0]:
+                o = CallOptions(scenario=Operation.allreduce, count=cnt,
+                                function=0, data_type=DataType.float32,
+                                live_ranks=live)
+                p = select_algorithm(Operation.allreduce, cnt, 4, LW,
+                                     live_ranks=live, **sel)
+                if p != req.plan or semantics.certify_call(o, p, LW):
+                    raise AssertionError(f"resilience: live set {live} "
+                                         "does not certify")
+        live = RES_LIVE_SETS[0]
+        row = {"count": cnt, "live_ranks": list(live)}
+        if on_card:
+            row["live_ms"] = median_ms(lambda: accl.allreduce(
+                sb, rb, cnt, ReduceFunction.SUM, mode="live_subset",
+                live_ranks=live, from_device=True, to_device=True))
+            row["full_ms"] = median_ms(lambda: accl.allreduce(
+                sb, rb, cnt, ReduceFunction.SUM, from_device=True,
+                to_device=True))
+            row["live_device_ms"] = accl.allreduce(
+                sb, rb, cnt, ReduceFunction.SUM, mode="live_subset",
+                live_ranks=live, from_device=True,
+                to_device=True).get_duration_ns() / 1e6
+            row["full_device_ms"] = accl.allreduce(
+                sb, rb, cnt, ReduceFunction.SUM, from_device=True,
+                to_device=True).get_duration_ns() / 1e6
+            row["bound_ms"] = 2 * LW * cnt * 4 / HBM_BYTES_PER_S * 1e3
+        # the degraded form recorded into a batch: one graph replay
+        seq = accl.sequence()
+        seq.allreduce(sb, rb, cnt, ReduceFunction.SUM, mode="live_subset",
+                      live_ranks=live)
+        rb.host.zero_()
+        before = counts_of()
+        seq.compile().run()
+        add(delta(before))
+        if not np.array_equal(rb.host.numpy(), np.tile(
+                data[list(live)].sum(0), (LW, 1))):
+            raise AssertionError(f"resilience: the recorded live_subset "
+                                 f"at {cnt} is not the survivor oracle")
+        live_rows.append(row)
+        accl.free_buffer(sb)
+        accl.free_buffer(rb)
+    live = RES_LIVE_SETS[0]
+    cnt = RES_LIVE_COUNTS[0]
+    o_live = CallOptions(scenario=Operation.allreduce, count=cnt,
+                         function=0, data_type=DataType.float32,
+                         live_ranks=live)
+    o_full = dataclasses.replace(o_live, live_ranks=())
+    plan_full = select_algorithm(Operation.allreduce, cnt, 4, LW, **sel)
+    ghost = sorted({d.code for d in semantics.certify(
+        semantics.lift_call(o_full, plan_full, LW),
+        semantics.collective_spec(o_live, LW), "allreduce")})
+    if ghost != ["ACCL501"]:
+        raise AssertionError(f"resilience: a ghost contribution gave "
+                             f"{ghost}, not exactly ACCL501")
+    seconds["live_subset"] = time.perf_counter() - t
+
+    # (4) the armed seam on the card, over the card's own fit
+    t = time.perf_counter()
+    fit, fit_rows, fit_rel = card_link(accl)
+    pol = DeadlinePolicy(fit, world=LW,
+                         rx_buf_bytes=accl.cclo.eager_rx_buf_size,
+                         max_eager_size=accl.cclo.max_eager_size,
+                         tuning=accl.cclo.tuning())
+    pol.arm_reference("allreduce", fit_rel)
+    n = RES_SEAM_COUNT
+    data = torch.from_numpy(emu_rows(LW, n, 5))
+    sb = accl.create_buffer(n, torch.float32, data)
+    rb = accl.create_buffer(n, torch.float32)
+
+    def call():
+        accl.allreduce(sb, rb, n, ReduceFunction.SUM, from_device=True,
+                       to_device=True)
+
+    accl.allreduce(sb, rb, n, ReduceFunction.SUM)
+    plain = rb.host.clone()
+    mgr = ResilienceManager(LW, policy=pol)
+    accl.arm_resilience(mgr)
+    try:
+        for _ in range(10):
+            accl.allreduce(sb, rb, n, ReduceFunction.SUM)
+            if not same_bits(rb.host, plain):
+                raise AssertionError("resilience: the armed seam changed "
+                                     "a result")
+    finally:
+        accl.arm_resilience(None)
+    if mgr.misses:
+        raise AssertionError(f"resilience: the control run missed "
+                             f"{len(mgr.misses)} deadlines")
+    armed_us, plain_us = [], []
+    for _ in range(SEQ_PAIRS):
+        for armed, out in ((False, plain_us), (True, armed_us)):
+            accl.arm_resilience(mgr if armed else None)
+            try:
+                call()
+                torch.cuda.synchronize() if on_card else None
+                t0 = time.perf_counter()
+                for _ in range(RES_SEAM_CALLS):
+                    call()
+                out.append((time.perf_counter() - t0)
+                           / RES_SEAM_CALLS * 1e6)
+            finally:
+                accl.arm_resilience(None)
+    if mgr.misses:
+        raise AssertionError("resilience: the timed armed calls missed")
+    tight = DeadlinePolicy(LinkParams(alpha=1e-12, beta=1e15), world=LW,
+                           floor_s=0.0)
+    tight.arm_reference("allreduce", 0.0)
+    tight.band_floor = 0.0
+    tmgr = ResilienceManager(LW, policy=tight)
+    accl.arm_resilience(tmgr)
+    try:
+        accl.allreduce(sb, rb, n - 1, ReduceFunction.SUM)  # a new shape
+        warm_misses = len(tmgr.misses)
+        accl.allreduce(sb, rb, n - 1, ReduceFunction.SUM)
+    finally:
+        accl.arm_resilience(None)
+    if warm_misses or len(tmgr.misses) != 1:
+        raise AssertionError(f"resilience: the tight policy recorded "
+                             f"{warm_misses} misses warming, "
+                             f"{len(tmgr.misses)} in all, not 0 and 1")
+    accl.free_buffer(sb)
+    accl.free_buffer(rb)
+    del accl
+    seam = {"fit": {"alpha_s": fit.alpha, "beta_Bps": fit.beta,
+                    "median_rel_residual": fit_rel, "samples": fit_rows},
+            "deadline_s_4KiB": pol.deadline_s("allreduce", n),
+            "predicted_s_4KiB": pol.predict_s("allreduce", n),
+            "plain_us_per_call": statistics.median(plain_us),
+            "armed_us_per_call": statistics.median(armed_us),
+            "overhead_us_per_call": statistics.median(
+                a - p for a, p in zip(armed_us, plain_us)),
+            "overhead_us_pairs": [a - p for a, p in zip(armed_us,
+                                                         plain_us)],
+            "forced_miss": tmgr.misses[0].verdict()}
+    seconds["seam"] = time.perf_counter() - t
+
+    if on_card:
+        idle = [k for k in ("combine", "ring_allreduce_bidir") if not path[k]]
+        if idle:
+            raise AssertionError(f"the resilience path launched no {idle}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "resilience", "gpu": card_name() if on_card else "cpu",
+          "native_build": build, "emulator_calls": emu_calls,
+          "drained_spans": len(events), "recovery": recovery,
+          "live_subset": live_rows, "live_launches": live_launches,
+          "ghost_codes": ghost, "seam": seam, "seconds": seconds,
+          "launches": path})
+    return path
+
+
+def scheduler_phase(ring, qk, L, *, device="cuda", serve_cfg=None,
+                    serve_world=SERVE_WORLD, serve_batch=SERVE_BATCH,
+                    serve_len=SERVE_LEN):
+    """The multi-tenant scheduler (scheduler/) on the card. Gates, each
+    failing the run:
+      (1) two tenants on the disjoint split() groups of W = 8, each a
+          prepared allreduce of SCHED_COUNT elements a rank, certified
+          clean together (certify_concurrent), drained under two worker
+          threads: the results equal their serial composition bitwise,
+          and no dispatch overlapped uncertified;
+      (2) a write/write pair (ACCL601) admitted in serial fallback and
+          drained under two workers: every dispatch ran, none
+          concurrently, the result one of the two serial orders';
+      (3) DecodeServer(scheduler=) at serve_phase's widths and requests:
+          its tokens equal the server's without a scheduler, bitwise,
+          every fused step metered.
+    Prints one "scheduler" line (report()'s fairness and certificate
+    counts) and returns each kernel's launches over the checked runs."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import ACCL, ReduceFunction
+    from accl_tpu_torch.models import serve
+    from accl_tpu_torch.models import transformer as trf
+    from accl_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    on_card = device == "cuda"
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts_of, delta = launch_counter(kernels)
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    # (1) two tenants on disjoint groups
+    t = time.perf_counter()
+    W, n = 8, SCHED_COUNT
+    accl = ACCL(world=W, torch_device=device)
+    sched = accl.scheduler(capacity_s=1e9, registry=MetricsRegistry())
+    sched.register_tenant("a", priority=1, weight=2.0)
+    sched.register_tenant("b", priority=1, weight=1.0)
+    progs, outs = {}, {}
+    for name, group, seed in (("a", SCHED_GROUPS[0], 1),
+                              ("b", SCHED_GROUPS[1], 2)):
+        comm = accl.split(list(group))
+        x = accl.create_buffer(n, torch.float32,
+                               torch.from_numpy(emu_rows(W, n, seed)))
+        y = accl.create_buffer(n, torch.float32)
+        seq = accl.sequence(comm=comm)
+        seq.allreduce(x, y, n, ReduceFunction.SUM)
+        progs[name] = seq.compile()
+        outs[name] = y
+    if accl.certify_concurrent(list(progs.values())):
+        raise AssertionError("scheduler: the disjoint pair is not clean")
+    for name in progs:
+        progs[name].run()
+    serial = {name: y.host.clone() for name, y in outs.items()}
+    for y in outs.values():
+        y.host.zero_()
+        y.sync_to_device()
+    for name in progs:
+        sched.submit(name, progs[name], repeats=SCHED_REPEATS)
+    if sched.drain(workers=2) != 2 * SCHED_REPEATS:
+        raise AssertionError("scheduler: the pair's dispatches")
+    for name, y in outs.items():
+        y.sync_from_device()
+        if not same_bits(y.host, serial[name]):
+            raise AssertionError(f"scheduler: tenant {name}'s result is "
+                                 "not its serial composition's")
+    rep = sched.report()
+    order = [tn for tn, *_ in sorted(sched._history, key=lambda h: h[1])]
+    if rep["stats"]["uncertified_concurrent"]:
+        raise AssertionError("scheduler: an uncertified overlap")
+    pair = {"stats": rep["stats"], "tenants": rep["tenants"],
+            "dispatch_order": "".join(order),
+            "certificates": sorted({p.certificate for p in progs.values()}),
+            "shared": rep["namespaces"]["shared"]}
+    seconds["pair"] = time.perf_counter() - t
+
+    # (2) a write/write pair serializes and drops nothing
+    t = time.perf_counter()
+    sched2 = accl.scheduler(capacity_s=1e9, registry=MetricsRegistry())
+    sched2.register_tenant("a")
+    sched2.register_tenant("b")
+    shared = accl.create_buffer(n, torch.float32)
+    ww = {}
+    for name, seed in (("a", 3), ("b", 4)):
+        x = accl.create_buffer(n, torch.float32,
+                               torch.from_numpy(emu_rows(W, n, seed)))
+        seq = accl.sequence()
+        seq.allreduce(x, shared, n, ReduceFunction.SUM)
+        ww[name] = seq.compile()
+    orders = []
+    for first, second in (("a", "b"), ("b", "a")):
+        ww[first].run()
+        ww[second].run()
+        orders.append(shared.host.clone())
+    for name in ww:
+        sched2.submit(name, ww[name], repeats=SCHED_REPEATS)
+    if sched2.stats["serialized_admissions"] != SCHED_REPEATS:
+        raise AssertionError(f"scheduler: the write/write pair admitted "
+                             f"{sched2.stats}")
+    if sched2.drain(workers=2) != 2 * SCHED_REPEATS:
+        raise AssertionError("scheduler: the serial pair dropped work")
+    shared.sync_from_device()
+    st2 = sched2.stats
+    if st2["concurrent_dispatches"] or st2["uncertified_concurrent"] or \
+            not any(same_bits(shared.host, o) for o in orders):
+        raise AssertionError(f"scheduler: the serial pair {st2}")
+    seconds["serial_pair"] = time.perf_counter() - t
+    path = counts_of()
+    del accl, sched, sched2
+    torch.cuda.empty_cache() if on_card else None
+
+    # (3) the DecodeServer seam at the flagship widths
+    t = time.perf_counter()
+    cfg = trf.TransformerConfig(**(serve_cfg or SERVE_CFG))
+    gen = torch.Generator(device=device).manual_seed(1212)
+    params = trf.init_params(cfg, gen, device)
+    prompts = [(p, new) for _, p, new in serve_requests(cfg.vocab)]
+    prompts = [(p[:serve_len // 2], min(new, serve_len // 2 - 1))
+               for p, new in prompts]
+    tokens = {}
+    before = counts_of()
+    for label in ("plain", "scheduled"):
+        accl = ACCL(world=serve_world, torch_device=device)
+        sch = (accl.scheduler(capacity_s=1e9, registry=MetricsRegistry())
+               if label == "scheduled" else None)
+        srv = serve.DecodeServer(accl, cfg, params, batch=serve_batch,
+                                 max_len=serve_len,
+                                 registry=MetricsRegistry(), scheduler=sch)
+        reqs = [srv.submit(p, new) for p, new in prompts]
+        srv.run()
+        tokens[label] = [r.generated for r in reqs]
+        if sch is not None:
+            tenant = sch.tenants.get("serve")
+            if tenant.dispatched != srv.n_steps or \
+                    sch.stats["uncertified_concurrent"]:
+                raise AssertionError(f"scheduler: the serve tenant "
+                                     f"dispatched {tenant.dispatched} of "
+                                     f"{srv.n_steps} steps")
+            serve_report = {"steps": srv.n_steps,
+                            "tenant": tenant.account(),
+                            "stats": sch.stats,
+                            "step_cost_s": srv._step_cost_s}
+        del srv, accl
+        torch.cuda.empty_cache() if on_card else None
+    if tokens["plain"] != tokens["scheduled"]:
+        raise AssertionError("scheduler: the scheduled server's tokens "
+                             "differ from the plain server's")
+    for k, v in delta(before).items():
+        path[k] += v
+    seconds["serve"] = time.perf_counter() - t
+
+    if on_card:
+        idle = [k for k in ("ring_allreduce_bidir", "combine")
+                if not path[k]]
+        if idle:
+            raise AssertionError(f"the scheduler path launched no {idle}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "scheduler", "gpu": card_name() if on_card else "cpu",
+          "pair": pair, "serial_pair": st2, "serve": serve_report,
+          "tokens": sum(map(len, tokens["plain"])), "seconds": seconds,
+          "launches": path})
+    return path
+
+
+class NativeBuild(threading.Thread):
+    """The native emulator's g++ build, started beside the kernels' nvcc
+    builds; its seconds and any error are read after join()."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.error = None
+        self.seconds = None
+
+    def run(self):
+        from accl_tpu_torch.device import emu_device
+
+        t = time.perf_counter()
+        try:
+            emu_device.build_native()
+        except Exception as e:  # reported by the resilience phase
+            self.error = e
+        self.seconds = time.perf_counter() - t
+
+
 def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 path_launches):
     """Per kernel: device time per launch at the main path's launch
@@ -6760,10 +7511,11 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     the captured kernels without the host's wrappers); `p2p_launches`,
     `comm_launches`, `alltoall_launches`, `tuned_launches`,
     `telemetry_launches`, `serve_launches`, `train_launches`,
-    `moe_launches`, `mesh_launches`, `analysis_launches` and
-    `lift_launches` likewise over the checked runs of the point-to-point,
+    `moe_launches`, `mesh_launches`, `analysis_launches`,
+    `lift_launches`, `resilience_launches` and `scheduler_launches`
+    likewise over the checked runs of the point-to-point,
     sub-communicator, alltoall, tuned, telemetry, serve, train, MoE,
-    mesh, analysis and lift paths."""
+    mesh, analysis, lift, resilience and scheduler paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -6852,6 +7604,9 @@ def main() -> int:
     smi = card_name()
     print(smi, flush=True)
     t0 = time.perf_counter()
+    # the native emulator's g++ build runs beside the kernels' nvcc builds
+    native_build = NativeBuild()
+    native_build.start()
     sources = ("ring_allreduce", "quant_wire", "lanes")
     _build.load_libraries(list(sources))  # one nvcc each, started together
     ptxas = {name: sorted(set(
@@ -6912,7 +7667,10 @@ def main() -> int:
              "moe": timed(moe_phase, ring, qk, L),
              "mesh": timed(mesh_phase, ring, qk, L),
              "analysis": timed(analysis_phase, ring, qk, L),
-             "lift": timed(lift_phase, ring, qk, L)}
+             "lift": timed(lift_phase, ring, qk, L),
+             "resilience": timed(resilience_phase, ring, qk, L,
+                                 native_build),
+             "scheduler": timed(scheduler_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

@@ -19,8 +19,8 @@ diagnostics and escalation counts, but for one recorded departure: the
 port's ring kernel holds no slots, so the two `use_pallas_ring` tenants
 of bad_concurrent_slot_collision certify clean on the port (ACCL603 is
 held on hand-built footprints that do carry ring slots). The reference's
-native local-world leg needs the native emulator (ROADMAP item 14); its
-static half runs here.
+native local-world leg runs on the port's native emulator
+(device/emu_device.py), its static half at 2 and 8 ranks.
 """
 
 import json
@@ -491,16 +491,61 @@ def test_seeded_601_mutation_provably_diverges():
 
 
 def test_two_thread_fuzz_matches_serial_oracle_local_world():
-    """The static half of the reference's native-transport leg: two
-    tag-disjoint ring exchanges certify clean from their summaries
-    alone, at 2 and 8 ranks (the dynamic half needs the native emulator,
-    ROADMAP item 14)."""
+    """The reference's native-transport leg: two tag-disjoint ring
+    exchanges certify clean from their summaries alone, at 2 and 8 ranks;
+    then, on the port's native emulator (2 ranks, the in-process
+    transport), the two exchanges driven from two threads a rank equal
+    their serial composition bitwise, seed for seed."""
+    from accl_tpu_torch.device.emu_device import EmuWorld
+
     for n in (2, 8):
         fa = footprint_from_rank_programs(_ring(n, 3, COUNT), n, label="A")
         fb = footprint_from_rank_programs(_ring(n, 9, COUNT), n, label="B")
         c = InterferenceCertifier()
         assert c.certify([fa, fb]) == []
         assert c.escalations == 0
+
+    n = 2
+    w = EmuWorld(n, transport="local")
+    try:
+        for seed in range(N_SEEDS):
+            rng = np.random.default_rng(seed)
+            xa = torch.from_numpy(
+                rng.standard_normal((n, COUNT)).astype(np.float32))
+            xb = torch.from_numpy(
+                rng.standard_normal((n, COUNT)).astype(np.float32))
+
+            def exchange(rank, i, x, tag):
+                out = torch.zeros(COUNT)
+                rank.send(x[i].clone(), COUNT, (i + 1) % n, tag=tag)
+                rank.recv(out, COUNT, (i - 1) % n, tag=tag)
+                return out
+
+            def serial(rank, i):
+                return exchange(rank, i, xa, 3), exchange(rank, i, xb, 9)
+
+            def concurrent(rank, i):
+                res = [None, None]
+
+                def drive(slot, x, tag):
+                    res[slot] = exchange(rank, i, x, tag)
+
+                ts = [threading.Thread(target=drive, args=(0, xa, 3)),
+                      threading.Thread(target=drive, args=(1, xb, 9))]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(60)
+                assert not any(t.is_alive() for t in ts)
+                return tuple(res)
+
+            oracle = w.run(serial, timeout_s=60)
+            got = w.run(concurrent, timeout_s=60)
+            for r in range(n):
+                assert torch.equal(got[r][0], oracle[r][0]), (seed, r)
+                assert torch.equal(got[r][1], oracle[r][1]), (seed, r)
+    finally:
+        w.close()
 
 
 # ---------------------------------------------------------------------------

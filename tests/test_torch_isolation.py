@@ -46,6 +46,16 @@ def test_port_module_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_scan_covers_the_emulator_resilience_and_scheduler():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for mod in ("device/emu_device.py", "resilience/__init__.py",
+                "resilience/deadline.py", "resilience/manager.py",
+                "scheduler/__init__.py", "scheduler/errors.py",
+                "scheduler/tenant.py", "scheduler/qos.py",
+                "scheduler/scheduler.py"):
+        assert f"accl_tpu_torch/{mod}" in scanned, mod
+
+
 def test_scan_sees_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import os\nfrom jax import numpy\n"

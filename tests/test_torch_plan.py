@@ -1,7 +1,6 @@
 """Plan selection of the PyTorch port against the JAX package: identical
-Plans under the default registers and in the register-opened windows,
-and NotImplementedError (never a silent substitute) wherever the
-reference would enter a branch whose slice is not ported yet."""
+Plans under the default registers, in the register-opened windows and
+for the degraded live-subset allreduce."""
 
 import dataclasses
 
@@ -96,16 +95,21 @@ def _tuning(**regs):
     ({}, dict(live_ranks=(0, 1, 2)), "resilience"),
 ])
 def test_later_slice_branches_raise(regs, extra, slice_name):
-    """The register-opened branches of the later slices: the degraded
-    live-subset ring (resilience) still raises, naming its slice; the
-    two-tier, synthesized (standard and latency grid) and overlapped
-    branches are ported and give the reference's Plan field for field on
-    the same registers."""
+    """The branches of the later slices, each ported: the degraded
+    live-subset ring (resilience), the two-tier, synthesized (standard
+    and latency grid) and overlapped branches give the reference's Plan
+    field for field on the same registers."""
     if slice_name == "resilience":
-        with pytest.raises(NotImplementedError, match=slice_name):
-            port_plan.select_algorithm(
-                port_c.Operation.allreduce, 65536, 4, 8,
-                tuning=port_c.TuningParams.default(), **KW, **extra)
+        for count in (1, 255, 65536, 1 << 20):
+            for world, live in ((8, (0, 1, 2)), (5, (4,)), (3, (0, 2))):
+                ref, port = _both("allreduce", count, "float32", world,
+                                  live_ranks=live)
+                assert _plain(port) == _plain(ref), (count, world, live)
+                assert port.live_ranks == live
+        # a full survivor set is the ordinary allreduce
+        ref, port = _both("allreduce", 4096, "float32", 4,
+                          live_ranks=(0, 1, 2, 3))
+        assert _plain(port) == _plain(ref) and not port.live_ranks
         return
     seen = set()
     for count in (256, 4096, 16384, 65536, 1 << 20, 6553600):

@@ -5,8 +5,9 @@ join and leave at step boundaries) generate, bitwise, the tokens each
 request generates decoded alone through the same program, in fused and
 eager mode; a dirty slot serves its next request with no cache reset;
 the port's server generates the JAX package's server's tokens for the
-same requests and weights; its request checks, its metrics and the
-not-ported scheduler seam.
+same requests and weights; its request checks, its metrics and a
+saturated scheduler's refusal (tests/test_torch_scheduler.py holds the
+scheduler seam's tokens).
 """
 
 import dataclasses
@@ -173,5 +174,19 @@ def test_server_errors_match_the_reference():
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="mode"):
         _server(CFG, 2, params, mode="speculative")
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        _server(CFG, 2, params, scheduler=object())
+    # a saturated scheduler refuses a request before it is queued, with
+    # the reference's error for the same accounting
+    from accl_tpu.scheduler import SchedulerSaturatedError as RefSaturated
+    from accl_tpu_torch.scheduler import SchedulerSaturatedError
+
+    accl = ACCL(world=2, torch_device="cpu")
+    srv = serve.DecodeServer(accl, CFG, params, batch=1, max_len=8,
+                             registry=MetricsRegistry(),
+                             scheduler=accl.scheduler(capacity_s=1e-12,
+                                                      registry=MetricsRegistry()))
+    with pytest.raises(SchedulerSaturatedError) as got:
+        srv.submit([1, 2], 2)
+    e = got.value
+    assert not srv.active
+    assert str(e) == str(RefSaturated(e.tenant, e.requested_s, e.queued_s,
+                                      e.capacity_s))

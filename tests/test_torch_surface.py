@@ -1,13 +1,17 @@
 """The port's public names against the JAX package's.
 
 Every public name of accl_tpu, its sequencer, telemetry, models and
-parallel subpackages, the synthesis module and the analysis package and
+parallel subpackages, the synthesis module, the analysis package and
 modules (the model, parallel, synthesis and analysis modules' own
 names, not those they import: the lifting entry points of protocol and
-semantics and the interference certifier among them), the ACCL facade,
-its SequenceProgram and the device that the port lacks must be a known
-gap, listed with the ROADMAP item that brings it; a gap that closes must
-leave the list. nop() runs through both facades to the same request.
+semantics and the interference certifier among them), the resilience
+and scheduler packages and modules, the native emulator's module (its
+own names: it takes torch dtypes where the reference imports
+from_numpy_dtype), the
+ACCL facade, its SequenceProgram and the device that the port lacks must
+be a known gap, listed with the ROADMAP item that brings it; a gap that
+closes must leave the list (it is empty: every name is ported). nop()
+runs through both facades to the same request.
 """
 
 import importlib
@@ -16,11 +20,7 @@ import types
 import pytest
 
 # (where, name) -> the ROADMAP queue-1 item that brings it to the port
-KNOWN_GAPS = {
-    ("ACCL", "arm_resilience"): "item 17 (resilience)",
-    ("ACCL", "scheduler"): "item 17 (scheduler)",
-    ("device", "supports_live_subset"): "item 17 (resilience)",
-}
+KNOWN_GAPS: dict[tuple[str, str], str] = {}
 
 
 def _public(obj) -> set[str]:
@@ -56,7 +56,11 @@ def _pairs():
                 "parallel.pipeline", "sequencer.synthesis",
                 "analysis.protocol", "analysis.modelcheck",
                 "analysis.slots", "analysis.semantics", "analysis.hopdag",
-                "analysis.linter", "analysis.interference", "analysis"):
+                "analysis.linter", "analysis.interference", "analysis",
+                "resilience", "resilience.deadline", "resilience.manager",
+                "scheduler", "scheduler.errors", "scheduler.tenant",
+                "scheduler.qos", "scheduler.scheduler",
+                "device.emu_device"):
         yield sub, importlib.import_module(f"accl_tpu.{sub}"), \
             importlib.import_module(f"accl_tpu_torch.{sub}")
     yield "ACCL", RefACCL, ACCL
@@ -68,7 +72,8 @@ def _pairs():
 def test_port_has_every_public_name_but_the_known_gaps(where):
     ref, port = next((r, p) for w, r, p in _pairs() if w == where)
     names = (_defined_in if where.startswith(
-        ("models.", "parallel.", "sequencer.", "analysis.")) else _public)
+        ("models.", "parallel.", "sequencer.", "analysis.", "device."))
+        else _public)
     missing = names(ref) - _public(port)
     if where == "package":  # the reference's lazy facade names
         missing |= {n for n in ("ACCL", "SequenceRecorder")

@@ -365,10 +365,51 @@ def test_gpu_device_wire_stats_is_the_stats2_surface():
 
 
 def test_drain_world_waits_for_the_emulator():
-    from accl_tpu_torch.telemetry import native
+    """drain_world over a world whose ranks hand both packages the same
+    raw ring spans: the same events, one track per rank (the timestamps
+    are anchored at each call's clock, so they compare per rank), the
+    same dropped count, and the tracer gets the events."""
+    import types
 
-    with pytest.raises(NotImplementedError, match="native-emulator"):
-        native.drain_world(None)
+    from accl_tpu.telemetry import native as ref_native
+    from accl_tpu_torch.sequencer.timing import LinkParams
+    from accl_tpu_torch.telemetry import native
+    from accl_tpu_torch.telemetry.tracer import Tracer
+
+    rng = np.random.default_rng(31)
+
+    def raw(rank, i):
+        count = int(rng.integers(1, 5000))
+        start = int(rng.integers(0, 10**6)) + 10**6 * i
+        return {"opcode": int(rng.choice([5, 6, 7, 9, 10])),
+                "retcode": 0, "detail": 0, "count": count,
+                "bytes": 4 * count, "start_ns": start,
+                "end_ns": start + int(rng.integers(1, 10**5)),
+                "d_passes": i, "d_parks": 0, "d_seek_hit": 1,
+                "d_seek_miss": 0, "rank": rank}
+
+    spans = {r: [raw(r, i) for i in range(4)] for r in range(3)}
+    world = types.SimpleNamespace(ranks=[
+        types.SimpleNamespace(trace_read=lambda r=r: (spans[r], r))
+        for r in range(3)] + [None])
+    link = LinkParams(alpha=2e-5, beta=3e9)
+    kw = dict(link=link, tier="inner", track_prefix="tier0")
+    want, want_dropped = ref_native.drain_world(world, **kw)
+    tracer = Tracer(capacity=64)
+    tracer.enable()
+    got, dropped = native.drain_world(world, tracer=tracer, **kw)
+    assert dropped == want_dropped == 3
+    assert len(got) == len(want) == 12
+    assert [e["track"] for e in got] == [f"tier0/r{r}" for r in range(3)
+                                         for _ in range(4)]
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k != "ts_ns"} == \
+            {k: v for k, v in w.items() if k != "ts_ns"}
+    for r in range(3):
+        ts = [e["ts_ns"] for e in got if e["track"] == f"tier0/r{r}"]
+        ts_ref = [e["ts_ns"] for e in want if e["track"] == f"tier0/r{r}"]
+        assert [t - ts[0] for t in ts] == [t - ts_ref[0] for t in ts_ref]
+    assert len(tracer.snapshot()) == 12
 
 
 # ---------------------------------------------------------------------------
