@@ -301,7 +301,8 @@ class ACCL:
                 data = tensor_from_numpy(data)
             # always copy: the buffer owns its memory
             host = data.to("cpu", dtype).reshape(self.world, count).clone()
-        buf = GPUBuffer(host, self.cclo.torch_device, host_only=host_only)
+        buf_cls = getattr(self.cclo, "buffer_class", GPUBuffer)
+        buf = buf_cls(host, self.cclo.torch_device, host_only=host_only)
         self.cclo.register_buffer(buf)
         return buf
 

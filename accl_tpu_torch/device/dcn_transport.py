@@ -1,0 +1,518 @@
+"""The cross-process tier of the multi-process DCN backend.
+
+Counterpart of what XLA does for accl_tpu/device/dcn_device.py when a
+lax.ppermute of a two-tier program crosses processes. In the port's
+multi-process form each OS process is one host: it owns L virtual ranks
+(global rank p*L + l) on its device, runs the inner tier of every
+two-tier composition on those rows itself (sequencer/hierarchical.py's
+StackedTier), and reaches the other hosts through this module:
+
+  - `connect` joins the default torch.distributed group over gloo (the
+    counterpart of jax.distributed.initialize); a process whose group is
+    already up reuses it;
+  - `DCNTransport` moves one hop's messages between processes and tallies
+    the bytes each tier sends (the reference's CountingWire measure);
+  - `ProcessTier` is the outer tier: the reference's per-rank schedule
+    bodies (schedules.py: the reduce-scatter, allreduce and allgather
+    rings, flat bcast, scatter, ring gather, ring reduce, alltoall,
+    barrier over the flat reduce, sendrecv), with this process as one
+    position on every outer ring and its L rows as that ring's L lines.
+    lax.ppermute becomes a point-to-point exchange addressed to global
+    process ranks on the default group (a position no pair addresses
+    receives zeros, as under ppermute) and lax.axis_index the process's
+    position. Every fold, cast and int8 step runs on the process's own
+    rows through the same kernels (schedules.Wire) as the stacked
+    schedules, so a process's rows equal those of the one-card form
+    bitwise.
+
+What crosses the process boundary is the wire's payload: the rows on an
+exact wire, the compressed dtype on a cast wire (Wire.send before the
+hop, Wire.recv after it), codes and scales on the int8 wire. gloo moves
+CPU tensors only, so on the card a hop is staged through the host:
+device -> host -> gloo over TCP -> host -> device, one message a peer a
+hop. No subgroup is ever created (dist.new_group is collective over every
+process, and a host outside a sub-communicator never reaches its calls):
+every hop is addressed on the default group.
+
+`LoopbackHub` links P transports inside one process (one thread each),
+so the per-rank bodies can be held against the stacked ones without
+starting processes.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import os
+import queue
+from typing import Callable
+
+import torch
+
+from ..constants import QUANT_BLOCK_ELEMS, ReduceFunction
+from ..ops.compression import (
+    dequantize_wire,
+    quant_num_blocks,
+    quantize_wire,
+    wire_dtype,
+)
+from ..ops.lane_kernels import cast
+from ..sequencer import schedules
+
+DEFAULT_TIMEOUT_S = 120.0
+
+
+def distributed_active() -> bool:
+    """True when this process has joined the default torch.distributed
+    group."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def connect(num_processes: int, process_id: int,
+            coordinator_address: str | None) -> None:
+    """Join the default group over gloo, with `coordinator_address`
+    (host:port) as its TCP store; reuse a group that is already up (its
+    size and rank must match)."""
+    import torch.distributed as dist
+
+    if distributed_active():
+        if (dist.get_world_size(), dist.get_rank()) != (num_processes,
+                                                        process_id):
+            raise ValueError(
+                f"the process group already up is rank {dist.get_rank()} "
+                f"of {dist.get_world_size()}, not {process_id} of "
+                f"{num_processes}")
+        return
+    if coordinator_address is None:
+        raise ValueError(
+            "multi-process DCNDevice needs a coordinator_address")
+    host = coordinator_address.rsplit(":", 1)[0]
+    if host in ("127.0.0.1", "localhost"):
+        # every process on one host: gloo's pairs ride the loopback device
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        rank=process_id, world_size=num_processes,
+        timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+
+
+class GlooLink:
+    """Point-to-point byte messages on the default group (gloo)."""
+
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+
+    def exchange(self, sends: dict[int, torch.Tensor],
+                 sizes: dict[int, int]) -> dict[int, torch.Tensor]:
+        import torch.distributed as dist
+
+        recvs = {peer: torch.empty(n, dtype=torch.uint8)
+                 for peer, n in sizes.items()}
+        ops = [dist.P2POp(dist.isend, t, peer) for peer, t in sends.items()
+               if t.numel()]
+        ops += [dist.P2POp(dist.irecv, t, peer) for peer, t in recvs.items()
+                if t.numel()]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait(self.timeout)
+        return recvs
+
+    def close(self) -> None:
+        import torch.distributed as dist
+
+        if distributed_active():
+            dist.destroy_process_group()
+
+
+class LoopbackHub:
+    """`size` transports in one process, one thread each: a message is a
+    copy put on the (src, dst) queue."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.queues = {(s, d): queue.Queue() for s in range(size)
+                       for d in range(size)}
+
+    def transport(self, rank: int) -> "DCNTransport":
+        return DCNTransport(rank, self.size, _LoopbackLink(self, rank))
+
+
+class _LoopbackLink:
+    def __init__(self, hub: LoopbackHub, rank: int):
+        self.hub = hub
+        self.rank = rank
+
+    def exchange(self, sends, sizes):
+        for peer, t in sends.items():
+            self.hub.queues[(self.rank, peer)].put(t)
+        out = {}
+        for peer, n in sizes.items():
+            try:
+                out[peer] = self.hub.queues[(peer, self.rank)].get(
+                    timeout=DEFAULT_TIMEOUT_S)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"process {self.rank}: no message from {peer}") from None
+            if out[peer].numel() != n:
+                raise ValueError(f"process {self.rank}: {out[peer].numel()} "
+                                 f"bytes from {peer}, expected {n}")
+        return out
+
+    def close(self) -> None:
+        pass
+
+
+def _nbytes(spec) -> int:
+    return sum(math.prod(shape) * dtype.itemsize for shape, dtype in spec)
+
+
+class DCNTransport:
+    """This process's end of the cross-process tier: rank `rank` of `size`
+    processes over `link`. Tallies, per tier name and since the last
+    `reset_tally`: `sent`, the bytes this process put on the wire;
+    `messages`, how many messages it sent; `hops`, the payload bytes a
+    line carries in each hop the tier's bodies issued, whether or not this
+    process took part in it (what the reference's CountingWire counts on
+    one rank of a line)."""
+
+    def __init__(self, rank: int, size: int, link):
+        self.rank = rank
+        self.size = size
+        self.link = link
+        self.reset_tally()
+
+    @classmethod
+    def connect(cls, num_processes: int, process_id: int,
+                coordinator_address: str | None) -> "DCNTransport":
+        connect(num_processes, process_id, coordinator_address)
+        return cls(process_id, num_processes, GlooLink())
+
+    def reset_tally(self) -> None:
+        self.sent: dict[str, int] = {}
+        self.messages: dict[str, int] = {}
+        self.hops: dict[str, int] = {}
+
+    def tally(self) -> dict:
+        return {"sent": dict(self.sent), "messages": dict(self.messages),
+                "hops": dict(self.hops)}
+
+    def count_hop(self, tier: str, line_bytes: int) -> None:
+        self.hops[tier] = self.hops.get(tier, 0) + line_bytes
+
+    def exchange(self, tier: str, sends: dict[int, list[torch.Tensor]],
+                 recvs: dict[int, list[tuple]], device) -> dict:
+        """One hop: send each peer its tensors as one byte message (staged
+        to the host), receive each source's message laid out as its spec
+        [(shape, dtype), ...] and return its tensors on `device`."""
+        msgs = {}
+        for peer, parts in sends.items():
+            flat = [p.contiguous().reshape(-1).view(torch.uint8)
+                    for p in parts]
+            msg = flat[0] if len(flat) == 1 else torch.cat(flat)
+            msgs[peer] = msg.to("cpu", copy=True)
+            self.sent[tier] = self.sent.get(tier, 0) + msg.numel()
+            self.messages[tier] = self.messages.get(tier, 0) + 1
+        got = self.link.exchange(msgs, {peer: _nbytes(spec)
+                                        for peer, spec in recvs.items()})
+        out = {}
+        for peer, spec in recvs.items():
+            buf = got[peer].to(device)
+            parts, off = [], 0
+            for shape, dtype in spec:
+                nb = math.prod(shape) * dtype.itemsize
+                piece = buf[off:off + nb]
+                if off % dtype.itemsize:
+                    piece = piece.clone()
+                parts.append(piece.view(dtype).reshape(shape))
+                off += nb
+            out[peer] = parts
+        return out
+
+    def close(self) -> None:
+        self.link.close()
+
+
+# -- what a hop carries ------------------------------------------------------
+
+
+def _moved(wire: schedules.Wire, x: torch.Tensor) -> list[torch.Tensor]:
+    """The sender's half of Wire.transfer: the rows on the exact wire, the
+    compressed rows on a cast wire, the int8 wire message."""
+    if wire.quantized:
+        return [quantize_wire(x)]
+    return [wire.send(x)]
+
+
+def _moved_spec(wire: schedules.Wire, x: torch.Tensor) -> list[tuple]:
+    shape = tuple(x.shape)
+    if wire.quantized:
+        n = shape[-1]
+        return [(shape[:-1] + (n + 4 * quant_num_blocks(n),), torch.int8)]
+    wd = wire_dtype(wire.cfg) if wire.cfg is not None else None
+    return [(shape, wd or x.dtype)]
+
+
+def _arrived(wire: schedules.Wire, parts, like: torch.Tensor) -> torch.Tensor:
+    """The receiver's half of Wire.transfer, to `like`'s shape and dtype."""
+    if wire.quantized:
+        return dequantize_wire(parts[0], like.shape[-1], like.dtype)
+    return wire.recv(parts[0], like.dtype)
+
+
+def _enc_spec(x: torch.Tensor) -> list[tuple]:
+    """The (codes, scales) pair of x's rows."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    return [(lead + (n,), torch.int8),
+            (lead + (quant_num_blocks(n),), torch.float32)]
+
+
+class ProcessTier:
+    """The outer tier of the multi-process form: this process is position
+    `procs.index(transport.rank)` on every ring of `len(procs)` positions
+    (procs: the global process rank at each position), and the rows a
+    step is given (its L ranks) are that ring's L lines. The steps are the
+    StackedTier's, with the reference's per-rank bodies."""
+
+    name = "outer"  # the tier the transport tallies its hops under
+
+    def __init__(self, transport: DCNTransport, procs):
+        self.transport = transport
+        self.procs = tuple(procs)
+        self.world = len(self.procs)
+        self.me = self.procs.index(transport.rank)
+
+    # -- the hop -------------------------------------------------------------
+
+    def _hop(self, perm, make: Callable, spec, device):
+        """One ppermute of the position pairs `perm`: this process sends
+        make()'s tensors to each position it addresses and returns what
+        its source sent (None when no pair addresses it). make() runs only
+        on a sender."""
+        self.transport.count_hop(self.name, sum(
+            math.prod(shape[1:]) * dtype.itemsize for shape, dtype in spec))
+        dsts = [d for s, d in perm if s == self.me and d != self.me]
+        srcs = [s for s, d in perm if d == self.me and s != self.me]
+        if not dsts and not srcs:
+            return None
+        parts = make() if dsts else None
+        got = self.transport.exchange(
+            self.name, {self.procs[d]: parts for d in dsts},
+            {self.procs[s]: spec for s in srcs}, device)
+        return got[self.procs[srcs[0]]] if srcs else None
+
+    def ppermute(self, x, perm, wire):
+        """Wire.ppermute across processes."""
+        got = self._hop(perm, lambda: _moved(wire, x), _moved_spec(wire, x),
+                        x.device)
+        return torch.zeros_like(x) if got is None else _arrived(wire, got, x)
+
+    def hop(self, enc, perm):
+        """Wire.hop across processes: codes and scales in one message."""
+        q, s = enc
+        got = self._hop(perm, lambda: [q, s],
+                        [(tuple(q.shape), q.dtype), (tuple(s.shape), s.dtype)],
+                        q.device)
+        if got is None:
+            return torch.zeros_like(q), torch.zeros_like(s)
+        return got[0], got[1]
+
+    def _hop_reduce(self, acc, sent, sender: int, receiver: int, func, wire):
+        """schedules._hop_reduce: `sent` hops from sender to receiver and is
+        folded into the receiver's accumulator (the int8 arrival decoded
+        and folded in one step)."""
+        if not wire.quantized:
+            got = self._hop([(sender, receiver)], lambda: _moved(wire, sent),
+                            _moved_spec(wire, sent), acc.device)
+            if self.me == receiver:
+                acc = cast(wire.combine(func, acc,
+                                        _arrived(wire, got, sent)),
+                           acc.dtype)
+            return acc
+        got = self._hop([(sender, receiver)], lambda: list(wire.encode(sent)),
+                        _enc_spec(sent), acc.device)
+        if self.me == receiver:
+            acc = wire.combine_decoded(func, (got[0], got[1]), acc)
+        return acc
+
+    @staticmethod
+    def _chunk(x, k: int, c: int) -> torch.Tensor:
+        return x[:, k * c:(k + 1) * c].contiguous()
+
+    # -- the steps -----------------------------------------------------------
+
+    def reduce_scatter(self, x, *, func, wire):
+        """reduce_scatter_ring_schedule (:412) and its int8 form (:433)."""
+        P, me = self.world, self.me
+        c = x.shape[-1] // P
+        perm = schedules._ring_perm(P)
+        if wire.quantized:
+            out = self._chunk(x, (me - 1) % P, c)
+            if P == 1:
+                return out
+            enc = wire.encode(out)
+            for s in range(P - 1):
+                enc = self.hop(enc, perm)
+                local = self._chunk(x, (me - 2 - s) % P, c)
+                if s < P - 2:
+                    enc = wire.combine_requant(func, enc, local)
+                else:
+                    out = wire.combine_decoded(func, enc, local)
+            return out
+        v = self._chunk(x, (me - 1) % P, c)
+        for s in range(P - 1):
+            recv = self.ppermute(v, perm, wire)
+            v = wire.combine(func, recv, self._chunk(x, (me - 2 - s) % P, c))
+        return v
+
+    def allgather(self, x, *, wire):
+        """allgather_ring_schedule (:320) and its int8 form (:339)."""
+        P, me = self.world, self.me
+        c = x.shape[-1]
+        perm = schedules._ring_perm(P)
+        out = x.new_zeros((x.shape[0], P, c))
+        if wire.quantized:
+            enc = wire.encode(x)
+            out[:, me] = wire.decode(enc, c, x.dtype)
+            for s in range(P - 1):
+                enc = self.hop(enc, perm)
+                out[:, (me - 1 - s) % P] = wire.decode(enc, c, x.dtype)
+        else:
+            out[:, me] = x
+            relay = x
+            for s in range(P - 1):
+                recv = self.ppermute(relay, perm, wire)
+                out[:, (me - 1 - s) % P] = recv
+                relay = recv
+        return out.reshape(x.shape[0], P * c)
+
+    def allreduce(self, x, *, func, wire, seg_count: int):
+        """allreduce_ring_schedule (:457): per segment, the ring
+        reduce-scatter then the ring allgather."""
+        P = self.world
+
+        def one_segment(seg):
+            padded = schedules._pad_to_multiple(seg, P)
+            red = self.reduce_scatter(padded, func=func, wire=wire)
+            return self.allgather(red, wire=wire)[:, :seg.shape[-1]]
+
+        return schedules._segmented_apply(one_segment, x, seg_count)
+
+    def bcast(self, x, *, root: int, wire):
+        """bcast_flat_schedule (:208): one hop per destination."""
+        out = x.clone()
+        for j in range(self.world):
+            if j == root:
+                continue
+            got = self._hop([(root, j)], lambda: _moved(wire, x),
+                            _moved_spec(wire, x), x.device)
+            if self.me == j:
+                out = _arrived(wire, got, x)
+        return out
+
+    def scatter(self, x, *, root: int, wire):
+        """scatter_schedule (:250): chunk j to position j."""
+        c = x.shape[-1] // self.world
+        out = self._chunk(x, root, c)
+        for j in range(self.world):
+            if j == root:
+                continue
+            chunk = x[:, j * c:(j + 1) * c]
+            got = self._hop([(root, j)],
+                            lambda: _moved(wire, chunk.contiguous()),
+                            _moved_spec(wire, chunk), x.device)
+            if self.me == j:
+                out = _arrived(wire, got, chunk)
+        return out
+
+    def gather(self, x, *, root: int, wire):
+        """gather_ring_schedule (:265): the daisy chain to root."""
+        P = self.world
+        c = x.shape[-1]
+        out = x.new_zeros((x.shape[0], P, c))
+        out[:, root] = x
+        relay = x
+        for s in range(P - 1):
+            recv = self.ppermute(relay, schedules._ring_perm(P), wire)
+            if self.me == root:
+                out[:, (root - 1 - s) % P] = recv
+            relay = recv
+        return out.reshape(x.shape[0], P * c)
+
+    def reduce(self, x, *, root: int, func, wire):
+        """reduce_ring_schedule (:366): the partial relays from root+1."""
+        acc = x.clone()
+        for s in range(self.world - 1):
+            sender = (root + 1 + s) % self.world
+            acc = self._hop_reduce(acc, acc, sender, (sender + 1) % self.world,
+                                   func, wire)
+        return acc
+
+    def reduce_flat(self, x, *, root: int, func, wire):
+        """reduce_flat_schedule (:379): every position straight to root."""
+        acc = x.clone()
+        for j in range(self.world):
+            if j != root:
+                acc = self._hop_reduce(acc, x, j, root, func, wire)
+        return acc
+
+    def barrier(self, token, *, wire):
+        """barrier_schedule (:716): the flat reduce to 0 and the flat
+        bcast back."""
+        gathered = self.reduce_flat(token, root=0, func=ReduceFunction.SUM,
+                                    wire=wire)
+        return self.bcast(gathered, root=0, wire=wire)
+
+    def alltoall(self, x, *, wire):
+        """alltoall_schedule (:595) and the block-aligned int8 exchange
+        (:627): slot me+k to position me+k at step k; the local slot
+        crosses no wire and stays exact."""
+        P, me = self.world, self.me
+        rows, c = x.shape[0], x.shape[-1] // P
+        if wire.quantized and c % QUANT_BLOCK_ELEMS == 0:
+            q, s = wire.encode(x.contiguous())
+            nb = c // QUANT_BLOCK_ELEMS
+            q_recv, s_recv = torch.zeros_like(q), torch.zeros_like(s)
+            for k in range(1, P):
+                dst, src = (me + k) % P, (me - k) % P
+                got = self._hop(
+                    schedules._ring_perm(P, k),
+                    lambda: [self._chunk(q, dst, c), self._chunk(s, dst, nb)],
+                    [((rows, c), torch.int8), ((rows, nb), torch.float32)],
+                    x.device)
+                q_recv[:, src * c:(src + 1) * c] = got[0]
+                s_recv[:, src * nb:(src + 1) * nb] = got[1]
+            out = wire.decode((q_recv, s_recv), P * c, x.dtype)
+            out[:, me * c:(me + 1) * c] = x[:, me * c:(me + 1) * c]
+            return out
+        out = torch.zeros_like(x)
+        out[:, me * c:(me + 1) * c] = x[:, me * c:(me + 1) * c]
+        like = x[:, :c]
+        for k in range(1, P):
+            dst, src = (me + k) % P, (me - k) % P
+            got = self._hop(schedules._ring_perm(P, k),
+                            lambda: _moved(wire, self._chunk(x, dst, c)),
+                            _moved_spec(wire, like), x.device)
+            out[:, src * c:(src + 1) * c] = _arrived(wire, got, like)
+        return out
+
+    def sendrecv(self, x, *, src: int, dst: int, inner_world: int, wire):
+        """sendrecv_schedule (:186) between the (sub)world's global ranks
+        src and dst (rank g at position g // inner_world, local row
+        g % inner_world): dst's row becomes src's, every other row keeps
+        its own."""
+        L = inner_world
+        out = x.clone()
+        if src == dst:
+            return out
+        ps, pd, rs, rd = src // L, dst // L, src % L, dst % L
+        row = x[rs:rs + 1]
+        if ps == pd:
+            if self.me == ps:
+                out[rd:rd + 1] = wire.transfer(row)
+            return out
+        got = self._hop([(ps, pd)], lambda: _moved(wire, row.contiguous()),
+                        _moved_spec(wire, row), x.device)
+        if self.me == pd:
+            out[rd:rd + 1] = _arrived(wire, got, row)
+        return out

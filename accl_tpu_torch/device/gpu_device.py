@@ -234,16 +234,27 @@ class GPUDevice(CCLODevice):
             # context, so re-splits reuse the built schedules
             ctx = self._group_cache.get(rows)
             if ctx is None:
-                compiler = ScheduleCompiler(
-                    len(rows), self.torch_device,
-                    arith_table=self.compiler.arith_table,
-                    use_ring_kernel=self.compiler.use_ring_kernel)
+                compiler = self._group_compiler(rows)
                 index = torch.tensor(rows, dtype=torch.int64,
                                      device=self.torch_device)
                 ctx = self._group_cache[rows] = _CommCtx(
                     len(rows), compiler, rows, index)
         self._comm_cache[comm_addr] = ctx
         return ctx
+
+    def _group_compiler(self, rows: tuple[int, ...]) -> ScheduleCompiler:
+        """The schedule compiler of a sub-communicator over `rows`: a flat
+        world of len(rows) ranks with the device's arithmetic table and
+        kernel switch."""
+        return ScheduleCompiler(
+            len(rows), self.torch_device,
+            arith_table=self.compiler.arith_table,
+            use_ring_kernel=self.compiler.use_ring_kernel)
+
+    def _operand_rows(self, ctx: "_CommCtx") -> int:
+        """The rank rows a call's body takes here: every member of the
+        communicator, all of them on this card."""
+        return ctx.world
 
     def write(self, addr: int, value: int) -> None:
         # a write into a cached communicator table drops that entry (the
@@ -380,8 +391,8 @@ class GPUDevice(CCLODevice):
         res = self._buf(options.addr_2)
         if scen == Operation.barrier:
             # the zero-payload notifications ride a one-element token
-            args = [torch.ones((ctx.world, 1), dtype=torch.float32,
-                               device=self.torch_device)]
+            args = [torch.ones((self._operand_rows(ctx), 1),
+                               dtype=torch.float32, device=self.torch_device)]
         else:
             in_n = step_in_elems(options, ctx.world)
             args = [self._member_rows(self._buf(options.addr_0).device, ctx,

@@ -109,9 +109,19 @@ class ScheduleCompiler:
             Log.info("building %s: %s/%s world=%d count=%d",
                      options.scenario.name, plan.protocol.name,
                      plan.algorithm.name, self.world, options.count)
-            fn = self._body(options, plan, arithcfg)
+            fn = self._build(options, plan, arithcfg)
             self._cache[key] = fn
         return fn
+
+    def _build(self, options: CallOptions, plan: Plan,
+               arithcfg) -> Callable:
+        """The body a call runs: its schedule body (`_body`). A compiler
+        that lowers some calls otherwise (the two-tier compositions of
+        device/dcn_device.DCNCompiler) overrides this seam; streamed
+        operands and call sequences keep `_body`'s form through
+        `lower_step`, as the reference's lower_streamed and
+        compile_sequence take its _body."""
+        return self._body(options, plan, arithcfg)
 
     def _body(self, options: CallOptions, plan: Plan, arithcfg) -> Callable:
         op = options.scenario
@@ -252,7 +262,12 @@ class ScheduleCompiler:
                                          plan.outer_world, "outer_major"),
             wire=hierarchical.TierWire(tier_wire(plan.inner_wire_dtype),
                                        tier_wire(plan.outer_wire_dtype)),
-            stripes=plan.stripes)
+            stripes=plan.stripes, tiers=self._hier_tiers())
+
+    def _hier_tiers(self):
+        """The (inner, outer) tiers of the striped two-tier allreduce;
+        None: the plan's RankMap over the stacked rows of every rank."""
+        return None
 
     def _reduce_body(self, stage_plan: Plan, root: int, func, common):
         """The reduce schedule of a plan (a reduce call or the reduce stage
@@ -347,6 +362,12 @@ class ScheduleCompiler:
             arithcfg = _arithcfg_for(self.arith_table, options)
         return self.compile(options, plan, arithcfg)
 
+    def lower_step(self, options: CallOptions, plan: Plan) -> Callable:
+        """The body of one step of a call sequence, or of a streamed call
+        before its endpoints are spliced in: the per-call body itself
+        (`lower`), so a sequence runs what eager calls run."""
+        return self.lower(options, plan)
+
     def lower_streamed(
         self,
         options: CallOptions,
@@ -368,7 +389,7 @@ class ScheduleCompiler:
                producer, consumer)
         fn = self._cache.get(key)
         if fn is None:
-            body = self.lower(options, plan)
+            body = self.lower_step(options, plan)
             if producer is not None:
                 if options.scenario == Operation.combine:
                     raise ValueError(

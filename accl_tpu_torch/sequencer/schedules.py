@@ -72,6 +72,37 @@ def _ring_ctx(x: torch.Tensor, world: int, ring=None):
     return rows, pos, perm
 
 
+def _ring_lines(world: int, ring=None) -> list[list[int]]:
+    """The rows at each ring position: entry k lists, line by line in one
+    order for every k, the row at position k of each sub-ring. By default
+    the ring is the rank axis (one line, row k at position k). Under
+    `ring=(pos, perm)` each line is walked from its position-0 row along
+    perm's hops; the table is made once per embedding, so a schedule that
+    addresses a root or a position (bcast, scatter, gather, reduce) moves
+    every line's rows in one operation per hop."""
+    if ring is None:
+        return [[k] for k in range(world)]
+    pos, perm = ring
+    return [list(line) for line in _lines_of(pos, tuple(perm), world)]
+
+
+@functools.cache
+def _lines_of(pos: torch.Tensor, perm: tuple, world: int):
+    # keyed by the pos tensor itself (held by the cache, so its identity
+    # stays unique); read to the host once per embedding
+    where = pos.tolist()
+    succ = dict(perm)
+    lines = []
+    for start in (r for r, p in enumerate(where) if p == 0):
+        line = [start]
+        while len(line) < world:
+            line.append(succ[line[-1]])
+        if [where[r] for r in line] != list(range(world)):
+            raise ValueError("ring positions do not follow its hops")
+        lines.append(line)
+    return tuple(zip(*lines))
+
+
 def _index(rows: list[int], device: torch.device):
     """Index of `rows` on the rank axis: a slice (a view) when they are
     consecutive, else an index tensor on `device` (a gather)."""
@@ -308,13 +339,16 @@ def _tree_round(world: int, root: int, d: int, up: bool):
 
 
 def bcast_flat_schedule(x: torch.Tensor, *, root: int, world: int,
-                        wire: Wire) -> torch.Tensor:
+                        wire: Wire, ring=None) -> torch.Tensor:
     """Flat fan-out: root sends its buffer to each rank with one hop per
-    destination (W-1 hops)."""
+    destination (W-1 hops). Under `ring` (_ring_lines) the root is a
+    position on every line and each hop serves all lines."""
+    lines = _ring_lines(world, ring)
+    src = _index(lines[root], x.device)
     out = x.clone()
     for j in range(world):
         if j != root:
-            out[j:j + 1] = wire.transfer(x[root:root + 1])
+            out[_index(lines[j], x.device)] = wire.transfer(x[src])
     return out
 
 
@@ -339,36 +373,42 @@ def bcast_bin_tree_schedule(x: torch.Tensor, *, root: int, world: int,
 
 
 def scatter_schedule(x: torch.Tensor, *, root: int, world: int,
-                     wire: Wire) -> torch.Tensor:
+                     wire: Wire, ring=None) -> torch.Tensor:
     """Root holds world*count elements; rank j receives chunk j (one hop
-    per destination). Root keeps its own chunk root. x is (world,
-    world*count), the result (world, count)."""
+    per destination). Root keeps its own chunk root. x is (rows,
+    world*count), the result (rows, count); `ring` as in
+    bcast_flat_schedule."""
     count = x.shape[-1] // world
-    out = x.new_empty((world, count))
-    out[root] = x[root, root * count:(root + 1) * count]
+    lines = _ring_lines(world, ring)
+    src = _index(lines[root], x.device)
+    out = x.new_empty((x.shape[0], count))
+    out[src] = x[src, root * count:(root + 1) * count]
     for j in range(world):
         if j != root:
-            out[j:j + 1] = wire.transfer(
-                x[root:root + 1, j * count:(j + 1) * count])
+            out[_index(lines[j], x.device)] = wire.transfer(
+                x[src, j * count:(j + 1) * count])
     return out
 
 
 def gather_ring_schedule(x: torch.Tensor, *, root: int, world: int,
-                         wire: Wire) -> torch.Tensor:
+                         wire: Wire, ring=None) -> torch.Tensor:
     """Eager daisy-chain gather: every rank relays its upstream
     neighbours' chunks around the ring; root collects W-1 chunks in
     arrival order (the step-s arrival originates from rank root-1-s).
-    Every rank's result holds its own chunk at slot root. x is (world,
-    count), the result (world, world*count)."""
+    Every rank's result holds its own chunk at slot root. x is (rows,
+    count), the result (rows, world*count); `ring` as in
+    bcast_flat_schedule."""
     count = x.shape[-1]
-    out = x.new_zeros((world, world, count))
+    perm = _ring_perm(world) if ring is None else ring[1]
+    dst = _index(_ring_lines(world, ring)[root], x.device)
+    out = x.new_zeros((x.shape[0], world, count))
     out[:, root] = x
     relay = x
     for s in range(world - 1):
-        recv = wire.ppermute(relay, _ring_perm(world))
-        out[root, (root - 1 - s) % world] = recv[root]
+        recv = wire.ppermute(relay, perm)
+        out[dst, (root - 1 - s) % world] = recv[dst]
         relay = recv
-    return out.reshape(world, world * count)
+    return out.reshape(x.shape[0], world * count)
 
 
 def gather_flat_schedule(x: torch.Tensor, *, root: int, world: int,
@@ -495,26 +535,31 @@ def _allgather_ring_quant(x: torch.Tensor, *, world: int, wire: Wire,
 
 
 def reduce_ring_schedule(x: torch.Tensor, *, root: int, func, world: int,
-                         wire: Wire) -> torch.Tensor:
+                         wire: Wire, ring=None) -> torch.Tensor:
     """Eager ring reduce: the partial relays around the ring from root+1,
-    each hop a fused recv-reduce at the next rank, ending at root."""
+    each hop a fused recv-reduce at the next rank, ending at root; `ring`
+    as in bcast_flat_schedule."""
+    lines = _ring_lines(world, ring)
     acc = x.clone()
     for s in range(world - 1):
         sender = (root + 1 + s) % world
         receiver = (sender + 1) % world
-        _hop_reduce(acc, acc[sender:sender + 1], [receiver], func, wire)
+        _hop_reduce(acc, acc[_index(lines[sender], x.device)],
+                    lines[receiver], func, wire)
     return acc
 
 
 def reduce_flat_schedule(x: torch.Tensor, *, root: int, func, world: int,
-                         wire: Wire) -> torch.Tensor:
+                         wire: Wire, ring=None) -> torch.Tensor:
     """Rendezvous flat-tree reduce: each child sends its buffer straight
     to root, which folds the arrivals into its accumulator in rank
-    order."""
+    order; `ring` as in bcast_flat_schedule."""
+    lines = _ring_lines(world, ring)
     acc = x.clone()
     for j in range(world):
         if j != root:
-            _hop_reduce(acc, x[j:j + 1], [root], func, wire)
+            _hop_reduce(acc, x[_index(lines[j], x.device)], lines[root],
+                        func, wire)
     return acc
 
 
@@ -730,10 +775,11 @@ def alltoallv_schedule(x: torch.Tensor, *, peer_counts, world: int,
 
 
 def barrier_schedule(token: torch.Tensor, *, world: int,
-                     wire: Wire) -> torch.Tensor:
+                     wire: Wire, ring=None) -> torch.Tensor:
     """Notification-only gather-to-0 and fan-out: the zero-payload
     messages are carried as a 1-element token per rank, reduced to rank 0
-    and broadcast back."""
+    and broadcast back (to position 0 of every line under `ring`)."""
     gathered = reduce_flat_schedule(token, root=0, func=ReduceFunction.SUM,
-                                    world=world, wire=wire)
-    return bcast_flat_schedule(gathered, root=0, world=world, wire=wire)
+                                    world=world, wire=wire, ring=ring)
+    return bcast_flat_schedule(gathered, root=0, world=world, wire=wire,
+                               ring=ring)

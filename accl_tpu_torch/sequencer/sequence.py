@@ -206,11 +206,11 @@ class SequencePlan:
         """Compose the per-step schedule bodies into one callable:
         (stacked buffer tensors...) -> (written buffer tensors...). Each
         step runs the very closure the per-call path caches for its
-        descriptor (ScheduleCompiler.lower / lower_streamed)."""
+        descriptor (ScheduleCompiler.lower_step / lower_streamed)."""
         bodies = []
         for st in self.steps:
             if st.producer is None and st.consumer is None:
-                bodies.append(compiler.lower(st.options, st.plan))
+                bodies.append(compiler.lower_step(st.options, st.plan))
             else:
                 bodies.append(compiler.lower_streamed(
                     st.options, st.plan, st.producer, st.consumer))

@@ -275,10 +275,23 @@ What it does, in order, printing one JSON object per line:
      composition; a write/write pair serialized with nothing dropped; the
      DecodeServer at serve_phase's widths with and without a scheduler,
      tokens bitwise; report()'s fairness and certificate counts;
- 23. the kernels line (with each kernel's launches on the sequence,
+ 23. dcn phase (device/dcn_device.py, dcn_transport.py and the nine
+     two-tier compositions of sequencer/hierarchical.py): the in-process
+     DCNDevice over {"dcn": 2, "ici": 4}, the allreduce at 4 and 25 MiB
+     a rank on the exact, fp16 (fp32 arithmetic) and int8 wires, every
+     other two-tier op at 262 144 elements (roots 3 and 6), p2p 1 -> 7
+     and host 1's sub-communicator, each bitwise with the port's CPU run,
+     exact results within their float64 fold bound, kernel launches as
+     each composition implies; then 2 run_dcn processes x 4 ranks and
+     3 x 2 with a cross-host sub-communicator on cuda:0 over gloo, each
+     child's rows bitwise its own in-process device's, the bytes a
+     process sent across the boundary against the composition's count;
+     the 4 and 25 MiB allreduce's median ms on the two-process device
+     (host clock), the in-process DCNDevice and the flat GPUDevice;
+ 24. the kernels line (with each kernel's launches on the sequence,
      point-to-point, sub-communicator, alltoall, tuned, telemetry,
-     serve, train, MoE, mesh, analysis, lift, resilience and scheduler
-     paths); last, the device line.
+     serve, train, MoE, mesh, analysis, lift, resilience, scheduler and
+     dcn paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -7473,6 +7486,365 @@ def scheduler_phase(ring, qk, L, *, device="cuda", serve_cfg=None,
     return path
 
 
+DCN_TOPO = {"dcn": 2, "ici": 4}  # the in-process form: P = 2 hosts x L = 4
+DCN_AR_COUNTS = (MIB, 25 * MIB // 4)  # the allreduce: 4 and 25 MiB a rank
+DCN_OP_ELEMS = 262_144  # a rank's buffer in every other two-tier op
+DCN_ROOTS = (3, 6)
+DCN_CHILD_TIMEOUT_S = 150
+
+
+def dcn_fp32_arith_table():
+    """The default table with fp32 arithmetic on the fp16 wire (a hop
+    casts to fp16 and back, every fold is fp32): the two-tier compositions
+    lower with compressed-domain arithmetic off, as the reference's do."""
+    from accl_tpu_torch import DataType
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
+
+    table = dict(DEFAULT_ARITH_CONFIG)
+    table[(DataType.float32, DataType.float16)] = ArithConfig(
+        4, 2, 0, 0, 1, False, (0, 5))
+    return table
+
+
+def dcn_expected(op: str, wire: str, P: int, L: int) -> dict:
+    """Kernel launches one in-process two-tier call makes, from its
+    composition: a ring fold is one launch for every line of its tier, so
+    an exact allreduce is (L-1) + (P-1) combines; a cast wire adds two
+    casts a hop; the int8 allreduce's rings are one encode each, the
+    fused steps and a decode a relayed chunk."""
+    folds = {"allreduce": (L - 1) + (P - 1),
+             "reduce_scatter": (L - 1) + (P - 1),
+             "reduce": (L - 1) + (P - 1), "barrier": (L - 1) + (P - 1)}
+    if wire == "int8":
+        return {"combine": 0, "quantize": 4,
+                "dequant_combine_requant": max(L - 2, 0) + max(P - 2, 0),
+                "dequant_combine": 2, "dequantize": P + L}
+    want = {"combine": folds.get(op, 0)}
+    if wire == "float16":
+        want["cast"] = 2 * (2 * (L - 1) + 2 * (P - 1))
+    return want
+
+
+def dcn_children(n_procs: int, args, device: str = "cuda"):
+    """Start n_procs `python -m accl_tpu_torch.tools.run_dcn` processes on
+    cuda:0 with gloo on 127.0.0.1 at a free port; each checks its rows
+    bitwise against its own in-process device. A child that exits
+    non-zero or outlives DCN_CHILD_TIMEOUT_S fails the phase (every child still
+    running is killed). Returns each child's parsed JSON lines and its
+    seconds."""
+    import os
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "accl_tpu_torch.tools.run_dcn",
+         "--procs", str(n_procs), "--proc-id", str(i), "--port", str(port),
+         "--device", device, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ)) for i in range(n_procs)]
+    outs, rcs = [], []
+    try:
+        for p in procs:
+            left = max(DCN_CHILD_TIMEOUT_S - (time.perf_counter() - t0), 1.0)
+            try:
+                outs.append(p.communicate(timeout=left)[0])
+                rcs.append(p.returncode)
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+                outs.append("")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if rcs != [0] * n_procs:
+        raise AssertionError(f"dcn: run_dcn children exited {rcs}:\n"
+                             + "\n---\n".join(o[-3000:] for o in outs))
+    lines = [[json.loads(line) for line in out.splitlines()
+              if line.startswith("{")] for out in outs]
+    for i, out in enumerate(outs):
+        if f"proc {i}/{n_procs} OK" not in out:
+            raise AssertionError(f"dcn: child {i} printed no RANKS line")
+    return lines, time.perf_counter() - t0
+
+
+def fold_excess(got, terms) -> float:
+    """|got - sum(terms)| - (k-1)*u*sum|terms| at its largest (k terms
+    stacked on dim 0, each shaped like got): <= 0 inside the recursive
+    summation bound of any fold order."""
+    t = terms.double()
+    ref = t.sum(0)
+    bound = (t.shape[0] - 1) * F32_UNIT * t.abs().sum(0)
+    worst = float(((got.double() - ref).abs() - bound).max())
+    if worst > 0:
+        raise AssertionError(f"result outside its fold bound by {worst}")
+    return worst
+
+
+def dcn_phase(ring, qk, L, *, device="cuda"):
+    """The multi-host backend (device/dcn_device.py, dcn_transport.py,
+    the nine two-tier compositions of sequencer/hierarchical.py). Gates,
+    each failing the run:
+      (1) in-process: DCNDevice(mesh=make_mesh({"dcn": 2, "ici": 4})) on
+          the card; the allreduce at 4 and 25 MiB a rank on the exact,
+          fp16 (fp32 arithmetic) and int8 wires, every other two-tier op
+          at 262 144 elements a rank's buffer (roots 3 and 6), p2p 1 -> 7
+          across the host boundary and host 1's sub-communicator: each
+          result bitwise the same call of the port on the CPU (plain
+          versions), each exact one within its float64 fold bound
+          (movers equal), each call's kernel launches those its
+          composition implies (dcn_expected);
+      (2) multi-process: 2 run_dcn children x 4 ranks, then 3 x 2 with a
+          cross-host sub-communicator of 2 hosts, on cuda:0 over gloo;
+          each child's rows bitwise its own in-process device's, its
+          outer bytes the composition's count.
+    Prints "dcn" (checks, launches, bytes) and "dcn_timing" (median ms of
+    the 4 and 25 MiB allreduce: the two-process device on the host clock,
+    the in-process DCNDevice and the flat GPUDevice (kernel 1) on CUDA
+    events, with the card's name and power limit) and returns each
+    kernel's launches over the checked in-process calls."""
+    import torch
+
+    from accl_tpu_torch import ACCL, DataType, ReduceFunction
+    from accl_tpu_torch.device.dcn_device import DCNDevice
+    from accl_tpu_torch.parallel import make_mesh
+
+    on_card = device == "cuda"
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts_of, delta = launch_counter(kernels)
+    path = {name: 0 for name in kernels}
+    seconds = {}
+    t_phase = time.perf_counter()
+    P, Lw = DCN_TOPO["dcn"], DCN_TOPO["ici"]
+    W = P * Lw
+    table = dcn_fp32_arith_table()
+    facades = {}
+    for where in (device, "cpu"):
+        a = ACCL(device=DCNDevice(mesh=make_mesh(DCN_TOPO, world=W,
+                                                 device=where)),
+                 arith_config=table)
+        a.cclo.compiler.arith_table = table  # the lowering reads its own
+        facades[where] = a
+    accl, cpu = facades[device], facades["cpu"]
+    gen = torch.Generator(device=device).manual_seed(1818)
+
+    def data(n):
+        return torch.randn((W, n), generator=gen, device=device)
+
+    checks = []
+    io = dict(from_device=True, to_device=True)
+
+    def run(op, call, shapes, wire="exact", rows=None, expect=None):
+        """`call(facade, *bufs)` on the card and on the CPU over buffers
+        of (count, data) shapes, the last one the result; `rows`: the rows
+        the call defines (None: every row). Returns the card's result (a
+        tensor of its own) and the request."""
+        bufs = []
+        for count, data in shapes:
+            b = accl.create_buffer(count)
+            if data is not None:
+                b.device.copy_(data)
+            bufs.append(b)
+        before = counts_of()
+        req = call(accl, *bufs)
+        if on_card:
+            torch.cuda.synchronize()
+        moved = delta(before)
+        for k, v in moved.items():
+            path[k] += v
+        cbufs = []
+        for count, data in shapes:
+            b = cpu.create_buffer(count)
+            if data is not None:
+                b.device.copy_(data.cpu())
+            cbufs.append(b)
+        call(cpu, *cbufs)
+        got = bufs[-1].device.clone()
+        sel = slice(None) if rows is None else rows
+        if not same_bits(got.cpu()[sel], cbufs[-1].device[sel]):
+            raise AssertionError(f"dcn: {op} ({wire}) differs from the "
+                                 "port's CPU run")
+        if not torch.isfinite(got[sel]).all():
+            raise AssertionError(f"dcn: {op} ({wire}) is not finite")
+        if callable(expect):
+            expect = expect(req)
+        if on_card and expect is not None:
+            seen = {k: moved.get(k, 0) for k in expect}
+            if seen != expect:
+                raise AssertionError(f"dcn: {op} ({wire}) launched {seen}, "
+                                     f"its composition {expect}")
+        checks.append({"op": op, "wire": wire, "elems": shapes[0][0],
+                       "rows": "all" if rows is None else rows,
+                       "bitwise_vs_cpu": True, "launches": moved})
+        for f, bs in ((accl, bufs), (cpu, cbufs)):
+            for b in bs:
+                f.free_buffer(b)
+        return got, req
+
+    # (1) the in-process form. The allreduce on three wires, two sizes
+    t = time.perf_counter()
+    for n in DCN_AR_COUNTS:
+        x = data(n)
+        for wire, dt in (("exact", None), ("float16", DataType.float16),
+                         ("int8", DataType.int8)):
+            kw = dict(io) if dt is None else dict(io, compress_dtype=dt)
+            got, _ = run("allreduce", lambda f, s, d, kw=kw, n=n:
+                         f.allreduce(s, d, n, ReduceFunction.SUM, **kw),
+                         [(n, x), (n, None)], wire,
+                         expect=dcn_expected("allreduce", wire, P, Lw))
+            if wire == "exact":
+                checks[-1]["bound_excess"] = check_against_float64(
+                    got, x, ReduceFunction.SUM, F32_UNIT)
+            del got
+        del x
+    seconds["allreduce"] = time.perf_counter() - t
+
+    # every other op of HIER_OPS on the exact wire, a rank's buffer of
+    # DCN_OP_ELEMS elements
+    t = time.perf_counter()
+    n, c = DCN_OP_ELEMS, DCN_OP_ELEMS // W
+    x = data(n)
+    got, _ = run("reduce_scatter", lambda f, s, d: f.reduce_scatter(
+        s, d, c, ReduceFunction.SUM, **io), [(n, x), (c, None)],
+        expect=dcn_expected("reduce_scatter", "exact", P, Lw))
+    checks[-1]["bound_excess"] = fold_excess(got, x.reshape(W, W, c))
+    got, _ = run("allgather", lambda f, s, d: f.allgather(s, d, c, **io),
+                 [(c, x[:, :c].contiguous()), (n, None)],
+                 expect=dcn_expected("allgather", "exact", P, Lw))
+    if not same_bits(got, x[:, :c].reshape(1, -1).expand(W, n)):
+        raise AssertionError("dcn: allgather is not every rank's chunk")
+    got, _ = run("alltoall", lambda f, s, d: f.alltoall(s, d, c, **io),
+                 [(n, x), (n, None)],
+                 expect=dcn_expected("alltoall", "exact", P, Lw))
+    if not same_bits(got, x.reshape(W, W, c).transpose(0, 1).reshape(W, n)):
+        raise AssertionError("dcn: alltoall is not the transpose")
+    for root in DCN_ROOTS:
+        got, _ = run(f"bcast/{root}", lambda f, b, r=root: f.bcast(
+            b, n, r, **io), [(n, x)],
+            expect=dcn_expected("bcast", "exact", P, Lw))
+        if not same_bits(got, x[root].expand(W, n)):
+            raise AssertionError(f"dcn: bcast from {root}")
+        got, _ = run(f"scatter/{root}", lambda f, s, d, r=root: f.scatter(
+            s, d, c, r, **io), [(n, x), (c, None)],
+            expect=dcn_expected("scatter", "exact", P, Lw))
+        if not same_bits(got, x[root].reshape(W, c)):
+            raise AssertionError(f"dcn: scatter from {root}")
+        got, _ = run(f"gather/{root}", lambda f, s, d, r=root: f.gather(
+            s, d, c, r, **io), [(c, x[:, :c].contiguous()), (n, None)],
+            rows=[root], expect=dcn_expected("gather", "exact", P, Lw))
+        if not same_bits(got[root], x[:, :c].reshape(-1)):
+            raise AssertionError(f"dcn: gather to {root}")
+        got, _ = run(f"reduce/{root}", lambda f, s, d, r=root: f.reduce(
+            s, d, n, r, ReduceFunction.SUM, **io), [(n, x), (n, None)],
+            rows=[root], expect=dcn_expected("reduce", "exact", P, Lw))
+        checks[-1]["bound_excess"] = fold_excess(got[[root]], x[:, None])
+    before = counts_of()
+    for f in (accl, cpu):
+        f.barrier()
+    moved = delta(before)
+    for k, v in moved.items():
+        path[k] += v
+    if on_card and moved.get("combine", 0) != dcn_expected(
+            "barrier", "exact", P, Lw)["combine"]:
+        raise AssertionError(f"dcn: the barrier launched {moved}")
+    checks.append({"op": "barrier", "launches": moved})
+
+    # p2p across the host boundary, and host 1's sub-communicator (the
+    # flat inner path: the torch-op ring, W-1 folds a segment)
+    def p2p(f, s, d):
+        f.send(s, n, src=1, dst=W - 1, tag=3, from_device=True)
+        return f.recv(d, n, src=1, dst=W - 1, tag=3, to_device=True)
+
+    got, _ = run("p2p 1->7", p2p, [(n, x), (n, None)], expect={"combine": 0})
+    if not same_bits(got[W - 1], x[1]):
+        raise AssertionError("dcn: p2p 1 -> 7")
+    host1 = list(range(Lw, 2 * Lw))
+    m = min(32_768, n)
+    got, _ = run("allreduce host 1", lambda f, s, d: f.allreduce(
+        s, d, m, ReduceFunction.SUM, comm=f.split(host1), **io),
+        [(m, x[:, :m].contiguous()), (m, None)],
+        expect=lambda req: {"combine": req.plan.num_segments * (Lw - 1)})
+    checks[-1]["bound_excess"] = fold_excess(
+        got[host1], x[host1, :m][:, None].expand(Lw, Lw, m))
+    if got[:Lw].any():
+        raise AssertionError("dcn: the host-1 group wrote host 0's rows")
+    del x, got
+    seconds["ops"] = time.perf_counter() - t
+    if on_card:
+        idle = [k for k in ("combine", "cast", "quantize", "dequantize",
+                            "dequant_combine", "dequant_combine_requant")
+                if not path[k]]
+        if idle:
+            raise AssertionError(f"the dcn path launched no {idle}")
+
+    # the in-process and flat devices' allreduce times (not counted)
+    t = time.perf_counter()
+    timing = {}
+    flat = ACCL(world=W, torch_device=device)
+    for n in DCN_AR_COUNTS:
+        row = {}
+        for name, f in (("in_process_dcn_ms", accl), ("flat_gpu_ms", flat)):
+            s, d = f.create_buffer(n), f.create_buffer(n)
+            s.device.copy_(data(n))
+            call = (lambda f=f, s=s, d=d, n=n: f.allreduce(
+                s, d, n, ReduceFunction.SUM, **io))
+            row[name] = median_ms(call, reps=10, warmup=2) if on_card \
+                else None
+            for b in (s, d):
+                f.free_buffer(b)
+        timing[str(n * 4)] = row
+    del flat, accl, cpu, facades
+    if on_card:
+        torch.cuda.empty_cache()
+    seconds["in_process_timing"] = time.perf_counter() - t
+
+    # (2) the multi-process form: one OS process a host on cuda:0
+    t = time.perf_counter()
+    counts = ",".join(str(n) for n in DCN_AR_COUNTS)
+    two, two_s = dcn_children(2, ["--local-devices", "4", "--time", counts],
+                              device)
+    three, three_s = dcn_children(3, ["--local-devices", "2",
+                                      "--subset-hosts", "2"], device)
+    bytes_rows = []
+    for lines in two + three:
+        for line in lines:
+            if "dcn_bytes" in line:
+                bytes_rows.append(line["dcn_bytes"])
+    for lines in two:
+        tm = next(line["dcn_time"] for line in lines if "dcn_time" in line)
+        for n in DCN_AR_COUNTS:
+            e = tm["allreduce"][str(n)]
+            if e["line_hop_bytes"] != e["composition_line_bytes"] or \
+                    e["sent"] != tm["local"] * e["composition_line_bytes"]:
+                raise AssertionError(f"dcn: process {tm['proc']} sent {e} "
+                                     f"in a {n}-element allreduce")
+            bytes_rows.append({"proc": tm["proc"], "procs": tm["procs"],
+                               "local": tm["local"], "count": n,
+                               "sent": e["sent"],
+                               "line_hop_bytes": e["line_hop_bytes"],
+                               "composition_line_bytes":
+                                   e["composition_line_bytes"]})
+            timing[str(n * 4)].setdefault("two_process_host_ms", []).append(
+                e["median_ms"])
+    seconds["children"] = {"2x4": two_s, "3x2": three_s}
+    seconds["multi_process"] = time.perf_counter() - t
+    seconds["phase"] = time.perf_counter() - t_phase
+    gpu = card_name() if on_card else "cpu"
+    emit({"phase": "dcn", "gpu": gpu, "topology": DCN_TOPO,
+          "checks": checks, "bytes": bytes_rows, "seconds": seconds,
+          "launches": path})
+    emit({"phase": "dcn_timing", "gpu": gpu, "reps": {"in_process": 10,
+                                                      "two_process": 5},
+          "allreduce_bytes_per_rank": timing})
+    return path
+
+
 class NativeBuild(threading.Thread):
     """The native emulator's g++ build, started beside the kernels' nvcc
     builds; its seconds and any error are read after join()."""
@@ -7512,10 +7884,10 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     `comm_launches`, `alltoall_launches`, `tuned_launches`,
     `telemetry_launches`, `serve_launches`, `train_launches`,
     `moe_launches`, `mesh_launches`, `analysis_launches`,
-    `lift_launches`, `resilience_launches` and `scheduler_launches`
-    likewise over the checked runs of the point-to-point,
+    `lift_launches`, `resilience_launches`, `scheduler_launches` and
+    `dcn_launches` likewise over the checked runs of the point-to-point,
     sub-communicator, alltoall, tuned, telemetry, serve, train, MoE,
-    mesh, analysis, lift, resilience and scheduler paths."""
+    mesh, analysis, lift, resilience, scheduler and multi-host paths."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -7670,7 +8042,8 @@ def main() -> int:
              "lift": timed(lift_phase, ring, qk, L),
              "resilience": timed(resilience_phase, ring, qk, L,
                                  native_build),
-             "scheduler": timed(scheduler_phase, ring, qk, L)}
+             "scheduler": timed(scheduler_phase, ring, qk, L),
+             "dcn": timed(dcn_phase, ring, qk, L)}
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

@@ -56,6 +56,14 @@ def test_scan_covers_the_emulator_resilience_and_scheduler():
         assert f"accl_tpu_torch/{mod}" in scanned, mod
 
 
+def test_scan_covers_the_multi_host_backend_and_its_runner():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for mod in ("device/dcn_device.py", "device/dcn_transport.py",
+                "sequencer/hierarchical.py", "tools/__init__.py",
+                "tools/run_dcn.py"):
+        assert f"accl_tpu_torch/{mod}" in scanned, mod
+
+
 def test_scan_sees_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import os\nfrom jax import numpy\n"

@@ -7,8 +7,9 @@ names, not those they import: the lifting entry points of protocol and
 semantics and the interference certifier among them), the resilience
 and scheduler packages and modules, the native emulator's module (its
 own names: it takes torch dtypes where the reference imports
-from_numpy_dtype), the
-ACCL facade, its SequenceProgram and the device that the port lacks must
+from_numpy_dtype), the two-tier schedules and the multi-host device's
+module, the ACCL facade, its SequenceProgram and the devices (TPUDevice
+against GPUDevice, the two DCNDevices) that the port lacks must
 be a known gap, listed with the ROADMAP item that brings it; a gap that
 closes must leave the list (it is empty: every name is ported). nop()
 runs through both facades to the same request.
@@ -41,8 +42,10 @@ def _defined_in(module) -> set[str]:
 def _pairs():
     from accl_tpu.accl import ACCL as RefACCL
     from accl_tpu.accl import SequenceProgram as RefProgram
+    from accl_tpu.device.dcn_device import DCNDevice as RefDCN
     from accl_tpu.device.tpu_device import TPUDevice
     from accl_tpu_torch.accl import ACCL, SequenceProgram
+    from accl_tpu_torch.device.dcn_device import DCNDevice
     from accl_tpu_torch.device.gpu_device import GPUDevice
 
     yield "package", importlib.import_module("accl_tpu"), \
@@ -60,12 +63,14 @@ def _pairs():
                 "resilience", "resilience.deadline", "resilience.manager",
                 "scheduler", "scheduler.errors", "scheduler.tenant",
                 "scheduler.qos", "scheduler.scheduler",
-                "device.emu_device"):
+                "device.emu_device", "sequencer.hierarchical",
+                "device.dcn_device"):
         yield sub, importlib.import_module(f"accl_tpu.{sub}"), \
             importlib.import_module(f"accl_tpu_torch.{sub}")
     yield "ACCL", RefACCL, ACCL
     yield "SequenceProgram", RefProgram, SequenceProgram
     yield "device", TPUDevice, GPUDevice
+    yield "DCNDevice", RefDCN, DCNDevice
 
 
 @pytest.mark.parametrize("where", [p[0] for p in _pairs()])
