@@ -18,9 +18,12 @@ The port runs it in two forms, through one composition body each:
     of the (P, L) world;
   - multi-process, `DCNDevice(num_processes, process_id,
     coordinator_address, local_device_count)`: one OS process per host,
-    each owning local_device_count ranks. The inner tier stays inside the
-    process; the outer tier crosses processes over torch.distributed
-    (device/dcn_transport.py).
+    each owning local_device_count ranks (one or more). A composition's
+    inner tier stays inside the process and its outer tier crosses
+    processes over torch.distributed; every other call, and every step of
+    a call sequence, runs the flat body over the combined world on the
+    process's rows, its cross-process hops over the same transport
+    (device/dcn_transport.py: ProcessTier and ProcessWorld).
 
 Departures from the reference, each with its reason:
   - `torch_device` ("cuda" unless the caller asks for "cpu") takes the
@@ -30,11 +33,12 @@ Departures from the reference, each with its reason:
     (no call writes a remote row): a buffer costs P times its share;
   - on one card gloo moves CPU tensors only, so a cross-process hop is
     staged through the host (the folds stay on the card);
-  - the multi-process form needs local_device_count > 1 and records no
-    call sequence (prepare_sequence raises; the reference lowers a DCN
-    batch to flat bodies over the combined axis, which would run every
-    hop across processes, and a CUDA graph cannot capture a gloo hop);
-    streamed operands and stream_put are likewise refused there;
+  - the multi-process form's flat segmented ring runs its whole segments
+    in lockstep (one message a peer a ring step for all of them; each
+    element folds as in the segment loop, bitwise);
+  - a call sequence of the multi-process form runs eagerly at each
+    dispatch (DCNCompiler.sequence_graph): a CUDA graph cannot capture a
+    hop that stages through the host;
   - the degraded live-subset allreduce is refused (supports_live_subset
     False): the reference's compositions drop the plan's survivor mask.
 """
@@ -63,14 +67,15 @@ from ..sequencer.hierarchical import (
     hierarchical_scatter_schedule,
     stacked_tiers,
 )
-from ..sequencer.lowering import ScheduleCompiler, _arithcfg_for
+from ..sequencer import schedules
+from ..sequencer.lowering import (
+    ScheduleCompiler,
+    SequenceGraph,
+    _arithcfg_for,
+)
 from ..sequencer.plan import Algorithm
 from ..sequencer.sequence import slice_to
 from .gpu_device import GPUDevice
-
-# the ROADMAP items that bring what the multi-process form refuses
-_SEQUENCES_ITEM = "ROADMAP queue 1, item 20: multi-process call sequences"
-_FLAT_ITEM = "ROADMAP queue 1, item 21: the multi-process form with L == 1"
 
 
 class DCNCompiler(ScheduleCompiler):
@@ -82,10 +87,11 @@ class DCNCompiler(ScheduleCompiler):
 
     `mesh` is the two-axis world (port Mesh); with `transport` set the
     compiler is one process's view of the multi-process form: its bodies
-    take the process's L rows, the inner tier runs on them, the outer tier
-    across `procs` (the global process rank at each outer position). The
-    ring kernel stays off, as the reference lowers with the Pallas ring
-    off."""
+    take the process's L rows, a composition's inner tier runs on them and
+    its outer tier across `procs` (the global process rank at each outer
+    position), and a flat body runs on them as the process's share of the
+    combined world (flat_wire). The ring kernel stays off, as the
+    reference lowers with the Pallas ring off."""
 
     HIER_OPS = frozenset(
         {Operation.allreduce, Operation.reduce_scatter,
@@ -106,6 +112,7 @@ class DCNCompiler(ScheduleCompiler):
         P = mesh.shape[outer_axis]
         self.procs = tuple(range(P)) if procs is None else tuple(procs)
         self._tiers = None
+        self._flat = None
 
     @property
     def outer_world(self) -> int:
@@ -132,34 +139,48 @@ class DCNCompiler(ScheduleCompiler):
     def _hier_tiers(self):
         return None if self.transport is None else self.tiers()
 
+    def flat_world(self):
+        """The ProcessWorld the flat bodies of the multi-process form run
+        on; None when the rows a body is given are the whole (sub)world
+        (the in-process form, or a group of one host)."""
+        if self.transport is None or self.outer_world == 1:
+            return None
+        if self._flat is None:
+            from .dcn_transport import ProcessWorld
+
+            self._flat = ProcessWorld(self.transport, self.procs,
+                                      self.inner_world)
+        return self._flat
+
+    def flat_wire(self, cfg=None, arith_lane=None) -> schedules.Wire:
+        world = self.flat_world()
+        if world is None:
+            return super().flat_wire(cfg, arith_lane)
+        return world.wire(cfg, arith_lane)
+
+    def rank_rows(self) -> range:
+        world = self.flat_world()
+        if world is None:
+            return super().rank_rows()
+        return range(world.first, world.first + self.inner_world)
+
     def _build(self, options, plan, arithcfg):
         P, L = self.outer_world, self.inner_world
         op = options.scenario
-        if plan.algorithm == Algorithm.HIER_RS_AR_AG:
+        if (plan.algorithm == Algorithm.HIER_RS_AR_AG or P == 1 or L == 1
+                or op not in self.HIER_OPS):
             # the register-gated striped composition, plan-driven (the
-            # plan's RankMap is outer-major: this device's numbering)
+            # plan's RankMap is outer-major: this device's numbering), or
+            # the flat body over the combined world (flat_wire)
             return super()._build(options, plan, arithcfg)
-        if P == 1 or L == 1 or op not in self.HIER_OPS:
-            if (self.transport is None or P == 1
-                    or op in (Operation.copy, Operation.combine)):
-                # flat over the combined world, or hop-free: the process's
-                # rows hold the whole (sub)world or need no other rank
-                return super()._build(options, plan, arithcfg)
-            if op in (Operation.send, Operation.recv):
-                root = options.root_src_dst
-                return functools.partial(
-                    self.tiers()[1].sendrecv, src=root & 0xFFFF,
-                    dst=(root >> 16) & 0xFFFF, inner_world=L,
-                    wire=self._wire(options, arithcfg, None, False))
-            raise NotImplementedError(
-                f"{op.name} has no multi-process lowering")
 
         func = ReduceFunction(options.function) if op in (
             Operation.allreduce, Operation.reduce_scatter,
             Operation.reduce) else None
         inner, outer = self.tiers()
-        common = dict(inner=inner, outer=outer,
-                      wire=self._wire(options, arithcfg, func, False))
+        # the tiers carry the hops: the composition's wire is the base one
+        common = dict(inner=inner, outer=outer, wire=schedules.Wire(
+            *self._wire_config(options, arithcfg, func, False)))
         # the device's numbering is outer-major (process-major); roots and
         # chunk relabelling go through the one mapping helper
         rm = RankMap(L, P, "outer_major")
@@ -207,11 +228,7 @@ class DCNCompiler(ScheduleCompiler):
         """A call-sequence step or a streamed call takes the flat body over
         the combined world, as the reference's compile_sequence and
         lower_streamed take its _body (not the two-tier _build): a
-        recorded batch is bitwise the flat device's calls."""
-        if self.transport is not None:
-            raise NotImplementedError(
-                "the multi-process DCNDevice records no call sequence and "
-                f"takes no streamed operand ({_SEQUENCES_ITEM})")
+        recorded batch is bitwise the flat device's calls, in both forms."""
         key = ("flat", options.signature(), plan)
         fn = self._cache.get(key)
         if fn is None:
@@ -220,6 +237,24 @@ class DCNCompiler(ScheduleCompiler):
                 arithcfg = _arithcfg_for(self.arith_table, options)
             fn = self._cache[key] = self._body(options, plan, arithcfg)
         return fn
+
+    def compile_sequence(self, seq):
+        if self.transport is not None and self.transport.rank not in \
+                self.procs:
+            # a host outside the communicator: its dispatch leaves its
+            # rows as they are (the member hosts run the batch)
+            out_idx = seq.out_idx
+            return lambda *bufs: tuple(bufs[i] for i in out_idx)
+        return super().compile_sequence(seq)
+
+    def sequence_graph(self, seq, body, inputs):
+        """The multi-process form's executable is eager by form: its hops
+        stage through the host, which a CUDA graph cannot capture, so
+        each replay runs the composed body on the card (same load /
+        replay / results contract)."""
+        if self.transport is None:
+            return super().sequence_graph(seq, body, inputs)
+        return SequenceGraph(body, inputs, capture=False)
 
 
 class DCNBuffer(GPUBuffer):
@@ -282,11 +317,6 @@ class DCNDevice(GPUDevice):
                     "torch_device='cpu' to run on the CPU")
             local = int(local_device_count or 1)
             if num_processes > 1:
-                if local == 1:
-                    raise NotImplementedError(
-                        "a multi-process DCNDevice needs local_device_count "
-                        "> 1: with one rank a host every flat schedule would "
-                        f"run across processes ({_FLAT_ITEM})")
                 if transport is None:
                     from .dcn_transport import DCNTransport
 
@@ -403,19 +433,3 @@ class DCNDevice(GPUDevice):
         full = full.clone()
         full[self._local, :out.shape[-1]] = out.to(full.dtype)
         return full
-
-    def prepare_sequence(self, options_list, lint: str = "error",
-                         persistent=frozenset()):
-        if self._local is not None:
-            raise NotImplementedError(
-                "the multi-process DCNDevice records no call sequence "
-                f"({_SEQUENCES_ITEM})")
-        return super().prepare_sequence(options_list, lint,
-                                        persistent=persistent)
-
-    def stream_put(self, options):
-        if self._local is not None:
-            raise NotImplementedError(
-                "the multi-process DCNDevice takes no stream_put "
-                f"({_SEQUENCES_ITEM})")
-        return super().stream_put(options)

@@ -1,29 +1,35 @@
-"""The cross-process tier of the multi-process DCN backend.
+"""The cross-process tiers of the multi-process DCN backend.
 
 Counterpart of what XLA does for accl_tpu/device/dcn_device.py when a
-lax.ppermute of a two-tier program crosses processes. In the port's
-multi-process form each OS process is one host: it owns L virtual ranks
-(global rank p*L + l) on its device, runs the inner tier of every
-two-tier composition on those rows itself (sequencer/hierarchical.py's
-StackedTier), and reaches the other hosts through this module:
+lax.ppermute of a program over the (dcn, ici) axes crosses processes. In
+the port's multi-process form each OS process is one host: it owns L
+virtual ranks (global rank p*L + l) on its device and reaches the other
+hosts through this module:
 
   - `connect` joins the default torch.distributed group over gloo (the
     counterpart of jax.distributed.initialize); a process whose group is
     already up reuses it;
   - `DCNTransport` moves one hop's messages between processes and tallies
     the bytes each tier sends (the reference's CountingWire measure);
-  - `ProcessTier` is the outer tier: the reference's per-rank schedule
-    bodies (schedules.py: the reduce-scatter, allreduce and allgather
-    rings, flat bcast, scatter, ring gather, ring reduce, alltoall,
-    barrier over the flat reduce, sendrecv), with this process as one
-    position on every outer ring and its L rows as that ring's L lines.
-    lax.ppermute becomes a point-to-point exchange addressed to global
-    process ranks on the default group (a position no pair addresses
-    receives zeros, as under ppermute) and lax.axis_index the process's
-    position. Every fold, cast and int8 step runs on the process's own
-    rows through the same kernels (schedules.Wire) as the stacked
-    schedules, so a process's rows equal those of the one-card form
-    bitwise.
+  - `ProcessTier` is the outer tier of the two-tier compositions
+    (sequencer/hierarchical.py, whose inner tier runs on the process's
+    own rows as a StackedTier): the reference's per-rank schedule bodies
+    (schedules.py: the reduce-scatter, allreduce and allgather rings,
+    flat bcast, scatter, ring gather, ring reduce, alltoall, barrier over
+    the flat reduce), with this process as one position on every outer
+    ring and its L rows as that ring's L lines. lax.ppermute becomes a
+    point-to-point exchange addressed to global process ranks on the
+    default group (a position no pair addresses receives zeros, as under
+    ppermute) and lax.axis_index the process's position;
+  - `ProcessWorld` is the flat combined world (every call without a
+    composition, L == 1, call sequences, streamed operands, stream_put):
+    its `ProcessWire` runs the stacked flat bodies of schedules.py
+    themselves on the process's L consecutive ranks, carrying each hop's
+    pairs that leave the process.
+
+Every fold, cast and int8 step runs on the process's own rows through the
+same kernels (schedules.Wire) as the stacked schedules, so a process's
+rows equal those of the one-card form bitwise.
 
 What crosses the process boundary is the wire's payload: the rows on an
 exact wire, the compressed dtype on a cast wire (Wire.send before the
@@ -496,23 +502,214 @@ class ProcessTier:
             out[:, src * c:(src + 1) * c] = _arrived(wire, got, like)
         return out
 
-    def sendrecv(self, x, *, src: int, dst: int, inner_world: int, wire):
-        """sendrecv_schedule (:186) between the (sub)world's global ranks
-        src and dst (rank g at position g // inner_world, local row
-        g % inner_world): dst's row becomes src's, every other row keeps
-        its own."""
-        L = inner_world
-        out = x.clone()
-        if src == dst:
-            return out
-        ps, pd, rs, rd = src // L, dst // L, src % L, dst % L
-        row = x[rs:rs + 1]
-        if ps == pd:
-            if self.me == ps:
-                out[rd:rd + 1] = wire.transfer(row)
-            return out
-        got = self._hop([(ps, pd)], lambda: _moved(wire, row.contiguous()),
-                        _moved_spec(wire, row), x.device)
-        if self.me == pd:
-            out[rd:rd + 1] = _arrived(wire, got, row)
+
+class ProcessWorld:
+    """The flat world of the multi-process form: the W = len(procs) * L
+    ranks of a (sub)world, process-major (rank g lives at row g % L of
+    process procs[g // L], RankMap(L, P, "outer_major")). This process
+    holds the L consecutive ranks [first, first + L), its rows of every
+    buffer (DCNBuffer.local). ProcessTier is one position with L lines;
+    this is L consecutive positions on one line, and with L == 1 every
+    hop leaves the process.
+
+    Its wires (`wire`) run the stacked flat bodies of sequencer/schedules
+    on this process's rows with their global ranks: a hop's pairs inside
+    the process move as rows on the device, the pairs that cross go
+    through DCNTransport.exchange as one byte message a peer process a
+    hop, tallied under the tier name "flat"."""
+
+    name = "flat"
+
+    def __init__(self, transport: DCNTransport, procs, local: int):
+        self.transport = transport
+        self.procs = tuple(procs)
+        self.L = local
+        self.world = len(self.procs) * local
+        self.first = self.procs.index(transport.rank) * local
+
+    def wire(self, cfg=None, arith_lane: int | None = None) -> "ProcessWire":
+        return ProcessWire(self, cfg, arith_lane)
+
+    def held(self, rank: int) -> bool:
+        return self.first <= rank < self.first + self.L
+
+    def route(self, parts, src, dst, k: int, send: Callable,
+              spec: Callable, recv: Callable):
+        """One hop of rank pairs (src[i], dst[i]) over `parts` (tensors of
+        this process's ranks, k consecutive rows a rank): send(rows) is
+        the sender's half of the wire (the tensors a message carries for
+        those rows), spec(n) the layout of a message of n rows, recv(msg)
+        the receiver's half. A pair inside the process takes both halves
+        on the device. Returns (at, landed): the row index of the ranks of
+        dst this process holds, in dst's order, and their rows (each
+        part's), or (_NOWHERE, None) when none lands here."""
+        L, first = self.L, self.first
+        sends: dict[int, list[int]] = {}
+        recvs: dict[int, list[int]] = {}
+        local_src, local_at = [], []
+        land: list[int] = []
+        for s, d in zip(src, dst):
+            if self.held(d):
+                if self.held(s):
+                    local_src.append(s - first)
+                    local_at.append(len(land))
+                else:
+                    recvs.setdefault(self.procs[s // L], []).append(len(land))
+                land.append(d - first)
+            elif self.held(s):
+                sends.setdefault(self.procs[d // L], []).append(s - first)
+        device = parts[0].device
+        got = {}
+        if sends or recvs:
+            got = self.transport.exchange(
+                self.name,
+                {peer: send([p[_rows(ss, k, device)] for p in parts])
+                 for peer, ss in sends.items()},
+                {peer: spec(len(ls) * k) for peer, ls in recvs.items()},
+                device)
+        if not land:
+            return schedules._NOWHERE, None
+        groups = [(local_at, recv(send([p[_rows(local_src, k, device)]
+                                        for p in parts])))] \
+            if local_src else []
+        groups += [(recvs[peer], recv(msg)) for peer, msg in got.items()]
+        at = _rows(land, k, device)
+        if len(groups) == 1 and groups[0][0] == list(range(len(land))):
+            return at, groups[0][1]
+        landed = [t.new_empty((len(land) * k, *t.shape[1:]))
+                  for t in groups[0][1]]
+        for where, ts in groups:
+            i = _rows(where, k, device)
+            for out, t in zip(landed, ts):
+                out[i] = t
+        return at, landed
+
+    def swap(self, parts) -> list:
+        """The slot exchange: each (tensor, dim) of `parts` holds this
+        process's L rows (dim 0) of W slots along `dim`; slot s of rank r
+        goes to slot r of rank s. One message a peer for all parts."""
+        L, first = self.L, self.first
+        me = first // L
+        out = [torch.empty_like(t) for t, _ in parts]
+        for o, (t, dim) in zip(out, parts):
+            o.narrow(dim, first, L).copy_(
+                t.narrow(dim, first, L).transpose(0, dim))
+        peers = [q for q in range(len(self.procs)) if q != me]
+        got = self.transport.exchange(
+            self.name,
+            {self.procs[q]: [t.narrow(dim, q * L, L) for t, dim in parts]
+             for q in peers},
+            {self.procs[q]: [(tuple(t.narrow(dim, first, L).shape), t.dtype)
+                             for t, dim in parts] for q in peers},
+            parts[0][0].device)
+        for q in peers:
+            for o, (_, dim), r in zip(out, parts, got[self.procs[q]]):
+                o.narrow(dim, q * L, L).copy_(r.transpose(0, dim))
         return out
+
+
+def _rows(ranks: list[int], k: int, device):
+    """The row index of local ranks with k rows each: a slice when they
+    are consecutive, else an index tensor."""
+    if ranks == list(range(ranks[0], ranks[0] + len(ranks))):
+        return slice(ranks[0] * k, (ranks[0] + len(ranks)) * k)
+    return schedules._index([r * k + j for r in ranks for j in range(k)],
+                            device)
+
+
+def _specs(like: list[tuple]) -> Callable:
+    """spec(n) of a message carrying n rows of tensors whose rows are laid
+    out as `like` [(row shape, dtype), ...]."""
+    return lambda n: [((n, *shape), dtype) for shape, dtype in like]
+
+
+def _same(parts):
+    return list(parts)
+
+
+class ProcessWire(schedules.Wire):
+    """schedules.Wire on a process's rows of the flat world: the stacked
+    bodies' hops (ppermute, hop, exchange, swap, permute, move,
+    move_encoded) carried by the ProcessWorld, every transform (cast,
+    encode, decode, fold) the base Wire's on the device, so this
+    process's rows are bitwise those of the stacked body over every
+    rank. `k` rows a rank: the lockstep ring's segments."""
+
+    lockstep = True
+
+    def __init__(self, world: ProcessWorld, cfg=None,
+                 arith_lane: int | None = None, k: int = 1):
+        super().__init__(cfg, arith_lane)
+        self.world = world
+        self.first = world.first
+        self.k = k
+
+    def per_rank(self, k: int) -> "ProcessWire":
+        return ProcessWire(self.world, self.cfg, self.arith_lane, k)
+
+    def row(self, rank: int) -> int | None:
+        return rank - self.first if self.world.held(rank) else None
+
+    def local(self, ranks, device):
+        mine = [r - self.first for r in ranks if self.world.held(r)]
+        return _rows(mine, 1, device) if mine else schedules._NOWHERE
+
+    def _halves(self, rows: torch.Tensor):
+        """(send, spec, recv) of this wire's payload of rows like `rows`."""
+        row_spec = [(shape[1:], dtype) for shape, dtype
+                    in _moved_spec(self, rows[:1])]
+        return (lambda ps: _moved(self, ps[0]), _specs(row_spec),
+                lambda msg: [_arrived(self, msg, rows)])
+
+    def move(self, x, src, dst, cols=None):
+        part = x if cols is None else x[:, cols]
+        at, landed = self.world.route([part], src, dst, self.k,
+                                      *self._halves(part))
+        return at, (part[:0] if landed is None else landed[0])
+
+    def move_encoded(self, x, src, dst):
+        at, landed = self.world.route(
+            [x], src, dst, self.k, lambda ps: list(self.encode(ps[0])),
+            _specs([(shape[1:], dtype) for shape, dtype in _enc_spec(x[:1])]),
+            _same)
+        return at, (None if landed is None else tuple(landed))
+
+    def _permuted(self, parts, perm, send, spec, recv):
+        """Rows no pair addresses receive zeros, as under ppermute."""
+        src, dst = zip(*perm) if perm else ((), ())
+        at, landed = self.world.route(parts, src, dst, self.k, send, spec,
+                                      recv)
+        if landed is None:
+            return [torch.zeros_like(p) for p in parts]
+        if isinstance(at, slice) and at == slice(0, parts[0].shape[0]):
+            return landed  # every row received
+        outs = [torch.zeros_like(p) for p in parts]
+        for out, t in zip(outs, landed):
+            out[at] = t
+        return outs
+
+    def ppermute(self, x, perm):
+        return self._permuted([x], perm, *self._halves(x))[0]
+
+    def permute(self, x, perm):
+        return self._permuted([x], perm, _same,
+                              _specs([(tuple(x.shape[1:]), x.dtype)]),
+                              _same)[0]
+
+    def hop(self, enc, perm):
+        q, s = enc
+        return tuple(self._permuted(
+            [q, s], perm, _same,
+            _specs([(tuple(q.shape[1:]), q.dtype),
+                    (tuple(s.shape[1:]), s.dtype)]), _same))
+
+    def exchange(self, enc, world: int):
+        """The block-aligned int8 exchange: each rank's W slots of codes
+        and scales (x's layout), one message a peer for both."""
+        views = [t.reshape(*t.shape[:-1], world, t.shape[-1] // world)
+                 for t in enc]
+        out = self.world.swap([(v, v.dim() - 2) for v in views])
+        return tuple(o.reshape(t.shape) for o, t in zip(out, enc))
+
+    def swap(self, grid):
+        return self.world.swap([(grid, 1)])[0]

@@ -611,16 +611,18 @@ class GPUDevice(CCLODevice):
         if fn is None:
             body = functools.partial(
                 schedules.sendrecv_schedule, src=src, dst=dst,
-                world=self.world, wire=schedules.Wire(None))
-            body = splice_producer(body, prod, options.count, self.world)
+                world=self.world, wire=self.compiler.flat_wire())
+            body = splice_producer(body, prod, options.count,
+                                   self.compiler.rank_rows())
             fn = self._stream_cache[key] = splice_consumer(body, cons)
         if res.device is None:  # host-only result: materialize first
             res.sync_to_device()
-        out, events, t0 = self._run(fn, [slice_to(res.device,
-                                                  options.count)])
+        ctx = self._comm_ctx(0)
+        out, events, t0 = self._run(fn, [self._member_rows(
+            res.device, ctx, options.count)])
 
         def place(req):
-            res.device = place_into(res.device, out)
+            res.device = self._place(res.device, ctx, out)
 
         return self._request("stream_put", out, events, t0, place)
 

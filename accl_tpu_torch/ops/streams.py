@@ -13,11 +13,14 @@ The calling convention (the reference's producer runs per rank inside
 shard_map and reads its rank from `lax.axis_index`; the port runs every
 rank at once on stacked tensors):
 
-  producer(ranks) -> operand   `ranks` is the (world, 1) int64 tensor
-                               0..world-1 on the body's device (the
-                               counterpart of lax.axis_index); the
-                               result is the stacked (world, n) operand,
-                               row r rank r's. It is read once and never
+  producer(ranks) -> operand   `ranks` is the (rows, 1) int64 tensor of
+                               the ranks whose rows the body takes, on
+                               its device (the counterpart of
+                               lax.axis_index): 0..world-1 on one card,
+                               a process's own ranks in the
+                               multi-process DCN form; the result is the
+                               stacked (rows, n) operand, row i rank
+                               ranks[i]'s. It is read once and never
                                segmented (OP0_STREAM), and cut to the
                                step's operand width.
   consumer(result) -> result   maps the stacked (world, n) result to the
@@ -88,20 +91,22 @@ def _IDENTITY(x):
     return x
 
 
-def splice_producer(body, producer, n_expected: int, world: int):
+def splice_producer(body, producer, n_expected: int, ranks: range):
     """Wrap a 1-operand schedule body so its operand comes from the
     producer instead of a buffer (OP0_STREAM: streams are read once,
-    never segmented). The placeholder operand only names the device."""
+    never segmented); `ranks` are the ranks whose rows the body takes.
+    The placeholder operand only names the device."""
+    n = len(ranks)
 
     def wrapped(placeholder: torch.Tensor):
-        ranks = torch.arange(world, dtype=torch.int64,
-                             device=placeholder.device).reshape(world, 1)
-        data = producer(ranks)
-        if data.dim() < 2 or data.shape[0] != world:
+        idx = torch.arange(ranks.start, ranks.stop, dtype=torch.int64,
+                           device=placeholder.device).reshape(n, 1)
+        data = producer(idx)
+        if data.dim() < 2 or data.shape[0] != n:
             raise ValueError(
-                f"a stream producer returns the stacked ({world}, n) "
+                f"a stream producer returns the stacked ({n}, n) "
                 f"operand, got shape {tuple(data.shape)}")
-        return body(data.reshape(world, -1)[:, :n_expected])
+        return body(data.reshape(n, -1)[:, :n_expected])
 
     return wrapped
 

@@ -80,8 +80,31 @@ class ScheduleCompiler:
         func: ReduceFunction | None,
         compressed_domain: bool,
     ) -> schedules.Wire:
+        """The wire a flat body takes (`flat_wire`) for the call's
+        datapath config (`_wire_config`)."""
+        return self.flat_wire(*self._wire_config(options, arithcfg, func,
+                                                 compressed_domain))
+
+    def flat_wire(self, cfg=None,
+                  arith_lane: int | None = None) -> schedules.Wire:
+        """The Wire of this compiler's flat bodies: every rank's row on
+        one card here (the multi-process DCN compiler's carries the hops
+        that leave its process)."""
+        return schedules.Wire(cfg, arith_lane)
+
+    def rank_rows(self) -> range:
+        """The ranks whose rows a flat body is given: every rank here."""
+        return range(self.world)
+
+    def _wire_config(
+        self,
+        options: CallOptions,
+        arithcfg: ArithConfig | None,
+        func: ReduceFunction | None,
+        compressed_domain: bool,
+    ) -> tuple:
         """Resolve the datapath config: which compression lanes wrap each
-        hop and which arith lane reductions use."""
+        hop and which arith lane reductions use, as (cfg, arith_lane)."""
         arith_lane = None
         if arithcfg is not None and func is not None:
             arith_lane = arithcfg.arith_lanes[int(func)]
@@ -93,7 +116,7 @@ class ScheduleCompiler:
         # in compressed-domain execution the operand is cast once up
         # front, so per-hop lanes are disabled
         cfg = arithcfg if (eth and not compressed_domain) else None
-        return schedules.Wire(cfg, arith_lane)
+        return cfg, arith_lane
 
     def compile(
         self,
@@ -132,7 +155,9 @@ class ScheduleCompiler:
             # entry carries its encode/decode nodes, so no per-hop wire
             from . import synthesis
 
-            return synthesis.lower_plan(plan, options, world)
+            return synthesis.lower_plan(plan, options, world,
+                                        permute=self.flat_wire().permute,
+                                        ranks=self.rank_rows())
         if plan.algorithm == Algorithm.HIER_RS_AR_AG:
             return self._hier_body(options, plan, arithcfg)
         func = ReduceFunction(options.function) if op in (
@@ -396,7 +421,7 @@ class ScheduleCompiler:
                         f"OP0_STREAM unsupported for {options.scenario.name}")
                 body = splice_producer(body, producer,
                                        step_in_elems(options, self.world),
-                                       self.world)
+                                       self.rank_rows())
             if consumer is not None:
                 body = splice_consumer(body, consumer)
             fn = self._cache[key] = body
@@ -490,10 +515,12 @@ class SequenceGraph:
     body. The graph's outputs live in its private memory pool, which the
     next replay overwrites, so `results` clones them out.
 
-    On the CPU the body runs eagerly on the static inputs at each
+    On the CPU, or with `capture=False` (a body whose hops stage through
+    the host), the body runs eagerly on the static inputs at each
     `replay`, through the same load and results steps."""
 
-    def __init__(self, body: Callable, inputs: list[torch.Tensor]):
+    def __init__(self, body: Callable, inputs: list[torch.Tensor],
+                 capture: bool = True):
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                        for t in inputs]
         self.load(inputs)
@@ -503,7 +530,7 @@ class SequenceGraph:
         # host seconds of the eager warm-up run and of the capture
         self.warmup_s = self.capture_s = 0.0
         device = self.inputs[0].device
-        if device.type != "cuda":
+        if device.type != "cuda" or not capture:
             return
         import time
 

@@ -54,11 +54,12 @@ def _ring_perm(world: int, distance: int = 1) -> list[tuple[int, int]]:
     return [(i, (i + distance) % world) for i in range(world)]
 
 
-def _ring_ctx(x: torch.Tensor, world: int, ring=None):
+def _ring_ctx(x: torch.Tensor, world: int, ring=None, wire=None):
     """The ring a schedule runs on: (rows, pos, perm). By default the ring
     IS the rank axis: row r's position is r (the stacked tensor's form of
-    lax.axis_index) and a hop is the distance-1 rotation. `ring=(pos,
-    perm)` embeds the same schedule onto sub-rings of a wider rank axis
+    lax.axis_index; wire.first + r when the rows are one process's share
+    of the ranks) and a hop is the distance-1 rotation. `ring=(pos, perm)`
+    embeds the same schedule onto sub-rings of a wider rank axis
     (the two-tier compositions of hierarchical.py): `pos` holds every
     row's position on its ring, [0, world), and `perm` the global (src,
     dst) row pairs of one ring hop (every sub-ring advancing in
@@ -67,7 +68,8 @@ def _ring_ctx(x: torch.Tensor, world: int, ring=None):
     reference."""
     rows = torch.arange(x.shape[0], device=x.device)
     if ring is None:
-        return rows, rows, _ring_perm(world)
+        first = 0 if wire is None else wire.first
+        return rows, (rows + first if first else rows), _ring_perm(world)
     pos, perm = ring
     return rows, pos, perm
 
@@ -160,7 +162,23 @@ class Wire:
     Cast lanes wrap each hop as compress -> permute -> decompress. The
     blockwise int8 lanes carry an encoded (codes, scales) pair instead,
     through `encode`/`hop`/`decode`, so the ring relays or fuses the
-    encoded form without going through fp32 at every hop."""
+    encoded form without going through fp32 at every hop.
+
+    Every hop a body makes goes through this class: `ppermute`, `hop`,
+    `exchange`, `swap`, `permute` and `move` (row moves addressed by
+    rank), and a body names the rows it writes by rank through `local`
+    and `row`. Here a body holds every rank's row, row r rank r's; the
+    multi-process form's ProcessWire (device/dcn_transport.py) runs the
+    same bodies on one process's consecutive share of the ranks (`first`
+    is the rank of its row 0) and carries the hops that leave it across
+    processes."""
+
+    # the rank of the first row a body is given
+    first = 0
+    # run a segmented ring's whole segments in lockstep, one hop a ring
+    # step for all of them (_allreduce_lockstep); such a wire has
+    # per_rank(k), itself for tensors of k consecutive rows a rank
+    lockstep = False
 
     def __init__(self, cfg=None, arith_lane: int | None = None):
         self.cfg = cfg  # ArithConfig when wire compression is active
@@ -196,6 +214,40 @@ class Wire:
         is row src of the input, through the wire, for each (src, dst)
         pair of perm; rows no pair addresses receive zeros."""
         return _permute(x, perm, self.transfer)
+
+    def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """A hop with no wire transform (a synthesized DAG's recv round,
+        whose encodes and casts are nodes of their own)."""
+        return _permute(x, perm)
+
+    def move(self, x: torch.Tensor, src, dst, cols=None):
+        """One hop of rows: rank src[k]'s row of x (its columns `cols`)
+        lands at rank dst[k] through the wire. Returns (at, rows): the
+        index of the landing rows this form holds and what lands there,
+        in dst's order."""
+        i = _index(list(src), x.device)
+        rows = x[i] if cols is None else x[i, cols]
+        return _index(list(dst), x.device), self.transfer(rows)
+
+    def move_encoded(self, x: torch.Tensor, src, dst):
+        """`move` of the int8 wire's encoded form: rank src[k]'s row is
+        encoded at its sender and its (codes, scales) land at dst[k] as
+        one message (which round-trips the pair exactly)."""
+        return (_index(list(dst), x.device),
+                self.encode(x[_index(list(src), x.device)]))
+
+    def local(self, ranks, device: torch.device):
+        """The index of the rows of `ranks` this form holds."""
+        return _index(list(ranks), device)
+
+    def row(self, rank: int) -> int | None:
+        """The row of `rank`, None when this form does not hold it."""
+        return rank
+
+    def swap(self, grid: torch.Tensor) -> torch.Tensor:
+        """The [rank, slot] transpose of a (rank, slot, ...) grid: slot s
+        of rank r to slot r of rank s, no wire transform."""
+        return grid.transpose(0, 1).contiguous()
 
     def combine(self, func: ReduceFunction, a: torch.Tensor,
                 b: torch.Tensor,
@@ -286,39 +338,47 @@ def sendrecv_schedule(x: torch.Tensor, *, src: int, dst: int, world: int,
     out = x.clone()
     if src == dst:
         return out
-    out[dst:dst + 1] = wire.transfer(x[src:src + 1])
+    at, got = wire.move(x, [src], [dst])
+    out[at] = got
     return out
 
 
-def fused_recv_reduce(acc: torch.Tensor, recv: torch.Tensor, receivers,
+def fused_recv_reduce(acc: torch.Tensor, recv: torch.Tensor, rows,
                       func, wire: Wire) -> torch.Tensor:
     """The fused recv-reduce primitive: combine the partials that arrived
-    at the rows `receivers` (recv holds one row per receiver, in order)
-    into the accumulator on those rows only, through the configured arith
-    lane — combine(acc, recv), the reference's operand order. A lane of
-    another dtype than the accumulator's (a bf16 lane over fp32 buffers)
-    is widened back, as the reference's select promotes it. Updates the
-    schedule's own accumulator in place and returns it."""
-    rows = _index(list(receivers), acc.device)
+    at the accumulator's rows `rows` (an index; recv holds one row per
+    receiver, in order) into the accumulator on those rows only, through
+    the configured arith lane — combine(acc, recv), the reference's
+    operand order. A lane of another dtype than the accumulator's (a bf16
+    lane over fp32 buffers) is widened back, as the reference's select
+    promotes it. Updates the schedule's own accumulator in place and
+    returns it."""
     acc[rows] = cast(wire.combine(func, acc[rows], recv), acc.dtype)
     return acc
 
 
-def _hop_reduce(acc: torch.Tensor, sent: torch.Tensor, receivers, func,
-                wire: Wire) -> torch.Tensor:
-    """One hop of the partials `sent` to the rows `receivers` (one sent row
-    per receiver), folded into the accumulator there. On the quantized
-    wire the arrival's decode and the fold are one step (the fused
-    dequantize-combine): XLA contracts the reference's decode multiply
-    and its SUM add into one fused multiply-add. The reference packs the
-    encoded pair into one message and unpacks it; the bytes round-trip
-    exactly, so the pair is folded as encoded."""
+# `at` of a move that lands on no row this form holds
+_NOWHERE = slice(0, 0)
+
+
+def _hop_reduce(acc: torch.Tensor, src: torch.Tensor, senders, receivers,
+                func, wire: Wire) -> torch.Tensor:
+    """One hop of the partials held by the ranks `senders` (rows of
+    `src`) to the ranks `receivers`, one sender a receiver, folded into
+    the accumulator there. On the quantized wire the arrival's decode and
+    the fold are one step (the fused dequantize-combine): XLA contracts
+    the reference's decode multiply and its SUM add into one fused
+    multiply-add. The reference packs the encoded pair into one message
+    and unpacks it; the bytes round-trip exactly, so the pair is folded
+    as encoded."""
     if not wire.quantized:
-        return fused_recv_reduce(acc, wire.transfer(sent), receivers, func,
-                                 wire)
-    enc = wire.encode(sent)
-    rows = _index(list(receivers), acc.device)
-    acc[rows] = wire.combine_decoded(func, enc, acc[rows])
+        at, got = wire.move(src, senders, receivers)
+        if at is not _NOWHERE:
+            fused_recv_reduce(acc, got, at, func, wire)
+        return acc
+    at, enc = wire.move_encoded(src, senders, receivers)
+    if at is not _NOWHERE:
+        acc[at] = wire.combine_decoded(func, enc, acc[at])
     return acc
 
 
@@ -344,11 +404,11 @@ def bcast_flat_schedule(x: torch.Tensor, *, root: int, world: int,
     destination (W-1 hops). Under `ring` (_ring_lines) the root is a
     position on every line and each hop serves all lines."""
     lines = _ring_lines(world, ring)
-    src = _index(lines[root], x.device)
     out = x.clone()
     for j in range(world):
         if j != root:
-            out[_index(lines[j], x.device)] = wire.transfer(x[src])
+            at, got = wire.move(x, lines[root], lines[j])
+            out[at] = got
     return out
 
 
@@ -361,8 +421,8 @@ def bcast_bin_tree_schedule(x: torch.Tensor, *, root: int, world: int,
     d = 1 << _fast_log2(world - 1)
     while d > 0:
         src, dst = zip(*_tree_round(world, root, d, up=False))
-        x[_index(list(dst), x.device)] = wire.transfer(
-            x[_index(list(src), x.device)])
+        at, got = wire.move(x, src, dst)
+        x[at] = got
         d >>= 1
     return x
 
@@ -380,13 +440,14 @@ def scatter_schedule(x: torch.Tensor, *, root: int, world: int,
     bcast_flat_schedule."""
     count = x.shape[-1] // world
     lines = _ring_lines(world, ring)
-    src = _index(lines[root], x.device)
+    own = wire.local(lines[root], x.device)
     out = x.new_empty((x.shape[0], count))
-    out[src] = x[src, root * count:(root + 1) * count]
+    out[own] = x[own, root * count:(root + 1) * count]
     for j in range(world):
         if j != root:
-            out[_index(lines[j], x.device)] = wire.transfer(
-                x[src, j * count:(j + 1) * count])
+            at, got = wire.move(x, lines[root], lines[j],
+                                slice(j * count, (j + 1) * count))
+            out[at] = got
     return out
 
 
@@ -400,7 +461,7 @@ def gather_ring_schedule(x: torch.Tensor, *, root: int, world: int,
     bcast_flat_schedule."""
     count = x.shape[-1]
     perm = _ring_perm(world) if ring is None else ring[1]
-    dst = _index(_ring_lines(world, ring)[root], x.device)
+    dst = wire.local(_ring_lines(world, ring)[root], x.device)
     out = x.new_zeros((x.shape[0], world, count))
     out[:, root] = x
     relay = x
@@ -420,24 +481,27 @@ def gather_flat_schedule(x: torch.Tensor, *, root: int, world: int,
     sender's subtree [ln, min(ln+d, W)). Every rank's result starts as
     zeros with its own chunk at its own slot."""
     count = x.shape[-1]
-    me = torch.arange(world, device=x.device)
-    out = x.new_zeros((world, world, count))
-    out[me, me] = x
+    rows, me, _ = _ring_ctx(x, world, wire=wire)
+    out = x.new_zeros((x.shape[0], world, count))
+    out[rows, me] = x
     if fanin >= world - 1:
         for j in range(world):
             if j != root:
-                out[root, j] = wire.transfer(x[j:j + 1])[0]
-        return out.reshape(world, world * count)
-    flat = out.view(world, world * count)
+                at, got = wire.move(x, [j], [root])
+                out[at, j] = got
+        return out.reshape(x.shape[0], world * count)
+    flat = out.view(x.shape[0], world * count)
     d = 1
     while d < world:
         pairs = _tree_round(world, root, d, up=True)
-        recv = wire.transfer(flat[_index([c for c, _ in pairs], x.device)])
-        for (child, parent), row in zip(pairs, recv):
+        _, recv = wire.move(flat, [c for c, _ in pairs],
+                            [p for _, p in pairs])
+        for (child, parent), row in zip(
+                [cp for cp in pairs if wire.row(cp[1]) is not None], recv):
             ln = (child - root) % world
             sub = _index([(root + k) % world
                           for k in range(ln, min(ln + d, world))], x.device)
-            out[parent, sub] = row.view(world, count)[sub]
+            out[wire.row(parent), sub] = row.view(world, count)[sub]
         d *= 2
     return flat
 
@@ -460,7 +524,7 @@ def reduce_scatter_ring_schedule(x: torch.Tensor, *, func, world: int,
     if wire.quantized:
         return _reduce_scatter_ring_quant(x, func=func, world=world,
                                           wire=wire, ring=ring)
-    rows, me, perm = _ring_ctx(x, world, ring)
+    rows, me, perm = _ring_ctx(x, world, ring, wire)
     xs = _chunks(x, world)
     v = xs[rows, (me - 1) % world]
     for s in range(world - 1):
@@ -478,7 +542,7 @@ def allgather_ring_schedule(x: torch.Tensor, *, world: int, wire: Wire,
     `ring` embeds the ring onto sub-rings (_ring_ctx)."""
     if wire.quantized:
         return _allgather_ring_quant(x, world=world, wire=wire, ring=ring)
-    rows, me, perm = _ring_ctx(x, world, ring)
+    rows, me, perm = _ring_ctx(x, world, ring, wire)
     count = x.shape[-1]
     out = x.new_zeros((x.shape[0], world, count))
     out[rows, me] = x
@@ -496,7 +560,7 @@ def _reduce_scatter_ring_quant(x: torch.Tensor, *, func, world: int,
     between hops while every interior combine runs the fused dequantize
     -> reduce (fp32) -> requantize step; the terminal hop lands the fp32
     partial (W-1 quantization passes on a partial's path)."""
-    rows, me, perm = _ring_ctx(x, world, ring)
+    rows, me, perm = _ring_ctx(x, world, ring, wire)
     xs = _chunks(x, world)
     out = xs[rows, (me - 1) % world]
     if world == 1:  # no hop: the local chunk (the reference's encode is dead)
@@ -518,7 +582,7 @@ def _allgather_ring_quant(x: torch.Tensor, *, world: int, wire: Wire,
     (codes, scales) pair relays unchanged. The local chunk takes the same
     encode/decode round trip as the remote copies, which is what makes
     the quantized allreduce's result identical on every rank."""
-    rows, me, perm = _ring_ctx(x, world, ring)
+    rows, me, perm = _ring_ctx(x, world, ring, wire)
     count = x.shape[-1]
     out = x.new_zeros((x.shape[0], world, count))
     enc = wire.encode(x)
@@ -544,8 +608,7 @@ def reduce_ring_schedule(x: torch.Tensor, *, root: int, func, world: int,
     for s in range(world - 1):
         sender = (root + 1 + s) % world
         receiver = (sender + 1) % world
-        _hop_reduce(acc, acc[_index(lines[sender], x.device)],
-                    lines[receiver], func, wire)
+        _hop_reduce(acc, acc, lines[sender], lines[receiver], func, wire)
     return acc
 
 
@@ -558,8 +621,7 @@ def reduce_flat_schedule(x: torch.Tensor, *, root: int, func, world: int,
     acc = x.clone()
     for j in range(world):
         if j != root:
-            _hop_reduce(acc, x[_index(lines[j], x.device)], lines[root],
-                        func, wire)
+            _hop_reduce(acc, x, lines[j], lines[root], func, wire)
     return acc
 
 
@@ -572,8 +634,7 @@ def reduce_bin_tree_schedule(x: torch.Tensor, *, root: int, func,
     d = 1
     while d < world:
         src, dst = zip(*_tree_round(world, root, d, up=True))
-        _hop_reduce(acc, acc[_index(list(src), acc.device)], dst, func,
-                    wire)
+        _hop_reduce(acc, acc, src, dst, func, wire)
         d *= 2
     return acc
 
@@ -592,12 +653,15 @@ def allreduce_ring_schedule(x: torch.Tensor, *, func, world: int, wire: Wire,
     exactly the survivors' data and the certifier can hold the lifted
     body to the survivor sum (a dead rank's stale buffer never leaks a
     ghost contribution). Every rank still relays its ring position; SUM
-    only, where zero is the fold's identity (the facade enforces it)."""
+    only, where zero is the fold's identity (the facade enforces it).
+
+    On a `wire.lockstep` wire the whole segments run in lockstep
+    (_allreduce_lockstep)."""
     if live_ranks is not None:
         x = torch.where(_live_mask(tuple(live_ranks), world, x.device), x,
                         torch.zeros_like(x))
 
-    def one_segment(seg: torch.Tensor) -> torch.Tensor:
+    def one_segment(seg: torch.Tensor, wire=wire, ring=ring) -> torch.Tensor:
         padded = _pad_to_multiple(seg, world)
         red = reduce_scatter_ring_schedule(padded, func=func, world=world,
                                            wire=wire, ring=ring)
@@ -605,7 +669,33 @@ def allreduce_ring_schedule(x: torch.Tensor, *, func, world: int, wire: Wire,
                                            ring=ring)
         return gathered[:, : seg.shape[-1]]
 
+    if wire.lockstep and ring is None and live_ranks is None:
+        return _allreduce_lockstep(one_segment, x, world, wire, seg_count)
     return segmented_apply(one_segment, x, seg_count)
+
+
+def _allreduce_lockstep(one_segment: Callable, x: torch.Tensor, world: int,
+                        wire: Wire, seg_count: int) -> torch.Tensor:
+    """The segmented ring with its whole segments in lockstep: each rank's
+    k whole segments become k rows of its own (rank r's rows r*k ..
+    r*k+k-1 at ring position r), so one ring body runs every segment and
+    each of its hops carries that step's chunk of all of them (one message
+    a peer a step across processes, not k). Segments are independent and
+    every fold, cast and int8 block stays within one row, so each element
+    is folded as in the per-segment loop, bitwise; a ragged last segment
+    runs on its own."""
+    count, rows = x.shape[-1], x.shape[0]
+    k = count // seg_count
+    if k < 2:
+        return _segmented_apply(one_segment, x, seg_count)
+    head = k * seg_count
+    _, pos, perm = _ring_ctx(x, world, wire=wire)
+    out = one_segment(x[:, :head].reshape(rows * k, seg_count),
+                      wire.per_rank(k),
+                      (pos.repeat_interleave(k), perm)).reshape(rows, head)
+    if head == count:
+        return out
+    return torch.cat([out, one_segment(x[:, head:])], dim=-1)
 
 
 def segmented_apply(one_segment: Callable, x: torch.Tensor, seg_count: int,
@@ -678,29 +768,30 @@ def alltoall_schedule(x: torch.Tensor, *, world: int,
     if wire.quantized:
         if count % QUANT_BLOCK_ELEMS == 0:
             return _alltoall_quant_aligned(x, world=world, wire=wire)
-        me = torch.arange(world, device=x.device)
+        rows, me, _ = _ring_ctx(x, world, wire=wire)
         out = torch.zeros_like(grid)
-        out[me, me] = grid[me, me]
+        out[rows, me] = grid[rows, me]
         for k in range(1, world):
-            _alltoall_hop(out, grid[me, (me + k) % world], k, wire)
+            _alltoall_hop(out, grid[rows, (me + k) % world], k, wire, rows,
+                          me)
         return out.movedim(1, -2).reshape(x.shape)
-    out = grid.transpose(0, 1).contiguous()
+    out = wire.swap(grid)
     if wire.cfg is not None:
-        me = torch.arange(world, device=x.device)
+        rows, me, _ = _ring_ctx(x, world, wire=wire)
         out = wire.transfer(out)
-        out[me, me] = grid[me, me]
+        out[rows, me] = grid[rows, me]
     return out.movedim(1, -2).reshape(x.shape)
 
 
 def _alltoall_hop(out: torch.Tensor, sent: torch.Tensor, k: int,
-                  wire: Wire) -> None:
-    """Step k of the rotation: `sent` holds, per rank, the (prefix of the)
-    slot it sends to rank me+k; each arrival lands in slot me-k of its
-    receiver's row of the [rank, slot, *lead, elem] grid `out`."""
-    world = out.shape[0]
-    me = torch.arange(world, device=out.device)
-    recv = torch.roll(wire.transfer(sent), k, 0)  # row d: from rank d-k
-    out[me, (me - k) % world, ..., :sent.shape[-1]] = recv
+                  wire: Wire, rows: torch.Tensor, me: torch.Tensor) -> None:
+    """Step k of the rotation: `sent` holds, per row (its rank in `me`),
+    the (prefix of the) slot it sends to rank me+k; each arrival lands in
+    slot me-k of its receiver's row of the [rank, slot, *lead, elem] grid
+    `out`."""
+    world = out.shape[1]
+    recv = wire.ppermute(sent, _ring_perm(world, k))  # from rank me-k
+    out[rows, (me - k) % world, ..., :sent.shape[-1]] = recv
 
 
 def _alltoall_quant_aligned(x: torch.Tensor, *, world: int,
@@ -716,10 +807,10 @@ def _alltoall_quant_aligned(x: torch.Tensor, *, world: int,
     lead = x.shape[1:-1]
     out = wire.decode(wire.exchange(wire.encode(x), world), x.shape[-1],
                       x.dtype)
-    me = torch.arange(world, device=x.device)
-    grid = x.reshape(world, *lead, world, count).movedim(-2, 1)
-    out.view(world, *lead, world, count).movedim(-2, 1)[me, me] = \
-        grid[me, me]
+    rows, me, _ = _ring_ctx(x, world, wire=wire)
+    grid = x.reshape(x.shape[0], *lead, world, count).movedim(-2, 1)
+    out.view(x.shape[0], *lead, world, count).movedim(-2, 1)[rows, me] = \
+        grid[rows, me]
     return out
 
 
@@ -754,7 +845,7 @@ def alltoallv_schedule(x: torch.Tensor, *, peer_counts, world: int,
         for k in range(1, world):
             dst = (me + k) % world
             _alltoall_hop(out, torch.where(valid[dst], grid[me, dst], 0), k,
-                          wire)
+                          wire, me, me)
         return out.reshape(x.shape)
     # rank r's slot s holds source s's slot r, cut to r's capacity
     moved = torch.where(valid[:, None], grid.transpose(0, 1), 0)

@@ -56,6 +56,7 @@ into one fused multiply-add.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -1749,10 +1750,10 @@ def _blocks(values: Sequence[Value], round_of: dict[int, int],
         for (r, part), (rows, src, dst) in moves.items()))
 
 
-def _take(env: dict, slot: _Slot, like: Any) -> Any:
-    """Slot `slot` of every row: a view where the offset is the same on
-    every rank, else one gather of each row's block (every offset is then
-    a whole number of blocks: _plan_value)."""
+def _take(env: dict, slot: _Slot, like: Any, ranks: range) -> Any:
+    """Slot `slot` of every row (row i rank ranks[i]'s): a view where the
+    offset is the same on every such rank, else one gather of each row's
+    block (every offset is then a whole number of blocks: _plan_value)."""
     import torch
 
     from .schedules import _row_tensor
@@ -1762,7 +1763,7 @@ def _take(env: dict, slot: _Slot, like: Any) -> Any:
         return torch.full((w, slot.length), slot.fill, dtype=like.dtype,
                           device=like.device)
     src = env[(slot.round, slot.part)]
-    offs, n = slot.offsets, slot.length
+    offs, n = slot.offsets[ranks.start:ranks.stop], slot.length
     if all(o == offs[0] for o in offs):
         return src[:, offs[0]:offs[0] + n]
     rows = _row_tensor(tuple(range(w)), src.device)
@@ -1770,8 +1771,9 @@ def _take(env: dict, slot: _Slot, like: Any) -> Any:
     return src.unflatten(1, (-1, n))[rows, blocks]
 
 
-def _value(env: dict, plan, like: Any) -> Any:
-    """Build a value planned by _plan_value over the rows of `like`."""
+def _value(env: dict, plan, like: Any, ranks: range) -> Any:
+    """Build a value planned by _plan_value over the rows of `like`, row i
+    rank ranks[i]'s."""
     import torch
 
     from .schedules import _row_tensor
@@ -1783,11 +1785,18 @@ def _value(env: dict, plan, like: Any) -> Any:
             if out is None:
                 out = src.new_empty((like.shape[0], plan.width,
                                      plan.block))
+            held = [(g - ranks.start, sb, db)
+                    for g, sb, db in zip(rows, src_blk, dst_blk)
+                    if g in ranks]
+            if not held:
+                continue
+            if len(held) < len(rows) or ranks.start:
+                rows, src_blk, dst_blk = (tuple(c) for c in zip(*held))
             rows_t = _row_tensor(rows, src.device)
             out[rows_t, _row_tensor(dst_blk, src.device)] = \
                 src[rows_t, _row_tensor(src_blk, src.device)]
         return out.flatten(1)
-    parts = [_take(env, s, like) for s in plan]
+    parts = [_take(env, s, like, ranks) for s in plan]
     if not parts:
         return like.new_zeros((like.shape[0], 0))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
@@ -1882,14 +1891,22 @@ def round_launches(dag: HopDag) -> dict[str, int]:
     return out
 
 
-def lower_dag(dag: HopDag) -> Callable[[Any], Any]:
+def lower_dag(dag: HopDag, permute: Callable | None = None,
+              ranks: range | None = None) -> Callable[[Any], Any]:
     """Compile a library hop-DAG into a schedule body: (world, in_elems)
     rank rows -> (world, out_elems), one operation per round (the
     module docstring has the design). Hops go through
     schedules._permute (a roll for a rotation, a gather for a tier
     ring), folds through reduce_ops.combine_op (the lane kernel),
     encode and decode through the blockwise int8 lanes, casts through
-    the cast lane."""
+    the cast lane.
+
+    `ranks` are the ranks whose rows the body is given (default: every
+    rank) and `permute` its hop over them (default schedules._permute):
+    the multi-process DCN form gives one process's consecutive share of
+    the ranks and its ProcessWire's hop."""
+    if ranks is None:
+        ranks = range(dag.world)
     plan = _round_plan(dag)
     steps, fused, read_unfused = plan.steps, plan.fused, plan.read_unfused
     out_plan = plan.out_plan
@@ -1906,44 +1923,46 @@ def lower_dag(dag: HopDag) -> Callable[[Any], Any]:
         from ..ops.reduce_ops import combine_op
         from .schedules import _permute
 
+        hop = permute or _permute
+        value = functools.partial(_value, ranks=ranks)
         env: dict[tuple[int, str], Any] = {}
         for i, n0, val, val2, extra in steps:
             kind = n0.kind
             if kind == "arg":
                 out = x[:, :n0.length]
             elif kind == "send":
-                out = _value(env, val, x)
+                out = value(env, val, x)
             elif kind == "recv":
                 s, pairs = extra
-                out = _permute(env[(s, DATA)], pairs)[:, :n0.length]
+                out = hop(env[(s, DATA)], pairs)[:, :n0.length]
             elif kind == "combine":
                 func = (ReduceFunction.MAX if n0.func == "max"
                         else ReduceFunction.SUM)
                 if i in fused:
                     _, _, dval, dval2, _ = steps[fused[i]]
                     out = dequant_combine(
-                        _value(env, dval, x), _value(env, dval2, x),
-                        _value(env, val, x), n0.func or "sum")
+                        value(env, dval, x), value(env, dval2, x),
+                        value(env, val, x), n0.func or "sum")
                 else:
-                    out = combine_op(func, _value(env, val, x),
-                                     _value(env, val2, x))
+                    out = combine_op(func, value(env, val, x),
+                                     value(env, val2, x))
             elif kind == "encode":
-                q, sc = quantize_blockwise(_value(env, val, x))
+                q, sc = quantize_blockwise(value(env, val, x))
                 env[(i, SCALES)] = sc
                 out = q
             elif kind == "decode":
                 if i not in read_unfused:
                     continue
-                out = dequantize_blockwise(_value(env, val, x),
-                                           _value(env, val2, x),
+                out = dequantize_blockwise(value(env, val, x),
+                                           value(env, val2, x),
                                            n0.length, x.dtype)
             elif kind == "cast":
-                v = _value(env, val, x)
+                v = value(env, val, x)
                 out = cast(v, getattr(torch, n0.dtype)) if n0.dtype else v
             else:
                 raise SynthesisError(f"cannot lower node kind {kind!r}")
             env[(i, DATA)] = out
-        result = _value(env, out_plan, x).contiguous()
+        result = value(env, out_plan, x).contiguous()
         if result.untyped_storage().data_ptr() == \
                 x.untyped_storage().data_ptr():
             result = result.clone()  # a result never aliases its operand
@@ -1952,14 +1971,17 @@ def lower_dag(dag: HopDag) -> Callable[[Any], Any]:
     return body
 
 
-def lower_plan(plan: Any, options: Any, world: int) -> Callable[[Any], Any]:
+def lower_plan(plan: Any, options: Any, world: int,
+               permute: Callable | None = None,
+               ranks: range | None = None) -> Callable[[Any], Any]:
     """The ScheduleCompiler seam for Algorithm.SYNTHESIZED plans: resolve
     the plan's library entry, regenerate its DAG at the call's count
     (padded to the chunking multiple of the chunked families, the
-    result trimmed back), and lower it. Tiered entries first check their
-    hop annotation against the RankMap ring permutations. Raises when
-    the key is missing or the entry's world or collective disagrees: a
-    synthesized plan never falls back to another schedule."""
+    result trimmed back), and lower it (`permute` and `ranks` as in
+    lower_dag). Tiered entries first check their hop annotation against
+    the RankMap ring permutations. Raises when the key is missing or the
+    entry's world or collective disagrees: a synthesized plan never falls
+    back to another schedule."""
     import torch
 
     entry = entry_for_key(plan.synth_key)
@@ -1984,7 +2006,7 @@ def lower_plan(plan: Any, options: Any, world: int) -> Callable[[Any], Any]:
     dag = instantiate(spec, padded, func)
     if spec.tiers:
         _check_tier_layout(dag, spec)
-    inner = lower_dag(dag)
+    inner = lower_dag(dag, permute, ranks)
     if padded == count:
         return inner
 

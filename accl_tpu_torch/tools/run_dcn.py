@@ -2,28 +2,45 @@
 
 Counterpart of tools/run_dcn.py. Each process joins the default
 torch.distributed group over gloo, builds its DCNDevice (local_devices
-virtual ranks, global rank = proc * local + l) and drives facade
-collectives whose outer hops cross the process boundary; beside it, the
+virtual ranks, global rank = proc * local + l; one or more) and drives
+facade collectives whose hops cross the process boundary; beside it, the
 in-process DCNDevice over the same (procs, local) world on the same
 seeded rows runs every call too, and the process's own rows must equal
-its rows bitwise. The stages: the two-tier allreduce (exact, then the
-int8 wire), bcast from rank world-1, allgather, reduce_scatter, alltoall,
-scatter, gather and reduce to rank world-1, p2p 1 -> world-1, host 0's
-sub-communicator, optionally the first K hosts' (--subset-hosts K), and
-a barrier.
+its rows bitwise. With local_devices > 1 the collectives that have one
+lower to the two-tier compositions; with one rank a host every call runs
+the flat body over the combined world, every hop across processes.
 
-Usage (2 processes x 4 virtual ranks on the CPU):
+The stages (--stages picks some, in this order; each runs on every wire
+of --wires, exact, float16 with fp32 arithmetic, int8): the allreduce
+(and, on the exact wire, the int8 allreduce as "allreduce-int8"), bcast
+from rank world-1, allgather, reduce_scatter, alltoall, scatter, gather
+and reduce to rank world-1 ("scatter-gather-reduce"), p2p 1 -> world-1,
+host 0's sub-communicator ("subcomm"), optionally the first K hosts'
+(--subset-hosts K), and a barrier. --sequence adds a recorded batch on
+the world communicator (allreduce -> allgather -> bcast, on the exact and
+the int8 wire), a streamed allreduce (a stream producer makes the
+operand) and a stream_put, each held bitwise against the in-process
+device.
+
+Usage (2 processes x 4 virtual ranks on the CPU; --local-devices 1 for
+one rank a host):
     python -m accl_tpu_torch.tools.run_dcn --procs 2 --proc-id 0 \\
         --port 9911 --device cpu &
     python -m accl_tpu_torch.tools.run_dcn --procs 2 --proc-id 1 \\
         --port 9911 --device cpu
 
 Prints one "RANKS [...] proc i/N OK" line per process on success (exit
-0); a "dcn_bytes" JSON line (the bytes this process sent across the
-process boundary in one allreduce, and those a line carries in the
-outer hops, beside the composition's count); with --time COUNTS a
-"dcn_time" JSON line (host-clock median ms of the allreduce at each
-count, from device to device).
+0); a "dcn_bytes" JSON line (the bytes and messages this process sent
+across the process boundary in one exact allreduce, by tier: "outer" for
+the two-tier composition, beside its count of the bytes a line carries,
+"flat" for the flat ring at one rank a host, beside flat_allreduce_bytes;
+each must equal its count); with --sequence a "dcn_sequence" JSON line
+(the flat bytes and messages of a recorded one-step allreduce batch);
+with --time COUNTS a "dcn_time" JSON line (host-clock median ms of the
+allreduce at each count, from device to device, and its bytes; the last
+run's rows are held against the in-process device's); last a
+"dcn_launches" line (each kernel wrapper's launches over the
+multi-process facade's checked calls, by stage).
 """
 
 from __future__ import annotations
@@ -37,6 +54,8 @@ import time
 
 
 TIME_REPS = 5
+STAGES = ("allreduce", "bcast", "allgather", "reduce_scatter", "alltoall",
+          "scatter-gather-reduce", "p2p", "subcomm")
 
 
 def outer_allreduce_bytes(count: int, procs: int, local: int,
@@ -48,6 +67,25 @@ def outer_allreduce_bytes(count: int, procs: int, local: int,
     return 2 * (procs - 1) * -(-shard // procs) * itemsize
 
 
+def flat_allreduce_bytes(count: int, world: int, seg_count: int,
+                         itemsize: int = 4) -> int:
+    """Bytes one process sends in one flat segmented ring allreduce over
+    the combined world (P > 1): each ring hop crosses every process
+    boundary once, so a process sends one chunk of every segment a step,
+    sum over segments of 2 * (W - 1) * ceil(s / W) elements."""
+    full, tail = divmod(count, seg_count)
+    chunks = full * -(-seg_count // world) + -(-tail // world)
+    return 2 * (world - 1) * chunks * itemsize
+
+
+def flat_allreduce_messages(count: int, world: int, seg_count: int) -> int:
+    """Messages one process sends in that allreduce: its whole segments
+    move in lockstep, one message to the next host a ring step for all of
+    them, and a ragged last segment takes its own."""
+    return 2 * (world - 1) * ((count >= seg_count)
+                              + (count % seg_count != 0))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--procs", type=int, required=True)
@@ -55,9 +93,17 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--local-devices", type=int, default=4)
     ap.add_argument("--count", type=int, default=96)
+    ap.add_argument("--wires", default="exact",
+                    help="comma-separated wires every stage runs on: "
+                         "exact, float16 (fp32 arithmetic), int8")
+    ap.add_argument("--stages", default=",".join(STAGES),
+                    help="comma-separated stages to run (default: all)")
     ap.add_argument("--subset-hosts", type=int, default=0,
                     help="also run an allreduce on a sub-communicator of "
                          "the first K hosts (0 = skip)")
+    ap.add_argument("--sequence", action="store_true",
+                    help="also record call sequences and drive a stream "
+                         "producer and stream_put")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--time", default="",
                     help="comma-separated per-rank counts whose allreduce "
@@ -69,27 +115,59 @@ def main(argv=None) -> int:
     import torch
 
     from accl_tpu_torch import ACCL, DataType, ReduceFunction
+    from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
+    from accl_tpu_torch.constants import StreamFlags
     from accl_tpu_torch.device.dcn_device import DCNDevice
     from accl_tpu_torch.parallel import make_mesh
+    from accl_tpu_torch.sequencer.plan import eager_seg_count
 
     P, L, me = args.procs, args.local_devices, args.proc_id
+    wires = [w for w in args.wires.split(",") if w]
+    stages = set(s for s in args.stages.split(",") if s)
     if args.device == "cpu":
         # the hosts share this machine's cores: one share each, not all
         # of them spinning in every process
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // P))
+    # fp32 arithmetic on the fp16 wire (a hop casts to fp16 and back,
+    # every fold is fp32); the other rows are the default table's
+    table = dict(DEFAULT_ARITH_CONFIG)
+    table[(DataType.float32, DataType.float16)] = ArithConfig(
+        4, 2, 0, 0, 1, False, (0, 5))
     dev = DCNDevice(num_processes=P, process_id=me,
                     coordinator_address=f"127.0.0.1:{args.port}",
                     local_device_count=L, torch_device=args.device)
-    a = ACCL(device=dev)
+    a = ACCL(device=dev, arith_config=table)
     twin = ACCL(device=DCNDevice(mesh=make_mesh(
-        {"dcn": P, "ici": L}, world=P * L, device=args.device)))
+        {"dcn": P, "ici": L}, world=P * L, device=args.device)),
+        arith_config=table)
+    for f in (a, twin):
+        f.cclo.compiler.arith_table = table  # the lowering reads its own
     world, n = a.world, args.count
     rows = dev.local_rows()
     rng = np.random.default_rng(17)  # same data on every process
     x = rng.standard_normal((world, n)).astype(np.float32)
 
+    # every kernel wrapper's launch count, read around the multi-process
+    # facade's calls only (the in-process twin's are not counted)
+    from accl_tpu_torch.ops import lane_kernels, quant_kernels, ring_allreduce
+
+    kernels = {name: getattr(mod, name) for mod, names in (
+        (ring_allreduce, ("ring_allreduce_bidir", "ring_allreduce")),
+        (quant_kernels, ("quantize", "dequantize", "dequant_combine",
+                         "dequant_combine_requant", "quant_ring_allreduce")),
+        (lane_kernels, ("combine", "combine_cast", "cast"))) for name in names}
+    launches: dict[str, dict[str, int]] = {}
+    current = ["start"]
+
     def stage(name):
+        current[0] = name
         print(f"[p{me}] {name}", flush=True)
+
+    def agree(mine, want):
+        if not torch.equal(mine[rows].cpu().view(torch.int32),
+                           want[rows].cpu().view(torch.int32)):
+            raise AssertionError(f"[p{me}] rows {rows} differ from the "
+                                 "in-process device's")
 
     def both(call, *shapes):
         """Run `call` on the multi-process facade and on its in-process
@@ -98,128 +176,223 @@ def main(argv=None) -> int:
         outs = []
         for f in (a, twin):
             bufs = [f.create_buffer(c, data=d) for c, d in shapes]
+            before = {k: w.launches for k, w in kernels.items()}
             call(f, *bufs)
+            if f is a:
+                moved = launches.setdefault(current[0], {})
+                for k, w in kernels.items():
+                    if w.launches != before[k]:
+                        moved[k] = moved.get(k, 0) + w.launches - before[k]
             outs.append([b.host for b in bufs])
+            for b in bufs:
+                f.free_buffer(b)
         for mine, want in zip(*outs):
-            if not torch.equal(mine[rows].view(torch.int32),
-                               want[rows].view(torch.int32)):
-                raise AssertionError(f"[p{me}] rows {rows} differ from the "
-                                     "in-process device's")
+            agree(mine, want)
         return [t.numpy() for t in outs[0]]
 
-    # two-tier allreduce: the outer tier carries 1/L of the payload
-    stage("allreduce")
-    dev.transport.reset_tally()
-    _, rb = both(lambda f, s, r: f.allreduce(s, r, n, ReduceFunction.SUM),
-                 (n, x), (n, None))
-    tally = dev.transport.tally()
-    for r in rows:
-        np.testing.assert_allclose(rb[r], x.sum(0), rtol=1e-4, atol=1e-4)
-    want = outer_allreduce_bytes(n, P, L)
-    print(json.dumps({"dcn_bytes": {
-        "proc": me, "procs": P, "local": L, "count": n,
-        "sent": tally["sent"].get("outer", 0),
-        "messages": tally["messages"].get("outer", 0),
-        "line_hop_bytes": tally["hops"].get("outer", 0),
-        "composition_line_bytes": want}}), flush=True)
-    if tally["hops"].get("outer", 0) != want or \
-            tally["sent"].get("outer", 0) != L * want:
-        raise AssertionError(f"[p{me}] outer bytes {tally}, want {want} "
-                             f"a line")
+    seg = eager_seg_count(n, 4, dev.eager_rx_buf_size,
+                          StreamFlags.NO_STREAM, world_align=world)
+    root = world - 1  # on the last process: every process issues the
+    c = n // world    # same call, so the root is the same global rank
+    for wire in wires:
+        dt = {"exact": None, "float16": DataType.float16,
+              "int8": DataType.int8}[wire]
+        kw = {} if dt is None else dict(compress_dtype=dt)
+        tag = "" if dt is None else f" ({wire})"
 
-    stage("allreduce-int8")
-    _, qb = both(lambda f, s, r: f.allreduce(
-        s, r, n, ReduceFunction.SUM, compress_dtype=DataType.int8),
-        (n, x), (n, None))
-    for r in rows:
-        bound = P * L * np.abs(x).sum(0).max() / 127
-        assert np.abs(qb[r] - x.sum(0)).max() <= bound
+        def close(got, want):
+            if dt is None:
+                np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+            else:  # a lossy wire: within its bound
+                bound = world * np.abs(x).sum(0).max() / (
+                    127 if wire == "int8" else 1024)
+                assert np.abs(got - want).max() <= bound
 
-    # bcast from a rank on the last process: every process issues the
-    # same call, so the root is the same global rank everywhere
-    stage("bcast")
-    root = world - 1
-    (bb,) = both(lambda f, b: f.bcast(b, n, root), (n, x))
-    for r in rows:
-        np.testing.assert_array_equal(bb[r], x[root])
+        if "allreduce" in stages:
+            stage("allreduce" + tag)
+            dev.transport.reset_tally()
+            _, rb = both(lambda f, s, r: f.allreduce(
+                s, r, n, ReduceFunction.SUM, **kw), (n, x), (n, None))
+            tally = dev.transport.tally()
+            for r in rows:
+                close(rb[r], x.sum(0))
+            if dt is None:
+                # the composition's outer hops at L > 1, the flat ring's
+                # hops at one rank a host
+                want = outer_allreduce_bytes(n, P, L) if L > 1 else 0
+                flat = (0, 0) if L > 1 else (
+                    flat_allreduce_bytes(n, world, seg),
+                    flat_allreduce_messages(n, world, seg))
+                got = {"sent": tally["sent"].get("outer", 0),
+                       "messages": tally["messages"].get("outer", 0),
+                       "line_hop_bytes": tally["hops"].get("outer", 0),
+                       "composition_line_bytes": want,
+                       "flat_sent": tally["sent"].get("flat", 0),
+                       "flat_messages": tally["messages"].get("flat", 0),
+                       "flat_bytes": flat[0], "flat_want_messages": flat[1]}
+                print(json.dumps({"dcn_bytes": {
+                    "proc": me, "procs": P, "local": L, "count": n,
+                    "seg_count": seg, **got}}), flush=True)
+                if (got["line_hop_bytes"], got["sent"]) != (want, L * want) \
+                        or (got["flat_sent"], got["flat_messages"]) != flat:
+                    raise AssertionError(f"[p{me}] allreduce sent {tally}, "
+                                         f"want {want} a line, flat {flat}")
+                stage("allreduce-int8")
+                _, qb = both(lambda f, s, r: f.allreduce(
+                    s, r, n, ReduceFunction.SUM,
+                    compress_dtype=DataType.int8), (n, x), (n, None))
+                for r in rows:
+                    bound = P * L * np.abs(x).sum(0).max() / 127
+                    assert np.abs(qb[r] - x.sum(0)).max() <= bound
 
-    stage("allgather")
-    c = n // world
-    _, gb = both(lambda f, s, r: f.allgather(s, r, c), (c, x[:, :c]),
-                 (c * world, None))
-    for r in rows:
-        np.testing.assert_array_equal(gb[r], x[:, :c].reshape(-1))
+        if "bcast" in stages:
+            stage("bcast" + tag)
+            (bb,) = both(lambda f, b: f.bcast(b, n, root, **kw), (n, x))
+            for r in rows:
+                close(bb[r], x[root])
 
-    stage("reduce_scatter")
-    _, sr = both(lambda f, s, r: f.reduce_scatter(s, r, c,
-                                                  ReduceFunction.SUM),
-                 (c * world, x[:, :c * world]), (c, None))
-    full = x[:, :c * world].sum(0)
-    for r in rows:
-        np.testing.assert_allclose(sr[r], full[r * c:(r + 1) * c],
-                                   rtol=1e-4, atol=1e-4)
+        if "allgather" in stages:
+            stage("allgather" + tag)
+            _, gb = both(lambda f, s, r: f.allgather(s, r, c, **kw),
+                         (c, x[:, :c]), (c * world, None))
+            for r in rows:
+                close(gb[r], x[:, :c].reshape(-1))
 
-    stage("alltoall")
-    ts = x[:, :world * 8]
-    _, tr = both(lambda f, s, r: f.alltoall(s, r, 8), (world * 8, ts),
-                 (world * 8, None))
-    exp = ts.reshape(world, world, 8).transpose(1, 0, 2)
-    for r in rows:
-        np.testing.assert_array_equal(tr[r], exp[r].reshape(-1))
+        if "reduce_scatter" in stages:
+            stage("reduce_scatter" + tag)
+            _, sr = both(lambda f, s, r: f.reduce_scatter(
+                s, r, c, ReduceFunction.SUM, **kw),
+                (c * world, x[:, :c * world]), (c, None))
+            full = x[:, :c * world].sum(0)
+            for r in rows:
+                close(sr[r], full[r * c:(r + 1) * c])
 
-    stage("scatter-gather-reduce")
-    _, scb = both(lambda f, s, r: f.scatter(s, r, c, root),
-                  (c * world, x[:, :c * world]), (c, None))
-    for r in rows:
-        np.testing.assert_array_equal(scb[r], x[root, r * c:(r + 1) * c])
-    _, gab = both(lambda f, s, r: f.gather(s, r, c, root), (c, x[:, :c]),
-                  (c * world, None))
-    _, rdb = both(lambda f, s, r: f.reduce(s, r, n, root,
-                                           ReduceFunction.SUM),
-                  (n, x), (n, None))
-    if root in rows:
-        np.testing.assert_array_equal(gab[root], x[:, :c].reshape(-1))
-        np.testing.assert_allclose(rdb[root], x.sum(0), rtol=1e-4,
-                                   atol=1e-4)
+        if "alltoall" in stages:
+            stage("alltoall" + tag)
+            ts = x[:, :world * 8]
+            _, tr = both(lambda f, s, r: f.alltoall(s, r, 8, **kw),
+                         (world * 8, ts), (world * 8, None))
+            exp = ts.reshape(world, world, 8).transpose(1, 0, 2)
+            for r in rows:
+                close(tr[r], exp[r].reshape(-1))
 
-    stage("p2p")
-    src, dst = 1, world - 1  # crosses the process boundary
+        if "scatter-gather-reduce" in stages:
+            stage("scatter-gather-reduce" + tag)
+            _, scb = both(lambda f, s, r: f.scatter(s, r, c, root, **kw),
+                          (c * world, x[:, :c * world]), (c, None))
+            for r in rows:
+                close(scb[r], x[root, r * c:(r + 1) * c])
+            _, gab = both(lambda f, s, r: f.gather(s, r, c, root, **kw),
+                          (c, x[:, :c]), (c * world, None))
+            _, rdb = both(lambda f, s, r: f.reduce(
+                s, r, n, root, ReduceFunction.SUM, **kw), (n, x), (n, None))
+            if root in rows:
+                close(gab[root], x[:, :c].reshape(-1))
+                close(rdb[root], x.sum(0))
 
-    def p2p(f, s, r):
-        f.send(s, 16, src=src, dst=dst, tag=5)
-        f.recv(r, 16, src=src, dst=dst, tag=5)
+        if "p2p" in stages:
+            stage("p2p" + tag)
+            src, dst = 1 % world, world - 1  # crosses the process boundary
 
-    _, pv = both(p2p, (n, x), (16, None))
-    if dst in rows:
-        np.testing.assert_array_equal(pv[dst], x[src, :16])
+            def p2p(f, s, r):
+                f.send(s, 16, src=src, dst=dst, tag=5, **kw)
+                f.recv(r, 16, src=src, dst=dst, tag=5, **kw)
 
-    # an outer-aligned sub-communicator: host 0's whole inner group. Every
-    # process issues the same call; non-member hosts no-op it.
-    stage("subcomm")
+            _, pv = both(p2p, (n, x), (16, None))
+            if dst in rows:
+                close(pv[dst], x[src, :16])
 
-    def host0(f, s, r):
-        f.allreduce(s, r, 24, ReduceFunction.SUM,
-                    comm=f.split(list(range(L))))
+        # an outer-aligned sub-communicator: host 0's whole inner group.
+        # Every process issues the same call; non-member hosts no-op it.
+        if "subcomm" in stages:
+            stage("subcomm" + tag)
 
-    _, cr = both(host0, (24, x[:, :24]), (24, None))
-    for r in rows:
-        want = x[:L, :24].sum(0) if me == 0 else 0.0
-        np.testing.assert_allclose(cr[r], want, rtol=1e-4, atol=1e-4)
+            def host0(f, s, r):
+                f.allreduce(s, r, 24, ReduceFunction.SUM,
+                            comm=f.split(list(range(L))), **kw)
 
-    if args.subset_hosts:
-        # the first K whole hosts: member hosts run the two-tier
-        # allreduce on the (K, L) sub-world, the rest no-op it
-        k = args.subset_hosts
-        stage(f"subset-{k}-hosts")
+            _, cr = both(host0, (24, x[:, :24]), (24, None))
+            for r in rows:
+                if me == 0:
+                    close(cr[r], x[:L, :24].sum(0))
+                else:
+                    assert not cr[r].any()
 
-        def subset(f, s, r):
-            f.allreduce(s, r, 16, ReduceFunction.SUM,
-                        comm=f.split(list(range(k * L))))
+        if args.subset_hosts:
+            # the first K whole hosts: member hosts run the allreduce on
+            # the (K, L) sub-world, the rest no-op it
+            k = args.subset_hosts
+            stage(f"subset-{k}-hosts" + tag)
 
-        _, kr = both(subset, (16, x[:, :16]), (16, None))
+            def subset(f, s, r):
+                f.allreduce(s, r, 16, ReduceFunction.SUM,
+                            comm=f.split(list(range(k * L))), **kw)
+
+            _, kr = both(subset, (16, x[:, :16]), (16, None))
+            for r in rows:
+                if me < k:
+                    close(kr[r], x[:k * L, :16].sum(0))
+                else:
+                    assert not kr[r].any()
+
+    if args.sequence:
+        stage("sequence")
+        # a one-step exact batch: its flat body's bytes and messages
+        dev.transport.reset_tally()
+
+        def one_step(f, s, r):
+            seq = f.sequence()
+            seq.allreduce(s, r, n, ReduceFunction.SUM)
+            seq.compile().run()
+
+        _, ob = both(one_step, (n, x), (n, None))
+        tally = dev.transport.tally()
+        got = {"sent": tally["sent"].get("flat", 0),
+               "messages": tally["messages"].get("flat", 0)}
+        want = {"sent": flat_allreduce_bytes(n, world, seg),
+                "messages": flat_allreduce_messages(n, world, seg)}
+        print(json.dumps({"dcn_sequence": {
+            "proc": me, "procs": P, "local": L, "count": n,
+            "seg_count": seg, "flat_sent": got["sent"],
+            "flat_messages": got["messages"], "flat_bytes": want["sent"],
+            "flat_want_messages": want["messages"]}}), flush=True)
+        if got != want:
+            raise AssertionError(f"[p{me}] the batch sent {got}, want "
+                                 f"{want}")
         for r in rows:
-            want = x[:k * L, :16].sum(0) if me < k else 0.0
-            np.testing.assert_allclose(kr[r], want, rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(ob[r], x.sum(0), rtol=1e-4,
+                                       atol=1e-4)
+        for dt in (None, DataType.int8):
+            stage("sequence-" + ("exact" if dt is None else "int8"))
+
+            def batch(f, s, r, g, dt=dt):
+                seq = f.sequence()
+                seq.allreduce(s, r, n, ReduceFunction.SUM, compress_dtype=dt)
+                seq.allgather(r, g, c, compress_dtype=dt)
+                seq.bcast(g, c * world, root, compress_dtype=dt)
+                seq.compile().run()
+
+            both(batch, (n, x), (n, None), (c * world, None))
+
+        stage("stream")
+        base = torch.from_numpy(x).to(args.device)
+        for f in (a, twin):
+            # each rank's operand is its row of `base`, doubled: the
+            # producer reads the ranks it is handed, never a process rank
+            f.register_stream_producer(
+                9, lambda ranks: base[ranks[:, 0]] * 2.0)
+        _, sb = both(lambda f, s, r: f.allreduce(
+            s, r, n, ReduceFunction.SUM, op0_stream=9), (n, None), (n, None))
+        for r in rows:
+            np.testing.assert_allclose(sb[r], 2 * x.sum(0), rtol=1e-4,
+                                       atol=1e-4)
+        src, dst = 1 % world, world - 1
+        (pb,) = both(lambda f, r: f.stream_put(n, stream_id=9, src=src,
+                                               dst=dst, recvbuf=r),
+                     (n, None))
+        for r in rows:
+            np.testing.assert_array_equal(pb[r], 2 * x[src if r == dst
+                                                       else r])
 
     stage("barrier")
     a.barrier()
@@ -227,29 +400,51 @@ def main(argv=None) -> int:
         stage("time")
         times = {}
         for count in (int(t) for t in args.time.split(",")):
-            sb, rb = a.create_buffer(count), a.create_buffer(count)
-            sb.device.copy_(torch.from_numpy(np.random.default_rng(
-                count).standard_normal((world, count)).astype(np.float32)))
-            runs = []
-            for i in range(TIME_REPS + 1):
-                a.barrier()
-                dev.transport.reset_tally()
-                t0 = time.perf_counter()
-                a.allreduce(sb, rb, count, ReduceFunction.SUM,
-                            from_device=True, to_device=True)
-                runs.append((time.perf_counter() - t0) * 1e3)
-            tally = dev.transport.tally()  # the last call's
+            data = torch.from_numpy(np.random.default_rng(count)
+                                    .standard_normal((world, count))
+                                    .astype(np.float32))
+            outs, runs = [], []
+            for f in (a, twin):
+                sb, rb = f.create_buffer(count), f.create_buffer(count)
+                sb.device.copy_(data)
+                # timed on the multi-process device; its last run's rows
+                # held against one run of the in-process twin
+                for i in range(TIME_REPS + 1 if f is a else 1):
+                    if f is a:
+                        a.barrier()
+                        dev.transport.reset_tally()
+                    t0 = time.perf_counter()
+                    f.allreduce(sb, rb, count, ReduceFunction.SUM,
+                                from_device=True, to_device=True)
+                    if f is a:
+                        runs.append((time.perf_counter() - t0) * 1e3)
+                if f is a:
+                    tally = dev.transport.tally()  # the last call's
+                outs.append(rb.device.clone())
+                f.free_buffer(sb)
+                f.free_buffer(rb)
+            agree(*outs)
+            cseg = eager_seg_count(count, 4, dev.eager_rx_buf_size,
+                                   StreamFlags.NO_STREAM, world_align=world)
             times[str(count)] = {
                 "median_ms": statistics.median(runs[1:]),
                 "runs_ms": runs[1:],
                 "sent": tally["sent"].get("outer", 0),
                 "line_hop_bytes": tally["hops"].get("outer", 0),
-                "composition_line_bytes": outer_allreduce_bytes(count, P, L)}
-            a.free_buffer(sb)
-            a.free_buffer(rb)
+                "composition_line_bytes": (outer_allreduce_bytes(count, P, L)
+                                           if L > 1 else 0),
+                "flat_sent": tally["sent"].get("flat", 0),
+                "flat_messages": tally["messages"].get("flat", 0),
+                "flat_bytes": (flat_allreduce_bytes(count, world, cseg)
+                               if L == 1 else 0),
+                "flat_want_messages": (flat_allreduce_messages(
+                    count, world, cseg) if L == 1 else 0),
+                "bitwise_vs_in_process": True}
         print(json.dumps({"dcn_time": {"proc": me, "procs": P, "local": L,
                                        "device": args.device,
                                        "allreduce": times}}), flush=True)
+    print(json.dumps({"dcn_launches": {"proc": me, "procs": P, "local": L,
+                                       "by_stage": launches}}), flush=True)
     dev.transport.close()
     print(f"RANKS {rows} proc {me}/{P} OK", flush=True)
     return 0

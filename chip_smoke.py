@@ -7489,6 +7489,7 @@ def scheduler_phase(ring, qk, L, *, device="cuda", serve_cfg=None,
 DCN_TOPO = {"dcn": 2, "ici": 4}  # the in-process form: P = 2 hosts x L = 4
 DCN_AR_COUNTS = (MIB, 25 * MIB // 4)  # the allreduce: 4 and 25 MiB a rank
 DCN_OP_ELEMS = 262_144  # a rank's buffer in every other two-tier op
+DCN_FLAT_ELEMS = 16_384  # a rank's buffer at one rank a host: 64 segments
 DCN_ROOTS = (3, 6)
 DCN_CHILD_TIMEOUT_S = 150
 
@@ -7598,15 +7599,29 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
           versions), each exact one within its float64 fold bound
           (movers equal), each call's kernel launches those its
           composition implies (dcn_expected);
-      (2) multi-process: 2 run_dcn children x 4 ranks, then 3 x 2 with a
-          cross-host sub-communicator of 2 hosts, on cuda:0 over gloo;
-          each child's rows bitwise its own in-process device's, its
-          outer bytes the composition's count.
+      (2) multi-process: 2 run_dcn children x 4 ranks (with the sequence
+          stage: recorded batches on the exact and int8 wires, a streamed
+          allreduce, stream_put), then 3 x 2 with a cross-host
+          sub-communicator of 2 hosts, on cuda:0 over gloo; each child's
+          rows bitwise its own in-process device's, its outer bytes the
+          composition's count, a recorded allreduce step's flat bytes the
+          flat ring's and its messages one a ring step;
+      (3) one rank a host: 2 children x 1 rank, every stage flat across
+          processes on the exact, fp16 and int8 wires at DCN_FLAT_ELEMS
+          elements a rank plus the sequence stage, and the exact
+          allreduce at 4 and 25 MiB a rank timed and held against the
+          in-process device; then 4 x 1, the allreduce, bcast and a
+          2-host group. Each child's flat bytes the flat ring's count
+          (4 194 304 B at 2 x 1 and 4 MiB), one message a ring step.
     Prints "dcn" (checks, launches, bytes) and "dcn_timing" (median ms of
-    the 4 and 25 MiB allreduce: the two-process device on the host clock,
-    the in-process DCNDevice and the flat GPUDevice (kernel 1) on CUDA
-    events, with the card's name and power limit) and returns each
-    kernel's launches over the checked in-process calls."""
+    the 4 and 25 MiB allreduce: the two-process devices, 2 x 4 two-tier
+    and 2 x 1 flat, on the host clock, the in-process DCNDevice and the
+    flat GPUDevice (kernel 1) on CUDA events, with the card's name and
+    power limit) and returns each kernel's launches over the checked
+    in-process calls, and over the children's flat calls (their
+    "dcn_launches" lines: every call of the 2 x 1 and 4 x 1 children, the
+    2 x 4 children's sequence and stream stages), which must include
+    kernels 7, 9 and 3-6."""
     import torch
 
     from accl_tpu_torch import ACCL, DataType, ReduceFunction
@@ -7807,15 +7822,30 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
     # (2) the multi-process form: one OS process a host on cuda:0
     t = time.perf_counter()
     counts = ",".join(str(n) for n in DCN_AR_COUNTS)
-    two, two_s = dcn_children(2, ["--local-devices", "4", "--time", counts],
-                              device)
+    two, two_s = dcn_children(2, ["--local-devices", "4", "--time", counts,
+                                  "--sequence"], device)
     three, three_s = dcn_children(3, ["--local-devices", "2",
                                       "--subset-hosts", "2"], device)
+    # (3) one rank a host: every call flat across processes
+    flat2, flat2_s = dcn_children(2, [
+        "--local-devices", "1", "--wires", "exact,float16,int8",
+        "--count", str(DCN_FLAT_ELEMS), "--sequence", "--time", counts],
+        device)
+    flat4, flat4_s = dcn_children(4, [
+        "--local-devices", "1", "--stages", "allreduce,bcast",
+        "--subset-hosts", "2", "--count", str(DCN_FLAT_ELEMS)], device)
     bytes_rows = []
-    for lines in two + three:
+    for lines in two + three + flat2 + flat4:
         for line in lines:
-            if "dcn_bytes" in line:
-                bytes_rows.append(line["dcn_bytes"])
+            for key in ("dcn_bytes", "dcn_sequence"):
+                if key not in line:
+                    continue
+                e = line[key]
+                if (e["flat_sent"], e["flat_messages"]) != (
+                        e["flat_bytes"], e["flat_want_messages"]):
+                    raise AssertionError(f"dcn: {key} {e} is not the flat "
+                                         "ring's count")
+                bytes_rows.append(dict(e, line=key))
     for lines in two:
         tm = next(line["dcn_time"] for line in lines if "dcn_time" in line)
         for n in DCN_AR_COUNTS:
@@ -7832,17 +7862,59 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
                                    e["composition_line_bytes"]})
             timing[str(n * 4)].setdefault("two_process_host_ms", []).append(
                 e["median_ms"])
-    seconds["children"] = {"2x4": two_s, "3x2": three_s}
+    for lines in flat2:
+        tm = next(line["dcn_time"] for line in lines if "dcn_time" in line)
+        for n in DCN_AR_COUNTS:
+            e = tm["allreduce"][str(n)]
+            if (e["flat_sent"], e["flat_messages"]) != (
+                    e["flat_bytes"], e["flat_want_messages"]) or \
+                    not e["bitwise_vs_in_process"]:
+                raise AssertionError(f"dcn: process {tm['proc']} of 2 x 1 "
+                                     f"sent {e} in a {n}-element allreduce")
+            bytes_rows.append({"proc": tm["proc"], "procs": tm["procs"],
+                               "local": 1, "count": n,
+                               "flat_sent": e["flat_sent"],
+                               "flat_messages": e["flat_messages"],
+                               "flat_bytes": e["flat_bytes"]})
+            timing[str(n * 4)].setdefault("flat_2x1_host_ms", []).append(
+                e["median_ms"])
+    if DCN_AR_COUNTS[0] == MIB and any(
+            r["count"] == MIB and r["local"] == 1 and r["procs"] == 2
+            and r["flat_sent"] != 4_194_304 for r in bytes_rows):
+        raise AssertionError("dcn: the 2 x 1 flat allreduce at 4 MiB did "
+                             "not send 4 194 304 B")
+    seconds["children"] = {"2x4": two_s, "3x2": three_s, "2x1": flat2_s,
+                           "4x1": flat4_s}
+    # the flat path's launches: each child's counts over its multi-process
+    # facade's checked calls (every call at one rank a host; the 2 x 4
+    # children's sequence and stream stages)
+    flat_path = {name: 0 for name in kernels}
+    for children, stages in ((flat2, None), (flat4, None), (two, (
+            "sequence", "stream"))):
+        for line in (line for lines in children for line in lines):
+            if "dcn_launches" not in line:
+                continue
+            for st, moved in line["dcn_launches"]["by_stage"].items():
+                if stages is None or st.startswith(stages):
+                    for k, v in moved.items():
+                        flat_path[k] += v
+    if on_card:
+        idle = [k for k in ("combine", "cast", "quantize", "dequantize",
+                            "dequant_combine", "dequant_combine_requant")
+                if not flat_path[k]]
+        if idle:
+            raise AssertionError(f"the flat dcn path launched no {idle}")
     seconds["multi_process"] = time.perf_counter() - t
     seconds["phase"] = time.perf_counter() - t_phase
     gpu = card_name() if on_card else "cpu"
     emit({"phase": "dcn", "gpu": gpu, "topology": DCN_TOPO,
           "checks": checks, "bytes": bytes_rows, "seconds": seconds,
-          "launches": path})
+          "launches": path, "flat_launches": flat_path})
     emit({"phase": "dcn_timing", "gpu": gpu, "reps": {"in_process": 10,
-                                                      "two_process": 5},
+                                                      "two_process": 5,
+                                                      "flat_2x1": 5},
           "allreduce_bytes_per_rank": timing})
-    return path
+    return path, flat_path
 
 
 class NativeBuild(threading.Thread):
@@ -7884,10 +7956,11 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     `comm_launches`, `alltoall_launches`, `tuned_launches`,
     `telemetry_launches`, `serve_launches`, `train_launches`,
     `moe_launches`, `mesh_launches`, `analysis_launches`,
-    `lift_launches`, `resilience_launches`, `scheduler_launches` and
-    `dcn_launches` likewise over the checked runs of the point-to-point,
-    sub-communicator, alltoall, tuned, telemetry, serve, train, MoE,
-    mesh, analysis, lift, resilience, scheduler and multi-host paths."""
+    `lift_launches`, `resilience_launches`, `scheduler_launches`,
+    `dcn_launches` and `dcn_flat_launches` likewise over the checked runs
+    of the point-to-point, sub-communicator, alltoall, tuned, telemetry,
+    serve, train, MoE, mesh, analysis, lift, resilience, scheduler and
+    multi-host paths (the last: the flat calls across processes)."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -8042,8 +8115,8 @@ def main() -> int:
              "lift": timed(lift_phase, ring, qk, L),
              "resilience": timed(resilience_phase, ring, qk, L,
                                  native_build),
-             "scheduler": timed(scheduler_phase, ring, qk, L),
-             "dcn": timed(dcn_phase, ring, qk, L)}
+             "scheduler": timed(scheduler_phase, ring, qk, L)}
+    paths["dcn"], paths["dcn_flat"] = timed(dcn_phase, ring, qk, L)
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

@@ -5,10 +5,14 @@ the port's in-process form, DCNDevice(mesh=make_mesh({"dcn": 2, "ici":
 4}, device="cpu")), each held bitwise against the reference's
 DCNDevice(mesh=(2, 4)) facade on the same rows; the multi-process form
 runs as one thread a host over a LoopbackHub (every two-tier op on three
-wires, bitwise with the in-process form) and as real OS processes over
-gloo (accl_tpu_torch.tools.run_dcn --device cpu, 2 x 4 and 3 x 2 with a
-cross-host sub-communicator), whose outer byte tally must equal the
-reference's CountingWire count of its allreduce.
+wires, bitwise with the in-process form; at one rank a host every call
+flat across processes, against the reference's DCNDevice over a (P, 1)
+mesh; call sequences, streamed operands and stream_put at 2 x 4) and as
+real OS processes over gloo (accl_tpu_torch.tools.run_dcn --device cpu,
+2 x 4 with its sequence stage, 3 x 2 with a cross-host sub-communicator,
+and 2 x 1), whose outer byte tally must equal the reference's
+CountingWire count of its allreduce and whose flat tally the flat ring's
+count.
 """
 
 import os
@@ -36,7 +40,10 @@ from accl_tpu_torch.device.dcn_device import DCNCompiler, DCNDevice
 from accl_tpu_torch.device.dcn_transport import LoopbackHub
 from accl_tpu_torch.device.gpu_device import GPUDevice
 from accl_tpu_torch.parallel import make_mesh
-from accl_tpu_torch.tools.run_dcn import outer_allreduce_bytes
+from accl_tpu_torch.tools.run_dcn import (
+    flat_allreduce_bytes,
+    outer_allreduce_bytes,
+)
 
 RNG = np.random.default_rng(23)
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -230,10 +237,13 @@ def test_dcn_device_needs_a_card_unless_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         DCNDevice(num_processes=2, local_device_count=4,
                   coordinator_address="127.0.0.1:1")
-    # one rank a host would run every flat schedule across processes
-    with pytest.raises(NotImplementedError, match="item 21"):
-        DCNDevice(num_processes=2, local_device_count=1, torch_device="cpu",
-                  coordinator_address="127.0.0.1:1")
+    # one rank a host: every call runs flat across processes, and the
+    # device is built on the CPU when asked
+    dev = DCNDevice(local_device_count=1, torch_device="cpu",
+                    transport=LoopbackHub(2).transport(1))
+    assert dev.local_rows() == [1] and dev.world == 2
+    assert dev.mesh.shape == {"dcn": 2, "ici": 1}
+    assert dev.compiler.flat_world().first == 1
 
 
 # -- the multi-process form, one thread a host ------------------------------
@@ -292,10 +302,23 @@ def _drive(a, wire):
 def test_multi_process_form_is_the_in_process_form(wire):
     """Two hosts of four ranks, one thread each over a LoopbackHub: every
     host's rows of every result bitwise the in-process device's; rows it
-    does not own stay as they were; prepare_sequence is refused."""
+    does not own stay as they were; a recorded batch runs and is bitwise
+    the in-process device's batch."""
     P, L = 2, 4
-    want = _drive(ACCL(device=DCNDevice(mesh=make_mesh(
-        {"dcn": P, "ici": L}, device="cpu")), arith_config=FP32_ARITH), wire)
+    twin = ACCL(device=DCNDevice(mesh=make_mesh(
+        {"dcn": P, "ici": L}, device="cpu")), arith_config=FP32_ARITH)
+    want = _drive(twin, wire)
+    xs = np.random.default_rng(6).standard_normal((P * L, 8)).astype(
+        np.float32)
+
+    def batch(a):
+        s, d = a.create_buffer(8, data=xs), a.create_buffer(8)
+        seq = a.sequence()
+        seq.allreduce(s, d, 8, ReduceFunction.SUM, compress_dtype=wire)
+        seq.compile().run()
+        return d.host
+
+    want["sequence"] = batch(twin)
     hub = LoopbackHub(P)
     results, errors = [None] * P, []
 
@@ -305,11 +328,7 @@ def test_multi_process_form_is_the_in_process_form(wire):
                             torch_device="cpu")
             a = ACCL(device=dev, arith_config=FP32_ARITH)
             results[p] = (dev.local_rows(), _drive(a, wire))
-            s, d = a.create_buffer(8), a.create_buffer(8)
-            seq = a.sequence()
-            seq.allreduce(s, d, 8, ReduceFunction.SUM)
-            with pytest.raises(NotImplementedError, match="item 20"):
-                seq.compile()
+            results[p][1]["sequence"] = batch(a)
         except BaseException as e:  # re-raised below
             errors.append(e)
 
@@ -453,18 +472,24 @@ def _run_dcn_procs(n_procs, tmp_path, extra_args=()):
     return rcs, outs
 
 
-def _bytes_line(out):
+def _json_line(out, key):
     import json
 
-    return next(json.loads(line)["dcn_bytes"] for line in out.splitlines()
-                if line.startswith('{"dcn_bytes"'))
+    return next(json.loads(line)[key] for line in out.splitlines()
+                if line.startswith('{"' + key + '"'))
+
+
+def _bytes_line(out):
+    return _json_line(out, "dcn_bytes")
 
 
 def test_dcn_two_process_end_to_end(tmp_path):
     """Two OS processes x 4 ranks over gloo: every stage's local rows
     bitwise the in-process device's (run_dcn checks), the int8 allreduce
-    among them; the outer tier's bytes the reference's count."""
-    rcs, outs = _run_dcn_procs(2, tmp_path)
+    among them, and the sequence stage (recorded batches, a streamed
+    allreduce, stream_put); the outer tier's bytes the reference's count,
+    a recorded allreduce step's flat bytes the flat ring's."""
+    rcs, outs = _run_dcn_procs(2, tmp_path, ("--sequence",))
     assert rcs == [0, 0], f"rc={rcs}\n--- p0:\n{outs[0]}\n--- p1:\n{outs[1]}"
     assert "RANKS [0, 1, 2, 3] proc 0/2 OK" in outs[0]
     assert "RANKS [4, 5, 6, 7] proc 1/2 OK" in outs[1]
@@ -474,6 +499,27 @@ def test_dcn_two_process_end_to_end(tmp_path):
         line = _bytes_line(out)
         assert line["line_hop_bytes"] == want
         assert line["sent"] == 4 * want
+        seq = _json_line(out, "dcn_sequence")
+        # one 96-element segment: 2 * 7 hops of a 12-element chunk
+        assert seq["flat_sent"] == flat_allreduce_bytes(96, 8, 96) == 672
+        assert seq["flat_messages"] == 14
+
+
+def test_dcn_two_process_one_rank_a_host(tmp_path):
+    """Two OS processes x 1 rank over gloo: every stage flat across
+    processes on the exact, fp16 and int8 wires and the sequence stage,
+    each process's row bitwise the in-process device's; the flat ring's
+    bytes and its one message a ring step."""
+    rcs, outs = _run_dcn_procs(2, tmp_path, (
+        "--local-devices", "1", "--wires", "exact,float16,int8",
+        "--sequence"))
+    assert rcs == [0, 0], f"rc={rcs}\n--- p0:\n{outs[0]}\n--- p1:\n{outs[1]}"
+    for i in range(2):
+        assert f"RANKS [{i}] proc {i}/2 OK" in outs[i]
+        line = _bytes_line(outs[i])
+        assert line["sent"] == line["line_hop_bytes"] == 0
+        assert line["flat_sent"] == flat_allreduce_bytes(96, 2, 96) == 384
+        assert line["flat_messages"] == 2
 
 
 def test_dcn_three_process_cross_host_subgroup(tmp_path):
@@ -488,3 +534,235 @@ def test_dcn_three_process_cross_host_subgroup(tmp_path):
     want = _reference_outer_bytes(3, 2, 96)
     for out in outs:
         assert _bytes_line(out)["line_hop_bytes"] == want
+
+
+# -- one rank a host: every call flat across processes -----------------------
+
+
+def _drive_flat(a, x):
+    """Every collective, p2p and a group of hosts 0 and 2 (a 2-host group
+    on 3 x 1) on a facade of one rank a host; returns (result, defined
+    rows) by name."""
+    W, n = a.world, x.shape[-1]
+    c = n // W
+    group = [0, 2] if W > 2 else [0, 1]
+    out = {}
+
+    def call(name, count, fn, rows=None):
+        buf = a.create_buffer(count)
+        fn(buf)
+        out[name] = (np.asarray(buf.host), rows)
+
+    sb = a.create_buffer(n, data=x)
+    call("allreduce", n, lambda r: a.allreduce(sb, r, n, ReduceFunction.SUM))
+    call("allreduce_max", n, lambda r: a.allreduce(
+        sb, r, n, ReduceFunction.MAX))
+    bb = a.create_buffer(n, data=x)
+    a.bcast(bb, n, W - 1)
+    out["bcast"] = (np.asarray(bb.host), None)
+    call("allgather", c * W, lambda r: a.allgather(sb, r, c))
+    call("reduce_scatter", c, lambda r: a.reduce_scatter(
+        a.create_buffer(c * W, data=x[:, :c * W]), r, c,
+        ReduceFunction.SUM))
+    call("alltoall", c * W, lambda r: a.alltoall(
+        a.create_buffer(c * W, data=x[:, :c * W]), r, c))
+    call("scatter", c, lambda r: a.scatter(
+        a.create_buffer(c * W, data=x[:, :c * W]), r, c, 1))
+    call("gather", c * W, lambda r: a.gather(sb, r, c, W - 1), [W - 1])
+    call("reduce", n, lambda r: a.reduce(sb, r, n, 0, ReduceFunction.SUM),
+         [0])
+
+    def p2p(r):
+        a.send(sb, 16, src=0, dst=W - 1, tag=3)
+        a.recv(r, 16, src=0, dst=W - 1, tag=3)
+
+    call("p2p", 16, p2p, [W - 1])
+    comm = a.split(group)
+    call("group_allreduce", 24, lambda r: a.allreduce(
+        sb, r, 24, ReduceFunction.SUM, comm=comm))
+    gb = a.create_buffer(n, data=x)
+    a.bcast(gb, n, 1, comm=comm)
+    out["group_bcast"] = (np.asarray(gb.host), None)
+    a.barrier()
+    return out
+
+
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_one_rank_a_host_is_the_references(P):
+    """The facade at local_device_count == 1 over LoopbackHub threads:
+    every collective, p2p and a 2-host group lower flat across processes,
+    each host's row bitwise the reference DCNDevice's over a (P, 1)
+    mesh (a group's non-member host keeps its row)."""
+    x = np.random.default_rng(40 + P).standard_normal((P, 120)).astype(
+        np.float32)
+    ref = RefACCL(device=RefDCN(mesh=Mesh(
+        np.array(jax.devices()[:P]).reshape(P, 1), ("dcn", "ici"))))
+    want = _drive_flat(ref, x)
+    hub = LoopbackHub(P)
+    results, errors = [None] * P, []
+
+    def host(p):
+        try:
+            dev = DCNDevice(local_device_count=1, transport=hub.transport(p),
+                            torch_device="cpu")
+            results[p] = _drive_flat(ACCL(device=dev), x)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=host, args=(p,)) for p in range(P)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    for p, got in enumerate(results):
+        for name, (t, rows) in got.items():
+            if rows is not None and p not in rows:
+                continue
+            assert np.array_equal(_bits(t[p]), _bits(want[name][0][p])), \
+                (P, p, name)
+
+
+def test_multi_process_sequences_and_streams():
+    """On the 2 x 4 multi-process form: recorded batches (allreduce ->
+    allgather -> bcast, exact and int8), a streamed operand eagerly and in
+    a batch, and stream_put. Each host's rows bitwise the in-process
+    form's; the batches bitwise the reference DCNDevice's."""
+    P, L = 2, 4
+    W, n = P * L, 600  # two whole 256-element segments and a ragged one
+    c = n // W
+    x = np.random.default_rng(77).standard_normal((W, n)).astype(np.float32)
+    base = torch.from_numpy(x)
+
+    def batches(a):
+        out = {}
+        for wire in (None, DataType.int8):
+            s, d = a.create_buffer(n, data=x), a.create_buffer(n)
+            g = a.create_buffer(c * W)
+            seq = a.sequence()
+            seq.allreduce(s, d, n, ReduceFunction.SUM, compress_dtype=wire)
+            seq.allgather(d, g, c, compress_dtype=wire)
+            seq.bcast(g, c * W, 5, compress_dtype=wire)
+            seq.compile().run()
+            out[f"allreduce_{wire}"] = np.asarray(d.host)
+            out[f"allgather_bcast_{wire}"] = np.asarray(g.host)
+        return out
+
+    def streams(a):
+        out = {}
+        a.register_stream_producer(
+            7, lambda ranks: base[ranks[:, 0]] * ranks.to(torch.float32))
+        e = a.create_buffer(n)
+        a.allreduce(a.create_buffer(n), e, n, ReduceFunction.SUM,
+                    op0_stream=7)
+        out["streamed_allreduce"] = e.host.numpy()
+        b, h = a.create_buffer(n), a.create_buffer(n)
+        with a.sequence() as seq:
+            seq.bcast(b, n, 6, op0_stream=7)
+            seq.allreduce(b, h, n, ReduceFunction.SUM)
+        out["streamed_batch"] = h.host.numpy()
+        put = a.create_buffer(n)
+        a.stream_put(n, stream_id=7, src=2, dst=5, recvbuf=put)
+        out["stream_put"] = put.host.numpy()
+        return out
+
+    twin = ACCL(device=DCNDevice(mesh=make_mesh({"dcn": P, "ici": L},
+                                                device="cpu")))
+    want = {**batches(twin), **streams(twin)}
+    ref = RefACCL(device=RefDCN(mesh=Mesh(
+        np.array(jax.devices()[:W]).reshape(P, L), ("dcn", "ici"))))
+    ref_want = batches(ref)
+    for name, t in ref_want.items():
+        assert np.array_equal(_bits(t), _bits(want[name])), name
+    hub = LoopbackHub(P)
+    results, errors = [None] * P, []
+
+    def host(p):
+        try:
+            a = ACCL(device=DCNDevice(local_device_count=L,
+                                      transport=hub.transport(p),
+                                      torch_device="cpu"))
+            results[p] = {**batches(a), **streams(a)}
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=host, args=(p,)) for p in range(P)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    assert set(results[0]) == set(want)
+    for p, got in enumerate(results):
+        rows = slice(p * L, (p + 1) * L)
+        for name, t in got.items():
+            assert np.array_equal(_bits(t[rows]), _bits(want[name][rows])), \
+                (p, name)
+    made = x * np.arange(W, dtype=np.float32)[:, None]
+    np.testing.assert_allclose(want["streamed_allreduce"][0], made.sum(0),
+                               rtol=1e-4, atol=1e-3)
+    assert np.array_equal(want["stream_put"][5], made[2])
+    assert np.array_equal(want["stream_put"][4], made[4])
+
+
+@pytest.mark.parametrize("P,L", [(4, 1), (4, 2)], ids=["4x1", "4x2"])
+def test_autotuned_synthesized_plans_across_processes(P, L):
+    """After ACCL.autotune() the synthesized windows are open: at one rank
+    a host an eager allreduce and reduce_scatter select SYNTHESIZED plans
+    and lower their hop-DAGs flat across processes; at 4 x 2 a recorded
+    allreduce step does (the eager call keeps its composition). Each
+    host's rows bitwise the in-process device's, the same plans."""
+    from accl_tpu_torch.sequencer.plan import Algorithm
+
+    W, n = P * L, 1024
+    x = np.random.default_rng(P * 10 + L).standard_normal((W, n)).astype(
+        np.float32)
+
+    def drive(a):
+        a.autotune()
+        out, plans = {}, []
+        if L == 1:
+            s, d = a.create_buffer(n, data=x), a.create_buffer(n)
+            plans.append(a.allreduce(s, d, n, ReduceFunction.SUM).plan)
+            out["allreduce"] = d.host.numpy()
+            r = a.create_buffer(n // W)
+            plans.append(a.reduce_scatter(s, r, n // W,
+                                          ReduceFunction.SUM).plan)
+            out["reduce_scatter"] = r.host.numpy()
+        s, d = a.create_buffer(n, data=x), a.create_buffer(n)
+        seq = a.sequence()
+        seq.allreduce(s, d, n, ReduceFunction.SUM)
+        prog = seq.compile()
+        plans += list(prog.plans)
+        prog.run()
+        out["sequence"] = d.host.numpy()
+        return out, plans
+
+    want, plans = drive(ACCL(device=DCNDevice(mesh=make_mesh(
+        {"dcn": P, "ici": L}, device="cpu"))))
+    assert {p.algorithm for p in plans} == {Algorithm.SYNTHESIZED}, plans
+    hub = LoopbackHub(P)
+    results, errors = [None] * P, []
+
+    def host(p):
+        try:
+            results[p] = drive(ACCL(device=DCNDevice(
+                local_device_count=L, transport=hub.transport(p),
+                torch_device="cpu")))
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=host, args=(p,)) for p in range(P)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    for p, (got, got_plans) in enumerate(results):
+        assert got_plans == plans
+        rows = slice(p * L, (p + 1) * L)
+        for name, t in got.items():
+            assert np.array_equal(_bits(t[rows]), _bits(want[name][rows])), \
+                (p, name)
+    np.testing.assert_allclose(want["sequence"], np.tile(x.sum(0), (W, 1)),
+                               rtol=1e-4, atol=1e-4)
