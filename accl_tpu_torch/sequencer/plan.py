@@ -5,9 +5,8 @@ branches, the register-opened ones (the rendezvous reduce+bcast
 allreduce, the two-tier HIER_RS_AR_AG composition with its tiered
 synthesized arbitration, the latency-grid and standard synthesized
 libraries, the stripe-overlapped allreduce) and the wire arbitration of
-`select_wire` / `select_tier_wires`. The degraded live-subset ring
-belongs to the resilience slice of the port: it raises
-NotImplementedError where the reference would enter it.
+`select_wire` / `select_tier_wires`, and the degraded live-subset
+ring (the source-masked allreduce over the declared survivors).
 """
 
 from __future__ import annotations
@@ -134,6 +133,7 @@ def select_algorithm(
     peer_counts: tuple[int, ...] = (),
     overlap_link=None,
     overlap_compute=None,
+    tiered_synth_ok: bool = True,
     live_ranks: tuple[int, ...] = (),
 ) -> Plan:
     """Resolve scenario + message + communicator into a Plan, with the
@@ -145,7 +145,7 @@ def select_algorithm(
     dtypes and the stripe count timing.best_stripes picks under
     `tier_links` (default: the shipped per-tier calibration; none means
     one stripe), unless a tiered library entry for that factoring
-    predicts faster.
+    predicts faster (`tiered_synth_ok=False` pins the composition).
     `overlap_link` and `overlap_compute` parameterize the
     OVERLAP_MIN_COUNT window's stripe count (default: the shipped
     calibration; none keeps the serial form). `peer_counts` is the
@@ -223,7 +223,7 @@ def select_algorithm(
                              count, 1, inner_world=inner_w,
                              outer_world=outer_w, stripes=stripes,
                              inner_wire_dtype=iw, outer_wire_dtype=ow)
-            if links is not None:
+            if tiered_synth_ok and links is not None:
                 from . import synthesis
                 from .timing import predict_synth_tiered
 

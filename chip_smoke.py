@@ -288,10 +288,25 @@ What it does, in order, printing one JSON object per line:
      process sent across the boundary against the composition's count;
      the 4 and 25 MiB allreduce's median ms on the two-process device
      (host clock), the in-process DCNDevice and the flat GPUDevice;
- 24. the kernels line (with each kernel's launches on the sequence,
+ 24. entry phase (accl_tpu_torch/examples/ and accl_tpu_torch/tools/):
+     in process at the flagship widths, the generation example's
+     generate_tokens on its dp2.tp2 mesh (batch 8, 120 new tokens: each
+     decode step's logits within TRAIN_TOL of make_forward's, greedy
+     tokens their argmax, two sampled runs from one seed equal), the
+     dense trainer on dp2.sp2.tp2 and the MoE trainer on dp2.ep4, each
+     2 steps + save_checkpoint + restore + 2 steps bitwise 4 straight
+     steps, kernel 7 launched as the schedule gives; then every CLI as
+     a user runs it (generate, train_lm with --ckpt twice, --model moe,
+     --pp 2, --remat, accl_lint's three CI gates, accl_synth
+     --verify-library, accl_trace --selftest, run_emulator on tcp and
+     udp), each a child process that must exit 0 with its success
+     lines; ms a decode step, tokens/s, ms a train step beside the mesh
+     phase's leaf step, checkpoint bytes and seconds, each child's
+     seconds;
+ 25. the kernels line (with each kernel's launches on the sequence,
      point-to-point, sub-communicator, alltoall, tuned, telemetry,
-     serve, train, MoE, mesh, analysis, lift, resilience, scheduler and
-     dcn paths); last, the device line.
+     serve, train, MoE, mesh, analysis, lift, resilience, scheduler,
+     dcn and entry paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -302,6 +317,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -5467,6 +5483,7 @@ MESH_ULYSSES_STRIPES = 4  # head groups of 4: each still divides over sp
 MESH_MOE_AXES = {"dp": 2, "ep": 2}
 MESH_MOE_CFG = dict(MOE_CFG, n_experts=4, experts_per_rank=2, vocab=32768,
                     seq=1024)
+MESH_TIMES: dict = {}  # the leaf train step's timed runs, for entry_phase
 
 
 def ring_folds(n: int) -> int:
@@ -5917,6 +5934,7 @@ def mesh_phase(ring, qk, L):
     flops = train_flops(cfg, B * T, T)
     bound_ms = flops / FP32_FLOPS_PER_S * 1e3
     leaf_ms = times["train_leaf"]["events_ms_p50"]
+    MESH_TIMES["train_leaf"] = times["train_leaf"]
     emit({"phase": "mesh", "gpu": gpu, "config": {**SERVE_CFG,
                                                   "dtype": "float32"},
           "tokens": [B, T], "axes": MESH_AXES, "pp_axes": MESH_PP_AXES,
@@ -7917,6 +7935,313 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
     return path, flat_path
 
 
+# the entry points (accl_tpu_torch/examples/, accl_tpu_torch/tools/): the
+# generation example on dp2.tp2 (its mesh at --world 4), the dense
+# trainer on factorize_devices(8) and the MoE trainer on dp2.ep4 (its
+# expert layout at --world 8), at the flagship widths
+ENTRY_GEN_BATCH, ENTRY_PROMPT, ENTRY_NEW = 8, 8, 120  # max_len 128
+ENTRY_TEMP, ENTRY_SEED = 0.8, 2020
+ENTRY_SEQ = 1024  # the trainers' sequence length
+ENTRY_STEPS = 2  # steps before and after the checkpoint
+ENTRY_WORKERS = 4  # CLI children run at once
+ENTRY_CHILD_TIMEOUT_S = 300
+# each CLI child as a user runs it, and what its output must hold; a
+# tuple of commands runs in order in one job (the second resumes the
+# first's checkpoint, written into {ckpt})
+ENTRY_CLIS = (
+    ("generate", [("examples.generate", "--steps", "16")],
+     ("generated=16",)),
+    ("generate_sampled",
+     [("examples.generate", "--steps", "16", "--temp", "0.8")],
+     ("generated=16",)),
+    ("train_lm_ckpt",
+     [("examples.train_lm", "--steps", "3", "--ckpt", "{ckpt}"),
+      ("examples.train_lm", "--steps", "3", "--ckpt", "{ckpt}")],
+     ("saved {ckpt}/step_000003", "resumed from {ckpt}/step_000003",
+      "saved {ckpt}/step_000006")),
+    ("train_lm_moe", [("examples.train_lm", "--model", "moe", "--top-k",
+                       "2", "--steps", "2")],
+     ("MoE with 4 experts, top-2 routing", "step    1  loss")),
+    ("train_lm_pp", [("examples.train_lm", "--pp", "2", "--steps", "2")],
+     ("'pp': 2}", "step    1  loss")),
+    ("train_lm_remat", [("examples.train_lm", "--remat", "--steps", "2")],
+     (" remat\n", "step    1  loss")),
+    ("accl_lint_default", [("tools.accl_lint", "--corpus", "--schedules")],
+     ("corpus: 50 fixtures (33 known-bad, 17 known-good)",
+      "schedules: 374 (scenario, world, root, size, tuning, wire) "
+      "configurations interpreted clean")),
+    ("accl_lint_interference",
+     [("tools.accl_lint", "--interference", "--corpus")],
+     ("interference: 114 pairs", "5 concurrent corpus fixtures replayed "
+      "clean")),
+    ("accl_lint_deep", [("tools.accl_lint", "--deep", "--corpus",
+                         "--schedules", "--sample", "64")],
+     ("configurations interpreted + model-checked clean",)),
+    ("accl_synth", [("tools.accl_synth", "--verify-library")],
+     ("  ok  ",)),
+    ("accl_trace", [("tools.accl_trace", "--selftest")], ("selftest OK",)),
+    ("run_emulator", [("tools.run_emulator", "-n", "4")],
+     ("all 4 ranks OK",)),
+    ("run_emulator_udp",
+     [("tools.run_emulator", "-n", "4", "--transport", "udp")],
+     ("all 4 ranks OK",)),
+)
+
+def entry_child(name, commands, wants, ckpt):
+    """One CLI job: its commands in order, each a child `python -m
+    accl_tpu_torch.<module> ...` with no --device (the card); fails
+    unless every command exits 0 within ENTRY_CHILD_TIMEOUT_S and the
+    output holds every wanted line. Returns its seconds and the tail of
+    its output."""
+    t0 = time.perf_counter()
+    out = ""
+    for cmd in commands:
+        argv = [a.replace("{ckpt}", ckpt) for a in cmd]
+        try:
+            p = subprocess.run(
+                [sys.executable, "-m", f"accl_tpu_torch.{argv[0]}",
+                 *argv[1:]], capture_output=True, text=True,
+                timeout=ENTRY_CHILD_TIMEOUT_S,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"entry: {name}: {argv} ran past "
+                                 f"{ENTRY_CHILD_TIMEOUT_S} s") from e
+        out += p.stdout
+        if p.returncode != 0:
+            raise AssertionError(f"entry: {name}: {argv} exited "
+                                 f"{p.returncode}:\n{p.stdout[-2000:]}\n"
+                                 f"{p.stderr[-3000:]}")
+    for want in wants:
+        want = want.replace("{ckpt}", ckpt)
+        if want not in out:
+            raise AssertionError(f"entry: {name} printed no {want!r}:\n"
+                                 f"{out[-2000:]}")
+    if name == "accl_synth" and " FAIL " in out:
+        raise AssertionError(f"entry: accl_synth: {out[-2000:]}")
+    return {"seconds": time.perf_counter() - t0,
+            "last_line": out.strip().splitlines()[-1][:200]}
+
+
+def entry_phase(ring, qk, L, *, device="cuda"):
+    """The entry points (accl_tpu_torch/examples/ and the tools) on the
+    card. (a) in process, through the examples' own functions at the
+    flagship widths (SERVE_CFG; MOE_CFG's d_model and d_ff), TF32 off.
+    Gates, each failing the run:
+      (1) generate_tokens on the example's mesh at --world 4 (dp2.tp2),
+          batch 8, prompt 8, 120 generated tokens (max_len 128): greedy,
+          then at temp 0.8 twice from one seed; every decode step's
+          logits within TRAIN_TOL * max|ref| of make_forward's over the
+          greedy sequence on the same mesh, each greedy token the argmax
+          of its step's logits, the two sampled runs the same tokens,
+          kernel 7 16 times a step;
+      (2) the dense trainer at factorize_devices(8) (dp2.sp2.tp2) with
+          the example's batch rule at seq 1024 (4 x 1024): 2 steps,
+          save_checkpoint, latest_checkpoint + restore, 2 more steps in
+          a fresh train call, bitwise the stacked parameters of 4
+          straight steps; the saved tree re-placed bitwise the stacked
+          one (every replica of a leaf equal); kernel 7
+          mesh_step_folds() times a step;
+      (3) the MoE trainer at --world 8 (dp2.ep4, one expert a rank,
+          top-2) with vocab 32 768 and seq 1024, its batch of 16 rows:
+          the same 2 + 2 against 4 gate, kernel 7 18 times a step.
+    (b) every CLI as a user runs it, each a child `python -m
+    accl_tpu_torch...` on the card (ENTRY_CLIS), ENTRY_WORKERS at once:
+    each must exit 0 and print its success lines.
+    Numbers: ms a decode step and generated tokens/s (CUDA events and
+    host clock over the greedy loop), the trainers' ms a step beside
+    mesh_phase's leaf step, the checkpoints' bytes and save and restore
+    seconds, peak memory, each child's seconds. Returns each kernel's
+    launches over the in-process runs (a child's launches are its own
+    process's, not counted)."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accl_tpu_torch.examples import generate as gen_ex
+    from accl_tpu_torch.examples import train_lm as train_ex
+    from accl_tpu_torch.models import transformer as trf
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    kernels = seq_kernels(ring, qk, L)
+    for k in kernels.values():
+        k.launches = 0
+    counts, delta = launch_counter(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    gpu = card_name()
+    path = dict.fromkeys(kernels, 0)
+    gates, numbers = {}, {}
+
+    def launched(fn, what, want):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = delta(before)
+        for k, v in got.items():
+            path[k] += v
+        if got != {"combine": want}:
+            raise AssertionError(f"entry: {what} launched {got}; the "
+                                 f"schedule gives {want} of kernel 7")
+        return out
+
+    def clocked(fn):
+        """fn's result, its CUDA-event ms and its host ms."""
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3
+
+    # (1) generation
+    cfg = trf.TransformerConfig(**SERVE_CFG)
+    mesh = gen_ex.example_mesh(4, device)
+    params = trf.shard_params(trf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(ENTRY_SEED), device),
+        cfg, mesh)
+    B = gen_ex.round_batch(ENTRY_GEN_BATCH, mesh)
+    prompt = gen_ex.make_prompt(cfg.vocab, B, ENTRY_PROMPT, ENTRY_SEED)
+    total = ENTRY_PROMPT + ENTRY_NEW
+    dfold = 2 * cfg.n_layers * ring_folds(mesh.shape["tp"])
+    logits = []
+    (toks, ev_ms, host_ms) = launched(
+        lambda: clocked(lambda: gen_ex.generate_tokens(
+            cfg, mesh, params, prompt, ENTRY_NEW, logits=logits)),
+        "greedy generation", dfold * (total - 1))
+    with torch.no_grad():
+        ref = trf.make_forward(cfg, mesh)(params, toks)
+    got = torch.stack(logits, 1)
+    gates["decode_vs_forward_rel_err"] = check_logits(
+        got, ref[:, :total - 1], "decode steps against make_forward")
+    if not torch.equal(toks[:, ENTRY_PROMPT:],
+                       got[:, ENTRY_PROMPT - 1:].argmax(-1)):
+        raise AssertionError("entry: a greedy token is not its step's "
+                             "argmax")
+    del logits, got, ref
+    gates["decode_kernel7_per_step"] = dfold
+    numbers.update(decode_steps=total - 1,
+                   decode_step_events_ms=ev_ms / (total - 1),
+                   decode_step_host_ms=host_ms / (total - 1),
+                   generated_tokens_per_s=B * ENTRY_NEW / host_ms * 1e3)
+    sampled = [launched(lambda: gen_ex.generate_tokens(
+        cfg, mesh, params, prompt, ENTRY_NEW, temp=ENTRY_TEMP,
+        generator=torch.Generator(device=device).manual_seed(
+            ENTRY_SEED + 1)), "sampled generation", dfold * (total - 1))
+        for _ in range(2)]
+    if not torch.equal(sampled[0], sampled[1]):
+        raise AssertionError("entry: two sampled runs from one seed "
+                             "differ")
+    gates["sampled_runs_equal"] = True
+    gates["sampled_tokens_differ_from_greedy"] = int(
+        (sampled[0] != toks).sum())
+    del sampled, toks, params, mesh
+
+    # (2), (3) the trainers: 2 steps, checkpoint, restore, 2 more steps
+    # against 4 straight steps, bitwise
+    def resumed(run, what, folds):
+        params = run.init_params(
+            torch.Generator(device=device).manual_seed(ENTRY_SEED))
+        placed = run.place(params)
+        n = 2 * ENTRY_STEPS
+        (straight, _), ev, host = launched(
+            lambda: clocked(lambda: train_ex.train(run, placed, 0, n,
+                                                   log=None)),
+            f"{what}: {n} straight steps", n * folds)
+        again = run.place(run.global_params(straight))
+        if not all(same_bits(a, b) for a, b in zip(
+                trf._tree_leaves(again), trf._tree_leaves(straight))):
+            raise AssertionError(f"entry: {what}: a leaf's replicas "
+                                 "differ")
+        del again
+        first, _ = launched(
+            lambda: train_ex.train(run, placed, 0, ENTRY_STEPS, log=None),
+            f"{what}: {ENTRY_STEPS} steps", ENTRY_STEPS * folds)
+        ckpt = tempfile.mkdtemp(prefix="entry-ckpt-")
+        try:
+            t0 = time.perf_counter()
+            saved = train_ex.save_checkpoint(run, first, ckpt, ENTRY_STEPS)
+            save_s = time.perf_counter() - t0
+            nbytes = (saved / train_ex.CKPT_FILE).stat().st_size
+            del first
+            t0 = time.perf_counter()
+            latest = train_ex.latest_checkpoint(ckpt)
+            restored = run.place(train_ex.restore(latest))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(ckpt)
+        if latest != saved:
+            raise AssertionError(f"entry: {what}: latest_checkpoint gave "
+                                 f"{latest}, not {saved}")
+        second, _ = launched(
+            lambda: train_ex.train(run, restored, ENTRY_STEPS, ENTRY_STEPS,
+                                   log=None),
+            f"{what}: {ENTRY_STEPS} resumed steps", ENTRY_STEPS * folds)
+        if not all(same_bits(a, b) for a, b in zip(
+                trf._tree_leaves(second), trf._tree_leaves(straight))):
+            raise AssertionError(f"entry: {what}: {ENTRY_STEPS} + "
+                                 f"{ENTRY_STEPS} resumed steps are not "
+                                 f"{n} straight steps bitwise")
+        gates[f"{what}_resumed_bitwise"] = True
+        gates[f"{what}_kernel7_per_step"] = folds
+        tokens = run.tokens.numel()
+        numbers[what] = {
+            "axes": run.axes, "tokens": list(run.tokens.shape),
+            "step_events_ms": ev / n, "step_host_ms": host / n,
+            "tokens_per_s": tokens / (host / n) * 1e3,
+            "checkpoint_bytes": nbytes, "save_s": save_s,
+            "restore_s": restore_s}
+
+    dense = train_ex.dense_run(8, device=device, cfg=cfg, seq=ENTRY_SEQ)
+    resumed(dense, "dense", mesh_step_folds(cfg, dense.axes))
+    del dense
+    torch.cuda.empty_cache()
+    mrun = train_ex.moe_run(8, top_k=2, device=device,
+                            d_model=MOE_CFG["d_model"],
+                            d_ff=MOE_CFG["d_ff"], vocab=SERVE_CFG["vocab"],
+                            seq=ENTRY_SEQ)
+    dp, ep = mrun.axes["dp"], mrun.axes["ep"]
+    resumed(mrun, "moe", 6 * ring_folds(dp) + 4 * ring_folds(ep))
+    del mrun
+    leaf = MESH_TIMES.get("train_leaf")
+    if leaf is not None:
+        numbers["mesh_train_leaf"] = {
+            "step_events_ms": leaf["events_ms_p50"],
+            "tokens": [MESH_BATCH, MESH_SEQ],
+            "tokens_per_s": MESH_BATCH * MESH_SEQ
+            / leaf["events_ms_p50"] * 1e3}
+    numbers["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    t_inproc = time.perf_counter() - t_phase
+
+    # (b) every CLI as a user runs it
+    children = {}
+    ckpt = tempfile.mkdtemp(prefix="entry-cli-ckpt-")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(ENTRY_WORKERS) as pool:
+            jobs = {name: pool.submit(entry_child, name, cmds, wants, ckpt)
+                    for name, cmds, wants in ENTRY_CLIS}
+            for name, job in jobs.items():
+                children[name] = job.result()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "entry", "gpu": gpu, "config": SERVE_CFG,
+          "moe_widths": {k: MOE_CFG[k] for k in ("d_model", "d_ff")},
+          "generation": {"axes": {"dp": 2, "sp": 1, "tp": 2}, "batch": B,
+                         "prompt": ENTRY_PROMPT, "new": ENTRY_NEW,
+                         "temp": ENTRY_TEMP},
+          "tolerance": TRAIN_TOL, "gates": gates, "numbers": numbers,
+          "children": children, "in_process_s": t_inproc,
+          "phase_s": time.perf_counter() - t_phase, "launches": path})
+    return path
+
+
 class NativeBuild(threading.Thread):
     """The native emulator's g++ build, started beside the kernels' nvcc
     builds; its seconds and any error are read after join()."""
@@ -7957,10 +8282,11 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     `telemetry_launches`, `serve_launches`, `train_launches`,
     `moe_launches`, `mesh_launches`, `analysis_launches`,
     `lift_launches`, `resilience_launches`, `scheduler_launches`,
-    `dcn_launches` and `dcn_flat_launches` likewise over the checked runs
-    of the point-to-point, sub-communicator, alltoall, tuned, telemetry,
-    serve, train, MoE, mesh, analysis, lift, resilience, scheduler and
-    multi-host paths (the last: the flat calls across processes)."""
+    `dcn_launches`, `dcn_flat_launches` and `entry_launches` likewise
+    over the checked runs of the point-to-point, sub-communicator,
+    alltoall, tuned, telemetry, serve, train, MoE, mesh, analysis, lift,
+    resilience, scheduler, multi-host (the flat calls across processes
+    apart) and entry-point paths (the examples' in-process runs)."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -8117,6 +8443,7 @@ def main() -> int:
                                  native_build),
              "scheduler": timed(scheduler_phase, ring, qk, L)}
     paths["dcn"], paths["dcn_flat"] = timed(dcn_phase, ring, qk, L)
+    paths["entry"] = timed(entry_phase, ring, qk, L)
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)

@@ -290,3 +290,34 @@ def test_wire_arbitration_is_the_references():
                     count, port_c.DataType.float32, topo,
                     port_fb.default_tier_links(), quantized_ok=quant)
                 assert [int(w) for w in got] == [int(w) for w in want]
+
+
+@pytest.mark.parametrize("count", [8192, 65536])
+def test_tiered_synth_ok_pins_the_composition(count):
+    """The lint sweep's hier rows: at W 8 on (2, 4) under a WAN-class
+    outer link the in-window arbitration picks the tiered library entry;
+    `tiered_synth_ok=False` pins the striped composition, in both
+    packages."""
+    import accl_tpu.sequencer.timing as ref_t
+    import accl_tpu_torch.sequencer.timing as port_t
+
+    tuning = (ref_c.TuningParams(hier_allreduce_min_count=1),
+              port_c.TuningParams(hier_allreduce_min_count=1))
+    links = {"ref": ref_t.TierLinks(inner=ref_t.LinkParams(2e-6, 2e9),
+                                    outer=ref_t.LinkParams(300e-6, 0.25e9)),
+             "port": port_t.TierLinks(
+                 inner=port_t.LinkParams(2e-6, 2e9),
+                 outer=port_t.LinkParams(300e-6, 0.25e9))}
+    for ok, algo in ((True, "SYNTHESIZED"), (False, "HIER_RS_AR_AG")):
+        ref = ref_plan.select_algorithm(
+            ref_c.Operation.allreduce, count, 4, 8, tuning=tuning[0],
+            topology=(2, 4), tier_links=links["ref"], tiered_synth_ok=ok,
+            **KW)
+        port = port_plan.select_algorithm(
+            port_c.Operation.allreduce, count, 4, 8, tuning=tuning[1],
+            topology=(2, 4), tier_links=links["port"], tiered_synth_ok=ok,
+            **KW)
+        assert _plain(port) == _plain(ref), (count, ok)
+        assert port.algorithm.name == algo, (count, ok)
+        if ok:
+            assert port.synth_key == "allreduce_w8_t2x4_lg_exchange_d1_o1_2"
