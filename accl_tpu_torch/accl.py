@@ -210,9 +210,12 @@ class ACCL:
         shipped model, accl_tpu_torch/data/timing_model.json). That model
         was fitted on the reference's native emulator and a CPU mesh, so
         the windows it opens are the reference's, not measurements of
-        this card. tier="tpu" reads the model's TPU section, which the
-        port's copy does not carry: it raises ValueError unless a model
-        with one is named. `wire_dtype` tunes for a workload on that
+        this card. tier="tpu" reads the model's on-chip section
+        (`tpu_tier`: the dispatch alpha and HBM stream rate), which the
+        shipped copy does not carry: `python -m
+        accl_tpu_torch.tools.timing_model --profile PROFILE.csv` fits it
+        from a profile of the card (chip_smoke.py measures one), and a
+        model without it raises ValueError. `wire_dtype` tunes for a workload on that
         compression lane (the byte registers stretch by the compression
         ratio). `tier_links` and `compute_fit` override the model's
         per-tier and compute calibrations. Returns the applied
@@ -243,7 +246,8 @@ class ACCL:
                 if not t or not t.get("hbm_stream_gbps"):
                     raise ValueError(
                         "timing model has no usable tpu_tier; re-run "
-                        "tools/timing_model.py with an on-chip profile")
+                        "python -m accl_tpu_torch.tools.timing_model "
+                        "--profile <the card's profile.csv>")
                 link = LinkParams(alpha=t["dispatch_alpha_us"] * 1e-6,
                                   beta=t["hbm_stream_gbps"] * 1e9)
             else:

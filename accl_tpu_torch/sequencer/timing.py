@@ -142,13 +142,14 @@ def emulator_link(model: dict[str, Any]) -> LinkParams:
     aggregate and critical-path shapes coincide, so its alpha/beta are
     genuine per-message/per-byte host costs), with fallback to the
     legacy single-"link" key. The ONE resolution rule shared by
-    ACCL.autotune, bench.py --check, and tools/accl_synth — a schema
-    change lands here or nowhere."""
+    ACCL.autotune and the accl_synth tool — a schema change lands here
+    or nowhere."""
     lk = (model.get("link_per_collective", {}).get("bcast")
           or model.get("link"))
     if not lk:
         raise ValueError("timing model has neither link_per_collective "
-                         "nor link; re-run tools/timing_model.py")
+                         "nor link; re-run python -m "
+                         "accl_tpu_torch.tools.timing_model")
     return LinkParams(alpha=lk["alpha_us"] * 1e-6,
                       beta=lk["beta_gbps"] * 1e9)
 

@@ -303,10 +303,25 @@ What it does, in order, printing one JSON object per line:
      lines; ms a decode step, tokens/s, ms a train step beside the mesh
      phase's leaf step, checkpoint bytes and seconds, each child's
      seconds;
- 25. the kernels line (with each kernel's launches on the sequence,
+ 25. sweep phase (accl_tpu_torch/tools/bench_emulator, rt_stats_sweep,
+     timing_model): each child alone, into a temporary directory, its
+     seconds host time of the machine, not card work: the emulator sweep
+     at -n 4 and -n 8 on tcp and -n 4 on local and udp (40 rows a world
+     less the announced skips, every Protocol the selection rule's and
+     the committed accl_log/emu_bench*.csv's), the counter sweep's nine
+     default configs (spans, no drops, retcodes [0]); then the card's
+     own profile in the reference's format (kernel 7's fp32 SUM at 1 KiB
+     to 1 GiB an operand, CUDA events with the host held off, the 1 GiB
+     result bitwise its plain version; the world-1 facade allreduce's
+     dispatch at 4 KiB, 256 KiB and 16 MiB, host clock with the sync),
+     the timing model fitted from the sweeps and that profile (its six
+     sections, finite medians, the tier's 3 x HBM stream rate within the
+     card's 3.35 TB/s) and ACCL(GPUDevice(8)).autotune(tier="tpu") on it,
+     the registers equal to those derived from the tier's link;
+ 26. the kernels line (with each kernel's launches on the sequence,
      point-to-point, sub-communicator, alltoall, tuned, telemetry,
      serve, train, MoE, mesh, analysis, lift, resilience, scheduler,
-     dcn and entry paths); last, the device line.
+     dcn, entry and sweep paths); last, the device line.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. It needs no network and one card.
@@ -8242,6 +8257,354 @@ def entry_phase(ring, qk, L, *, device="cuda"):
     return path
 
 
+# each bench_emulator child of the sweep phase: (transport, world), the
+# default --iters
+SWEEP_BENCH = (("tcp", 4), ("tcp", 8), ("local", 4), ("udp", 4))
+SWEEP_CHILD_TIMEOUT_S = 300
+# the card's profile in the reference's format (bench.py's profile.csv,
+# Test,Bytes,Seconds,GBps,Regime): kernel 7's fp32 SUM at these bytes an
+# operand, and the world-1 facade allreduce's dispatch at these bytes
+SWEEP_COMBINE_BYTES = (KIB, 16 * KIB, 256 * KIB, 4 * MIB, 64 * MIB, 1 << 30)
+SWEEP_DISPATCH_BYTES = (4 * KIB, 256 * KIB, 16 * MIB)
+SWEEP_STREAM_BYTES = 256 * MIB  # Regime "stream" from here up (bench.py)
+SWEEP_REPS = 20
+# CUDA events resolve about 0.5 us: a combine whose median is within this
+# of an empty event pair's is Regime "noise" (a resolution floor)
+EVENT_RESOLUTION_MS = 0.0005
+HBM_GBPS = HBM_BYTES_PER_S / 1e9
+
+
+def sweep_child(module: str, *args: str):
+    """One tool child, `python -m accl_tpu_torch.tools.<module> ...`, run
+    alone (its seconds are host time, which siblings would distort);
+    fails unless it exits 0 within SWEEP_CHILD_TIMEOUT_S. Returns its
+    seconds, stdout and stderr."""
+    t0 = time.perf_counter()
+    argv = [sys.executable, "-m", f"accl_tpu_torch.tools.{module}", *args]
+    try:
+        p = subprocess.run(argv, capture_output=True, text=True,
+                           timeout=SWEEP_CHILD_TIMEOUT_S,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"sweep: {argv[2:]} ran past "
+                             f"{SWEEP_CHILD_TIMEOUT_S} s") from e
+    if p.returncode != 0:
+        raise AssertionError(f"sweep: {argv[2:]} exited {p.returncode}:\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+    return time.perf_counter() - t0, p.stdout, p.stderr
+
+
+def held_samples(fn, reps: int = SWEEP_REPS, tries: int = 3):
+    """`reps` single calls of fn, each between two CUDA events with a spin
+    kernel holding the stream while the host enqueues it (the host held
+    off): the events time the card's work alone. A sample whose spin
+    ended first is taken again with twice the spin, at most `tries`
+    times in all. Returns each sample's ms, fn's last result and the
+    calls made (2 + reps + the samples taken again)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int((3 * host_s + 1e-3) * spin_cycles_per_s())
+    times, missed, calls = [], 0, 2
+    while len(times) < reps:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        e0.record()
+        out = fn()
+        calls += 1
+        e1.record()
+        held = not e0.query()
+        e1.synchronize()
+        if held:
+            times.append(e0.elapsed_time(e1))
+            continue
+        missed += 1
+        if missed >= tries:
+            raise AssertionError(f"spin ended before the call was "
+                                 f"enqueued, {tries} times")
+        spin *= 2
+    return times, out, calls
+
+
+def sweep_profile(L, kernels, path: str):
+    """The card's profile (tools/timing_model's --profile input), written
+    to `path` in the reference's format, and its rows. combine_sum_fp32:
+    kernel 7 on (1, n) fp32 operands at SWEEP_COMBINE_BYTES each, the
+    median of held_samples (host held off); GBps = Bytes / Seconds;
+    Regime "stream" from SWEEP_STREAM_BYTES, "latency" below, "noise"
+    where the median is within EVENT_RESOLUTION_MS of an empty event
+    pair's. The 1 GiB result is held bitwise against kernel 7's plain
+    version on the same operands. allreduce_w1_dispatch_datapath_fp32:
+    one facade allreduce on GPUDevice(1) at SWEEP_DISPATCH_BYTES, device
+    buffers in and out, the host clock around the call and a
+    synchronize, median of SWEEP_REPS after 3 warm-up calls (the
+    reference's host-observed per-dispatch cost); its result must be its
+    operand bitwise. Returns the rows, each dispatch size's launches and
+    the empty event pair's median ms."""
+    import torch
+
+    from accl_tpu_torch import ACCL
+    from accl_tpu_torch.constants import ReduceFunction
+    from accl_tpu_torch.device.gpu_device import GPUDevice
+
+    counts, delta = launch_counter(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(2121)
+    floor = statistics.median(held_samples(lambda: None)[0])
+    rows = []
+    for nbytes in SWEEP_COMBINE_BYTES:
+        n = nbytes // 4
+        a = torch.randn((1, n), generator=gen, device="cuda")
+        b = torch.randn((1, n), generator=gen, device="cuda")
+        before = counts()
+        times, out, calls = held_samples(lambda: L.combine(a, b, "sum"))
+        if delta(before) != {"combine": calls}:
+            raise AssertionError(f"sweep: {calls} combine calls launched "
+                                 f"{delta(before)}")
+        ms = statistics.median(times)
+        if nbytes == SWEEP_COMBINE_BYTES[-1]:
+            plain = L._combine_impl(a, b, "sum")
+            if not same_bits(out, plain):
+                raise AssertionError("sweep: the 1 GiB combine differs from "
+                                     "kernel 7's plain version")
+            del plain
+        del a, b, out
+        regime = ("noise" if ms <= floor + EVENT_RESOLUTION_MS
+                  else "stream" if nbytes >= SWEEP_STREAM_BYTES
+                  else "latency")
+        rows.append(("combine_sum_fp32", nbytes, ms * 1e-3,
+                     nbytes / (ms * 1e-3) / 1e9, regime))
+    torch.cuda.empty_cache()
+    accl = ACCL(device=GPUDevice(1))
+    dispatch_launches = {}
+    for nbytes in SWEEP_DISPATCH_BYTES:
+        n = nbytes // 4
+        sb, rb = accl.create_buffer(n), accl.create_buffer(n)
+        sb.device.copy_(torch.randn((1, n), generator=gen, device="cuda"))
+
+        def call():
+            accl.allreduce(sb, rb, n, ReduceFunction.SUM, from_device=True,
+                           to_device=True)
+            torch.cuda.synchronize()
+
+        before = counts()
+        call()
+        dispatch_launches[nbytes] = delta(before)
+        if not same_bits(rb.device, sb.device):
+            raise AssertionError("sweep: the world-1 allreduce changed its "
+                                 "operand")
+        for _ in range(2):
+            call()
+        secs = []
+        for _ in range(SWEEP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            secs.append(time.perf_counter() - t0)
+        s = statistics.median(secs)
+        rows.append(("allreduce_w1_dispatch_datapath_fp32", nbytes, s,
+                     nbytes / s / 1e9, "latency"))
+        accl.free_buffer(sb)
+        accl.free_buffer(rb)
+    with open(path, "w") as f:
+        f.write("Test,Bytes,Seconds,GBps,Regime\n")
+        for t, nb, s, g, regime in rows:
+            f.write(f"{t},{nb},{s:.6e},{g:.3f},{regime}\n")
+    return rows, dispatch_launches, floor
+
+
+def sweep_phase(ring, qk, L):
+    """The emulator measuring tools (accl_tpu_torch/tools/bench_emulator,
+    rt_stats_sweep, timing_model) and the card's own on-chip tier, every
+    output in a temporary directory, every child run alone (its seconds
+    are host time of the machine that holds the card, not card work):
+      (1) bench_emulator at SWEEP_BENCH (-n 4 and -n 8 on tcp, -n 4 on
+          local and udp), default --iters;
+      (2) rt_stats_sweep's default grid (W 8, allreduce/bcast/allgather at
+          64 KiB, 1 and 4 MiB, tcp), one child a config through the
+          tool's run_child/summarize/write_csv;
+      (3) the card's profile (sweep_profile): kernel 7 and the world-1
+          facade allreduce on the card;
+      (4) timing_model --sweep-dir --profile --out as a child;
+      (5) ACCL(GPUDevice(8)).autotune(tier="tpu") on that model.
+    Gates, each failing the run: every child exits 0; each sweep 40 rows
+    a world and transport less the announced skips, which are exactly
+    the skip rule's; every Protocol protocol_label's and the committed
+    accl_log/emu_bench*.csv's (read only) wherever it holds the same
+    (Collective, Bytes, World); every rt_stats config spans > 0,
+    span_dropped 0, retcodes [0]; the 1 GiB combine bitwise its plain
+    version; the fit's six sections present and its medians finite; the
+    tier's 3 x hbm_stream_gbps at most the card's 3 350 GB/s; the
+    registers autotune applies equal the ones derived by hand from the
+    tier's link. Returns each kernel's launches over (3) and (5)."""
+    import csv
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accl_tpu_torch import ACCL
+    from accl_tpu_torch.constants import TuningParams
+    from accl_tpu_torch.device import emu_device
+    from accl_tpu_torch.device.gpu_device import GPUDevice
+    from accl_tpu_torch.sequencer.timing import LinkParams, tuning_crossovers
+    from accl_tpu_torch.tools import bench_emulator as be
+    from accl_tpu_torch.tools import rt_stats_sweep as rts
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    kernels = seq_kernels(ring, qk, L)
+    counts, _ = launch_counter(kernels)
+    gates, children = {}, {}
+    tmp = tempfile.mkdtemp(prefix="sweep-")
+    try:
+        # (1) the emulator sweeps
+        skips = {}
+        for transport, world in SWEEP_BENCH:
+            secs, out, err = sweep_child(
+                "bench_emulator", "-n", str(world), "--transport", transport,
+                "--out-dir", tmp)
+            children[f"bench_emulator_{transport}_w{world}"] = secs
+            announced = sum("SKIPPED" in ln for ln in err.splitlines())
+            want = sum(be.skipped(name, be.protocol_label(
+                name, nb // 4, world, transport), nb, world)
+                for nb in be.SIZES for name in be.COLLECTIVES)
+            if announced != want:
+                raise AssertionError(f"sweep: {transport} w{world} "
+                                     f"announced {announced} skips, the "
+                                     f"rule gives {want}")
+            skips[(transport, world)] = announced
+        rows_a_sweep, matched = {}, 0
+        for transport, name in be.CSV_NAMES.items():
+            with open(os.path.join(tmp, name)) as f:
+                got = list(csv.DictReader(f))
+            with open(os.path.join(here, "accl_log", name)) as f:
+                committed = {(r["Collective"], r["Bytes"], r["World"]):
+                             r["Protocol"] for r in csv.DictReader(f)}
+            for (tr, world), skipped in skips.items():
+                if tr != transport:
+                    continue
+                n = sum(r["World"] == str(world) for r in got)
+                if n != len(be.SIZES) * len(be.COLLECTIVES) - skipped:
+                    raise AssertionError(f"sweep: {name} holds {n} rows at "
+                                         f"w{world} ({skipped} skipped)")
+                rows_a_sweep[f"{transport}_w{world}"] = n
+            for r in got:
+                want = be.protocol_label(r["Collective"], int(r["Bytes"]) // 4,
+                                         int(r["World"]), transport)
+                key = (r["Collective"], r["Bytes"], r["World"])
+                if r["Protocol"] != want or committed.get(key, want) != want:
+                    raise AssertionError(f"sweep: {name} {key} Protocol "
+                                         f"{r['Protocol']}, rule {want}, "
+                                         f"committed {committed.get(key)}")
+                matched += key in committed
+        gates.update(rows_a_sweep=rows_a_sweep, skips=sum(skips.values()),
+                     protocols_match_rule=True,
+                     protocols_match_committed_rows=matched)
+
+        # (2) the counter sweep, one child a config, one at a time
+        emu_device.load_native()
+        rt_rows, t0 = [], time.perf_counter()
+        for world in map(int, rts.WORLDS.split(",")):
+            for name in rts.COLLECTIVES.split(","):
+                for nb in map(int, rts.SIZES.split(",")):
+                    rep = rts.run_child(name, nb, world, "tcp", rts.ITERS)
+                    if rep is None:
+                        raise AssertionError(f"sweep: rt_stats {name} {nb} "
+                                             f"w{world} failed")
+                    if (rep["spans"] <= 0 or rep["span_dropped"] != 0
+                            or rep["retcodes"] != [0]):
+                        raise AssertionError(
+                            f"sweep: rt_stats {name} {nb} w{world}: spans "
+                            f"{rep['spans']}, dropped {rep['span_dropped']},"
+                            f" retcodes {rep['retcodes']}")
+                    rt_rows.append(rts.summarize(rep, name, nb, world,
+                                                 "tcp", rts.ITERS))
+        rts.write_csv(rt_rows, os.path.join(tmp, "rt_stats.csv"))
+        children["rt_stats_sweep"] = time.perf_counter() - t0
+        gates["rt_stats_configs_clean"] = len(rt_rows)
+
+        # (3) the card's profile: the path, counts set to 0 just before
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        profile = os.path.join(tmp, "profile.csv")
+        prof_rows, dispatch_launches, floor = sweep_profile(L, kernels,
+                                                            profile)
+        profile_s = time.perf_counter() - t0
+        gates["combine_1gib_bitwise_plain"] = True
+
+        # (4) the fit
+        model_path = os.path.join(tmp, "timing_model.json")
+        secs, fit_out, _ = sweep_child(
+            "timing_model", "--sweep-dir", tmp, "--profile", profile,
+            "--out", model_path)
+        children["timing_model"] = secs
+        with open(model_path) as f:
+            model = json.load(f)
+        for key in ("link_per_collective", "fit", "rows", "local_poe_tier",
+                    "udp_poe_tier", "tuning_crossovers"):
+            if not model.get(key):
+                raise AssertionError(f"sweep: the model has no {key}")
+        medians = {
+            "main": model["fit"]["median_pred_over_meas"],
+            "holdout": model["fit"]["median_holdout_pred_over_meas"],
+            "local": model["local_poe_tier"]["fit"]["median_pred_over_meas"],
+            "udp": model["udp_poe_tier"]["fit"]["median_pred_over_meas"]}
+        if not all(isinstance(v, float) and math.isfinite(v)
+                   for v in medians.values()):
+            raise AssertionError(f"sweep: a median is not finite: {medians}")
+        tier = model["tpu_tier"]
+        if not tier or not tier.get("hbm_stream_gbps"):
+            raise AssertionError(f"sweep: no card tier: {tier}")
+        if 3 * tier["hbm_stream_gbps"] > HBM_GBPS:
+            raise AssertionError(
+                f"sweep: 3 x {tier['hbm_stream_gbps']} GB/s of HBM traffic "
+                f"exceeds the card's {HBM_GBPS}: a broken timer")
+        gates["fit_sections_and_medians"] = True
+        gates["tier_hbm_traffic_within_card"] = True
+
+        # (5) autotune on the card's tier
+        accl = ACCL(device=GPUDevice(8))
+        applied = accl.autotune(tier="tpu", timing_model_path=model_path)
+        link = LinkParams(alpha=tier["dispatch_alpha_us"] * 1e-6,
+                          beta=tier["hbm_stream_gbps"] * 1e9)
+        want = TuningParams.from_crossovers(tuning_crossovers(link, world=8))
+        if (vars(applied) != vars(want)
+                or vars(accl.cclo.tuning()) != vars(want)):
+            raise AssertionError(f"sweep: autotune applied {vars(applied)},"
+                                 f" the tier's link gives {vars(want)}")
+        gates["autotune_registers_equal"] = True
+        path = counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "sweep", "gpu": card_name(), "gates": gates,
+          "children_s": children,
+          "rt_stats": [dict(zip(("collective", "bytes", "world", "ms_a_call",
+                                 "passes", "parks", "park_ms", "seek_hit",
+                                 "seek_miss", "agg_wire_gbps"),
+                                (r[0], r[1], r[2], r[5] * 1e3, *r[6:])))
+                       for r in rt_rows],
+          "fit": {"link_per_collective": model["link_per_collective"],
+                  "medians": medians, "worlds": model["fit"]["worlds"]},
+          "profile": [dict(zip(("test", "bytes", "seconds", "gbps",
+                                "regime"), r)) for r in prof_rows],
+          "event_pair_floor_ms": floor, "profile_s": profile_s,
+          "dispatch_launches": {str(k): v
+                                for k, v in dispatch_launches.items()},
+          "card_tier": {k: tier[k] for k in (
+              "dispatch_alpha_us", "dispatch_beta_gbps", "hbm_stream_gbps",
+              "projected_crossovers")},
+          "applied_registers": vars(applied), "fit_stdout": fit_out,
+          "phase_s": time.perf_counter() - t_phase, "launches": path})
+    return path
+
+
 class NativeBuild(threading.Thread):
     """The native emulator's g++ build, started beside the kernels' nvcc
     builds; its seconds and any error are read after join()."""
@@ -8282,11 +8645,13 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     `telemetry_launches`, `serve_launches`, `train_launches`,
     `moe_launches`, `mesh_launches`, `analysis_launches`,
     `lift_launches`, `resilience_launches`, `scheduler_launches`,
-    `dcn_launches`, `dcn_flat_launches` and `entry_launches` likewise
-    over the checked runs of the point-to-point, sub-communicator,
-    alltoall, tuned, telemetry, serve, train, MoE, mesh, analysis, lift,
-    resilience, scheduler, multi-host (the flat calls across processes
-    apart) and entry-point paths (the examples' in-process runs)."""
+    `dcn_launches`, `dcn_flat_launches`, `entry_launches` and
+    `sweep_launches` likewise over the checked runs of the
+    point-to-point, sub-communicator, alltoall, tuned, telemetry, serve,
+    train, MoE, mesh, analysis, lift, resilience, scheduler, multi-host
+    (the flat calls across processes apart), entry-point (the examples'
+    in-process runs) and sweep paths (the card's profile: kernel 7's
+    combine rows and the world-1 allreduce's dispatch rows)."""
     import torch
 
     world, n = 8, SEG_BYTES // 4
@@ -8444,6 +8809,7 @@ def main() -> int:
              "scheduler": timed(scheduler_phase, ring, qk, L)}
     paths["dcn"], paths["dcn_flat"] = timed(dcn_phase, ring, qk, L)
     paths["entry"] = timed(entry_phase, ring, qk, L)
+    paths["sweep"] = timed(sweep_phase, ring, qk, L)
     emit({"phase": "clock", "seconds": clock})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)
