@@ -23,7 +23,11 @@ The port runs it in two forms, through one composition body each:
     processes over torch.distributed; every other call, and every step of
     a call sequence, runs the flat body over the combined world on the
     process's rows, its cross-process hops over the same transport
-    (device/dcn_transport.py: ProcessTier and ProcessWorld).
+    (device/dcn_transport.py: ProcessTier and ProcessWorld). `link=`
+    picks how a hop crosses: "ipc" (the default on cuda) writes it device
+    to device into a region the peer process mapped, as the reference's
+    device runtime moves it; "gloo" (the default on the CPU) stages it
+    through the host.
 
 Departures from the reference, each with its reason:
   - `torch_device` ("cuda" unless the caller asks for "cpu") takes the
@@ -31,14 +35,18 @@ Departures from the reference, each with its reason:
   - every process holds every buffer's full (world, n) image, as the
     reference's host mirror does, and only its own rows are authoritative
     (no call writes a remote row): a buffer costs P times its share;
-  - on one card gloo moves CPU tensors only, so a cross-process hop is
-    staged through the host (the folds stay on the card);
+  - `link=` is an addition. The ipc link maps a peer's region with CUDA
+    IPC, so it needs every process on one host (the card's form of a
+    device-resident hop); its CPU form, for the tests, maps files under
+    /dev/shm. On the gloo link, which moves CPU tensors only, a
+    cross-process hop is staged through the host (the folds stay on the
+    card);
   - the multi-process form's flat segmented ring runs its whole segments
     in lockstep (one message a peer a ring step for all of them; each
     element folds as in the segment loop, bitwise);
   - a call sequence of the multi-process form runs eagerly at each
     dispatch (DCNCompiler.sequence_graph): a CUDA graph cannot capture a
-    hop that stages through the host;
+    hop's host token (ipc) or its host staging (gloo);
   - the degraded live-subset allreduce is refused (supports_live_subset
     False): the reference's compositions drop the plan's survivor mask.
 """
@@ -248,8 +256,9 @@ class DCNCompiler(ScheduleCompiler):
         return super().compile_sequence(seq)
 
     def sequence_graph(self, seq, body, inputs):
-        """The multi-process form's executable is eager by form: its hops
-        stage through the host, which a CUDA graph cannot capture, so
+        """The multi-process form's executable is eager by form: a hop
+        waits on a host token or stages through the host, which a CUDA
+        graph cannot capture, so
         each replay runs the composed body on the card (same load /
         replay / results contract)."""
         if self.transport is None:
@@ -305,7 +314,16 @@ class DCNDevice(GPUDevice):
         mesh: Mesh | None = None,
         torch_device: torch.device | str = "cuda",
         transport=None,
+        link: str | None = None,
     ):
+        if link is not None:
+            from .dcn_transport import link_name
+
+            link_name(link, torch_device)  # an unknown name raises
+            if transport is not None or mesh is not None:
+                raise ValueError("link= picks the link of the transport "
+                                 "DCNDevice connects: not with transport= "
+                                 "or mesh=")
         if transport is not None:
             # a transport already up (a LoopbackHub's, one thread a host)
             num_processes, process_id = transport.size, transport.rank
@@ -321,7 +339,8 @@ class DCNDevice(GPUDevice):
                     from .dcn_transport import DCNTransport
 
                     transport = DCNTransport.connect(
-                        num_processes, process_id, coordinator_address)
+                        num_processes, process_id, coordinator_address,
+                        link=link, device=torch_device)
             mesh = Mesh({outer_axis: num_processes, inner_axis: local},
                         torch_device)
         else:

@@ -33,24 +33,37 @@ rows equal those of the one-card form bitwise.
 
 What crosses the process boundary is the wire's payload: the rows on an
 exact wire, the compressed dtype on a cast wire (Wire.send before the
-hop, Wire.recv after it), codes and scales on the int8 wire. gloo moves
-CPU tensors only, so on the card a hop is staged through the host:
-device -> host -> gloo over TCP -> host -> device, one message a peer a
-hop. No subgroup is ever created (dist.new_group is collective over every
+hop, Wire.recv after it), codes and scales on the int8 wire, one byte
+message a peer a hop. A link moves those messages (`link=` of
+DCNTransport.connect):
+
+  - "ipc" (`IpcLink`, the default on cuda): device to device, as the
+    reference's device runtime moves a hop. Each process exports a
+    receive region on its own device for every source peer (CUDA IPC on
+    the card, a /dev/shm mapping on the CPU: device/ipc_arena.py); the
+    sender copies its message into its slot there and the host sends
+    only an 8-byte token over gloo, the control plane;
+  - "gloo" (`GlooLink`, the default on the CPU): gloo moves CPU tensors
+    only, so a hop is staged through the host: device -> host -> gloo
+    over TCP -> host -> device.
+
+No subgroup is ever created (dist.new_group is collective over every
 process, and a host outside a sub-communicator never reaches its calls):
-every hop is addressed on the default group.
+every hop and every control message is addressed on the default group.
 
 `LoopbackHub` links P transports inside one process (one thread each),
 so the per-rank bodies can be held against the stacked ones without
-starting processes.
+starting processes; `IpcHub` does the same over the ipc link's CPU form.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 import math
 import os
 import queue
+import threading
 from typing import Callable
 
 import torch
@@ -77,10 +90,10 @@ def distributed_active() -> bool:
 
 
 def connect(num_processes: int, process_id: int,
-            coordinator_address: str | None) -> None:
+            coordinator_address: str | None) -> bool:
     """Join the default group over gloo, with `coordinator_address`
     (host:port) as its TCP store; reuse a group that is already up (its
-    size and rank must match)."""
+    size and rank must match). True when this call started the group."""
     import torch.distributed as dist
 
     if distributed_active():
@@ -90,7 +103,7 @@ def connect(num_processes: int, process_id: int,
                 f"the process group already up is rank {dist.get_rank()} "
                 f"of {dist.get_world_size()}, not {process_id} of "
                 f"{num_processes}")
-        return
+        return False
     if coordinator_address is None:
         raise ValueError(
             "multi-process DCNDevice needs a coordinator_address")
@@ -102,17 +115,38 @@ def connect(num_processes: int, process_id: int,
         "gloo", init_method=f"tcp://{coordinator_address}",
         rank=process_id, world_size=num_processes,
         timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+    return True
+
+
+LINKS = ("ipc", "gloo")
+
+
+def link_name(link: str | None, device) -> str:
+    """The link a multi-process transport on `device` takes: "ipc" on
+    cuda and "gloo" on the CPU unless `link` names one."""
+    if link is None:
+        return "ipc" if torch.device(device).type == "cuda" else "gloo"
+    if link not in LINKS:
+        raise ValueError(f"unknown link {link!r}: one of {LINKS}")
+    return link
 
 
 class GlooLink:
-    """Point-to-point byte messages on the default group (gloo)."""
+    """Point-to-point byte messages on the default group (gloo), staged
+    through the host: a message leaves `device` as a CPU copy of its own
+    (the sender may reuse its tensor) and lands back on `device`."""
 
     timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+    through_host = True
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
 
     def exchange(self, sends: dict[int, torch.Tensor],
                  sizes: dict[int, int]) -> dict[int, torch.Tensor]:
         import torch.distributed as dist
 
+        sends = {peer: t.to("cpu", copy=True) for peer, t in sends.items()}
         recvs = {peer: torch.empty(n, dtype=torch.uint8)
                  for peer, n in sizes.items()}
         ops = [dist.P2POp(dist.isend, t, peer) for peer, t in sends.items()
@@ -122,13 +156,10 @@ class GlooLink:
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait(self.timeout)
-        return recvs
+        return {peer: t.to(self.device) for peer, t in recvs.items()}
 
     def close(self) -> None:
-        import torch.distributed as dist
-
-        if distributed_active():
-            dist.destroy_process_group()
+        pass
 
 
 class LoopbackHub:
@@ -145,13 +176,17 @@ class LoopbackHub:
 
 
 class _LoopbackLink:
+    through_host = False
+
     def __init__(self, hub: LoopbackHub, rank: int):
         self.hub = hub
         self.rank = rank
 
     def exchange(self, sends, sizes):
         for peer, t in sends.items():
-            self.hub.queues[(self.rank, peer)].put(t)
+            # a queued message must own its bytes: the sender may reuse
+            # its tensor
+            self.hub.queues[(self.rank, peer)].put(t.clone())
         out = {}
         for peer, n in sizes.items():
             try:
@@ -169,6 +204,343 @@ class _LoopbackLink:
         pass
 
 
+# -- the ipc link: a hop device to device ------------------------------------
+
+SLOT_BYTES = 1 << 20  # a slot's first capacity; a pair's grows by doubling
+# the control plane's channels: a (source, destination, tag) channel keeps
+# its order
+TAG_TOKEN, TAG_ACK, TAG_HANDLE = 1, 2, 3
+
+
+class GlooControl:
+    """The ipc link's control plane across OS processes: small CPU tensors
+    point to point on the default group (gloo), object all-gather and
+    barrier."""
+
+    def all_gather(self, obj) -> list:
+        import torch.distributed as dist
+
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
+
+    def isend(self, t: torch.Tensor, peer: int, tag: int):
+        import torch.distributed as dist
+
+        return dist.isend(t, peer, tag=tag)
+
+    def irecv(self, t: torch.Tensor, peer: int, tag: int):
+        import torch.distributed as dist
+
+        return dist.irecv(t, peer, tag=tag)
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+class _ThreadPlane:
+    """The control plane of `size` ranks that are threads of one process:
+    a queue a channel, a barrier, a slot a rank for the all-gather."""
+
+    def __init__(self, size: int):
+        self.channels = {(s, d, tag): queue.Queue() for s in range(size)
+                         for d in range(size)
+                         for tag in (TAG_TOKEN, TAG_ACK, TAG_HANDLE)}
+        self.gate = threading.Barrier(size, timeout=DEFAULT_TIMEOUT_S)
+        self.slots = [None] * size
+
+
+class _Posted:
+    def wait(self) -> None:
+        pass
+
+
+class _Pending:
+    """A receive on a thread channel: matched when it is waited on (the
+    link waits a channel's receives in the order it posts them)."""
+
+    def __init__(self, channel: queue.Queue, t: torch.Tensor):
+        self.channel = channel
+        self.t = t
+
+    def wait(self) -> None:
+        try:
+            self.t.copy_(self.channel.get(timeout=DEFAULT_TIMEOUT_S))
+        except queue.Empty:
+            raise TimeoutError("link='ipc': no control message") from None
+
+
+class ThreadControl:
+    """GlooControl's counterpart for ranks that are threads of one
+    process (IpcHub)."""
+
+    def __init__(self, plane: _ThreadPlane, rank: int):
+        self.plane = plane
+        self.rank = rank
+
+    def all_gather(self, obj) -> list:
+        self.plane.slots[self.rank] = obj
+        self.plane.gate.wait()
+        out = list(self.plane.slots)
+        self.plane.gate.wait()  # every rank has read before a next round
+        return out
+
+    def isend(self, t, peer, tag):
+        self.plane.channels[(self.rank, peer, tag)].put(t.clone())
+        return _Posted()
+
+    def irecv(self, t, peer, tag):
+        return _Pending(self.plane.channels[(peer, self.rank, tag)], t)
+
+    def barrier(self) -> None:
+        self.plane.gate.wait()
+
+
+class _Mailbox:
+    """A source peer's two slots of `cap` bytes in one region: a pair's
+    hops take them alternately, by the pair's own hop count (the bodies
+    are SPMD, so both ends count the same)."""
+
+    def __init__(self, region, cap: int):
+        self.region = region
+        self.cap = cap
+
+    def offset(self, seq: int) -> int:
+        return (seq % 2) * self.cap
+
+
+def _capacity(n: int, cap: int) -> int:
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+class IpcLink:
+    """Point-to-point byte messages written device to device: the sender
+    copies a message into its slot of the receiver's region, which it has
+    mapped (device/ipc_arena.py), and the host sends only control
+    messages over `control` (GlooControl across OS processes): an 8-byte
+    token a message, an acknowledgement, and a region's new handle when a
+    pair's slots grow. A hop, each pair:
+
+      1. the sender copies the message into slot seq % 2 of the peer's
+         region, one device copy on its stream, and records its `filled`
+         event;
+      2. only then it sends the token (seq): an interprocess event waited
+         on before its record is issued waits on nothing;
+      3. the receiver waits for the token, makes its stream wait on the
+         sender's event, copies the slot out into a tensor of its own (a
+         returned tensor never aliases a mailbox), records its `drained`
+         event and acknowledges;
+      4. the sender rewrites that slot two hops later, only after that
+         acknowledgement and a wait on the receiver's `drained` event
+         (write-after-read).
+
+    Both ends know every message's size from the specs, so a receiver
+    whose slot is too small exports a region twice the size (or more) and
+    sends its handle first, inside the same hop: never a collective, since
+    a hop addresses only some processes. A message of zero bytes sends
+    nothing. Two processes on one card time-slice without MPS, so nothing
+    spins on the device for another process's flag: the host signals. A
+    pair inside one process never reaches a link (ProcessWorld.route moves
+    it as rows; cudaIpcOpenMemHandle cannot open a process's own
+    handle)."""
+
+    through_host = False
+
+    def __init__(self, control, rank: int, size: int, device,
+                 slot_bytes: int = SLOT_BYTES):
+        from .ipc_arena import arena_for
+
+        self.control = control
+        self.rank = rank
+        self.device = torch.device(device)
+        self.arena = arena = arena_for(self.device)
+        peers = [q for q in range(size) if q != rank]
+        self.rx: dict[int, _Mailbox] = {}   # q's slots in this region
+        self.tx: dict[int, _Mailbox] = {}   # this process's slots at q
+        self.filled: dict[int, tuple] = {}  # (event, handle): wrote to q
+        self.drained: dict[int, tuple] = {}  # read q's slot
+        self.peer_filled: dict[int, int] = {}
+        self.peer_drained: dict[int, int] = {}
+        self.retired: list = []  # regions growth replaced; freed at close
+        self.unsettled: dict[int, object] = {}  # grown, not yet mapped
+        self.sent_seq = dict.fromkeys(peers, 0)
+        self.recv_seq = dict.fromkeys(peers, 0)
+        self.acks = {q: collections.deque() for q in peers}
+        self.closed = False
+        try:
+            for q in peers:
+                self.rx[q] = _Mailbox(arena.alloc(2 * slot_bytes),
+                                      slot_bytes)
+                self.filled[q] = arena.event()
+                self.drained[q] = arena.event()
+            everyone = control.all_gather({
+                "identity": arena.identity(),
+                "rx": {q: mb.region.handle for q, mb in self.rx.items()},
+                "filled": {q: h for q, (_, h) in self.filled.items()},
+                "drained": {q: h for q, (_, h) in self.drained.items()}})
+            self._check([e["identity"] for e in everyone])
+            for q in peers:
+                theirs = everyone[q]
+                self.tx[q] = _Mailbox(arena.open(theirs["rx"][rank],
+                                                 2 * slot_bytes), slot_bytes)
+                self.peer_filled[q] = arena.open_event(theirs["filled"][rank])
+                self.peer_drained[q] = arena.open_event(
+                    theirs["drained"][rank])
+            control.barrier()  # every region is mapped by its peer
+        except BaseException:
+            self._release(barrier=False)
+            raise
+        for mb in self.rx.values():
+            arena.settle(mb.region)
+
+    def _check(self, identities: list[dict]) -> None:
+        """Every process on this host, on this device type: else raise."""
+        mine = identities[self.rank]
+        for q, other in enumerate(identities):
+            if (other["host"], other["device"]) != (mine["host"],
+                                                    mine["device"]):
+                raise RuntimeError(
+                    f"link='ipc' maps device memory between processes of "
+                    f"one host on one device type: process {self.rank} is "
+                    f"{mine['device']} on {mine['host']}, process {q} "
+                    f"{other['device']} on {other['host']}; use "
+                    f"link='gloo'")
+
+    def exchange(self, sends: dict[int, torch.Tensor],
+                 sizes: dict[int, int]) -> dict[int, torch.Tensor]:
+        arena, control = self.arena, self.control
+        sends = {q: t for q, t in sends.items() if t.numel()}
+        posted = []  # (tensor, work): sends waited at the end of the hop
+        # growth: the receiver's new handle goes first
+        for q, n in sizes.items():
+            if n > self.rx[q].cap:
+                cap = _capacity(n, self.rx[q].cap)
+                self.retired.append(self.rx[q].region)
+                self.rx[q] = _Mailbox(arena.alloc(2 * cap), cap)
+                self.unsettled[q] = self.rx[q].region
+                msg = torch.frombuffer(bytearray(self.rx[q].region.handle),
+                                       dtype=torch.uint8)
+                posted.append((msg, control.isend(msg, q, TAG_HANDLE)))
+        handles = {}
+        for q, msg in sends.items():
+            if msg.numel() > self.tx[q].cap:
+                buf = torch.empty(arena.handle_bytes, dtype=torch.uint8)
+                handles[q] = (buf, control.irecv(buf, q, TAG_HANDLE))
+        tokens = {}
+        for q, n in sizes.items():
+            if n:
+                buf = torch.empty(1, dtype=torch.int64)
+                tokens[q] = (buf, control.irecv(buf, q, TAG_TOKEN))
+        # each message into its slot of the peer's region
+        for q, msg in sends.items():
+            if q in handles:
+                buf, work = handles[q]
+                work.wait()
+                cap = _capacity(msg.numel(), self.tx[q].cap)
+                self.retired.append(self.tx[q].region)
+                self.tx[q] = _Mailbox(
+                    arena.open(buf.numpy().tobytes(), 2 * cap), cap)
+            seq = self.sent_seq[q]
+            while self.acks[q] and self.acks[q][0][0] <= seq - 2:
+                done, ack, work = self.acks[q].popleft()
+                work.wait()
+                if int(ack) != done:
+                    raise RuntimeError(f"link='ipc': process {self.rank} "
+                                       f"got ack {int(ack)} from {q}, "
+                                       f"expected {done}")
+            if seq >= 2:  # the peer's read of this slot is done
+                arena.wait(self.peer_drained[q])
+            mb = self.tx[q]
+            arena.write(mb.region, mb.offset(seq), msg)
+            arena.record(self.filled[q][0])
+            token = torch.tensor([seq], dtype=torch.int64)  # after the record
+            posted.append((token, control.isend(token, q, TAG_TOKEN)))
+            ack = torch.empty(1, dtype=torch.int64)
+            self.acks[q].append((seq, ack, control.irecv(ack, q, TAG_ACK)))
+            self.sent_seq[q] = seq + 1
+        # each source's message out of its slot
+        out = {}
+        for q, n in sizes.items():
+            if not n:
+                out[q] = torch.empty(0, dtype=torch.uint8, device=self.device)
+                continue
+            buf, work = tokens[q]
+            work.wait()
+            seq = self.recv_seq[q]
+            if int(buf) != seq:
+                raise RuntimeError(f"link='ipc': process {self.rank} got "
+                                   f"token {int(buf)} from {q}, expected "
+                                   f"{seq}")
+            if q in self.unsettled:  # q wrote into it, so q has mapped it
+                arena.settle(self.unsettled.pop(q))
+            arena.wait(self.peer_filled[q])
+            mb = self.rx[q]
+            out[q] = arena.read(mb.region, mb.offset(seq), n)
+            arena.record(self.drained[q][0])
+            ack = torch.tensor([seq], dtype=torch.int64)
+            posted.append((ack, control.isend(ack, q, TAG_ACK)))
+            self.recv_seq[q] = seq + 1
+        for _, work in posted:
+            work.wait()
+        return out
+
+    def close(self) -> None:
+        """A barrier first (every copy into a peer's region done), then
+        unmap, then free."""
+        if self.closed:
+            return
+        for acks in self.acks.values():
+            while acks:
+                acks.popleft()[2].wait()
+        self.arena.synchronize()
+        self.control.barrier()
+        self._release(barrier=True)
+
+    def _release(self, barrier: bool) -> None:
+        self.closed = True
+        arena = self.arena
+        for region in [mb.region for mb in self.tx.values()] + [
+                r for r in self.retired if not r.owned]:
+            arena.release(region)
+        for ev in (*self.peer_filled.values(), *self.peer_drained.values()):
+            arena.drop_event(ev)
+        if barrier:  # no peer maps this process's regions any more
+            self.control.barrier()
+        for region in [mb.region for mb in self.rx.values()] + [
+                r for r in self.retired if r.owned]:
+            arena.release(region)
+        for ev, _ in (*self.filled.values(), *self.drained.values()):
+            if ev is not None:
+                arena.drop_event(ev)
+        self.tx, self.rx, self.retired = {}, {}, []
+        self.peer_filled, self.peer_drained = {}, {}
+        self.filled, self.drained = {}, {}
+
+
+class IpcHub:
+    """`size` transports in one process, one thread each, over the ipc
+    link's CPU form: regions are shared file mappings, the control plane
+    a queue a channel (CUDA IPC cannot map a region of its own process).
+    Each thread calls transport(rank) itself: the link's connect waits
+    for every rank."""
+
+    def __init__(self, size: int, slot_bytes: int = SLOT_BYTES):
+        self.size = size
+        self.slot_bytes = slot_bytes
+        self.plane = _ThreadPlane(size)
+
+    def control(self, rank: int) -> ThreadControl:
+        return ThreadControl(self.plane, rank)
+
+    def transport(self, rank: int) -> "DCNTransport":
+        return DCNTransport(rank, self.size, IpcLink(
+            self.control(rank), rank, self.size, "cpu", self.slot_bytes))
+
+
 def _nbytes(spec) -> int:
     return sum(math.prod(shape) * dtype.itemsize for shape, dtype in spec)
 
@@ -180,50 +552,75 @@ class DCNTransport:
     `messages`, how many messages it sent; `hops`, the payload bytes a
     line carries in each hop the tier's bodies issued, whether or not this
     process took part in it (what the reference's CountingWire counts on
-    one rank of a line)."""
+    one rank of a line); `staged`, the bytes of `sent` its link moved
+    through host memory (all of them under gloo, none under ipc). Control
+    messages (the ipc link's tokens and acknowledgements) are not
+    tallied."""
 
-    def __init__(self, rank: int, size: int, link):
+    def __init__(self, rank: int, size: int, link, owns_group: bool = False):
         self.rank = rank
         self.size = size
         self.link = link
+        self.owns_group = owns_group  # close() ends the default group
         self.reset_tally()
 
     @classmethod
     def connect(cls, num_processes: int, process_id: int,
-                coordinator_address: str | None) -> "DCNTransport":
-        connect(num_processes, process_id, coordinator_address)
-        return cls(process_id, num_processes, GlooLink())
+                coordinator_address: str | None, link: str | None = None,
+                device="cpu") -> "DCNTransport":
+        """Join (or reuse) the default group and bring `link` up on it:
+        "ipc" on cuda and "gloo" on the CPU unless named. An ipc link
+        that cannot run raises; it never falls back to gloo."""
+        name = link_name(link, device)
+        created = connect(num_processes, process_id, coordinator_address)
+        try:
+            if name == "ipc":
+                made = IpcLink(GlooControl(), process_id, num_processes,
+                               device)
+            else:
+                made = GlooLink(device)
+        except BaseException:
+            if created:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
+            raise
+        return cls(process_id, num_processes, made, owns_group=created)
 
     def reset_tally(self) -> None:
         self.sent: dict[str, int] = {}
         self.messages: dict[str, int] = {}
         self.hops: dict[str, int] = {}
+        self.staged: dict[str, int] = {}
 
     def tally(self) -> dict:
         return {"sent": dict(self.sent), "messages": dict(self.messages),
-                "hops": dict(self.hops)}
+                "hops": dict(self.hops), "staged": dict(self.staged)}
 
     def count_hop(self, tier: str, line_bytes: int) -> None:
         self.hops[tier] = self.hops.get(tier, 0) + line_bytes
 
     def exchange(self, tier: str, sends: dict[int, list[torch.Tensor]],
                  recvs: dict[int, list[tuple]], device) -> dict:
-        """One hop: send each peer its tensors as one byte message (staged
-        to the host), receive each source's message laid out as its spec
-        [(shape, dtype), ...] and return its tensors on `device`."""
+        """One hop: send each peer its tensors as one byte message on
+        `device`, receive each source's message laid out as its spec
+        [(shape, dtype), ...] and return its tensors on `device`. The
+        link owns what it keeps of a message (the sender may reuse its
+        tensors) and returns tensors of the receiver's own."""
         msgs = {}
         for peer, parts in sends.items():
             flat = [p.contiguous().reshape(-1).view(torch.uint8)
                     for p in parts]
-            msg = flat[0] if len(flat) == 1 else torch.cat(flat)
-            msgs[peer] = msg.to("cpu", copy=True)
+            msgs[peer] = msg = flat[0] if len(flat) == 1 else torch.cat(flat)
             self.sent[tier] = self.sent.get(tier, 0) + msg.numel()
             self.messages[tier] = self.messages.get(tier, 0) + 1
+            if self.link.through_host:
+                self.staged[tier] = self.staged.get(tier, 0) + msg.numel()
         got = self.link.exchange(msgs, {peer: _nbytes(spec)
                                         for peer, spec in recvs.items()})
         out = {}
         for peer, spec in recvs.items():
-            buf = got[peer].to(device)
+            buf = got[peer]
             parts, off = [], 0
             for shape, dtype in spec:
                 nb = math.prod(shape) * dtype.itemsize
@@ -237,6 +634,10 @@ class DCNTransport:
 
     def close(self) -> None:
         self.link.close()
+        if self.owns_group and distributed_active():
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 # -- what a hop carries ------------------------------------------------------

@@ -22,6 +22,11 @@ the int8 wire), a streamed allreduce (a stream producer makes the
 operand) and a stream_put, each held bitwise against the in-process
 device.
 
+A hop crosses processes on --link: "ipc" (the default with --device cuda)
+writes it device to device into a region the peer mapped (CUDA IPC on
+the card, a /dev/shm mapping on the CPU), "gloo" (the default with
+--device cpu) stages it through the host.
+
 Usage (2 processes x 4 virtual ranks on the CPU; --local-devices 1 for
 one rank a host):
     python -m accl_tpu_torch.tools.run_dcn --procs 2 --proc-id 0 \\
@@ -34,13 +39,19 @@ Prints one "RANKS [...] proc i/N OK" line per process on success (exit
 across the process boundary in one exact allreduce, by tier: "outer" for
 the two-tier composition, beside its count of the bytes a line carries,
 "flat" for the flat ring at one rank a host, beside flat_allreduce_bytes;
-each must equal its count); with --sequence a "dcn_sequence" JSON line
-(the flat bytes and messages of a recorded one-step allreduce batch);
-with --time COUNTS a "dcn_time" JSON line (host-clock median ms of the
-allreduce at each count, from device to device, and its bytes; the last
-run's rows are held against the in-process device's); last a
-"dcn_launches" line (each kernel wrapper's launches over the
-multi-process facade's checked calls, by stage).
+each must equal its count; and the bytes the link staged through the
+host); with --sequence a "dcn_sequence" JSON line (the flat bytes and
+messages of a recorded one-step allreduce batch); with --time COUNTS a
+"dcn_time" JSON line (host-clock median ms of the allreduce at each
+count, from device to device with the device synchronised, and its
+bytes; the last run's rows are held against the in-process device's;
+with --time-links ipc,gloo the same operands on a device of each link in
+alternating pairs, each link's median and range, their rows bitwise
+equal); with --hop-time SIZES a "dcn_hop" JSON line (each link's µs a
+hop between processes 0 and 1 at each size, from one device to the
+other: half a round trip); last a "dcn_launches" line (each kernel
+wrapper's launches over the multi-process facade's checked calls, by
+stage).
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import time
 
 
 TIME_REPS = 5
+HOP_REPS = 50
 STAGES = ("allreduce", "bcast", "allgather", "reduce_scatter", "alltoall",
           "scatter-gather-reduce", "p2p", "subcomm")
 
@@ -105,10 +117,22 @@ def main(argv=None) -> int:
                     help="also record call sequences and drive a stream "
                          "producer and stream_put")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
+    ap.add_argument("--link", choices=("ipc", "gloo"), default=None,
+                    help="the cross-process link (default: ipc on cuda, "
+                         "gloo on the CPU)")
     ap.add_argument("--time", default="",
                     help="comma-separated per-rank counts whose allreduce "
                          "is timed (host clock, median of 5 after a "
                          "warm-up)")
+    ap.add_argument("--time-links", default="",
+                    help="comma-separated links the --time and --hop-time "
+                         "stages run on in alternating pairs, e.g. "
+                         "ipc,gloo (default: --link's)")
+    ap.add_argument("--hop-time", default="",
+                    help="comma-separated message sizes in bytes whose "
+                         "round trip between processes 0 and 1 is timed on "
+                         "each link alone, with no body (host clock, 50 "
+                         "round trips after a warm-up one)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -118,6 +142,7 @@ def main(argv=None) -> int:
     from accl_tpu_torch.arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
     from accl_tpu_torch.constants import StreamFlags
     from accl_tpu_torch.device.dcn_device import DCNDevice
+    from accl_tpu_torch.device.dcn_transport import link_name
     from accl_tpu_torch.parallel import make_mesh
     from accl_tpu_torch.sequencer.plan import eager_seg_count
 
@@ -133,14 +158,31 @@ def main(argv=None) -> int:
     table = dict(DEFAULT_ARITH_CONFIG)
     table[(DataType.float32, DataType.float16)] = ArithConfig(
         4, 2, 0, 0, 1, False, (0, 5))
-    dev = DCNDevice(num_processes=P, process_id=me,
-                    coordinator_address=f"127.0.0.1:{args.port}",
-                    local_device_count=L, torch_device=args.device)
+    link = link_name(args.link, args.device)
+    time_links = [link_name(k, args.device) for k in
+                  args.time_links.split(",") if k] or [link]
+    if link not in time_links:
+        raise SystemExit(f"--time-links {args.time_links} leaves out "
+                         f"--link {link}")
+
+    def device(on):
+        return DCNDevice(num_processes=P, process_id=me,
+                         coordinator_address=f"127.0.0.1:{args.port}",
+                         local_device_count=L, torch_device=args.device,
+                         link=on)
+
+    dev = device(link)
     a = ACCL(device=dev, arith_config=table)
+    # the other links the --time stage compares, each a device of its own
+    # over the same process group (every process builds them in order)
+    timed = {link: a}
+    for other in time_links:
+        if other not in timed:
+            timed[other] = ACCL(device=device(other), arith_config=table)
     twin = ACCL(device=DCNDevice(mesh=make_mesh(
         {"dcn": P, "ici": L}, world=P * L, device=args.device)),
         arith_config=table)
-    for f in (a, twin):
+    for f in (*timed.values(), twin):
         f.cclo.compiler.arith_table = table  # the lowering reads its own
     world, n = a.world, args.count
     rows = dev.local_rows()
@@ -229,10 +271,12 @@ def main(argv=None) -> int:
                        "composition_line_bytes": want,
                        "flat_sent": tally["sent"].get("flat", 0),
                        "flat_messages": tally["messages"].get("flat", 0),
-                       "flat_bytes": flat[0], "flat_want_messages": flat[1]}
+                       "flat_bytes": flat[0], "flat_want_messages": flat[1],
+                       "staged": tally["staged"].get("outer", 0),
+                       "flat_staged": tally["staged"].get("flat", 0)}
                 print(json.dumps({"dcn_bytes": {
                     "proc": me, "procs": P, "local": L, "count": n,
-                    "seg_count": seg, **got}}), flush=True)
+                    "seg_count": seg, "link": link, **got}}), flush=True)
                 if (got["line_hop_bytes"], got["sent"]) != (want, L * want) \
                         or (got["flat_sent"], got["flat_messages"]) != flat:
                     raise AssertionError(f"[p{me}] allreduce sent {tally}, "
@@ -353,9 +397,10 @@ def main(argv=None) -> int:
                 "messages": flat_allreduce_messages(n, world, seg)}
         print(json.dumps({"dcn_sequence": {
             "proc": me, "procs": P, "local": L, "count": n,
-            "seg_count": seg, "flat_sent": got["sent"],
+            "seg_count": seg, "link": link, "flat_sent": got["sent"],
             "flat_messages": got["messages"], "flat_bytes": want["sent"],
-            "flat_want_messages": want["messages"]}}), flush=True)
+            "flat_want_messages": want["messages"],
+            "flat_staged": tally["staged"].get("flat", 0)}}), flush=True)
         if got != want:
             raise AssertionError(f"[p{me}] the batch sent {got}, want "
                                  f"{want}")
@@ -403,49 +448,119 @@ def main(argv=None) -> int:
             data = torch.from_numpy(np.random.default_rng(count)
                                     .standard_normal((world, count))
                                     .astype(np.float32))
-            outs, runs = [], []
-            for f in (a, twin):
-                sb, rb = f.create_buffer(count), f.create_buffer(count)
-                sb.device.copy_(data)
-                # timed on the multi-process device; its last run's rows
-                # held against one run of the in-process twin
-                for i in range(TIME_REPS + 1 if f is a else 1):
-                    if f is a:
-                        a.barrier()
-                        dev.transport.reset_tally()
+            bufs, outs = {}, {}
+            for name, f in (*timed.items(), ("twin", twin)):
+                bufs[name] = (f.create_buffer(count), f.create_buffer(count))
+                bufs[name][0].device.copy_(data)
+            # each link's last run's rows held against one run of the
+            # in-process twin, and against each other's
+            twin.allreduce(*bufs["twin"], count, ReduceFunction.SUM,
+                           from_device=True, to_device=True)
+            runs = {name: [] for name in timed}
+            tallies = {}
+            for i in range(TIME_REPS + 1):  # the first pair warms up
+                for name in (time_links if i % 2 == 0
+                             else time_links[::-1]):
+                    f = timed[name]
+                    f.barrier()
+                    f.cclo.transport.reset_tally()
                     t0 = time.perf_counter()
-                    f.allreduce(sb, rb, count, ReduceFunction.SUM,
+                    f.allreduce(*bufs[name], count, ReduceFunction.SUM,
                                 from_device=True, to_device=True)
-                    if f is a:
-                        runs.append((time.perf_counter() - t0) * 1e3)
-                if f is a:
-                    tally = dev.transport.tally()  # the last call's
-                outs.append(rb.device.clone())
-                f.free_buffer(sb)
-                f.free_buffer(rb)
-            agree(*outs)
+                    if args.device == "cuda":
+                        torch.cuda.synchronize()
+                    if i:
+                        runs[name].append((time.perf_counter() - t0) * 1e3)
+                    tallies[name] = f.cclo.transport.tally()  # the last call's
+            want = bufs["twin"][1].device.clone()
+            for name in timed:
+                outs[name] = bufs[name][1].device.clone()
+                agree(outs[name], want)
+                agree(outs[name], outs[link])
+            for name, f in (*timed.items(), ("twin", twin)):
+                for b in bufs[name]:
+                    f.free_buffer(b)
             cseg = eager_seg_count(count, 4, dev.eager_rx_buf_size,
                                    StreamFlags.NO_STREAM, world_align=world)
+
+            def row(name):
+                tally = tallies[name]
+                return {
+                    "median_ms": statistics.median(runs[name]),
+                    "min_ms": min(runs[name]), "max_ms": max(runs[name]),
+                    "runs_ms": runs[name],
+                    "sent": tally["sent"].get("outer", 0),
+                    "line_hop_bytes": tally["hops"].get("outer", 0),
+                    "flat_sent": tally["sent"].get("flat", 0),
+                    "flat_messages": tally["messages"].get("flat", 0),
+                    "staged": tally["staged"].get("outer", 0),
+                    "flat_staged": tally["staged"].get("flat", 0)}
+
+            mine = row(link)
             times[str(count)] = {
-                "median_ms": statistics.median(runs[1:]),
-                "runs_ms": runs[1:],
-                "sent": tally["sent"].get("outer", 0),
-                "line_hop_bytes": tally["hops"].get("outer", 0),
+                "median_ms": mine["median_ms"], "runs_ms": mine["runs_ms"],
+                "sent": mine["sent"],
+                "line_hop_bytes": mine["line_hop_bytes"],
                 "composition_line_bytes": (outer_allreduce_bytes(count, P, L)
                                            if L > 1 else 0),
-                "flat_sent": tally["sent"].get("flat", 0),
-                "flat_messages": tally["messages"].get("flat", 0),
+                "flat_sent": mine["flat_sent"],
+                "flat_messages": mine["flat_messages"],
                 "flat_bytes": (flat_allreduce_bytes(count, world, cseg)
                                if L == 1 else 0),
                 "flat_want_messages": (flat_allreduce_messages(
                     count, world, cseg) if L == 1 else 0),
-                "bitwise_vs_in_process": True}
+                "bitwise_vs_in_process": True,
+                "links": {name: row(name) for name in time_links},
+                "links_bitwise": True}
         print(json.dumps({"dcn_time": {"proc": me, "procs": P, "local": L,
-                                       "device": args.device,
+                                       "device": args.device, "link": link,
                                        "allreduce": times}}), flush=True)
+    if args.hop_time:
+        stage("hop-time")
+        hop_us = {name: {} for name in time_links}
+
+        def sync():
+            if args.device == "cuda":
+                torch.cuda.synchronize()
+
+        for size in (int(b) for b in args.hop_time.split(",")):
+            msg = torch.arange(size, dtype=torch.int64).to(
+                torch.uint8).to(args.device)
+            for i in range(2):  # the links in turns, twice
+                for name in (time_links if i == 0 else time_links[::-1]):
+                    timed[name].barrier()
+                    if me > 1:
+                        continue
+                    link_of = timed[name].cclo.transport.link
+                    peer = 1 - me
+
+                    def trip():
+                        """0 -> 1, and the arrival echoed back."""
+                        if me == 0:
+                            link_of.exchange({peer: msg}, {})
+                            return link_of.exchange({}, {peer: size})[peer]
+                        got = link_of.exchange({}, {peer: size})[peer]
+                        link_of.exchange({peer: got}, {})
+                        return got
+
+                    if not torch.equal(trip().cpu(), msg.cpu()):
+                        raise AssertionError(f"[p{me}] a {size}-byte hop "
+                                             f"on {name} changed its bytes")
+                    sync()
+                    t0 = time.perf_counter()
+                    for _ in range(HOP_REPS):
+                        trip()
+                    sync()
+                    hop_us[name].setdefault(str(size), []).append(
+                        (time.perf_counter() - t0) * 1e6 / (2 * HOP_REPS))
+        if me <= 1:
+            print(json.dumps({"dcn_hop": {
+                "proc": me, "procs": P, "device": args.device,
+                "round_trips": HOP_REPS, "us_per_hop": hop_us}}), flush=True)
     print(json.dumps({"dcn_launches": {"proc": me, "procs": P, "local": L,
                                        "by_stage": launches}}), flush=True)
-    dev.transport.close()
+    for f in reversed(timed.values()):  # the group's owner last
+        f.cclo.transport.close()
     print(f"RANKS {rows} proc {me}/{P} OK", flush=True)
     return 0
 

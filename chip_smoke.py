@@ -282,12 +282,15 @@ What it does, in order, printing one JSON object per line:
      other two-tier op at 262 144 elements (roots 3 and 6), p2p 1 -> 7
      and host 1's sub-communicator, each bitwise with the port's CPU run,
      exact results within their float64 fold bound, kernel launches as
-     each composition implies; then 2 run_dcn processes x 4 ranks and
-     3 x 2 with a cross-host sub-communicator on cuda:0 over gloo, each
-     child's rows bitwise its own in-process device's, the bytes a
-     process sent across the boundary against the composition's count;
-     the 4 and 25 MiB allreduce's median ms on the two-process device
-     (host clock), the in-process DCNDevice and the flat GPUDevice;
+     each composition implies; then 2 run_dcn processes x 4 ranks, 3 x 2
+     with a cross-host sub-communicator, 2 x 1 and 4 x 1 on cuda:0 over
+     the ipc link (each hop a device copy into a region the peer mapped
+     with CUDA IPC, a token over gloo), each child's rows bitwise its
+     own in-process device's, the bytes a process sent across the
+     boundary against the schedule's count, none staged through the
+     host; the 4 and 25 MiB allreduce's median ms on the two-process
+     devices on the ipc and the gloo link in alternating pairs (host
+     clock), the in-process DCNDevice and the flat GPUDevice;
  24. entry phase (accl_tpu_torch/examples/ and accl_tpu_torch/tools/):
      in process at the flagship widths, the generation example's
      generate_tokens on its dp2.tp2 mesh (batch 8, 120 new tokens: each
@@ -7525,6 +7528,7 @@ DCN_OP_ELEMS = 262_144  # a rank's buffer in every other two-tier op
 DCN_FLAT_ELEMS = 16_384  # a rank's buffer at one rank a host: 64 segments
 DCN_ROOTS = (3, 6)
 DCN_CHILD_TIMEOUT_S = 150
+DCN_HOP_BYTES = (4 * KIB, 4 * MIB)  # the links' own hop, 2 x 1 children
 
 
 def dcn_fp32_arith_table():
@@ -7561,7 +7565,8 @@ def dcn_expected(op: str, wire: str, P: int, L: int) -> dict:
 
 def dcn_children(n_procs: int, args, device: str = "cuda"):
     """Start n_procs `python -m accl_tpu_torch.tools.run_dcn` processes on
-    cuda:0 with gloo on 127.0.0.1 at a free port; each checks its rows
+    cuda:0, their process group (gloo) on 127.0.0.1 at a free port, each
+    hop on run_dcn's default link for the device; each checks its rows
     bitwise against its own in-process device. A child that exits
     non-zero or outlives DCN_CHILD_TIMEOUT_S fails the phase (every child still
     running is killed). Returns each child's parsed JSON lines and its
@@ -7635,30 +7640,42 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
       (2) multi-process: 2 run_dcn children x 4 ranks (with the sequence
           stage: recorded batches on the exact and int8 wires, a streamed
           allreduce, stream_put), then 3 x 2 with a cross-host
-          sub-communicator of 2 hosts, on cuda:0 over gloo; each child's
-          rows bitwise its own in-process device's, its outer bytes the
-          composition's count, a recorded allreduce step's flat bytes the
-          flat ring's and its messages one a ring step;
-      (3) one rank a host: 2 children x 1 rank, every stage flat across
-          processes on the exact, fp16 and int8 wires at DCN_FLAT_ELEMS
-          elements a rank plus the sequence stage, and the exact
-          allreduce at 4 and 25 MiB a rank timed and held against the
-          in-process device; then 4 x 1, the allreduce, bcast and a
-          2-host group. Each child's flat bytes the flat ring's count
-          (4 194 304 B at 2 x 1 and 4 MiB), one message a ring step.
+          sub-communicator of 2 hosts, on cuda:0 on the default link
+          (ipc on the card: each hop a device copy into a region the
+          peer mapped, the host sending only a token over gloo); each
+          child's rows bitwise its own in-process device's, its outer
+          bytes the composition's count, a recorded allreduce step's flat
+          bytes the flat ring's and its messages one a ring step, and
+          none of them staged through the host;
+      (3) one rank a host: 2 children x 1 rank on ipc, every stage flat
+          across processes on the exact, fp16 and int8 wires at
+          DCN_FLAT_ELEMS elements a rank plus the sequence stage; then
+          4 x 1, the allreduce, bcast and a 2-host group. Each child's
+          flat bytes the flat ring's count (4 194 304 B at 2 x 1 and
+          4 MiB), one message a ring step, none staged;
+      (4) the two links side by side: the 2 x 4 and 2 x 1 children time
+          the exact allreduce at 4 and 25 MiB a rank on a device of each
+          link (ipc and gloo) in alternating pairs on the same operands;
+          each link's rows bitwise the in-process device's and the other
+          link's, its bytes the schedule's count, staged 0 on ipc and
+          every byte sent on gloo; the 2 x 1 children also time each
+          link's hop alone, no body (4 KiB and 4 MiB, half a round trip,
+          its bytes unchanged).
     Prints "dcn" (checks, launches, bytes) and "dcn_timing" (median ms of
     the 4 and 25 MiB allreduce: the two-process devices, 2 x 4 two-tier
-    and 2 x 1 flat, on the host clock, the in-process DCNDevice and the
-    flat GPUDevice (kernel 1) on CUDA events, with the card's name and
-    power limit) and returns each kernel's launches over the checked
-    in-process calls, and over the children's flat calls (their
-    "dcn_launches" lines: every call of the 2 x 1 and 4 x 1 children, the
-    2 x 4 children's sequence and stream stages), which must include
-    kernels 7, 9 and 3-6."""
+    and 2 x 1 flat, on the host clock with the device synchronised, each
+    link's median and range, and each link's µs a hop; the in-process
+    DCNDevice and the flat GPUDevice (kernel 1) on CUDA events; with the
+    card's name and power limit) and returns each kernel's launches over the checked in-process
+    calls, and over the children's flat calls (their "dcn_launches"
+    lines: every call of the 2 x 1 and 4 x 1 children, the 2 x 4
+    children's sequence and stream stages), which must include kernels
+    7, 9 and 3-6."""
     import torch
 
     from accl_tpu_torch import ACCL, DataType, ReduceFunction
     from accl_tpu_torch.device.dcn_device import DCNDevice
+    from accl_tpu_torch.device.dcn_transport import link_name
     from accl_tpu_torch.parallel import make_mesh
 
     on_card = device == "cuda"
@@ -7852,21 +7869,34 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
         torch.cuda.empty_cache()
     seconds["in_process_timing"] = time.perf_counter() - t
 
-    # (2) the multi-process form: one OS process a host on cuda:0
+    # (2) the multi-process form: one OS process a host on cuda:0, on the
+    # default link (ipc on the card); (4) the timed children run both
     t = time.perf_counter()
     counts = ",".join(str(n) for n in DCN_AR_COUNTS)
+    link = link_name(None, device)  # run_dcn's default: ipc on the card
+    both_links = ["--time-links", "ipc,gloo"]
     two, two_s = dcn_children(2, ["--local-devices", "4", "--time", counts,
-                                  "--sequence"], device)
+                                  "--sequence", *both_links], device)
     three, three_s = dcn_children(3, ["--local-devices", "2",
                                       "--subset-hosts", "2"], device)
     # (3) one rank a host: every call flat across processes
     flat2, flat2_s = dcn_children(2, [
         "--local-devices", "1", "--wires", "exact,float16,int8",
-        "--count", str(DCN_FLAT_ELEMS), "--sequence", "--time", counts],
+        "--count", str(DCN_FLAT_ELEMS), "--sequence", "--time", counts,
+        "--hop-time", ",".join(str(b) for b in DCN_HOP_BYTES), *both_links],
         device)
     flat4, flat4_s = dcn_children(4, [
         "--local-devices", "1", "--stages", "allreduce,bcast",
         "--subset-hosts", "2", "--count", str(DCN_FLAT_ELEMS)], device)
+
+    def staged_as_its_link(e, what):
+        """None staged through the host on ipc, every byte sent on gloo."""
+        sent = (e.get("sent", 0), e["flat_sent"])
+        staged = (e.get("staged", 0), e["flat_staged"])
+        if staged != ((0, 0) if e["link"] == "ipc" else sent):
+            raise AssertionError(f"dcn: {what} staged {staged} of {sent} "
+                                 f"on the {e['link']} link")
+
     bytes_rows = []
     for lines in two + three + flat2 + flat4:
         for line in lines:
@@ -7878,7 +7908,31 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
                         e["flat_bytes"], e["flat_want_messages"]):
                     raise AssertionError(f"dcn: {key} {e} is not the flat "
                                          "ring's count")
+                if e["link"] != link:
+                    raise AssertionError(f"dcn: {key} {e} ran on the "
+                                         f"{e['link']} link, not {link}")
+                staged_as_its_link(e, key)
                 bytes_rows.append(dict(e, line=key))
+
+    def timed_links(tm, n, e, schedule):
+        """Each link's timed row: its bytes the schedule's, its staging
+        its link's, its rows bitwise (run_dcn held them against the
+        in-process device's and each other's); returns the link rows."""
+        if set(e["links"]) != {"ipc", "gloo"} or not e["links_bitwise"]:
+            raise AssertionError(f"dcn: process {tm['proc']} timed "
+                                 f"{e['links']} in a {n}-element allreduce")
+        rows = {}
+        for name, r in e["links"].items():
+            got = {k: r[k] for k in schedule}
+            if got != schedule:
+                raise AssertionError(f"dcn: process {tm['proc']} sent {got} "
+                                     f"on {name} in a {n}-element "
+                                     f"allreduce, want {schedule}")
+            staged_as_its_link(dict(r, link=name), f"{n}-element {name}")
+            rows[name] = {k: r[k] for k in ("median_ms", "min_ms", "max_ms",
+                                            "staged", "flat_staged")}
+        return rows
+
     for lines in two:
         tm = next(line["dcn_time"] for line in lines if "dcn_time" in line)
         for n in DCN_AR_COUNTS:
@@ -7887,14 +7941,22 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
                     e["sent"] != tm["local"] * e["composition_line_bytes"]:
                 raise AssertionError(f"dcn: process {tm['proc']} sent {e} "
                                      f"in a {n}-element allreduce")
+            links = timed_links(tm, n, e, {
+                "sent": e["sent"], "line_hop_bytes": e["line_hop_bytes"],
+                "flat_sent": 0})
             bytes_rows.append({"proc": tm["proc"], "procs": tm["procs"],
                                "local": tm["local"], "count": n,
                                "sent": e["sent"],
                                "line_hop_bytes": e["line_hop_bytes"],
                                "composition_line_bytes":
-                                   e["composition_line_bytes"]})
-            timing[str(n * 4)].setdefault("two_process_host_ms", []).append(
-                e["median_ms"])
+                                   e["composition_line_bytes"],
+                               "staged": {k: v["staged"]
+                                          for k, v in links.items()}})
+            row = timing[str(n * 4)]
+            row.setdefault("two_process_host_ms", []).append(e["median_ms"])
+            for name, r in links.items():
+                row.setdefault(f"two_process_{name}", []).append(
+                    {"proc": tm["proc"], **r})
     for lines in flat2:
         tm = next(line["dcn_time"] for line in lines if "dcn_time" in line)
         for n in DCN_AR_COUNTS:
@@ -7904,13 +7966,34 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
                     not e["bitwise_vs_in_process"]:
                 raise AssertionError(f"dcn: process {tm['proc']} of 2 x 1 "
                                      f"sent {e} in a {n}-element allreduce")
+            links = timed_links(tm, n, e, {
+                "sent": 0, "flat_sent": e["flat_bytes"],
+                "flat_messages": e["flat_want_messages"]})
             bytes_rows.append({"proc": tm["proc"], "procs": tm["procs"],
                                "local": 1, "count": n,
                                "flat_sent": e["flat_sent"],
                                "flat_messages": e["flat_messages"],
-                               "flat_bytes": e["flat_bytes"]})
-            timing[str(n * 4)].setdefault("flat_2x1_host_ms", []).append(
-                e["median_ms"])
+                               "flat_bytes": e["flat_bytes"],
+                               "flat_staged": {k: v["flat_staged"]
+                                               for k, v in links.items()}})
+            row = timing[str(n * 4)]
+            row.setdefault("flat_2x1_host_ms", []).append(e["median_ms"])
+            for name, r in links.items():
+                row.setdefault(f"flat_2x1_{name}", []).append(
+                    {"proc": tm["proc"], **r})
+    # each link's own hop, no body: half a round trip between the 2 x 1
+    # children, by size (host clock, the device synchronised)
+    hop_us = {}
+    for lines in flat2:
+        hop = next(line["dcn_hop"] for line in lines if "dcn_hop" in line)
+        for name, by_size in hop["us_per_hop"].items():
+            for size in DCN_HOP_BYTES:
+                us = by_size[str(size)]
+                if not all(math.isfinite(u) and u > 0 for u in us):
+                    raise AssertionError(f"dcn: a {size}-byte hop on {name} "
+                                         f"took {us} us")
+                hop_us.setdefault(name, {}).setdefault(str(size), []).append(
+                    {"proc": hop["proc"], "us": us})
     if DCN_AR_COUNTS[0] == MIB and any(
             r["count"] == MIB and r["local"] == 1 and r["procs"] == 2
             and r["flat_sent"] != 4_194_304 for r in bytes_rows):
@@ -7940,13 +8023,14 @@ def dcn_phase(ring, qk, L, *, device="cuda"):
     seconds["multi_process"] = time.perf_counter() - t
     seconds["phase"] = time.perf_counter() - t_phase
     gpu = card_name() if on_card else "cpu"
-    emit({"phase": "dcn", "gpu": gpu, "topology": DCN_TOPO,
+    emit({"phase": "dcn", "gpu": gpu, "topology": DCN_TOPO, "link": link,
           "checks": checks, "bytes": bytes_rows, "seconds": seconds,
           "launches": path, "flat_launches": flat_path})
-    emit({"phase": "dcn_timing", "gpu": gpu, "reps": {"in_process": 10,
-                                                      "two_process": 5,
-                                                      "flat_2x1": 5},
-          "allreduce_bytes_per_rank": timing})
+    emit({"phase": "dcn_timing", "gpu": gpu, "link": link,
+          "reps": {"in_process": 10, "two_process": 5, "flat_2x1": 5},
+          "pairs": "ipc and gloo alternating, same operands",
+          "allreduce_bytes_per_rank": timing,
+          "hop_us_by_bytes": hop_us, "hop_round_trips": 50})
     return path, flat_path
 
 
@@ -8743,7 +8827,8 @@ def main() -> int:
     # the native emulator's g++ build runs beside the kernels' nvcc builds
     native_build = NativeBuild()
     native_build.start()
-    sources = ("ring_allreduce", "quant_wire", "lanes")
+    # the kernels, and the ipc link's CUDA IPC binding (dcn_phase)
+    sources = ("ring_allreduce", "quant_wire", "lanes", "ipc_link")
     _build.load_libraries(list(sources))  # one nvcc each, started together
     ptxas = {name: sorted(set(
         line.split("info    : ")[-1].strip()

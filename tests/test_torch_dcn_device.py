@@ -253,12 +253,20 @@ FP32_ARITH[(DataType.float32, DataType.float16)] = ArithConfig(
     4, 2, 0, 0, 1, False, (0, 5))
 
 
+def _roots(W):
+    """The roots and ends _drive's calls take at world W (at 2 x 4: bcast
+    and reduce to 6, scatter from 3, gather to 5, p2p 1 -> 7)."""
+    return {"bcast": W - 2, "reduce": W - 2, "scatter": 3 % W,
+            "gather": (W - 3) % W, "src": 1 % W, "dst": W - 1}
+
+
 def _drive(a, wire):
     """Every two-tier op, p2p and the host-0 group on one facade; returns
     each result's host image."""
     a.cclo.compiler.arith_table = FP32_ARITH
     kw = {} if wire is None else dict(compress_dtype=wire)
     W, n = a.world, 1000
+    L, at = a.cclo.mesh.shape["ici"], _roots(a.world)
     c = n // W
     x = np.random.default_rng(5).standard_normal((W, n)).astype(np.float32)
     sb = a.create_buffer(n, data=x)
@@ -274,37 +282,35 @@ def _drive(a, wire):
     call("allreduce_max", n, lambda r: a.allreduce(
         sb, r, n, ReduceFunction.MAX, **kw))
     bb = a.create_buffer(n, data=x)
-    a.bcast(bb, n, 6, **kw)
+    a.bcast(bb, n, at["bcast"], **kw)
     out["bcast"] = bb.host
     call("allgather", c * W, lambda r: a.allgather(sb, r, c, **kw))
     call("reduce_scatter", c, lambda r: a.reduce_scatter(
         sb, r, c, ReduceFunction.SUM, **kw))
     call("alltoall", c * W, lambda r: a.alltoall(
         a.create_buffer(c * W, data=x[:, :c * W]), r, c, **kw))
-    call("scatter", c, lambda r: a.scatter(sb, r, c, 3, **kw))
-    call("gather", c * W, lambda r: a.gather(sb, r, c, 5, **kw))
-    call("reduce", n, lambda r: a.reduce(sb, r, n, 6, ReduceFunction.SUM,
-                                         **kw))
+    call("scatter", c, lambda r: a.scatter(sb, r, c, at["scatter"], **kw))
+    call("gather", c * W, lambda r: a.gather(sb, r, c, at["gather"], **kw))
+    call("reduce", n, lambda r: a.reduce(sb, r, n, at["reduce"],
+                                         ReduceFunction.SUM, **kw))
 
     def p2p(r):
-        a.send(sb, 16, src=1, dst=7, tag=5, **kw)
-        a.recv(r, 16, src=1, dst=7, tag=5, **kw)
+        a.send(sb, 16, src=at["src"], dst=at["dst"], tag=5, **kw)
+        a.recv(r, 16, src=at["src"], dst=at["dst"], tag=5, **kw)
 
     call("p2p", 16, p2p)
     call("host0", 24, lambda r: a.allreduce(
-        sb, r, 24, ReduceFunction.SUM, comm=a.split([0, 1, 2, 3]), **kw))
+        sb, r, 24, ReduceFunction.SUM, comm=a.split(list(range(L))), **kw))
     a.barrier()
     return out
 
 
-@pytest.mark.parametrize("wire", [None, DataType.float16, DataType.int8],
-                         ids=["exact", "float16", "int8"])
-def test_multi_process_form_is_the_in_process_form(wire):
-    """Two hosts of four ranks, one thread each over a LoopbackHub: every
-    host's rows of every result bitwise the in-process device's; rows it
-    does not own stay as they were; a recorded batch runs and is bitwise
-    the in-process device's batch."""
-    P, L = 2, 4
+def multi_process_form(P, L, wire, hub):
+    """_drive and a recorded batch on P hosts of L ranks, one thread a
+    host over `hub` (LoopbackHub or IpcHub), against the in-process
+    device: every host's rows of every result bitwise the in-process
+    device's, rows it does not own left as they were. Returns each host's
+    transport tally after its last call."""
     twin = ACCL(device=DCNDevice(mesh=make_mesh(
         {"dcn": P, "ici": L}, device="cpu")), arith_config=FP32_ARITH)
     want = _drive(twin, wire)
@@ -319,16 +325,20 @@ def test_multi_process_form_is_the_in_process_form(wire):
         return d.host
 
     want["sequence"] = batch(twin)
-    hub = LoopbackHub(P)
     results, errors = [None] * P, []
 
     def host(p):
         try:
-            dev = DCNDevice(local_device_count=L, transport=hub.transport(p),
-                            torch_device="cpu")
-            a = ACCL(device=dev, arith_config=FP32_ARITH)
-            results[p] = (dev.local_rows(), _drive(a, wire))
-            results[p][1]["sequence"] = batch(a)
+            transport = hub.transport(p)
+            try:
+                dev = DCNDevice(local_device_count=L, transport=transport,
+                                torch_device="cpu")
+                a = ACCL(device=dev, arith_config=FP32_ARITH)
+                results[p] = (dev.local_rows(), _drive(a, wire))
+                results[p][1]["sequence"] = batch(a)
+                results[p] += (transport.tally(),)
+            finally:
+                transport.close()
         except BaseException as e:  # re-raised below
             errors.append(e)
 
@@ -338,16 +348,28 @@ def test_multi_process_form_is_the_in_process_form(wire):
     for t in threads:
         t.join(timeout=120)
     assert not errors, errors
-    for p, (rows, got) in enumerate(results):
+    at = _roots(P * L)
+    for p, (rows, got, _) in enumerate(results):
         others = [r for r in range(P * L) if r not in rows]
         for name, t in got.items():
             defined = [r for r in rows if name not in ("gather", "reduce")
-                       or r == {"gather": 5, "reduce": 6}[name]]
+                       or r == at[name]]
             assert np.array_equal(_bits(t.numpy()[defined]),
                                   _bits(want[name].numpy()[defined])), \
                 (p, name)
             if name != "bcast":  # results land in this host's rows only
                 assert not t.numpy()[others].any(), (p, name)
+    return [tally for _, _, tally in results]
+
+
+@pytest.mark.parametrize("wire", [None, DataType.float16, DataType.int8],
+                         ids=["exact", "float16", "int8"])
+def test_multi_process_form_is_the_in_process_form(wire):
+    """Two hosts of four ranks, one thread each over a LoopbackHub: every
+    host's rows of every result bitwise the in-process device's; rows it
+    does not own stay as they were; a recorded batch runs and is bitwise
+    the in-process device's batch."""
+    multi_process_form(2, 4, wire, LoopbackHub(2))
 
 
 @pytest.mark.parametrize("wires,n,stripes",

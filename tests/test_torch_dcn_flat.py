@@ -154,14 +154,19 @@ def _inputs(scenario, count, W, seed):
         np.float32)) for _ in range(k)]
 
 
-def _threads(P, fn):
-    """fn(p, transport) on P threads, one host each, over a LoopbackHub."""
-    hub = LoopbackHub(P)
+def _threads(P, fn, hub=None):
+    """fn(p, transport) on P threads, one host each, over `hub` (a
+    LoopbackHub unless given; each thread brings its own transport up)."""
+    hub = LoopbackHub(P) if hub is None else hub
     results, errors = [None] * P, []
 
     def run(p):
         try:
-            results[p] = fn(p, hub.transport(p))
+            transport = hub.transport(p)
+            try:
+                results[p] = fn(p, transport)
+            finally:
+                transport.close()
         except BaseException as e:  # re-raised below
             errors.append(e)
 
@@ -179,8 +184,9 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
-def run_cases(P, L, wire, case_list, seed=0):
-    """Every case's body on both forms; returns each host's tallies."""
+def run_cases(P, L, wire, case_list, seed=0, hub=None):
+    """Every case's body on both forms, the multi-process one over `hub`
+    (a LoopbackHub unless given); returns each host's tallies."""
     W = P * L
     _, table = WIRES[wire]
     stacked = ScheduleCompiler(W, CPU, arith_table=table,
@@ -204,7 +210,7 @@ def run_cases(P, L, wire, case_list, seed=0):
             tallies.append(transport.tally())
         return got, tallies
 
-    per_host = _threads(P, host)
+    per_host = _threads(P, host, hub)
     for p, (got, _) in enumerate(per_host):
         for case, w, g in zip(case_list, want, got):
             assert g.shape == w[p * L:(p + 1) * L].shape, (case[0], p)
