@@ -463,7 +463,8 @@ class ACCL:
                                  dtype_nbytes(opts.data_type)
                                  if opts.data_type != DataType.none else 4,
                                  time.perf_counter() - t0)
-            if get_tracer().active:  # attach what the device resolved
+            tracer = get_tracer()
+            if tracer.active:  # attach what the device resolved
                 sp.set(op=opts.scenario.name, count=opts.count,
                        retcode=req.retcode)
                 if run_async:
@@ -472,9 +473,14 @@ class ACCL:
                 if plan is not None:
                     sp.set(algorithm=plan.algorithm.name,
                            protocol=plan.protocol.name)
-                pred = getattr(req, "predicted_s", None)
-                if pred is not None:
-                    sp.set(predicted_s=pred)
+                # the estimate is read (on the card: computed) only where
+                # something consumes it: the ring, or the drift sentinel
+                # a synchronous call's span feeds; the metrics observer
+                # skips a dispatch_only span
+                if tracer.enabled or not run_async:
+                    pred = getattr(req, "predicted_s", None)
+                    if pred is not None:
+                        sp.set(predicted_s=pred)
             return ret
 
     def wait(self, req: BaseRequest):

@@ -138,6 +138,11 @@ class GPUDevice(CCLODevice):
         self._stream_cache: dict[tuple, Any] = {}
         # lint verdicts of call sequences, by composite signature
         self._lint_cache: dict[tuple, tuple] = {}
+        # traced dispatches' `results` layer spans waiting for the card to
+        # pass the event after their clones, oldest first, with that
+        # event pair (dispatch_sequence); _copies_mu guards the list
+        self._copies_out: list[tuple] = []
+        self._copies_mu = threading.Lock()
 
     # -- registry ---------------------------------------------------------
 
@@ -377,16 +382,21 @@ class GPUDevice(CCLODevice):
 
     def _launch(self, options: CallOptions) -> GPURequest:
         ctx = self._comm_ctx(options.comm_addr)
+        tracer = get_tracer()
         # send/recv arrive here paired (start() routes the raw halves
         # through the parking maps; _pair merged them)
-        tuning = self.tuning()
-        options = self._apply_alltoall_wire(options, tuning)
-        plan, producer, consumer = self._resolve_step(options, ctx, tuning)
-        if options.stream_flags:
-            fn = ctx.compiler.lower_streamed(options, plan, producer,
-                                             consumer)
-        else:
-            fn = ctx.compiler.lower(options, plan)
+        with tracer.layer("resolve") as sp:
+            tuning = self.tuning()
+            options = self._apply_alltoall_wire(options, tuning)
+            plan, producer, consumer = self._resolve_step(options, ctx,
+                                                          tuning)
+            if options.stream_flags:
+                fn = ctx.compiler.lower_streamed(options, plan, producer,
+                                                 consumer)
+            else:
+                fn = ctx.compiler.lower(options, plan)
+            if sp:
+                sp.set(algorithm=plan.algorithm.name)
         scen = options.scenario
         res = self._buf(options.addr_2)
         if scen == Operation.barrier:
@@ -410,10 +420,13 @@ class GPUDevice(CCLODevice):
 
         req = self._request(options.scenario.name, out, events, t0, place,
                             plan)
-        if get_tracer().active:
-            # the facade span reads it: every traced call carries its
-            # timing.predict estimate beside its measured duration
-            req.predicted_s = self._predict_call(options, plan, ctx.world)
+        if tracer.active:
+            # the facade span reads it where something consumes it (the
+            # ring, or the drift sentinel of a synchronous call): the
+            # timing.predict estimate beside the measured duration, made
+            # at that read
+            req._predict = functools.partial(self._predict_call, options,
+                                             plan, ctx.world)
         return req
 
     def _predict_call(self, options: CallOptions, plan,
@@ -450,16 +463,19 @@ class GPUDevice(CCLODevice):
         """Run a body with one collective in flight, between two CUDA
         events on the card; returns (out, events, host start ns)."""
         events = None
+        launch = get_tracer().layer("launch")
         with self._launch_mu:
             t0 = time.perf_counter_ns()
             if self.torch_device.type == "cuda":
                 events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                 events[0].record()
-                out = fn(*args)
+                with launch:
+                    out = fn(*args)
                 events[1].record()
             else:
-                out = fn(*args)
+                with launch:
+                    out = fn(*args)
         return out, events, t0
 
     # -- send/recv pairing -------------------------------------------------
@@ -776,39 +792,86 @@ class GPUDevice(CCLODevice):
         once (between two CUDA events on the card), take the written
         buffers' values out of the graph's pool, and place them at
         completion. Safe to call repeatedly on one handle: each call is
-        an independent request."""
+        an independent request.
+
+        With the layer gate open (tracer.layering) the parts are layer
+        spans: `bind`, `load`, `results` and `markers` here, `place` at
+        completion. On the card `load` and `results` then carry the
+        device time of the copies (`device_ns`), from one more CUDA
+        event before the copy-in and one after the clones, paired with
+        the replay's own. Completion still waits on the replay's end
+        alone, so the host's next dispatch overlaps the clones as it does
+        untraced: `load` is emitted at completion, `results` at the first
+        completion on this device after the card has passed its clones
+        (in a closed loop, the next dispatch's). With the gate closed the
+        dispatch records the replay's pair alone."""
         seq, graph, ctx = prepared.seq, prepared.graph, prepared.ctx
         tracer = get_tracer()
+        on_card = graph.graph is not None
+        timed = on_card and tracer.layering
         # on the card this span times the host seam: the replay is
         # enqueued and the span closes without waiting for it (the
         # request's CUDA events time the replay itself)
-        with tracer.span("dispatch", cat="phase", track="device") as sp:
-            sp.set(signature=prepared.sig)
+        with tracer.span("dispatch", cat="phase", track="device") as dispatch:
+            dispatch.set(signature=prepared.sig)
             if prepared.cert is not None:
                 # a certify_concurrent-stamped tenant: the flight recorder
                 # can name the admitted set a wedged dispatch belonged to
-                sp.set(interference_cert=prepared.cert)
-            tensors = self._bound_tensors(seq, prepared.bufs, ctx)
-            events = None
+                dispatch.set(interference_cert=prepared.cert)
+            with tracer.layer("bind", n=len(seq.buffer_addrs)):
+                tensors = self._bound_tensors(seq, prepared.bufs, ctx)
+            events = head = tail = None
+            load = tracer.layer("load", deferred=True)
+            results = tracer.layer("results", deferred=True)
             with self._launch_mu:
                 t0 = time.perf_counter_ns()
-                graph.load(tensors)
-                if graph.graph is not None:
+                if on_card:
                     events = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
+                if timed:
+                    head = torch.cuda.Event(enable_timing=True)
+                    head.record()
+                with load:
+                    graph.load(tensors)
+                if on_card:
                     events[0].record()
                     graph.replay()
                     events[1].record()
                 else:
                     graph.replay()
-                outs = graph.results()
+                with results:
+                    outs = graph.results()
+                if timed:
+                    tail = torch.cuda.Event(enable_timing=True)
+                    tail.record()
         out_bufs = [prepared.bufs[a] for a in seq.out_addrs]
 
         def place(req):
-            for buf, out in zip(out_bufs, outs):
-                if buf.device is None:  # host-only result: materialize
-                    buf.sync_to_device()
-                buf.device = self._place(buf.device, ctx, out)
+            if load:
+                if prepared.copies is None:
+                    prepared.copies = (len(graph.inputs), graph.load_bytes,
+                                       len(outs), graph.results_bytes)
+                n_in, b_in, n_out, b_out = prepared.copies
+                load.set(copies=n_in, bytes=b_in)
+                results.set(copies=n_out, bytes=b_out)
+                if head is None:
+                    load.emit()
+                    results.emit()
+                else:
+                    # the copy-in's device time: before load to the
+                    # replay's start, both passed at completion
+                    load.set(device_ns=int(
+                        head.elapsed_time(events[0]) * 1e6))
+                    load.emit()
+                    with self._copies_mu:
+                        self._copies_out.append((results, events[1], tail))
+            if self._copies_out:
+                self._emit_copies_out()
+            with tracer.layer("place", cause=dispatch, n=len(out_bufs)):
+                for buf, out in zip(out_bufs, outs):
+                    if buf.device is None:  # host-only result: materialize
+                        buf.sync_to_device()
+                    buf.device = self._place(buf.device, ctx, out)
 
         req = SequenceRequest(outs, prepared.plans, events,
                               on_complete=place)
@@ -822,30 +885,44 @@ class GPUDevice(CCLODevice):
             # so each carries its timing.predict estimate and the batch
             # signature, not a duration of its own. Predictions are a pure
             # function of the frozen (steps, plans): computed once a handle
-            if prepared.preds is None:
-                prepared.preds = [
-                    self._predict_call(o, p, ctx.world)
-                    for o, p in zip(prepared.desc.steps, prepared.plans)]
-            preds = prepared.preds
-            known = [p for p in preds if p is not None]
-            req.predicted_s = sum(known) if known else None
-            now = time.perf_counter_ns()
-            for i, (o, p, pred) in enumerate(zip(prepared.desc.steps,
-                                                 prepared.plans, preds)):
-                step_args = {
-                    "op": o.scenario.name,
-                    "count": o.count,
-                    "step": i,
-                    "world": ctx.world,
-                    "algorithm": p.algorithm.name,
-                    "protocol": p.protocol.name,
-                    "signature": prepared.sig,
-                }
-                if pred is not None:
-                    step_args["predicted_s"] = pred
-                tracer.emit(f"step{i}:{o.scenario.name}", "step", "device",
-                            ts_ns=now, dur_ns=0, args=step_args)
+            with tracer.layer("markers", n=len(prepared.plans)):
+                if prepared.preds is None:
+                    prepared.preds = [
+                        self._predict_call(o, p, ctx.world)
+                        for o, p in zip(prepared.desc.steps,
+                                        prepared.plans)]
+                preds = prepared.preds
+                known = [p for p in preds if p is not None]
+                req.predicted_s = sum(known) if known else None
+                now = time.perf_counter_ns()
+                for i, (o, p, pred) in enumerate(zip(prepared.desc.steps,
+                                                     prepared.plans, preds)):
+                    step_args = {
+                        "op": o.scenario.name,
+                        "count": o.count,
+                        "step": i,
+                        "world": ctx.world,
+                        "algorithm": p.algorithm.name,
+                        "protocol": p.protocol.name,
+                        "signature": prepared.sig,
+                    }
+                    if pred is not None:
+                        step_args["predicted_s"] = pred
+                    tracer.emit(f"step{i}:{o.scenario.name}", "step",
+                                "device", ts_ns=now, dur_ns=0,
+                                args=step_args)
         return req
+
+    def _emit_copies_out(self) -> None:
+        """Emit, oldest first, each waiting `results` span whose clones
+        the card has passed, with their device time (the replay's end to
+        the event after the clones); one still running stops the walk.
+        Nothing waits on the card."""
+        with self._copies_mu:
+            while self._copies_out and self._copies_out[0][2].query():
+                span, start, end = self._copies_out.pop(0)
+                span.set(device_ns=int(start.elapsed_time(end) * 1e6))
+                span.emit()
 
     def _lint_batch(self, desc, plans, ctx, mode: str,
                     persistent: frozenset = frozenset()) -> None:
@@ -947,13 +1024,15 @@ class _PreparedSequence:
     device images flow in, and the communicator context it runs on.
 
     `preds` holds the per-step timing.predict estimates of a traced
-    dispatch, computed at the first one. `footprint` is the batch's
+    dispatch, computed at the first one, and `copies` the (copies,
+    bytes) of its graph's load and results that a traced dispatch's
+    layer spans carry, computed at the first such. `footprint` is the batch's
     cross-program interference summary (analysis/interference.py) and
     `cert` the certificate of the certify_concurrent set it was last
     admitted into (None until then), which its dispatch spans carry."""
 
     __slots__ = ("desc", "plans", "seq", "graph", "bufs", "ctx", "sig",
-                 "preds", "footprint", "cert")
+                 "preds", "copies", "footprint", "cert")
 
     def __init__(self, desc, plans, seq, graph, bufs, ctx, sig):
         self.desc = desc
@@ -964,6 +1043,7 @@ class _PreparedSequence:
         self.ctx = ctx
         self.sig = sig
         self.preds = None
+        self.copies = None
         self.footprint = None
         self.cert = None
 

@@ -85,10 +85,25 @@ class GPURequest(BaseRequest):
         self._events = events
         self._on_complete = on_complete
         # set by the device after plan selection: the resolved Plan, and
-        # its timing.predict estimate when the tracer is active
+        # when the tracer is active its timing.predict estimate, or the
+        # thunk that computes it when the facade reads it (the facade
+        # reads it only where something consumes it: the ring is
+        # collecting, or the call is synchronous and feeds the drift
+        # sentinel)
         self.plan: Any = None
-        self.predicted_s: float | None = None
+        self._predicted: float | None = None
+        self._predict: Callable[[], float | None] | None = None
         self.running()
+
+    @property
+    def predicted_s(self) -> float | None:
+        if self._predict is not None:
+            self._predicted, self._predict = self._predict(), None
+        return self._predicted
+
+    @predicted_s.setter
+    def predicted_s(self, value: float | None) -> None:
+        self._predicted, self._predict = value, None
 
     def wait(self, timeout: float | None = None) -> bool:
         if self.status == OperationStatus.COMPLETED:

@@ -554,6 +554,11 @@ class SequenceGraph:
         """Device bytes `load` moves per dispatch (read and written)."""
         return 2 * sum(t.numel() * t.element_size() for t in self.inputs)
 
+    @property
+    def results_bytes(self) -> int:
+        """Device bytes `results` moves per dispatch (read and written)."""
+        return 2 * sum(t.numel() * t.element_size() for t in self.outputs)
+
     def load(self, tensors) -> None:
         for dst, src in zip(self.inputs, tensors):
             dst.copy_(src)

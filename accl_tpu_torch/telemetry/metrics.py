@@ -7,7 +7,9 @@ registry, exposition and verdict. The trace ring (tracer.py) answers
 "what happened, span by span" after the fact; this module answers "what
 is happening now". It is fed at span-emission time (the facade's call
 spans and the sequence phases and steps reach Tracer.emit, which hands
-every event to its installed observers), never when a trace is drained:
+every event to its installed observers), never when a trace is drained.
+The port's layer spans (track "layer", tracer.py), which the reference
+does not emit, are skipped, so they never change what the rule gives:
 
   - a streaming metrics registry: counters, gauges and bounded
     streaming-quantile histograms (p50/p95/p99/p99.9 over a sliding
@@ -37,6 +39,7 @@ from collections import deque
 from typing import Any, Callable, Iterable
 
 from .export import measured_seconds, median as _median
+from .tracer import LAYER_TRACK
 
 # label key order is FIXED: the registry keys series by this tuple so
 # exposition and snapshots are deterministic across runs
@@ -529,6 +532,10 @@ class MetricsObserver:
         self.sentinel = sentinel if sentinel is not None else DriftSentinel()
 
     def __call__(self, ev: dict[str, Any]) -> None:
+        if ev.get("track") == LAYER_TRACK:
+            # layer spans exist only while tracing or profiling: the
+            # registry's series read the same with either off
+            return
         reg = self.registry
         cat = ev.get("cat", "")
         args = ev.get("args") or {}

@@ -36,6 +36,27 @@ The tracer is also the one emission seam of the always-on layer
 or not the ring itself is collecting. `span()` returns a live span
 whenever the tracer is `active` (ring enabled or observers installed);
 the ring retains events only when `enabled`.
+
+A call's timing.predict estimate (`predicted_s`) is computed only where
+something reads it: when the ring is collecting, or for a synchronous
+call, whose measured span feeds the drift sentinel. A run_async call
+with the ring off carries none.
+
+Layer spans (`layer()`) time the work inside one dispatch: binding the
+buffers, the copies into and out of a captured graph, the per-step
+markers, placing results, plan resolution and the launch. They are cat
+"phase" on track "layer", so SPAN v1 holds them unchanged, and each
+names the span that caused it in `args.parent` / `args.parent_ts_ns`
+(the innermost live span open on its thread, or the one its emitter
+names). Their gate is narrower than `active`: the ring collecting or a
+torch.profiler session recording. With neither, `layer()` returns the
+shared no-op and the always-on layer never sees one; the metrics
+observer skips the track in any case.
+
+While a torch.profiler session records, every live span also opens a
+`torch.profiler.record_function` range named `accl:<track>/<name>`, so
+the program's spans lie on the profiler's own clock, beside the device
+timeline (the ring's `ts_ns` is perf_counter_ns, another epoch).
 """
 
 from __future__ import annotations
@@ -45,11 +66,27 @@ import threading
 import time
 from collections import deque
 
+from torch.autograd import profiler as _profiler
+
 SCHEMA_VERSION = "accl-tpu-trace-v1"
 
 # default host ring capacity (spans); the ring drops OLDEST on overflow
 # and counts the drops, as the reference's does
 DEFAULT_CAPACITY = 65536
+
+# the render track of layer spans (Tracer.layer)
+LAYER_TRACK = "layer"
+
+# per thread: the live spans open while the layer gate was open, the
+# innermost last, from which a layer span takes its cause
+_open = threading.local()
+
+
+def _open_spans() -> list:
+    stack = getattr(_open, "spans", None)
+    if stack is None:
+        stack = _open.spans = []
+    return stack
 
 
 class _NullSpan:
@@ -64,8 +101,15 @@ class _NullSpan:
     def __exit__(self, *exc) -> bool:
         return False
 
+    def __bool__(self) -> bool:
+        # false, so a call site can skip building args nobody records
+        return False
+
     def set(self, **_kw) -> "_NullSpan":
         return self
+
+    def emit(self) -> None:
+        pass
 
 
 _NULL_SPAN = _NullSpan()
@@ -74,9 +118,17 @@ _NULL_SPAN = _NullSpan()
 class _LiveSpan:
     """Context manager measuring one span; emitted into the tracer ring
     on exit. `set()` attaches args discovered mid-span (e.g. the plan a
-    device resolved after dispatch)."""
+    device resolved after dispatch). A `deferred` span measures its host
+    time at exit and is emitted by `emit()`, once what it waits for (a
+    CUDA event pair read at completion) is known.
 
-    __slots__ = ("_tracer", "name", "cat", "track", "args", "_t0")
+    While the layer gate is open (ring collecting, or a profiler
+    recording) the span is on its thread's stack of open spans for its
+    lifetime, and under a profiler it also holds a record_function
+    range."""
+
+    __slots__ = ("_tracer", "name", "cat", "track", "args", "_t0", "dur_ns",
+                 "cause", "deferred", "_pushed", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, track: str,
                  args: dict):
@@ -86,8 +138,30 @@ class _LiveSpan:
         self.track = track
         self.args = args
         self._t0 = 0
+        self.dur_ns = 0
+        # (name, ts_ns) of the span that caused a layer span; None takes
+        # the innermost open one at entry
+        self.cause = None
+        self.deferred = False
+        self._pushed = False
+        self._range = None
 
     def __enter__(self) -> "_LiveSpan":
+        profiling = _profiler._is_profiler_enabled
+        if profiling:
+            self._range = _profiler.record_function(
+                f"accl:{self.track}/{self.name}")
+            self._range.__enter__()
+        if profiling or self._tracer._enabled:
+            stack = _open_spans()
+            if self.track == LAYER_TRACK:
+                if self.cause is None and stack:
+                    self.cause = (stack[-1].name, stack[-1]._t0)
+                if self.cause is not None:
+                    self.args["parent"], self.args["parent_ts_ns"] = \
+                        self.cause
+            stack.append(self)
+            self._pushed = True
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -95,13 +169,25 @@ class _LiveSpan:
         self.args.update(kw)
         return self
 
-    def __exit__(self, exc_type, _exc, _tb) -> bool:
-        dur = time.perf_counter_ns() - self._t0
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.dur_ns = time.perf_counter_ns() - self._t0
         if exc_type is not None:
             self.args.setdefault("error", exc_type.__name__)
-        self._tracer.emit(self.name, self.cat, self.track,
-                          ts_ns=self._t0, dur_ns=dur, args=self.args)
+        if self._pushed:
+            stack = _open_spans()
+            if stack and stack[-1] is self:
+                stack.pop()
+            elif self in stack:
+                stack.remove(self)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if not self.deferred:
+            self.emit()
         return False
+
+    def emit(self) -> None:
+        self._tracer.emit(self.name, self.cat, self.track,
+                          ts_ns=self._t0, dur_ns=self.dur_ns, args=self.args)
 
 
 class Tracer:
@@ -175,6 +261,28 @@ class Tracer:
         if not (self._enabled or self._observers):
             return _NULL_SPAN
         return _LiveSpan(self, name, cat, track, args)
+
+    @property
+    def layering(self) -> bool:
+        """The layer gate: the ring is collecting or a torch.profiler
+        session is recording (a module flag read, no call)."""
+        return self._enabled or _profiler._is_profiler_enabled
+
+    def layer(self, name: str, *, cause: "_NullSpan | _LiveSpan | None" = None,
+              deferred: bool = False, **args) -> "_NullSpan | _LiveSpan":
+        """A layer span (cat "phase", track "layer") timing one part of
+        a dispatch; the shared no-op unless the layer gate is open.
+        `cause` is the span that caused it where that is not the
+        innermost open one (work done at a request's completion names
+        its dispatch); `deferred` leaves the emission to the span's
+        `emit()`."""
+        if not (self._enabled or _profiler._is_profiler_enabled):
+            return _NULL_SPAN
+        sp = _LiveSpan(self, name, "phase", LAYER_TRACK, args)
+        if cause:
+            sp.cause = (cause.name, cause._t0)
+        sp.deferred = deferred
+        return sp
 
     def emit(self, name: str, cat: str, track: str, *, ts_ns: int,
              dur_ns: int, args: dict | None = None) -> None:

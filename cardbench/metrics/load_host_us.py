@@ -1,0 +1,13 @@
+"""Median host microseconds of the program's `load` layer span (track
+`layer`) a dispatch of the prepared sequence: the copies of those images
+into the graph's static inputs (SequenceGraph.load), enqueued. The spans
+exist while the program's tracer collects; a program without them reads
+nothing."""
+
+import statistics
+
+
+def read(ctx):
+    durs = [ev["dur_ns"] for ev in ctx.spans
+            if ev.get("track") == "layer" and ev.get("name") == "load"]
+    return statistics.median(durs) / 1e3 if durs else None
