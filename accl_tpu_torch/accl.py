@@ -1326,7 +1326,8 @@ class SequenceProgram:
     @property
     def graph(self):
         """The prepared SequenceGraph (on the card: the captured CUDA
-        graph, its capture time and the bytes its copy-in moves)."""
+        graph, its capture time, its placement and the bytes its copy-in
+        moves)."""
         return self._prepared.graph
 
     @property

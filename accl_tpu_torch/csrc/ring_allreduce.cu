@@ -42,6 +42,15 @@
 // vector instantiation the ragged tail past the last whole vector runs
 // element by element in the thread that owns it.
 //
+// Two entries share that fold (ring_fold): the direct one
+// (accl_ring_allreduce) takes x and out as kernel arguments, as every
+// eager call does; the indirect one (accl_ring_allreduce_indirect) reads
+// them from a {x, out} entry of a device table, which a recorded call
+// sequence's CUDA graph uses to read bound operands in place and write
+// fresh results at every replay (accl_tpu_torch/sequencer/lowering.py,
+// SequenceGraph). Strides, n, chunk and the instantiations are the same,
+// and so is every result, bit for bit.
+//
 // Bound: bytes. The function must read every rank's n input elements
 // once and write every rank's n output elements once, 2*W*n*sizeof(T)
 // bytes over 3.35 TB/s; this kernel moves exactly that.
@@ -252,11 +261,14 @@ __device__ __forceinline__ void fold_store(const T* x, T* out,
   for (int r = 0; r < world; ++r) store<T, VEC>(out + r * ld_out, acc);
 }
 
+// The whole fold of one launch: every vector of the n columns, over the
+// W rank rows of x, stored to the W rows of out.
 template <typename T, int OP, int DIRS, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    ring_allreduce_kernel(const T* __restrict__ x, T* __restrict__ out,
-                          long long ld_in, long long ld_out, long long n,
-                          int world, long long chunk) {
+__device__ __forceinline__ void ring_fold(const T* __restrict__ x,
+                                          T* __restrict__ out,
+                                          long long ld_in, long long ld_out,
+                                          long long n, int world,
+                                          long long chunk) {
   const long long vecs = (n + VEC - 1) / VEC;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i =
@@ -281,16 +293,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The direct entry: base pointers as kernel arguments.
 template <typename T, int OP, int DIRS, int VEC>
-cudaError_t launch(const T* x, T* out, long long ld_in, long long ld_out,
-                   long long n, int world, long long chunk,
-                   cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    ring_allreduce_kernel(const T* __restrict__ x, T* __restrict__ out,
+                          long long ld_in, long long ld_out, long long n,
+                          int world, long long chunk) {
+  ring_fold<T, OP, DIRS, VEC>(x, out, ld_in, ld_out, n, world, chunk);
+}
+
+// One launch's base pointers in a device table (the indirect entry).
+template <typename T>
+struct RingEntry {
+  const T* x;
+  T* out;
+};
+
+// The indirect entry: the same fold, its two base pointers read from a
+// table entry when the launch runs, once a block. A launch captured into a
+// CUDA graph keeps its entry's address, so the host points a replay at
+// other tensors by rewriting the entry before it, without a re-capture.
+template <typename T, int OP, int DIRS, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    ring_allreduce_kernel_indirect(const RingEntry<T>* __restrict__ entry,
+                                   long long ld_in, long long ld_out,
+                                   long long n, int world, long long chunk) {
+  __shared__ RingEntry<T> e;
+  if (threadIdx.x == 0) e = *entry;
+  __syncthreads();
+  ring_fold<T, OP, DIRS, VEC>(e.x, e.out, ld_in, ld_out, n, world, chunk);
+}
+
+// entry != nullptr takes the indirect entry (x and out unused).
+template <typename T, int OP, int DIRS, int VEC>
+cudaError_t launch(const T* x, T* out, const RingEntry<T>* entry,
+                   long long ld_in, long long ld_out, long long n, int world,
+                   long long chunk, cudaStream_t stream) {
   long long blocks = ((n + VEC - 1) / VEC + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
-  ring_allreduce_kernel<T, OP, DIRS, VEC>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          x, out, ld_in, ld_out, n, world, chunk);
+  if (entry)
+    ring_allreduce_kernel_indirect<T, OP, DIRS, VEC>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            entry, ld_in, ld_out, n, world, chunk);
+  else
+    ring_allreduce_kernel<T, OP, DIRS, VEC>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            x, out, ld_in, ld_out, n, world, chunk);
   return cudaGetLastError();
 }
 
@@ -299,30 +348,62 @@ __host__ bool aligned16(const void* p, long long row_stride, int itemsize) {
          (row_stride * itemsize) % 16 == 0;
 }
 
+// entryv != nullptr: the indirect entry, whose pointers the host cannot
+// see; its caller vouches for their alignment.
 template <typename T>
 cudaError_t dispatch(int op, int dirs, int vec, const void* xv, void* outv,
-                     long long ld_in, long long ld_out, long long n,
-                     int world, long long chunk, cudaStream_t s) {
+                     const void* entryv, long long ld_in, long long ld_out,
+                     long long n, int world, long long chunk,
+                     cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
   const T* x = static_cast<const T*>(xv);
   T* out = static_cast<T*>(outv);
+  const RingEntry<T>* entry = static_cast<const RingEntry<T>*>(entryv);
   if (world < 1 || n < 0 || (n > 0 && (chunk < 1 || chunk % kChunkAlign ||
                                        chunk * dirs * world < n)))
     return cudaErrorInvalidValue;
-  if (vec && !(aligned16(x, ld_in, sizeof(T)) &&
-               aligned16(out, ld_out, sizeof(T))))
+  if (vec && !entry &&
+      !(aligned16(x, ld_in, sizeof(T)) && aligned16(out, ld_out, sizeof(T))))
     return cudaErrorMisalignedAddress;
-#define ACCL_RING_LAUNCH(OP, DIRS)                                          \
-  return vec ? launch<T, OP, DIRS, kVec>(x, out, ld_in, ld_out, n, world, \
-                                         chunk, s)                          \
-             : launch<T, OP, DIRS, 1>(x, out, ld_in, ld_out, n, world,     \
-                                      chunk, s)
+#define ACCL_RING_LAUNCH(OP, DIRS)                                           \
+  return vec ? launch<T, OP, DIRS, kVec>(x, out, entry, ld_in, ld_out, n,  \
+                                         world, chunk, s)                    \
+             : launch<T, OP, DIRS, 1>(x, out, entry, ld_in, ld_out, n,      \
+                                      world, chunk, s)
   if (op == kSum && dirs == 2) ACCL_RING_LAUNCH(kSum, 2);
   if (op == kSum && dirs == 1) ACCL_RING_LAUNCH(kSum, 1);
   if (op == kMax && dirs == 2) ACCL_RING_LAUNCH(kMax, 2);
   if (op == kMax && dirs == 1) ACCL_RING_LAUNCH(kMax, 1);
 #undef ACCL_RING_LAUNCH
   return cudaErrorInvalidValue;
+}
+
+int by_dtype(int dtype, int op, int dirs, int vec, const void* x, void* out,
+             const void* entry, long long ld_in, long long ld_out,
+             long long n, int world, long long chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return dispatch<float>(op, dirs, vec, x, out, entry, ld_in, ld_out, n,
+                             world, chunk, s);
+    case kFloat64:
+      return dispatch<double>(op, dirs, vec, x, out, entry, ld_in, ld_out, n,
+                              world, chunk, s);
+    case kInt32:
+      return dispatch<int32_t>(op, dirs, vec, x, out, entry, ld_in, ld_out,
+                               n, world, chunk, s);
+    case kInt64:
+      return dispatch<int64_t>(op, dirs, vec, x, out, entry, ld_in, ld_out,
+                               n, world, chunk, s);
+    case kFloat16:
+      return dispatch<__half>(op, dirs, vec, x, out, entry, ld_in, ld_out, n,
+                              world, chunk, s);
+    case kBFloat16:
+      return dispatch<__nv_bfloat16>(op, dirs, vec, x, out, entry, ld_in,
+                                     ld_out, n, world, chunk, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -334,29 +415,23 @@ extern "C" int accl_ring_allreduce(int dtype, int op, int dirs, int vec,
                                    const void* x, void* out, long long ld_in,
                                    long long ld_out, long long n, int world,
                                    long long chunk, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return dispatch<float>(op, dirs, vec, x, out, ld_in, ld_out, n, world,
-                             chunk, s);
-    case kFloat64:
-      return dispatch<double>(op, dirs, vec, x, out, ld_in, ld_out, n, world,
-                              chunk, s);
-    case kInt32:
-      return dispatch<int32_t>(op, dirs, vec, x, out, ld_in, ld_out, n,
-                               world, chunk, s);
-    case kInt64:
-      return dispatch<int64_t>(op, dirs, vec, x, out, ld_in, ld_out, n,
-                               world, chunk, s);
-    case kFloat16:
-      return dispatch<__half>(op, dirs, vec, x, out, ld_in, ld_out, n, world,
-                              chunk, s);
-    case kBFloat16:
-      return dispatch<__nv_bfloat16>(op, dirs, vec, x, out, ld_in, ld_out, n,
-                                     world, chunk, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_dtype(dtype, op, dirs, vec, x, out, nullptr, ld_in, ld_out, n,
+                  world, chunk, stream);
+}
+
+// The indirect entry: `entry` is the device address of one {x, out} pair
+// of 64-bit pointers, read when the launch runs. vec != 0 takes the vector
+// instantiation without a check: the caller makes sure both base pointers
+// the entry will hold are 16-byte multiples, as are both row strides.
+// n == 0 launches one block that reads the entry and stores nothing.
+extern "C" int accl_ring_allreduce_indirect(int dtype, int op, int dirs,
+                                            int vec, const void* entry,
+                                            long long ld_in, long long ld_out,
+                                            long long n, int world,
+                                            long long chunk, void* stream) {
+  if (!entry) return cudaErrorInvalidValue;
+  return by_dtype(dtype, op, dirs, vec, nullptr, nullptr, entry, ld_in,
+                  ld_out, n, world, chunk, stream);
 }
 
 extern "C" const char* accl_ring_error_string(int code) {

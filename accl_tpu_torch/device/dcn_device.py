@@ -255,14 +255,14 @@ class DCNCompiler(ScheduleCompiler):
             return lambda *bufs: tuple(bufs[i] for i in out_idx)
         return super().compile_sequence(seq)
 
-    def sequence_graph(self, seq, body, inputs):
+    def sequence_graph(self, seq, body, inputs, in_place=False):
         """The multi-process form's executable is eager by form: a hop
         waits on a host token or stages through the host, which a CUDA
         graph cannot capture, so
-        each replay runs the composed body on the card (same load /
-        replay / results contract)."""
+        each replay runs the composed body on the card (same bind / load /
+        replay / results contract, every step staged)."""
         if self.transport is None:
-            return super().sequence_graph(seq, body, inputs)
+            return super().sequence_graph(seq, body, inputs, in_place)
         return SequenceGraph(body, inputs, capture=False)
 
 

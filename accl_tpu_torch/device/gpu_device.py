@@ -758,8 +758,12 @@ class GPUDevice(CCLODevice):
                         f"{addr:#x}, which holds {have}")
             fn = ctx.compiler.compile_sequence(seq)
             with self._launch_mu:
+                # kernel-1 steps read and write in place on the default
+                # world only (a sub-communicator's rows are a gather of
+                # their own)
                 graph = ctx.compiler.sequence_graph(
-                    seq, fn, self._bound_tensors(seq, bufs, ctx))
+                    seq, fn, self._bound_tensors(seq, bufs, ctx),
+                    in_place=ctx.rows is None)
         prepared = _PreparedSequence(desc=desc, plans=tuple(plans), seq=seq,
                                      graph=graph, bufs=bufs, ctx=ctx, sig=sig)
         # the interference summary rides every prepared program: pure
@@ -787,24 +791,34 @@ class GPUDevice(CCLODevice):
 
     def dispatch_sequence(self, prepared: "_PreparedSequence"
                           ) -> SequenceRequest:
-        """The dispatch half of `start_sequence`: copy the bound buffers'
-        current device images into the prepared graph's inputs, replay it
-        once (between two CUDA events on the card), take the written
-        buffers' values out of the graph's pool, and place them at
-        completion. Safe to call repeatedly on one handle: each call is
-        an independent request.
+        """The dispatch half of `start_sequence`: bind the buffers'
+        current device images, allocate the fresh results of the steps
+        that write in place, stage what the graph cannot read in place
+        and write its address table (SequenceGraph.load), replay it once
+        (between two CUDA events on the card), clone what staged steps
+        left in the graph's memory, and place the results at completion.
+        Safe to call repeatedly on one handle, also before waiting on an
+        earlier call: each is an independent request, whose bound
+        tensors and results it holds until it completes.
 
         With the layer gate open (tracer.layering) the parts are layer
-        spans: `bind`, `load`, `results` and `markers` here, `place` at
-        completion. On the card `load` and `results` then carry the
-        device time of the copies (`device_ns`), from one more CUDA
-        event before the copy-in and one after the clones, paired with
-        the replay's own. Completion still waits on the replay's end
-        alone, so the host's next dispatch overlaps the clones as it does
-        untraced: `load` is emitted at completion, `results` at the first
-        completion on this device after the card has passed its clones
-        (in a closed loop, the next dispatch's). With the gate closed the
-        dispatch records the replay's pair alone."""
+        spans: `bind` (args `n`, and `in_place` and `staged`: how many
+        of the table's buffers the replay takes where they lie or never
+        reads, and how many are copied in), `load` (the staged copies
+        and the table write), `results` (the fresh allocations before
+        the load and the clones after the replay, one span of their
+        summed host time) and `markers` here, `place` at completion.
+        `load` and `results` carry `copies` and `bytes`: device copies
+        only, so the table write counts none. On the card they also carry
+        their device time (`device_ns`), from one more CUDA event before
+        the load (before the host builds the table's rows) and one after
+        the clones, paired with the replay's own.
+        Completion still waits on the replay's end alone, so the host's
+        next dispatch overlaps the clones as it does untraced: `load` is
+        emitted at completion, `results` at the first completion on this
+        device after the card has passed its clones (in a closed loop,
+        the next dispatch's). With the gate closed the dispatch records
+        the replay's pair alone."""
         seq, graph, ctx = prepared.seq, prepared.graph, prepared.ctx
         tracer = get_tracer()
         on_card = graph.graph is not None
@@ -818,8 +832,10 @@ class GPUDevice(CCLODevice):
                 # a certify_concurrent-stamped tenant: the flight recorder
                 # can name the admitted set a wedged dispatch belonged to
                 dispatch.set(interference_cert=prepared.cert)
-            with tracer.layer("bind", n=len(seq.buffer_addrs)):
-                tensors = self._bound_tensors(seq, prepared.bufs, ctx)
+            with tracer.layer("bind", n=len(seq.buffer_addrs)) as bind:
+                binding = graph.bind(
+                    self._bound_tensors(seq, prepared.bufs, ctx))
+                bind.set(in_place=binding.in_place, staged=binding.staged)
             events = head = tail = None
             load = tracer.layer("load", deferred=True)
             results = tracer.layer("results", deferred=True)
@@ -828,11 +844,13 @@ class GPUDevice(CCLODevice):
                 if on_card:
                     events = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
+                with results:
+                    graph.allocate(binding)
                 if timed:
                     head = torch.cuda.Event(enable_timing=True)
                     head.record()
                 with load:
-                    graph.load(tensors)
+                    graph.load(binding)
                 if on_card:
                     events[0].record()
                     graph.replay()
@@ -840,31 +858,30 @@ class GPUDevice(CCLODevice):
                 else:
                     graph.replay()
                 with results:
-                    outs = graph.results()
+                    outs = graph.results(binding)
                 if timed:
                     tail = torch.cuda.Event(enable_timing=True)
                     tail.record()
         out_bufs = [prepared.bufs[a] for a in seq.out_addrs]
 
         def place(req):
+            nonlocal binding
             if load:
-                if prepared.copies is None:
-                    prepared.copies = (len(graph.inputs), graph.load_bytes,
-                                       len(outs), graph.results_bytes)
-                n_in, b_in, n_out, b_out = prepared.copies
-                load.set(copies=n_in, bytes=b_in)
-                results.set(copies=n_out, bytes=b_out)
+                load.set(copies=binding.staged, bytes=binding.nbytes)
+                results.set(copies=len(graph.outputs),
+                            bytes=graph.results_bytes)
                 if head is None:
                     load.emit()
                     results.emit()
                 else:
-                    # the copy-in's device time: before load to the
+                    # the load's device time: before load to the
                     # replay's start, both passed at completion
                     load.set(device_ns=int(
                         head.elapsed_time(events[0]) * 1e6))
                     load.emit()
                     with self._copies_mu:
                         self._copies_out.append((results, events[1], tail))
+            binding = None  # the bound tensors, held until now
             if self._copies_out:
                 self._emit_copies_out()
             with tracer.layer("place", cause=dispatch, n=len(out_bufs)):
@@ -1024,15 +1041,13 @@ class _PreparedSequence:
     device images flow in, and the communicator context it runs on.
 
     `preds` holds the per-step timing.predict estimates of a traced
-    dispatch, computed at the first one, and `copies` the (copies,
-    bytes) of its graph's load and results that a traced dispatch's
-    layer spans carry, computed at the first such. `footprint` is the batch's
+    dispatch, computed at the first one. `footprint` is the batch's
     cross-program interference summary (analysis/interference.py) and
     `cert` the certificate of the certify_concurrent set it was last
     admitted into (None until then), which its dispatch spans carry."""
 
     __slots__ = ("desc", "plans", "seq", "graph", "bufs", "ctx", "sig",
-                 "preds", "copies", "footprint", "cert")
+                 "preds", "footprint", "cert")
 
     def __init__(self, desc, plans, seq, graph, bufs, ctx, sig):
         self.desc = desc
@@ -1043,7 +1058,6 @@ class _PreparedSequence:
         self.ctx = ctx
         self.sig = sig
         self.preds = None
-        self.copies = None
         self.footprint = None
         self.cert = None
 

@@ -29,6 +29,11 @@ same padded chunk geometry) only for a CPU tensor. `out=` takes a
 (W, n) view with unit-stride rows (a column slice of a wider result) to
 write into. Each wrapper counts its launches in a plain integer
 attribute, `launches`.
+
+`ring_allreduce_indirect` is the same kernel's indirect entry, which
+reads its two base pointers from a device table entry when it runs: a
+recorded sequence's captured graph launches it (sequencer/lowering.py,
+SequenceGraph), and nothing else does.
 """
 
 from __future__ import annotations
@@ -132,6 +137,16 @@ def _library() -> ctypes.CDLL:
         ]
         lib.accl_ring_error_string.restype = ctypes.c_char_p
         lib.accl_ring_error_string.argtypes = [ctypes.c_int]
+        ind = lib.accl_ring_allreduce_indirect
+        ind.restype = ctypes.c_int
+        ind.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, op, dirs
+            ctypes.c_int,  # vector instantiation
+            ctypes.c_void_p,  # the table entry {x, out}
+            ctypes.c_longlong, ctypes.c_longlong,  # row strides in, out
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,  # n, W, chunk
+            ctypes.c_void_p,  # stream
+        ]
     return lib
 
 
@@ -157,11 +172,45 @@ def _launch(x: torch.Tensor, world: int, func: ReduceFunction, dirs: int,
             x.stride(0), out.stride(0), n, world,
             chunk_elems(n, world, x.dtype, dirs),
             torch.cuda.current_stream(x.device).cuda_stream)
+    _check(lib, err)
+    return out
+
+
+def _check(lib: ctypes.CDLL, err: int) -> None:
     if err:
         msg = lib.accl_ring_error_string(err).decode()
         raise RuntimeError(f"ring allreduce kernel launch failed: {msg} "
                            f"(cudaError {err})")
-    return out
+
+
+def ring_allreduce_indirect(entry: int, device: torch.device,
+                            dtype: torch.dtype, world: int, n: int,
+                            ld_in: int, ld_out: int, vec: bool,
+                            func: ReduceFunction = ReduceFunction.SUM,
+                            dirs: int = 2) -> None:
+    """Kernel 1 through its indirect entry: the launch reads its operand's
+    and result's base pointers from the table entry at device address
+    `entry` (two 64-bit pointers, x then out) when it runs, so a launch
+    captured into a CUDA graph follows whatever the host last wrote
+    there. The rows (`world`, `ld_in` and `ld_out` elements apart), `n`,
+    the chunk geometry and the fold are the direct entry's, and so is
+    every result, bit for bit. The kernel cannot see the pointers: the
+    caller vouches for unit-stride rows and, for `vec`, for 16-byte base
+    pointers and row strides. n == 0 launches without touching x or out
+    (it loads the kernel, as a warm-up before a capture must). CUDA only;
+    counts on the direct wrapper of the same `dirs`."""
+    if dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"ring allreduce kernel has no {dtype} lane")
+    if device.type != "cuda":
+        raise ValueError("the indirect entry runs on cuda only")
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.accl_ring_allreduce_indirect(
+            int(from_torch_dtype(dtype)), int(func), dirs, int(vec), entry,
+            ld_in, ld_out, n, world, chunk_elems(n, world, dtype, dirs),
+            torch.cuda.current_stream(device).cuda_stream)
+    _check(lib, err)
+    (ring_allreduce_bidir if dirs == 2 else ring_allreduce).launches += 1
 
 
 def _plain_on_cpu(x: torch.Tensor, world: int, slot: int,

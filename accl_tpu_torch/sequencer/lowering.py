@@ -28,9 +28,11 @@ jit(shard_map) program per recorded batch.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
@@ -48,6 +50,27 @@ from ..ops.lane_kernels import cast
 from . import schedules
 from .plan import Algorithm, Plan
 from .sequence import step_in_elems
+
+
+@dataclasses.dataclass(frozen=True)
+class RingGeometry:
+    """How an allreduce's kernel-1 body cuts its columns into launches:
+    `seg_elems`-element (4 MiB) segments within each stripe of `stripe`
+    elements (None: one stripe), each launch folding with `func`."""
+
+    seg_elems: int
+    stripe: int | None
+    func: ReduceFunction
+
+    def launches(self, n: int) -> list[tuple[int, int]]:
+        """The (lo, hi) column range of each launch over n columns."""
+        step = self.stripe or n
+        out = []
+        for s_lo in range(0, n, step):
+            s_hi = min(s_lo + step, n)
+            out += [(lo, min(lo + self.seg_elems, s_hi))
+                    for lo in range(s_lo, s_hi, self.seg_elems)]
+        return out
 
 
 class ScheduleCompiler:
@@ -353,32 +376,32 @@ class ScheduleCompiler:
 
         # elements per segment in the dtype the kernel runs in (the
         # descriptor's: the compressed domain keeps the segmentation of
-        # the uncompressed payload, as in the reference)
+        # the uncompressed payload, as in the reference); a
+        # stripe-overlapped plan's chains are its stripes: each runs the
+        # kernel over its own columns, in 4 MiB segments
         elem_bytes = (dtype_nbytes(options.data_type)
                       if options.data_type != DataType.none else 1)
-        seg_elems = max(self.RING_KERNEL_MAX_BYTES // elem_bytes, 1)
-        # a stripe-overlapped plan's chains are its stripes: each runs the
-        # kernel over its own columns, in 4 MiB segments
-        stripe = plan.seg_count if plan.stripes > 1 else None
+        geometry = RingGeometry(
+            seg_elems=max(self.RING_KERNEL_MAX_BYTES // elem_bytes, 1),
+            stripe=plan.seg_count if plan.stripes > 1 else None,
+            func=func)
 
-        def _ring_kernel_body(x, _wire=wire, _seg=seg_elems, _stripe=stripe):
-            # one result for the call; segment i (in slot i % 2, as the
-            # reference double-buffers them) writes its column view
+        def _ring_kernel_body(x, _wire=wire, _geo=geometry):
+            # one result for the call; launch i (in slot i % 2, as the
+            # reference double-buffers its segments) writes its column view
             y = _wire.send(x)
             out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
-            n = y.shape[-1]
-            step = _stripe or n
-            i = 0
-            for s_lo in range(0, n, step):
-                s_hi = min(s_lo + step, n)
-                for lo in range(s_lo, s_hi, _seg):
-                    hi = min(lo + _seg, s_hi)
-                    ring_allreduce_bidir(y[:, lo:hi], world, func,
-                                         slot=i % NUM_RING_SLOTS,
-                                         out=out[:, lo:hi])
-                    i += 1
+            for i, (lo, hi) in enumerate(_geo.launches(y.shape[-1])):
+                ring_allreduce_bidir(y[:, lo:hi], world, func,
+                                     slot=i % NUM_RING_SLOTS,
+                                     out=out[:, lo:hi])
             return _wire.recv(out, x.dtype)
 
+        if not eth_active:
+            # kernel 1 on the exact wire: a captured sequence may run this
+            # step through the kernel's indirect entry
+            # (SequencePlan.placement reads the launches off the body)
+            _ring_kernel_body.ring = geometry
         return _ring_kernel_body
 
     def lower(self, options: CallOptions, plan: Plan) -> Callable:
@@ -451,16 +474,25 @@ class ScheduleCompiler:
         return body
 
     def sequence_graph(self, seq, body: Callable,
-                       inputs: list[torch.Tensor]) -> "SequenceGraph":
+                       inputs: list[torch.Tensor],
+                       in_place: bool = False) -> "SequenceGraph":
         """The executable form of a composed body for buffers shaped like
         `inputs` (the batch's buffer table): on the card a CUDA graph
         captured once, cached with the body under the composite
-        signature plus the buffer table's widths and dtypes."""
+        signature plus the buffer table's widths and dtypes. With
+        `in_place` (the device's default world) a graph captured on the
+        card follows the batch's placement (SequencePlan.placement);
+        otherwise every step is staged."""
         layout = tuple((tuple(t.shape), t.dtype) for t in inputs)
         key = ("graph", seq.cache_key(self.use_ring_kernel), layout)
         graph = self._cache.get(key)
         if graph is None:
-            graph = self._cache[key] = SequenceGraph(body, inputs)
+            placement = None
+            if in_place and inputs[0].device.type == "cuda":
+                placement = seq.placement(
+                    self, [(shape[-1], dtype) for shape, dtype in layout])
+            graph = self._cache[key] = SequenceGraph(body, inputs,
+                                                     placement=placement)
         return graph
 
 
@@ -496,13 +528,27 @@ def _arithcfg_for(table, options: CallOptions):
     return table.get((dt, dt))
 
 
+class _Binding:
+    """One dispatch's buffers (SequenceGraph.bind): `bound`, the bound
+    tensors, held until the request completes; `copies`, the (static
+    input, bound tensor) pairs `load` copies, of `nbytes` device bytes
+    read and written; `fresh`, the results `allocate` made; `ptrs`, the
+    table's slots: 0, the address each in-place read takes (the bound
+    tensor's, or its staged copy's), then each fresh result's; `in_place`
+    and `staged`, how many of the table's buffers the replay takes where
+    they lie (or never reads) and how many are copied into the graph's
+    inputs."""
+
+    __slots__ = ("bound", "copies", "nbytes", "fresh", "ptrs", "in_place",
+                 "staged")
+
+
 class SequenceGraph:
-    """One prepared batch's executable form. It owns a static input per
-    buffer of the batch's table; `load` copies the buffers' current
-    device images into them (a buffer's tensor changes identity at every
-    placement, so a graph cannot read it directly), `replay` runs the
-    batch, and `results` returns the written buffers' values as tensors
-    of their own.
+    """One prepared batch's executable form. A dispatch runs `bind` (the
+    batch's buffer table: the bound buffers' current device images),
+    `allocate` (its fresh results), `load` (what the graph cannot read in
+    place), `replay` (the batch) and `results` (the written buffers'
+    values, as tensors no later dispatch touches).
 
     On a CUDA device the body is captured once as a CUDA graph and
     `replay` is one graph launch. The body first runs once eagerly on a
@@ -512,56 +558,235 @@ class SequenceGraph:
     time, so under capture it launches on the capture stream. Launch
     counters tick on the host, at that warm-up run and at capture, never
     at replay. A failed capture raises; nothing falls back to the eager
-    body. The graph's outputs live in its private memory pool, which the
-    next replay overwrites, so `results` clones them out.
+    body.
 
-    On the CPU, or with `capture=False` (a body whose hops stage through
-    the host), the body runs eagerly on the static inputs at each
-    `replay`, through the same load and results steps."""
+    Where the graph reads and writes follows the batch's `placement`
+    (sequence.SequencePlan.placement). A step placed in place is
+    captured as kernel-1 launches through the kernel's indirect entry
+    (ops/ring_allreduce.ring_allreduce_indirect), each with its own row
+    of a device table: the launch reads its operand where it lies (the
+    bound tensor, or an earlier in-place step's result) and writes a
+    fresh result, allocated for the dispatch on the replay's stream, or,
+    where a staged step reads that result, memory the graph owns. `load`
+    writes the table's rows for the dispatch with one host-to-device
+    copy from pinned memory, on the replay's stream before it, and copies
+    into static inputs only the buffers whose bound value a staged step
+    reads: a buffer that is only written is never loaded. A bound
+    tensor read in place whose layout is not the captured one
+    (contiguous rows, a 16-byte base) is copied for that dispatch into a
+    static input of its own, and the row points there. Every other step
+    runs as captured over static inputs, its outputs in the graph's
+    private memory pool, which the next replay overwrites: `results`
+    clones out what the graph's memory holds and hands out the fresh
+    results themselves.
+
+    On the CPU, with `capture=False` (a body whose hops stage through the
+    host), or without an in-place step, every step is staged: every buffer is
+    loaded, every output cloned, and without a graph the body runs
+    eagerly on the static inputs at each `replay`."""
 
     def __init__(self, body: Callable, inputs: list[torch.Tensor],
-                 capture: bool = True):
-        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                       for t in inputs]
-        self.load(inputs)
+                 capture: bool = True, placement=None):
+        device = inputs[0].device
+        capture = capture and device.type == "cuda"
+        if not (capture and placement and placement.steps):
+            placement = None
         self.body = body
         self.graph = None
+        self.placement = placement
         self.outputs: tuple[torch.Tensor, ...] = ()
         # host seconds of the eager warm-up run and of the capture
         self.warmup_s = self.capture_s = 0.0
-        device = self.inputs[0].device
-        if device.type != "cuda" or not capture:
+        loaded = placement.loaded if placement else [True] * len(inputs)
+        self._static = [
+            torch.empty(t.shape, dtype=t.dtype, device=t.device) if ld
+            else None for t, ld in zip(inputs, loaded)]
+        self.inputs = [t for t in self._static if t is not None]
+        self.load_bytes = 2 * sum(t.numel() * t.element_size()
+                                  for t in self.inputs)
+        self._finals: list | None = None
+        self._reads: list[tuple] = []  # (buffer, shape, dtype)
+        # a fresh result's shape and dtype, as a view of one element:
+        # empty_like of it costs the host half what empty(shape) does
+        self._fresh: list[torch.Tensor] = []
+        self._fallback: dict[int, torch.Tensor] = {}
+        self._kept: dict[int, torch.Tensor] = {}
+        self._device = device
+        self._index = device.index if device.type == "cuda" else -1
+        self._table: torch.Tensor | None = None
+        self._launches: dict = {}
+        if placement is not None:
+            self._lay_out_rows(inputs, placement)
+        for dst, src in self.bind(inputs).copies:
+            dst.copy_(src)
+        if not capture:
             return
         import time
 
+        env = [t if t is not None else
+               torch.empty(u.shape, dtype=u.dtype, device="meta")
+               for t, u in zip(self._static, inputs)]
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            body(*self.inputs)
+            self._run_body(env, warm=True)
         main.wait_stream(side)
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.outputs = body(*self.inputs)
+            outs = self._run_body(env, warm=False)
         self.graph = graph
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        if placement is None:
+            self.outputs = outs
+            return
+        fresh = {p.step: j for j, p in enumerate(
+            p for p in placement.steps if p.fresh)}
+        self._finals = [(fresh.get(w), None if w in fresh else out)
+                        for w, out in zip(placement.finals, outs)]
+        self.outputs = tuple(out for j, out in self._finals if j is None)
 
-    @property
-    def load_bytes(self) -> int:
-        """Device bytes `load` moves per dispatch (read and written)."""
-        return 2 * sum(t.numel() * t.element_size() for t in self.inputs)
+    def _lay_out_rows(self, inputs, placement) -> None:
+        """The table's rows, one a kernel-1 launch of the in-place steps:
+        per row the (slot, offset) of its operand's and its result's base
+        pointer, a slot naming the dispatch's bound source of a buffer
+        or fresh result of a step (slot 0: an absolute address, memory
+        the graph owns)."""
+        world, device = inputs[0].shape[0], self._device
+        steps = {p.step: p for p in placement.steps}
+        reads = sorted({p.source[1] for p in placement.steps
+                        if p.source[0] == "bound"})
+        slot = {("bound", i): 1 + k for k, i in enumerate(reads)}
+        one = {p.dtype: torch.empty((), dtype=p.dtype, device=device)
+               for p in placement.steps}
+        for p in placement.steps:
+            if p.fresh:
+                slot[("fresh", p.step)] = 1 + len(reads) + len(self._fresh)
+                self._fresh.append(one[p.dtype].expand(world, p.n))
+        self._reads = [(i, inputs[i].shape, inputs[i].dtype) for i in reads]
+        # results a staged step reads: memory the graph owns
+        self._kept = {p.step: torch.empty((world, p.n), dtype=p.dtype,
+                                          device=device)
+                      for p in placement.steps if not p.fresh}
+        pairs: list[tuple[int, int]] = []
+        for p in placement.steps:
+            kind, ref = p.source
+            isz = p.dtype.itemsize
+            ld_in = (inputs[ref].shape[-1] if kind == "bound"
+                     else steps[ref].n)
+            if kind == "kept":
+                x_slot, x_base = 0, self._kept[ref].data_ptr()
+            else:
+                x_slot, x_base = slot[(kind, ref)], 0
+            if p.fresh:
+                o_slot, o_base = slot[("fresh", p.step)], 0
+            else:
+                o_slot, o_base = 0, self._kept[p.step].data_ptr()
+            rows = []
+            for lo, hi in p.ring.launches(p.n):
+                off = lo * isz
+                vec = (off % 16 == 0 and ld_in * isz % 16 == 0
+                       and p.n * isz % 16 == 0)
+                rows.append((len(pairs), hi - lo, vec))
+                pairs += [(x_slot, x_base + off), (o_slot, o_base + off)]
+            self._launches[p.step] = (p, ld_in, rows)
+        self._slots = np.array([a for a, _ in pairs], dtype=np.intp)
+        self._offsets = np.array([b for _, b in pairs], dtype=np.int64)
+        self._table = torch.zeros((len(pairs),), dtype=torch.int64,
+                                  device=device)
+
+    def _run_body(self, env, warm: bool):
+        if not self._launches:
+            return self.body(*env)
+        from ..ops.ring_allreduce import ring_allreduce_indirect
+
+        world = env[0].shape[0]
+        table = self._table.data_ptr()
+
+        def launcher(p, ld_in, rows):
+            def run(src):
+                # the operand as the body would hand it to the direct
+                # entry: its layout is what the rows were laid out for
+                if src.dtype != p.dtype or src.stride(0) != ld_in or (
+                        src.shape[-1] > 1 and src.stride(1) != 1):
+                    raise RuntimeError(
+                        f"in-place step {p.step}: operand {src.dtype} "
+                        f"strides {src.stride()}, laid out for {p.dtype} "
+                        f"rows {ld_in} apart")
+                for pair, n, vec in rows:
+                    ring_allreduce_indirect(
+                        table + 8 * pair, self._device, p.dtype,
+                        world, 0 if warm else n, ld_in, p.n, vec,
+                        p.ring.func)
+                kept = self._kept.get(p.step)
+                if kept is not None:
+                    return kept
+                return torch.empty((world, p.n), dtype=p.dtype,
+                                   device="meta")
+            return run
+
+        return self.body(*env, table={s: launcher(*v) for s, v in
+                                      self._launches.items()})
+
+    def bind(self, tensors) -> _Binding:
+        """The dispatch's buffers: which are copied into static inputs
+        (every one some staged step reads, and each bound tensor read in
+        place whose layout is not the captured one) and which are read
+        where they lie. Enqueues nothing."""
+        b = _Binding()
+        b.bound = tensors
+        b.copies = [(dst, t) for dst, t in zip(self._static, tensors)
+                    if dst is not None]
+        b.nbytes = self.load_bytes
+        b.ptrs = [0]
+        b.fresh = []
+        for i, shape, dtype in self._reads:
+            t = tensors[i]
+            ptr = t.data_ptr()
+            if (ptr % 16 == 0 and t.dtype is dtype and t.shape == shape
+                    and t.is_contiguous() and t.get_device() == self._index):
+                b.ptrs.append(ptr)
+                continue
+            dst = self._static[i]
+            if dst is None:
+                dst = self._fallback.get(i)
+                if dst is None:
+                    dst = self._fallback[i] = torch.empty(
+                        shape, dtype=dtype, device=self._device)
+                b.copies.append((dst, t))
+                b.nbytes += 2 * dst.numel() * dst.element_size()
+            b.ptrs.append(dst.data_ptr())
+        b.staged = len(b.copies)
+        b.in_place = len(tensors) - b.staged
+        return b
+
+    def allocate(self, b: _Binding) -> None:
+        """The dispatch's fresh results, on the current (the replay's)
+        stream: one a result written in place."""
+        b.fresh = [torch.empty_like(t) for t in self._fresh]
+        b.ptrs += [t.data_ptr() for t in b.fresh]
+
+    def load(self, b: _Binding) -> None:
+        """Copy the staged buffers into the graph's static inputs and
+        write the table's rows for this dispatch: one host-to-device copy
+        from pinned memory, which the caching host allocator keeps until
+        the copy has run, so a dispatch enqueued behind an earlier one
+        never rewrites the earlier one's rows."""
+        for dst, src in b.copies:
+            dst.copy_(src)
+        if self._table is not None:
+            rows = torch.from_numpy(
+                np.asarray(b.ptrs, dtype=np.int64)[self._slots]
+                + self._offsets).pin_memory()
+            self._table.copy_(rows, non_blocking=True)
 
     @property
     def results_bytes(self) -> int:
-        """Device bytes `results` moves per dispatch (read and written)."""
+        """Device bytes `results` clones per dispatch (read and written)."""
         return 2 * sum(t.numel() * t.element_size() for t in self.outputs)
-
-    def load(self, tensors) -> None:
-        for dst, src in zip(self.inputs, tensors):
-            dst.copy_(src)
 
     def replay(self) -> None:
         if self.graph is not None:
@@ -569,5 +794,11 @@ class SequenceGraph:
         else:
             self.outputs = self.body(*self.inputs)
 
-    def results(self) -> list[torch.Tensor]:
-        return [t.clone() for t in self.outputs]
+    def results(self, b: _Binding) -> list[torch.Tensor]:
+        """The written buffers' values, in the batch's output order: the
+        fresh results themselves, clones of what the graph's memory
+        holds."""
+        if self._finals is None:
+            return [t.clone() for t in self.outputs]
+        return [b.fresh[j] if j is not None else out.clone()
+                for j, out in self._finals]

@@ -16,6 +16,12 @@ the same as the same calls issued eagerly. The reference orders its
 slot-keyed Pallas ring steps with explicit barriers; here one CUDA
 stream runs the steps in order, so no such edge is needed.
 
+Placement (`SequencePlan.placement`): in a captured graph on the default
+world, a step whose body is kernel 1 on the exact wire reads its operand
+where it lies and writes a fresh result through the kernel's indirect
+entry, and only the buffers a staged step reads are copied into the
+graph; lowering.SequenceGraph carries it out.
+
 The width rules (`step_in_elems`, `step_out_elems`) are shared with the
 device's per-call launch.
 """
@@ -94,6 +100,38 @@ def place_into(dst: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     dst = dst.clone()
     dst[..., : out.shape[-1]] = out.to(dst.dtype)
     return dst
+
+
+@dataclasses.dataclass(frozen=True)
+class InPlaceStep:
+    """A step a captured graph runs as kernel-1 launches through the
+    kernel's indirect entry (SequencePlan.placement): `n` columns of
+    `dtype` folded as `ring` (lowering.RingGeometry) cuts them. `source`
+    is where its operand lies at a dispatch: ("bound", buffer), the bound
+    tensor itself; ("fresh", step) or ("kept", step), an earlier in-place
+    step's result. `fresh`: its result is a tensor allocated for each
+    dispatch; else the graph keeps it in memory of its own, for a staged
+    step that reads it."""
+
+    step: int
+    ring: Any
+    n: int
+    dtype: torch.dtype
+    source: tuple[str, int]
+    fresh: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a captured graph reads and writes (SequencePlan.placement):
+    `steps`, the in-place steps in batch order; `loaded[i]`, whether
+    buffer i is copied into a static input at each dispatch (a staged
+    step reads its bound value); `finals[k]`, the step whose result is
+    output k of the batch."""
+
+    steps: tuple[InPlaceStep, ...]
+    loaded: tuple[bool, ...]
+    finals: tuple[int, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +238,66 @@ class SequencePlan:
             use_ring_kernel,
         )
 
+    def placement(self, compiler, layout) -> Placement:
+        """Which steps a captured graph runs in place and which buffers it
+        must load, from what the batch shows: pure Python over the steps,
+        their plans and `layout`, the (width, dtype) of each buffer of
+        the table. The caller decides where a placement applies (the
+        default world, a captured graph).
+
+        A step runs in place when the body `compiler.lower_step` built for
+        it is kernel 1 on the exact wire (it carries its launches as
+        `ring`, lowering.RingGeometry), it has no stream endpoint, its
+        result is full width (so `place_into` hands the result itself
+        on), and its operand is the bound value of a buffer or an earlier
+        in-place step's result. Its result is fresh unless a staged step
+        reads it. A buffer is loaded when a staged step reads its bound
+        value; a partial-width write reads the value it keeps the tail
+        of."""
+        version: list[int | None] = [None] * len(self.buffer_addrs)
+        reads = []  # per step: (buffer, the step it holds the result of)
+        readers: dict[int, list[int]] = {}
+        placed: dict[int, InPlaceStep] = {}
+        for s, st in enumerate(self.steps):
+            width = layout[st.res_idx][0]
+            read = [(i, version[i]) for i in st.in_idx]
+            ring = None
+            if (st.producer is None and st.consumer is None
+                    and st.out_elems == width):
+                ring = getattr(compiler.lower_step(st.options, st.plan),
+                               "ring", None)
+            if ring is not None:
+                (i, v), = read
+                # the kernel runs in its operand's dtype, as the body does
+                dtype = layout[i][1] if v is None else (
+                    placed[v].dtype if v in placed else None)
+                if dtype is not None:
+                    placed[s] = InPlaceStep(
+                        step=s, ring=ring, n=st.in_elems, dtype=dtype,
+                        source=("bound", i) if v is None else ("fresh", v),
+                        fresh=True)
+            if s not in placed and st.out_elems < width:
+                read.append((st.res_idx, version[st.res_idx]))
+            reads.append(read)
+            for _, v in read:
+                if v is not None:
+                    readers.setdefault(v, []).append(s)
+            version[st.res_idx] = s
+        kept = {s for s in placed
+                if any(r not in placed for r in readers.get(s, ()))}
+        steps = tuple(dataclasses.replace(
+            p, fresh=p.step not in kept,
+            source=("kept", p.source[1]) if p.source[0] == "fresh"
+            and p.source[1] in kept else p.source)
+            for p in placed.values())
+        loaded = [False] * len(self.buffer_addrs)
+        for s, read in enumerate(reads):
+            if s not in placed:
+                for i, v in read:
+                    loaded[i] = loaded[i] or v is None
+        return Placement(steps, tuple(loaded),
+                         tuple(version[i] for i in self.out_idx))
+
     # -- construction ------------------------------------------------------
 
     def build(self, compiler) -> Callable:
@@ -217,9 +315,17 @@ class SequencePlan:
         steps = self.steps
         out_idx = self.out_idx
 
-        def fused(*bufs):
+        def fused(*bufs, table=None):
+            # `table`: the launch of each in-place step, by step index
+            # (SequenceGraph): it takes the operand and returns what the
+            # result buffer holds after it
             env = list(bufs)
-            for st, body in zip(steps, bodies):
+            for s, (st, body) in enumerate(zip(steps, bodies)):
+                run = table.get(s) if table else None
+                if run is not None:
+                    env[st.res_idx] = run(slice_to(env[st.in_idx[0]],
+                                                   st.in_elems))
+                    continue
                 out = body(*(slice_to(env[i], st.in_elems)
                              for i in st.in_idx))
                 env[st.res_idx] = place_into(env[st.res_idx], out)

@@ -43,8 +43,13 @@ call, whose measured span feeds the drift sentinel. A run_async call
 with the ring off carries none.
 
 Layer spans (`layer()`) time the work inside one dispatch: binding the
-buffers, the copies into and out of a captured graph, the per-step
-markers, placing results, plan resolution and the launch. They are cat
+buffers (`bind`; args `in_place` and `staged` count the buffers a
+captured graph takes where they lie and those it copies in), the load
+(`load`: the graph's address-table write and its staged copies in), the
+results (`results`: the fresh result allocations and the clones of what
+staged steps left in the graph's memory; `copies` on both counts device
+copies only), the per-step markers, placing results, plan resolution and
+the launch. They are cat
 "phase" on track "layer", so SPAN v1 holds them unchanged, and each
 names the span that caused it in `args.parent` / `args.parent_ts_ns`
 (the innermost live span open on its thread, or the one its emitter
@@ -120,7 +125,9 @@ class _LiveSpan:
     on exit. `set()` attaches args discovered mid-span (e.g. the plan a
     device resolved after dispatch). A `deferred` span measures its host
     time at exit and is emitted by `emit()`, once what it waits for (a
-    CUDA event pair read at completion) is known.
+    CUDA event pair read at completion) is known; it may be entered more
+    than once before that, and then starts at its first entry and lasts
+    the sum of its entries.
 
     While the layer gate is open (ring collecting, or a profiler
     recording) the span is on its thread's stack of open spans for its
@@ -128,7 +135,7 @@ class _LiveSpan:
     range."""
 
     __slots__ = ("_tracer", "name", "cat", "track", "args", "_t0", "dur_ns",
-                 "cause", "deferred", "_pushed", "_range")
+                 "cause", "deferred", "_pushed", "_range", "_entered")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, track: str,
                  args: dict):
@@ -138,6 +145,7 @@ class _LiveSpan:
         self.track = track
         self.args = args
         self._t0 = 0
+        self._entered = 0
         self.dur_ns = 0
         # (name, ts_ns) of the span that caused a layer span; None takes
         # the innermost open one at entry
@@ -162,7 +170,9 @@ class _LiveSpan:
                         self.cause
             stack.append(self)
             self._pushed = True
-        self._t0 = time.perf_counter_ns()
+        self._entered = time.perf_counter_ns()
+        if not self._t0:
+            self._t0 = self._entered
         return self
 
     def set(self, **kw) -> "_LiveSpan":
@@ -170,7 +180,7 @@ class _LiveSpan:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        self.dur_ns = time.perf_counter_ns() - self._t0
+        self.dur_ns += time.perf_counter_ns() - self._entered
         if exc_type is not None:
             self.args.setdefault("error", exc_type.__name__)
         if self._pushed:

@@ -642,7 +642,59 @@ def kernel_phase(ring):
               "cases_by_instantiation": by_path, "nan_cases": nan_cases,
               "repair_column_tensors": repair_cases,
               "bitwise_equal": True, "max_abs_err": err})
+    errs["ring_allreduce_indirect"] = indirect_check(ring)
     return errs
+
+
+def indirect_check(ring) -> float:
+    """Kernel 1's indirect entry against the plain version on the CPU at
+    the decode cell's launch shape: W = 8, 64 x 12288 fp32 columns a rank
+    (one allreduce of the batch-64 token step, one launch). Three calls'
+    operands are views of one flat tensor, as the benchmark's are, and
+    each launch takes its two pointers from its own row of one device
+    table; SUM and MAX, both directions, the vector instantiation and the
+    scalar one (3 columns more, so rows and views lie off 16 bytes).
+    Bitwise, or it raises; returns the largest |difference| (0.0)."""
+    import torch
+
+    from accl_tpu_torch.constants import ReduceFunction
+
+    world, calls, card = 8, 3, torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2607)
+    cases = 0
+    for n, vec in ((64 * 12288, True), (64 * 12288 + 3, False)):
+        flat = torch.randn(calls * world * n, generator=gen, device=card)
+        xs = [flat[k * world * n:(k + 1) * world * n].view(world, n)
+              for k in range(calls)]
+        outs = [torch.empty_like(x) for x in xs]
+        table = torch.tensor([p for x, o in zip(xs, outs)
+                              for p in (x.data_ptr(), o.data_ptr())],
+                             dtype=torch.int64, device=card)
+        for func in (ReduceFunction.SUM, ReduceFunction.MAX):
+            for dirs, wrapper in ((2, ring.ring_allreduce_bidir),
+                                  (1, ring.ring_allreduce)):
+                for o in outs:
+                    o.fill_(7.0)
+                for k in range(calls):
+                    ring.ring_allreduce_indirect(
+                        table.data_ptr() + 16 * k, card, torch.float32,
+                        world, n, n, n, vec, func, dirs)
+                torch.cuda.synchronize()
+                for k, (x, o) in enumerate(zip(xs, outs)):
+                    want = wrapper(x.cpu(), world, func)  # the plain version
+                    if not same_bits(o.cpu(), want):
+                        raise AssertionError(
+                            f"ring_allreduce_indirect differs from the plain "
+                            f"version: call {k} n={n} {func.name} "
+                            f"dirs={dirs} max|diff|="
+                            f"{max_abs_err(o.cpu(), want)}")
+                    cases += 1
+    emit({"phase": "kernel", "kernel": "ring_allreduce_indirect",
+          "cases": cases, "shape": {"world": world, "n": 64 * 12288,
+                                    "dtype": "float32", "calls": calls},
+          "against": "plain version on the CPU", "bitwise_equal": True,
+          "max_abs_err": 0.0})
+    return 0.0
 
 
 def check_against_float64(out, x, func, unit: float) -> float:
@@ -2768,9 +2820,11 @@ def profile_session(fn) -> list[dict]:
     cuda = torch.autograd.DeviceType.CUDA
     events = list(prof.profiler.kineto_results.events())
     host = [e for e in events if e.device_type() != cuda]
-    # the record_function ranges also appear as device-side ranges
+    # the record_function ranges also appear as device-side ranges, the
+    # run markers' and the program's own (its tracer opens an
+    # `accl:<track>/<name>` range for each span while a profiler records)
     dev = [e for e in events if e.device_type() == cuda
-           and e.name() not in names]
+           and e.name() not in names and not e.name().startswith("accl:")]
     starts = sorted(e.start_ns() for e in host if e.name() in names)
     if len(starts) != PROFILE_RUNS:
         raise AssertionError(
@@ -2856,6 +2910,27 @@ def launch_counter(kernels):
     return counts, delta
 
 
+def in_place_steps(graph) -> int:
+    """The steps a captured sequence runs through kernel 1's indirect
+    entry, reading operands in place (0: every step staged)."""
+    return len(graph.placement.steps) if graph.placement else 0
+
+
+def direct_kernel_names(kernels):
+    """A profile's kernel counts with kernel 1's indirect entry counted as
+    its direct entry of the same template arguments: a captured sequence
+    runs the indirect entry (the same fold, its two pointers read from a
+    table) where the eager calls run the direct one."""
+    import collections
+    import re
+
+    out = collections.Counter()
+    for name, n in kernels.items():
+        m = re.search(r"ring_allreduce_kernel(?:_indirect)?<([^>]*)>", name)
+        out[f"ring_allreduce_kernel<{m.group(1)}>" if m else name] += n
+    return out
+
+
 def sequence_phase(ring, qk, L):
     """This slice's path: call sequences. Each batch of seq_batches at
     25 MiB and 4 KiB per rank, W = 8, is recorded and prepared once
@@ -2865,7 +2940,8 @@ def sequence_phase(ring, qk, L):
     dispatch k's result tensors unchanged after dispatch k+1; the kernel
     launches at compile (the warm-up run and the capture) equal to twice
     the eager calls' and none at replay; one dispatch profiled: one graph
-    launch, and the eager calls' device kernels (by name and count).
+    launch, and the eager calls' device kernels (by name and count;
+    kernel 1's indirect entry counted as its direct entry).
     Then facade_ms of the eager chain and of program.run() in SEQ_PAIRS
     alternating pairs on the same tensors (median and both ends), the
     replay's device ms (its request's events), host ms per dispatch
@@ -2967,7 +3043,9 @@ def sequence_phase(ring, qk, L):
             if prof_seq["graph_launches"] != 1:
                 raise AssertionError(f"{name}: {prof_seq['graph_launches']} "
                                      "graph launches in one dispatch")
-            if prof_seq["kernels"] != prof_eager["kernels"]:
+            same_kernels = (direct_kernel_names(prof_seq["kernels"])
+                            == direct_kernel_names(prof_eager["kernels"]))
+            if not same_kernels:
                 raise AssertionError(f"{name}: a dispatch ran the kernels "
                                      f"{prof_seq['kernels']}, the eager "
                                      f"calls {prof_eager['kernels']}")
@@ -2989,9 +3067,10 @@ def sequence_phase(ring, qk, L):
                 replay.append(req.get_duration_ns() * 1e-6)
             host = host_ms(lambda: prog.run(from_device=True, to_device=True,
                                             run_async=True), count=50)
-            tensors = [prog._prepared.bufs[a].device
-                       for a in prog._prepared.seq.buffer_addrs]
-            load_ms = device_ms(lambda: graph.load(tensors), count=20)
+            binding = graph.bind([prog._prepared.bufs[a].device
+                                  for a in prog._prepared.seq.buffer_addrs])
+            graph.allocate(binding)
+            load_ms = device_ms(lambda: graph.load(binding), count=20)
             emit({"phase": "sequence", "batch": name, "world": 8,
                   "bytes_per_rank": nbytes,
                   "plans": [p.algorithm.name for p in prog.plans],
@@ -3006,8 +3085,10 @@ def sequence_phase(ring, qk, L):
                   "device_kernels_per_dispatch": sum(
                       prof_seq["kernels"].values()),
                   "device_kernels_eager": sum(prof_eager["kernels"].values()),
-                  "same_kernels_as_eager":
-                      prof_seq["kernels"] == prof_eager["kernels"],
+                  "same_kernels_as_eager": same_kernels,
+                  "indirect_kernels_per_dispatch": sum(
+                      n for k, n in prof_seq["kernels"].items()
+                      if "ring_allreduce_kernel_indirect<" in k),
                   "memcpy_per_dispatch": prof_seq["memcpy"],
                   "profile_sessions": {"sequence": prof_seq["profile_sessions"],
                                        "eager": prof_eager["profile_sessions"]},
@@ -3026,8 +3107,9 @@ def sequence_phase(ring, qk, L):
                   "compile_s": compile_s, "warmup_s": graph.warmup_s,
                   "capture_s": graph.capture_s,
                   "copy_in_bytes": graph.load_bytes,
+                  "in_place_steps": in_place_steps(graph),
                   "copy_in_ms": load_ms})
-            del prog, rec, graph, tensors, kept, eager, fused
+            del prog, rec, graph, binding, kept, eager, fused
             accl.cclo.compiler._cache.clear()
             del accl
             torch.cuda.synchronize()
@@ -4144,9 +4226,10 @@ def telemetry_phase(ring, qk, L):
     calls of tele_workload run once with the tracer off and once on,
     each on a new facade;
     the results bitwise and each call's kernel launches the same; the
-    trace validates (the port's own validator), exports to the facade
-    and device tracks, every call span names its request's plan and a
-    positive prediction, the phase spans share one signature, the
+    trace validates (the port's own validator), exports to the facade,
+    device and layer tracks, every call span names its request's plan
+    and a positive prediction, the phase spans off the layer track share
+    one signature, the
     recorded sequence's prediction is the sum of its steps'. (2) The
     copied timing model's residuals against those host-measured spans,
     the registry's exposition and the sentinel's report. (3) Each exact
@@ -4229,7 +4312,8 @@ def telemetry_phase(ring, qk, L):
     calls = [s for s in spans if s["cat"] == "call"]
     reqs = [(label, req) for label, req in on
             if label.startswith("allreduce")]
-    if tracks != {"facade", "device"} or len(calls) != len(reqs):
+    # the layer track holds the dispatches' layer spans (bind, load, ...)
+    if tracks != {"facade", "device", "layer"} or len(calls) != len(reqs):
         raise AssertionError(f"telemetry: tracks {tracks}, {len(calls)} "
                              f"call spans for {len(reqs)} calls")
     for span, (label, req) in zip(calls, reqs):
@@ -4239,7 +4323,8 @@ def telemetry_phase(ring, qk, L):
                 or a.get("dispatch_only", False) != (label.endswith("async"))):
             raise AssertionError(f"telemetry {label}: span args {a}, "
                                  f"plan {req.plan.algorithm.name}")
-    sigs = {s["args"]["signature"] for s in spans if s["cat"] == "phase"}
+    sigs = {s["args"]["signature"] for s in spans
+            if s["cat"] == "phase" and s["track"] != "layer"}
     recorded = next(s for s in spans if s["cat"] == "sequence")
     steps = [s for s in spans if s["cat"] == "step"][:2]
     if len(sigs) != 1 or recorded["args"]["predicted_s"] != sum(
@@ -4473,7 +4558,7 @@ SERVE_TOL = 1e-4  # |delta| <= SERVE_TOL * max|ref| (card against CPU/oracle)
 # the parts of a hand-written kernel's (demangled) name in a profile ->
 # its kernels-line name
 SERVE_PROFILE_NAMES = {("lane_walk<", "Combine<"): "combine",
-                       ("ring_allreduce_kernel<",): "ring_allreduce_bidir"}
+                       ("ring_allreduce_kernel",): "ring_allreduce_bidir"}
 
 
 def serve_bound(cfg, world: int, batch: int, pos) -> dict:
@@ -4835,13 +4920,15 @@ def serve_phase(ring, qk, L):
         for _ in range(20):
             req = prog.run(from_device=True, to_device=True)
             replay.append(req.get_duration_ns() * 1e-6)
-        tensors = [prog._prepared.bufs[a].device
-                   for a in prog._prepared.seq.buffer_addrs]
+        binding = prog.graph.bind([prog._prepared.bufs[a].device
+                                   for a in prog._prepared.seq.buffer_addrs])
+        prog.graph.allocate(binding)
         parts = {"stage_xp_ms": median_ms(bf.xp.sync_to_device),
-                 "copy_in_ms": device_ms(lambda: prog.graph.load(tensors),
+                 "copy_in_ms": device_ms(lambda: prog.graph.load(binding),
                                          count=20),
                  "replay_ms": statistics.median(replay),
-                 "results_out_ms": device_ms(prog.graph.results, count=20),
+                 "results_out_ms": device_ms(
+                     lambda: prog.graph.results(binding), count=20),
                  "read_logits_ms": median_ms(bf.logits.sync_from_device)}
         top = sorted(prof["kernel_ms"].items(), key=lambda kv: -kv[1])[:12]
         eager = timed_steps(eager_step, accl_e, be)
@@ -4884,6 +4971,7 @@ def serve_phase(ring, qk, L):
                   served[i][0] == batched[i][0] for i in batched),
               "staged_bytes_per_step": sum(staged),
               "graph_copy_in_bytes": prog.graph.load_bytes,
+              "graph_in_place_steps": in_place_steps(prog.graph),
               "bound": bound})
         del srv, prog, bf, be, accl_f, accl_e
         torch.cuda.synchronize()
@@ -5183,7 +5271,8 @@ def train_phase(ring, qk, L):
                    tokens_per_s=W * B * T / fused["host_ms_p50"] * 1e3,
                    flops=flops, bound_ms=bound_ms, bound_by="operations",
                    bound_share=bound_ms / fused["events_ms_p50"],
-                   graph_copy_in_bytes=prog.graph.load_bytes)
+                   graph_copy_in_bytes=prog.graph.load_bytes,
+                   graph_in_place_steps=in_place_steps(prog.graph))
         if regs == "default":
             prof = kernel_profile(fused_step)
             mark("default_profiled")
@@ -8721,7 +8810,9 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     largest launch shape of its path (the packed entries for kernels 5
     and 6). The closed-form int8 ring: the row of
     its breakdown, (8, 1 048 576) fp32, one 4 MiB segment at W=8. Lane
-    kernels: the rows of the lane breakdown. `sequence_launches`: each
+    kernels: the rows of the lane breakdown. Kernel 1's launches count
+    its indirect entry too (a captured sequence's in-place steps tick the
+    direct wrapper of the same direction count). `sequence_launches`: each
     kernel's launches over the sequence phase's checked runs (its eager
     twins, and the warm-up run and capture at compile; a replay runs
     the captured kernels without the host's wrappers); `p2p_launches`,

@@ -53,3 +53,8 @@ def mesh4():
 
     devs = np.array(jax.devices()[:4])
     return Mesh(devs, axis_names=("ccl",))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one")
