@@ -11,7 +11,10 @@ from __future__ import annotations
 
 
 class Driver:
-    def __init__(self, accl, sends, recvs, counts, traffic, wire, span):
+    def __init__(self, accl, sends, recvs, counts, traffic, wire, span, *,
+                 config, seed, shrink, weights):
+        # the operands and counts carry all of an allreduce step: the
+        # configuration, seed, shrink and weights are not read here
         from accl_tpu_torch import ReduceFunction
 
         self.accl = accl

@@ -5,14 +5,17 @@ Everything a cell is made of is found by name from its entry in
 BENCHMARK.json:
 
 - its configuration file (the entry's `file`), whose `reference` names
-  the plain reference under cardbench/references/ and whose
-  `check_limits` hold each compared number's limit;
+  the plain reference under cardbench/references/, whose `check_limits`
+  hold the limit of each number that reference returns, and whose
+  `weights`, where it has them, name the maker of its seeded weights
+  under cardbench/weights/;
 - its traffic file, cardbench/traffic/<traffic>.json, whose `driver`
   names the generator under cardbench/drivers/ that issues a step;
 - each per-layer metric's reader, cardbench/metrics/<metric>.py.
 
-A later change adds a configuration, a traffic mix or a metric as new
-files and entries; nothing here needs an edit for it.
+The generator and the reference both get the configuration, the seed,
+the shrink and the weights, so a cell of any collective, with weights of
+its own, is new files and entries; nothing here needs an edit for it.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 
 from cardbench import yardstick
 from cardbench.deployments import step_messages
-from cardbench.inputs import Operands
+from cardbench.inputs import Operands, weight_seed
 from cardbench.trace import TraceView
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -76,6 +79,18 @@ def load_cell(spec: dict, name: str, root: Path = ROOT) -> SimpleNamespace:
     return SimpleNamespace(name=name, chips=work["chips"], config=config,
                            traffic=traffic, end_to_end=e2e,
                            per_layer=per_layer)
+
+
+def make_weights(root: Path, cfg: dict, seed: int, device: torch.device,
+                 shrink: int) -> dict[str, torch.Tensor]:
+    """The configuration's seeded weights: `make(config, seed, device,
+    shrink)` of cardbench/weights/<weights>.py, given the weights' own
+    seed (inputs.weight_seed of `seed`). A configuration without
+    `weights` has none and allocates nothing."""
+    if "weights" not in cfg:
+        return {}
+    return _module(root, "weights", cfg["weights"]).make(
+        cfg, weight_seed(seed), device, shrink)
 
 
 def forbidden_modules() -> list[str]:
@@ -173,9 +188,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
              t_start: float, device: str = "cuda", shrink: int = 1,
              control: bool = False, root: Path = ROOT) -> dict:
     """Run cell `name` once and return its result line (a dict). `shrink`
-    divides every message (CPU tests); `control` runs the program's
-    bfloat16 wire in place of the exact one (the lower-precision control
-    that the check has to fail).
+    divides every message, and reaches the generator, the weights and
+    the reference, where a configuration's own widths shrink (the tests'
+    sizes: each traffic file's `cpu_shrink` and `card_shrink`); `control`
+    runs the program's bfloat16 wire in place of the exact one (the
+    lower-precision control that the check has to fail).
 
     Untraced, the window runs `seconds`. Traced, it runs in two phases of
     at most the traffic's `trace_seconds` each: first with the program's
@@ -207,6 +224,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     phase("context")
     ops = Operands(counts, world, seed, dev)
     phase("operands")
+    weights = make_weights(root, cfg, seed, dev, shrink)
+    if weights:
+        # made as a deployment loads its weights: in set-up and the peak
+        _sync(dev)
+        phase("weights")
     sends, recvs = [], []
     for n, view in zip(counts, ops.views):
         s = accl.create_buffer(n, torch.float32)
@@ -223,7 +245,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
 
     drv_mod = _module(root, "drivers", traffic["driver"])
     driver = drv_mod.Driver(accl, sends, recvs, counts, traffic,
-                            DataType.bfloat16 if control else None, span)
+                            DataType.bfloat16 if control else None, span,
+                            config=cfg, seed=seed, shrink=shrink,
+                            weights=weights)
     driver.prepare()
     phase("prepare")
     hold = bool(traffic.get("check_earlier"))
@@ -282,6 +306,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
 
     if trace:
+        ctx.config, ctx.counts, ctx.shrink = cfg, counts, shrink
         ctx.peak_bytes = peak
         ctx.operand_bytes = world * sum(counts) * elem_bytes
         ctx.phases = phases
@@ -311,19 +336,26 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     win = None
     for b in sends + recvs:
         b.device = None
-    del driver, accl, sends, recvs, ops
+    del driver, accl, sends, recvs, ops, weights
     gc.collect()
     t_check = time.perf_counter()
     ref = _module(root, "references", cfg["reference"])
     readings: dict[str, float] = {}
+    # the reference's own operands and weights, made again from the seed
     regen = Operands(counts, world, seed, dev)
+    weights = make_weights(root, cfg, seed, dev, shrink)
     for marks, outs in checks:
         regen.set_marks(marks)
-        for key, v in ref.compare(regen.views, outs).items():
+        for key, v in ref.compare(regen.views, outs, config=cfg, seed=seed,
+                                  shrink=shrink, weights=weights).items():
             readings[key] = max(readings.get(key, -math.inf), v)
-    del regen, checks
+    del regen, checks, weights
     phases["check"] = time.perf_counter() - t_check
     limits = cfg["check_limits"]
+    if set(readings) != set(limits):
+        raise ValueError(
+            f"references/{cfg['reference']}.py returns {sorted(readings)}, "
+            f"the configuration's check_limits hold {sorted(limits)}")
     check = {k: {"value": readings[k], "limit": limits[k]} for k in limits}
     correct = (failed == 0 and len(steps) >= MIN_STEPS
                and all(c["value"] <= c["limit"] for c in check.values()))

@@ -7,12 +7,30 @@ the same tensor again after the window. Column 0 of every rank row is a
 marker: it starts at the rank's index and gains exactly 1.0 before each
 step, as a backward pass writes fresh gradients or a layer fresh
 activations, so that a result left over from an earlier step, or one
-served from a cache, reads wrong. Imports torch only.
+served from a cache, reads wrong.
+
+A configuration's weights (cardbench/weights/) come from a generator of
+their own, seeded with `weight_seed(seed)`, so that they are not drawn
+from the operands' stream. Imports torch only.
 """
 
 from __future__ import annotations
 
 import torch
+
+# SplitMix64's increment and an odd multiplier: `weight_seed` is a fixed
+# bijection of the 64-bit seeds, by arithmetic alone (`hash()` of a
+# string varies between processes), with no fixed point: s == (s + A) * M
+# mod 2**64 asks s * (M - 1) == -A * M, an even number against an odd one
+_WEIGHT_MUL = 0xBF58476D1CE4E5B9
+_WEIGHT_ADD = 0x9E3779B97F4A7C15
+
+
+def weight_seed(seed: int) -> int:
+    """The seed of a configuration's weights for the run of `--seed`: a
+    fixed function of it that differs from it, so that the weights'
+    generator and the operands' (seeded with `seed`) draw apart."""
+    return ((seed + _WEIGHT_ADD) * _WEIGHT_MUL) % (1 << 64)
 
 
 class Operands:

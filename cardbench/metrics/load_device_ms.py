@@ -1,7 +1,10 @@
-"""Median device milliseconds of the copies of the program's `load` layer
-span (track `layer`, args `device_ns`): the CUDA event pair before the
-copy-in to the replay's start, read at the request's completion. Off the
-card, and in a program without the span, it reads nothing."""
+"""Median device milliseconds of the program's `load` layer span (track
+`layer`, args `device_ns`): the CUDA event pair from before the load
+(before the host builds the address table's rows) to the replay's start,
+read at the request's completion. It holds the table's pinned write and
+any staged copies, and the card's wait for the host while it builds the
+rows. Off the card, and in a program without the span, it reads
+nothing."""
 
 import statistics
 

@@ -1,8 +1,10 @@
 """Median host microseconds of the program's `load` layer span (track
-`layer`) a dispatch of the prepared sequence: the copies of those images
-into the graph's static inputs (SequenceGraph.load), enqueued. The spans
-exist while the program's tracer collects; a program without them reads
-nothing."""
+`layer`) a dispatch of the prepared sequence (SequenceGraph.load): the
+host building the rows of the graph's address table and enqueuing their
+one pinned host-to-device write, plus the copy of each buffer that a
+staged step reads into the graph's static inputs (none where every step
+runs in place). The spans exist while the program's tracer collects; a
+program without them reads nothing."""
 
 import statistics
 

@@ -25,10 +25,14 @@ UNIT = 2.0 ** -24
 BLOCK = 1 << 22
 
 
-def compare(operands: list[torch.Tensor], results: list[torch.Tensor],
+def compare(operands: list[torch.Tensor], results: list[torch.Tensor], *,
+            config: dict | None = None, seed: int | None = None,
+            shrink: int = 1, weights: dict | None = None,
             block: int = BLOCK) -> dict[str, float]:
     """Compare each (world, n) float32 result with the float64 sum of
-    its (world, n) operand's rows."""
+    its (world, n) operand's rows. An allreduce has no weights, and the
+    configuration, seed and shrink are already in the operands: they are
+    not read here."""
     err = 0.0
     mismatch = 0
     for x, out in zip(operands, results, strict=True):

@@ -69,9 +69,10 @@ def test_every_new_metric_is_declared_for_the_decode_cell():
 
 
 def test_a_traced_decode_run_on_the_cpu_reads_the_layer_spans():
+    cell = harness.load_cell(harness.load_spec(), "decode_graph_b64")
     res = harness.run_cell("decode_graph_b64", 2**31 + 17, 0.05, True,
                            t_start=time.perf_counter(), device="cpu",
-                           shrink=1 << 10)
+                           shrink=cell.traffic["cpu_shrink"])
     assert res["correct"] is True
     got = res["metrics"]
     for name in HOST:

@@ -109,18 +109,62 @@ def test_every_cell_reports_what_it_must(cell):
         assert m["moves"] in names
 
 
+def check_cell_files(spec: dict, root: Path, cell: str) -> None:
+    """Every part of `cell` is a file found by name under `root`: the
+    traffic file with its generator and both test sizes (so that no cell
+    runs at full size in the tests), the configuration with its reference,
+    its weights' maker where it names one, and a limit and a reason for
+    each number it compares (that they are the reference's own numbers,
+    each cell's CPU run checks), and each per-layer metric's reader."""
+    work = {w["name"]: w for w in spec["workloads"]}[cell]
+    bench = root / "cardbench"
+    traffic = json.loads(
+        (bench / "traffic" / f"{work['traffic']}.json").read_text())
+    assert (bench / "drivers" / f"{traffic['driver']}.py").is_file()
+    for key in ("cpu_shrink", "card_shrink"):
+        assert isinstance(traffic.get(key), int) and traffic[key] >= 1, key
+    entry = {c["name"]: c for c in spec["configs"]}[work["config"]]
+    cfg = json.loads((root / entry["file"]).read_text())
+    assert (bench / "references" / f"{cfg['reference']}.py").is_file()
+    if "weights" in cfg:
+        assert NAME.match(cfg["weights"])
+        assert (bench / "weights" / f"{cfg['weights']}.py").is_file()
+    limits, why = cfg["check_limits"], cfg["check_limits_why"]
+    assert limits and set(why) == set(limits)
+    for key, limit in limits.items():
+        assert NAME.match(key)
+        assert isinstance(why[key], str) and why[key].strip()
+        assert isinstance(limit, (int, float)) and limit >= 0
+    for m in spec["per_layer"]:
+        if cell in m.get("workloads", [cell]):
+            assert (bench / "metrics" / f"{m['name']}.py").is_file()
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_every_part_of_a_cell_is_a_file_found_by_name(cell):
-    work = {w["name"]: w for w in SPEC["workloads"]}[cell]
-    traffic = json.loads(
-        (ROOT / "cardbench/traffic" / f"{work['traffic']}.json").read_text())
-    assert (ROOT / "cardbench/drivers" / f"{traffic['driver']}.py").is_file()
-    cfg = _config(work["config"])
-    assert (ROOT / "cardbench/references" / f"{cfg['reference']}.py").is_file()
-    assert set(cfg["check_limits"]) == {"sum_err_u", "rank_mismatch"}
-    for m in SPEC["per_layer"]:
-        if cell in m.get("workloads", [cell]):
-            assert (ROOT / "cardbench/metrics" / f"{m['name']}.py").is_file()
+    check_cell_files(SPEC, ROOT, cell)
+
+
+def test_a_cell_of_another_collective_with_weights_passes(tmp_path):
+    from cardbench.tests.test_cardbench_runs import A2A, _alltoall_cell
+
+    root = _alltoall_cell(tmp_path)
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    check_cell_files(spec, root, A2A)
+
+
+@pytest.mark.parametrize("key", ["cpu_shrink", "card_shrink"])
+def test_a_traffic_file_without_a_test_size_is_refused(tmp_path, key):
+    from cardbench.tests.test_cardbench_runs import A2A, _alltoall_cell
+
+    root = _alltoall_cell(tmp_path)
+    path = root / "cardbench/traffic/a2a.json"
+    traffic = json.loads(path.read_text())
+    del traffic[key]
+    path.write_text(json.dumps(traffic))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    with pytest.raises(AssertionError, match=key):
+        check_cell_files(spec, root, A2A)
 
 
 # The catalog's numbers for ByteDance/Ouro-2.6B (config.json)
