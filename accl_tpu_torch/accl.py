@@ -60,6 +60,7 @@ from .errors import (
 from .interop import tensor_from_numpy
 from .request import BaseRequest
 from .telemetry import get_tracer
+from .sequencer.schedules import SlotRows
 from .utils.logging import Log
 
 
@@ -846,7 +847,14 @@ class ACCL:
         layout, but peer p receives only the first send_counts[p] elements
         of each source's slot p, its capacity, and the rest of the slot is
         zero (dropped at the source; each hop moves max(send_counts)
-        elements). An all-count vector is the dense alltoall, bitwise."""
+        elements). An all-count vector is the dense alltoall, bitwise.
+
+        `send_counts` may instead be a sequencer.schedules.SlotRows: the
+        slot-driven, dropless form, whose row placement is a device
+        tensor that a producer writes on the card (an MoE router, inside
+        the same recorded sequence), so that nothing is read back.
+        `count` is then the width of a row, and the buffers hold the
+        layout's rows a rank (`in_rows`, `out_rows`)."""
         opts = self._prepare_alltoallv(sendbuf, recvbuf, count, send_counts,
                                        compress_dtype=compress_dtype,
                                        comm=comm)
@@ -860,6 +868,10 @@ class ACCL:
         capacity vector, validated here so a bad vector fails before
         anything is built."""
         comm_size = (comm or self.communicators[0]).size
+        if isinstance(send_counts, SlotRows):
+            return self._prepare_slots(sendbuf, recvbuf, count,
+                                         send_counts, compress_dtype, comm,
+                                         comm_size)
         pc = tuple(int(c) for c in send_counts)
         if len(pc) != comm_size:
             raise ValueError(
@@ -884,6 +896,26 @@ class ACCL:
         opts = self._prepare(Operation.alltoall, sendbuf, None, recvbuf,
                              count, compress_dtype=compress_dtype, comm=comm)
         opts.peer_counts = pc
+        return opts
+
+    def _prepare_slots(self, sendbuf, recvbuf, count, layout,
+                         compress_dtype, comm, comm_size) -> CallOptions:
+        """The slot-driven alltoallv's descriptor: the dense alltoall's
+        plus its device layout, checked against the buffers here."""
+        if comm_size != self.world or layout.slot_row.shape[0] != self.world:
+            raise ValueError(
+                "a slot-driven alltoallv runs over the whole world: "
+                f"communicator of {comm_size}, layout of "
+                f"{layout.slot_row.shape[0]} ranks, world {self.world}")
+        if count != layout.width:
+            raise ValueError(f"count {count} is not the layout's row width "
+                             f"{layout.width}")
+        if not getattr(self.cclo, "supports_slot_alltoallv", False):
+            raise NotImplementedError(
+                f"{type(self.cclo).__name__} has no slot-driven alltoallv")
+        opts = self._prepare(Operation.alltoall, sendbuf, None, recvbuf,
+                             count, compress_dtype=compress_dtype, comm=comm)
+        opts.row_layout = layout
         return opts
 
     def barrier(self, comm=None):

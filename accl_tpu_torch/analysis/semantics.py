@@ -244,6 +244,10 @@ def collective_spec(options: Any, world: int) -> list[IMap | None] | None:
     ranks whose output the collective leaves unspecified (non-root
     ranks of reduce/gather). Returns None when the scenario carries no
     payload contract (barrier/config/nop)."""
+    if getattr(options, "row_layout", None) is not None:
+        # a slot-driven alltoallv: where each row goes is written on the
+        # card at run time, so no contract is static
+        return None
     op = options.scenario
     count = int(options.count)
     func = _func_name(options.function)

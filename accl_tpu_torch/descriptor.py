@@ -62,6 +62,9 @@ class CallOptions:
     compress_dtype: DataType = DataType.none
     peer_counts: tuple[int, ...] = ()
     live_ranks: tuple[int, ...] = ()
+    # the slot-driven alltoallv's device layout (schedules.SlotRows): its
+    # rows are written on the card, so its identity keys the program
+    row_layout: object = None
 
     def to_words(self) -> list[int]:
         """Serialize into the 15-word call stream layout: scenario, count,
@@ -133,7 +136,7 @@ class CallOptions:
             self.res_stream_id,
             tuple(self.peer_counts),
             tuple(self.live_ranks),
-        )
+        ) + (() if self.row_layout is None else (self.row_layout,))
 
 
 @dataclasses.dataclass

@@ -297,6 +297,7 @@ class DCNDevice(GPUDevice):
     # the two-tier alltoall has no capacity-masked form: uneven alltoallv
     # vectors are refused up front
     supports_alltoallv = False
+    supports_slot_alltoallv = False
     # and the ALLTOALL_COMPRESS_MIN_COUNT rewrite stays off: its crossover
     # is the flat exchange's (explicit compress_dtype= stays available)
     auto_alltoall_wire = False

@@ -78,6 +78,9 @@ class GPUDevice(CCLODevice):
     supports_quantized_wire = True
     # the capacity-masked alltoallv rotation (schedules.alltoallv_schedule)
     supports_alltoallv = True
+    # the slot-driven alltoallv over a device layout written on the card
+    # (schedules.slot_alltoallv_schedule, ops/moe_kernels.py)
+    supports_slot_alltoallv = True
     # the degraded live-subset allreduce: the torch-op ring with its
     # survivor mask at the source (schedules.allreduce_ring_schedule)
     supports_live_subset = True
@@ -326,6 +329,7 @@ class GPUDevice(CCLODevice):
         reg = tuning.alltoall_compress_min_count
         if (reg <= 0
                 or options.scenario != Operation.alltoall
+                or options.row_layout is not None
                 or options.data_type != DataType.float32
                 or options.compress_dtype != DataType.none
                 or int(options.compression_flags) != 0

@@ -20,6 +20,13 @@ over ep, and both legs are parallel/collectives.py's differentiable
 alltoall along ep, vmapped over each rank's sequences as extra leading
 dimensions of the exchange.
 
+DeepSeek-V3's MoE layer (`V3MoEConfig`, `v3_route`, `V3Routing`,
+`V3MoEStep`) is the port's own, with no counterpart in the reference:
+the group-limited sigmoid router, SwiGLU experts and a shared expert,
+and a dropless expert-parallel exchange whose row placement the router
+writes on the card inside the step's one replay (schedules.SlotRows). models/deepseek_v3_reference.py is its plain
+reference.
+
 Departures from the reference, which routes inside jit(vmap) on the host
 and hands numpy arrays across: routing and combining run as torch ops on
 the facade's device over the stacked ranks, the dispatch is placed
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +48,7 @@ import torch.nn.functional as F
 from ..parallel import collectives
 from ..parallel.mesh import P
 from ..sequencer import schedules
+from ..telemetry import get_tracer
 from .transformer import _gelu, _grad_allreduce, _tree_map
 
 # kernel-stream id the expert-FFN consumer registers under
@@ -458,3 +467,305 @@ def make_moe_train_step(cfg: MoEConfig, mesh, lr: float = 1e-2):
 
     step.grads = grads
     return step
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's MoE layer: group-limited sigmoid routing, SwiGLU experts, a
+# shared expert, and a dropless exchange whose counts are written on the card
+# ---------------------------------------------------------------------------
+
+# the first of the kernel-stream ids a V3 step registers: two a layer (the
+# router and shared expert, then the held experts); a second step on the
+# same facade re-registers them for itself
+V3_STREAM_BASE = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class V3MoEConfig:
+    """DeepSeek-V3's MoE layer as its published configuration gives it
+    (`from_hf` reads the keys), and the share of it one expert-parallel
+    group computes: the `held` experts from `held_first` on, spread
+    evenly over the facade's ranks, each rank routing `tokens` tokens a
+    step over every router output. The weights carry the widths: the
+    router (n_routed_experts, hidden), the held experts' gate and up
+    (held, moe_intermediate_size, hidden) and down, the shared expert's
+    (n_shared_experts * moe_intermediate_size, hidden) and down."""
+
+    hidden: int = 7168               # hidden_size
+    n_group: int = 8
+    topk_group: int = 4
+    top_k: int = 8                   # num_experts_per_tok
+    routed_scaling: float = 2.5      # routed_scaling_factor
+    norm_topk_prob: bool = True
+    held_first: int = 0
+    held: int = 32
+    tokens: int = 128
+
+    @classmethod
+    def from_hf(cls, hf: dict, **kw) -> "V3MoEConfig":
+        """The layer of a Hugging Face DeepSeek-V3 config.json; `kw` set
+        the held share and the tokens. Only the sigmoid, noaux_tc router
+        is modelled."""
+        if hf.get("scoring_func", "sigmoid") != "sigmoid" or hf.get(
+                "topk_method", "noaux_tc") != "noaux_tc":
+            raise ValueError("V3MoEConfig models the sigmoid noaux_tc router")
+        return cls(hidden=hf["hidden_size"], n_group=hf["n_group"],
+                   topk_group=hf["topk_group"],
+                   top_k=hf["num_experts_per_tok"],
+                   routed_scaling=float(hf["routed_scaling_factor"]),
+                   norm_topk_prob=bool(hf["norm_topk_prob"]), **kw)
+
+    def rows_per_rank(self, world: int) -> int:
+        """A rank's rows of the expert side, sized for the worst case:
+        every token of every rank to each of its held experts."""
+        return self.held // world * world * self.tokens
+
+
+def v3_route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+             cfg: V3MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router over (N, D) float32 tokens: sigmoid scores of
+    the (E, D) router; the bias (E,) added for selection only; the top
+    `topk_group` of `n_group` groups by the sum of each group's two
+    highest biased scores; the top `top_k` experts within them. Returns
+    the experts (N, top_k) in descending biased score and their gates:
+    the unbiased scores, normalised over the k, times the routed scaling
+    factor. Capturable: no host reads."""
+    n = x.shape[0]
+    scores = torch.sigmoid(x @ router.T)
+    biased = scores + bias
+    grouped = biased.view(n, cfg.n_group, -1)
+    group_score = grouped.topk(2, dim=-1).values.sum(-1)
+    keep = torch.zeros_like(group_score, dtype=torch.bool).scatter_(
+        1, group_score.topk(cfg.topk_group, dim=-1).indices, True)
+    masked = grouped.masked_fill(~keep[..., None], float("-inf")).view(n, -1)
+    idx = masked.topk(cfg.top_k, dim=-1).indices
+    gate = scores.gather(1, idx)
+    if cfg.norm_topk_prob:
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-20)
+    return idx, gate * cfg.routed_scaling
+
+
+class V3Routing:
+    """One layer's dispatch layout, in device tensors allocated once and
+    rewritten by `plan` at each dispatch: the rows the slot-driven
+    exchange (schedules.SlotRows) and the grouped expert kernel read on
+    the card, and the counts the step's counters read back.
+
+    The expert side holds, on rank d, its held experts' rows one expert
+    after the other, each expert's rows by source rank, then by token:
+    `expert_starts[e]` is held expert e's first row (flat over the
+    ranks) and `expert_rows[e]` its row count; `counts[s, d]` the rows
+    rank s sends rank d; `slot_row`, `gate` the routing slots (-1: the
+    expert is not held here); `dropped` the held slots that found no row
+    (0 by construction: every side is sized for the worst case)."""
+
+    def __init__(self, cfg: V3MoEConfig, world: int, device):
+        if cfg.held % world:
+            raise ValueError(f"{cfg.held} held experts over {world} ranks")
+        W, T, K, H = world, cfg.tokens, cfg.top_k, cfg.held
+        self.cfg, self.world = cfg, world
+        self.rows_per_rank = cfg.rows_per_rank(world)
+        i32 = dict(dtype=torch.int32, device=device)
+        self.slot_row = torch.full((W, T, K), -1, **i32)
+        self.gate = torch.zeros((W, T, K), dtype=torch.float32, device=device)
+        self.counts = torch.zeros((W, W), **i32)
+        self.expert_rows = torch.zeros((H,), **i32)
+        self.expert_starts = torch.zeros((H,), **i32)
+        self.dropped = torch.zeros((1,), **i32)
+        self._held = torch.arange(H, device=device)
+        self._rank_base = self._held // (H // W) * self.rows_per_rank
+        common = dict(width=cfg.hidden, tokens=T,
+                      rows_per_rank=self.rows_per_rank,
+                      slot_row=self.slot_row)
+        self.dispatch = schedules.SlotRows("scatter", **common)
+        self.combine = schedules.SlotRows("gather", weight=self.gate,
+                                          **common)
+
+    def plan(self, idx: torch.Tensor, gate: torch.Tensor) -> None:
+        """Write the layout of the routing `idx`, `gate` ((W, T, K) each)
+        into the device tensors, with torch ops alone (capturable)."""
+        W, H = self.world, self.cfg.held
+        L = H // W
+        rel = idx - self.cfg.held_first
+        held = (rel >= 0) & (rel < H)
+        local = rel.clamp(0, H - 1)
+        # (W, T, H): whether token t of rank s chose held expert e
+        chose = ((local[..., None] == self._held)
+                 & held[..., None]).sum(2)
+        cnt = chose.sum(1)                       # (W, H)
+        before = chose.cumsum(1) - chose         # earlier tokens, per (s, e)
+        total = cnt.sum(0)                       # (H,)
+        per_rank = total.view(W, L)
+        start_local = (per_rank.cumsum(1) - per_rank).view(H)
+        first = self._rank_base + start_local    # (H,)
+        row = (first + cnt.cumsum(0) - cnt)[:, None, :] + before
+        slot = torch.gather(row, 2, local)
+        self.slot_row.copy_(torch.where(held, slot, -1))
+        self.gate.copy_(gate)
+        self.counts.copy_(cnt.view(W, W, L).sum(2))
+        self.expert_rows.copy_(total)
+        self.expert_starts.copy_(first)
+        # a held slot whose expert's rows would pass its rank's side
+        over = (start_local + total > self.rows_per_rank)[local]
+        self.dropped.copy_((held & over).sum().view(1))
+
+
+def v3_shared_expert(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """The shared expert's SwiGLU over (N, D) rows: plain matrix products
+    (float32; TF32 follows torch.backends.cuda.matmul.allow_tf32)."""
+    g = x @ w["shared_gate"].T
+    return (F.silu(g) * (x @ w["shared_up"].T)) @ w["shared_down"].T
+
+
+def _v3_router_consumer(routing: V3Routing, w: dict, layer: int):
+    """The dispatch's first stage, a copy step's consumer over the stacked
+    (W, T * D) tokens: route them and write the layout (the router), then
+    return the shared expert's output, which the layer adds last."""
+    cfg, W = routing.cfg, routing.world
+
+    def consumer(flat):
+        tracer = get_tracer()
+        x = flat.reshape(W * cfg.tokens, cfg.hidden)
+        with tracer.layer("moe_router", layer=layer):
+            idx, gate = v3_route(x, w["router"], w["bias"], cfg)
+            routing.plan(idx.view(W, cfg.tokens, -1),
+                         gate.view(W, cfg.tokens, -1))
+        with tracer.layer("moe_shared", layer=layer):
+            return v3_shared_expert(x, w).reshape(flat.shape)
+
+    return consumer
+
+
+def _v3_expert_consumer(routing: V3Routing, w: dict, layer: int):
+    """The dispatch exchange's consumer: the held experts' SwiGLU over the
+    rows the counts place, written over the rows it read."""
+    cfg, W = routing.cfg, routing.world
+
+    def consumer(flat):
+        from ..ops.moe_kernels import expert_swiglu
+
+        with get_tracer().layer("moe_experts", layer=layer):
+            rows = flat.view(-1, cfg.hidden)
+            expert_swiglu(rows, routing.expert_starts, routing.expert_rows,
+                          w["w_gate"], w["w_up"], w["w_down"],
+                          max_rows=W * cfg.tokens, out=rows)
+        return flat
+
+    return consumer
+
+
+class V3MoEStep:
+    """A token step of DeepSeek-V3 MoE layers over the facade's ranks (one
+    expert-parallel group), each layer's input `xs[l]` and result `ys[l]`
+    a stacked (W, T * D) buffer. A layer is four facade calls: a copy
+    whose consumer routes and runs the shared expert, the dispatch: a
+    slot-driven scatter alltoallv whose consumer runs the held experts,
+    the combine: a gate-weighted gather alltoallv, and the SUM combine
+    of the two.
+    Fused, all layers are one recorded sequence, compiled once: a step is
+    one dispatch (on the card one graph replay). Unfused, the same
+    descriptors are issued one by one, bitwise the same.
+
+    `wait` completes a step; while the tracer collects it then reads the
+    layouts back and emits one `moe_counters` event (cat "compute",
+    track "moe"): `moe_rows` (rows the held experts computed),
+    `moe_rows_max` (each layer's hottest held expert, summed),
+    `moe_tokens_routed` (token rows with a held slot, the rows the
+    dispatch reads), `moe_moved_rows` (rows that crossed ranks, both
+    legs),
+    `moe_dropped` (0), `moe_experts_live` (held experts with rows) and
+    `layers`. An untraced step reads nothing back."""
+
+    def __init__(self, accl, cfg: V3MoEConfig, layers: list[dict], xs, ys,
+                 *, compress_dtype=None, fused: bool = True,
+                 lint: str = "error"):
+        from ..constants import ReduceFunction
+
+        if len(xs) != len(layers) or len(ys) != len(layers):
+            raise ValueError("one input and one result buffer a layer")
+        W = accl.world
+        device = accl.cclo.torch_device
+        T, D = cfg.tokens, cfg.hidden
+        self.accl, self.cfg = accl, cfg
+        tracer = get_tracer()
+        with tracer.span("moe_record", cat="phase", track="moe",
+                         layers=len(layers), fused=fused):
+            self.routings = [V3Routing(cfg, W, device) for _ in layers]
+            rows = self.routings[0].rows_per_rank
+            self.shared = accl.create_buffer(T * D, torch.float32)
+            self.mid = accl.create_buffer(rows * D, torch.float32)
+            self.gathered = accl.create_buffer(T * D, torch.float32)
+            self.calls = []
+            for l, (w, routing) in enumerate(zip(layers, self.routings)):
+                rid = V3_STREAM_BASE + 2 * l
+                eid = rid + 1
+                accl.register_stream_consumer(
+                    rid, _v3_router_consumer(routing, w, l))
+                accl.register_stream_consumer(
+                    eid, _v3_expert_consumer(routing, w, l))
+                self.calls.append((xs[l], ys[l], routing, rid, eid))
+            self.wire = compress_dtype
+            self.sum = ReduceFunction.SUM
+            self.program = None
+            if fused:
+                seq = accl.sequence(lint=lint)
+                for x, y, routing, rid, eid in self.calls:
+                    seq.copy(x, self.shared, T * D, res_stream=rid)
+                    seq.alltoallv(x, self.mid, D, routing.dispatch,
+                                  compress_dtype=compress_dtype,
+                                  res_stream=eid)
+                    seq.alltoallv(self.mid, self.gathered, D,
+                                  routing.combine,
+                                  compress_dtype=compress_dtype)
+                    seq.combine(T * D, self.sum, self.shared, self.gathered,
+                                y)
+                self.program = seq.compile()
+
+    def run(self):
+        """Dispatch one step and return its request: fused, one dispatch
+        left running; unfused, the calls one by one, each completed."""
+        if self.program is not None:
+            return self.program.run(from_device=True, to_device=True,
+                                    run_async=True)
+        accl, T, D = self.accl, self.cfg.tokens, self.cfg.hidden
+        dev = dict(from_device=True, to_device=True)
+        for x, y, routing, rid, eid in self.calls:
+            accl.copy_to_stream(x, T * D, res_stream=rid, dstbuf=self.shared,
+                                **dev)
+            accl.alltoallv(x, self.mid, D, routing.dispatch,
+                           compress_dtype=self.wire, res_stream=eid, **dev)
+            accl.alltoallv(self.mid, self.gathered, D, routing.combine,
+                           compress_dtype=self.wire, **dev)
+            req = accl.combine(T * D, self.sum, self.shared, self.gathered,
+                               y, **dev)
+        return req
+
+    def wait(self, req):
+        """Complete a step; while the tracer collects, emit its counters."""
+        self.accl.wait(req)
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.emit("moe_counters", "compute", "moe",
+                        ts_ns=time.perf_counter_ns(), dur_ns=0,
+                        args=self.counters())
+        return req
+
+    def counters(self) -> dict:
+        """The step's routing counters, read back from the layouts (a
+        host synchronisation: call it after completion only)."""
+        rows = torch.stack([r.expert_rows for r in self.routings])
+        counts = torch.stack([r.counts for r in self.routings])
+        dropped = torch.stack([r.dropped for r in self.routings])
+        routed = torch.stack([(r.slot_row >= 0).any(-1).sum()
+                              for r in self.routings])
+        W = counts.shape[-1]
+        off_rank = counts * (1 - torch.eye(W, dtype=counts.dtype,
+                                           device=counts.device))
+        packed = torch.stack([rows.sum(), rows.max(1).values.sum(),
+                              routed.sum(), 2 * off_rank.sum(),
+                              dropped.sum(), (rows > 0).sum()]).tolist()
+        keys = ("moe_rows", "moe_rows_max", "moe_tokens_routed",
+                "moe_moved_rows", "moe_dropped", "moe_experts_live")
+        out = dict(zip(keys, (int(v) for v in packed)))
+        out["layers"] = len(self.routings)
+        return out

@@ -263,7 +263,10 @@ class ScheduleCompiler:
             body = self._allreduce_body(options, plan, arithcfg, func, wire,
                                         compressed_domain)
         elif op == Operation.alltoall:
-            if plan.algorithm == Algorithm.FLAT_ALLTOALLV:
+            if options.row_layout is not None:
+                body = functools.partial(schedules.slot_alltoallv_schedule,
+                                         layout=options.row_layout, **common)
+            elif plan.algorithm == Algorithm.FLAT_ALLTOALLV:
                 body = functools.partial(schedules.alltoallv_schedule,
                                          peer_counts=plan.peer_counts,
                                          **common)

@@ -860,6 +860,96 @@ def alltoallv_schedule(x: torch.Tensor, *, peer_counts, world: int,
     return out.reshape(x.shape)
 
 
+class SlotRows:
+    """The layout of a slot-driven alltoallv, bound at record time: device
+    tensors that a producer earlier in the same dispatch writes on the
+    card (an MoE router, say), and that the exchange reads there, so
+    that no count crosses to the host.
+
+    The exchange moves rows of `width` elements. Each (rank s, token t)
+    of the token side has `slots` slots; `slot_row[s, t, k]` is the row
+    of the slot side, flat over the ranks (rank d's rows are
+    d * rows_per_rank .. (d + 1) * rows_per_rank - 1), that slot k
+    occupies, or -1 when the slot moves nothing. Every row that no slot
+    names is left unwritten.
+
+    `mode` "scatter": the operand is the token side (tokens rows a rank),
+    the result the slot side (rows_per_rank rows a rank), each token row
+    copied to its slots' rows. "gather": the reverse, each token row the
+    sum of its slots' rows, each times `weight[s, t, k]`, in slot order.
+    Both sides are sized for the worst case the producer allows, so
+    nothing is ever dropped. The object's identity keys the compiled
+    program: re-recording with the same layout builds nothing."""
+
+    MODES = ("scatter", "gather")
+    _made = 0
+
+    def __init__(self, mode: str, *, width: int, tokens: int,
+                 rows_per_rank: int, slot_row: torch.Tensor,
+                 weight: torch.Tensor | None = None):
+        if mode not in self.MODES:
+            raise ValueError(f"slot alltoallv mode {mode!r}")
+        if slot_row.dim() != 3 or slot_row.dtype != torch.int32:
+            raise ValueError("slot_row: an int32 (world, tokens, slots) "
+                             f"tensor, got {slot_row.dtype} "
+                             f"{tuple(slot_row.shape)}")
+        if slot_row.shape[1] != tokens:
+            raise ValueError(f"slot_row {tuple(slot_row.shape)} for "
+                             f"{tokens} tokens a rank")
+        if mode == "gather" and (weight is None
+                                 or weight.shape != slot_row.shape):
+            raise ValueError("a gather layout needs a weight of slot_row's "
+                             "shape")
+        self.mode, self.width, self.tokens = mode, int(width), int(tokens)
+        self.rows_per_rank = int(rows_per_rank)
+        self.slot_row, self.weight = slot_row, weight
+        SlotRows._made += 1
+        self._label = SlotRows._made
+
+    @property
+    def in_rows(self) -> int:
+        """Rows a rank of the operand holds."""
+        return self.tokens if self.mode == "scatter" else self.rows_per_rank
+
+    @property
+    def out_rows(self) -> int:
+        """Rows a rank of the result holds."""
+        return self.rows_per_rank if self.mode == "scatter" else self.tokens
+
+    def __repr__(self) -> str:
+        return (f"SlotRows#{self._label}({self.mode}, width={self.width}, "
+                f"{self.in_rows}->{self.out_rows} rows)")
+
+
+def slot_alltoallv_schedule(x: torch.Tensor, *, layout: SlotRows,
+                            world: int, wire: Wire) -> torch.Tensor:
+    """The slot-driven alltoallv (a dropless MoE exchange, for one): each
+    row moves where the layout's device tensors place it (SlotRows), in
+    one kernel launch that touches only the rows a slot names
+    (ops/moe_kernels.dispatch_rows, combine_rows). On a cast wire every
+    moved row crosses it once: the scatter casts its token rows at the
+    source, the gather the slot rows before they are summed; a row that
+    stays on its rank crosses it too. The int8 wire is refused. While
+    the layer gate is open the body is a `slot_scatter` or `slot_gather`
+    layer span (on the card: at warm-up and capture, never at a
+    replay)."""
+    from ..ops.moe_kernels import combine_rows, dispatch_rows
+
+    if wire.quantized:
+        raise NotImplementedError(
+            "the slot-driven alltoallv has no blockwise-int8 wire")
+    if layout.slot_row.shape[0] != world or x.shape[0] != world:
+        raise ValueError(f"slot alltoallv over {x.shape[0]} rows for "
+                         f"world {world}")
+    from ..telemetry import get_tracer
+
+    with get_tracer().layer(f"slot_{layout.mode}", rows=layout.out_rows):
+        x = wire.transfer(x) if wire.cfg is not None else x
+        if layout.mode == "scatter":
+            return dispatch_rows(x, layout.slot_row, layout.rows_per_rank)
+        return combine_rows(x, layout.slot_row, layout.weight, layout.width)
+
+
 # ---------------------------------------------------------------------------
 # barrier
 # ---------------------------------------------------------------------------

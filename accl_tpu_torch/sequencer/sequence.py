@@ -59,11 +59,17 @@ SEQUENCE_OPS = (
 
 
 def step_in_elems(options, world: int) -> int:
+    layout = getattr(options, "row_layout", None)
+    if layout is not None:  # a slot-driven alltoallv: rows of `count`
+        return options.count * layout.in_rows
     return options.count * world if options.scenario in _WIDE_IN \
         else options.count
 
 
 def step_out_elems(options, world: int) -> int:
+    layout = getattr(options, "row_layout", None)
+    if layout is not None:
+        return options.count * layout.out_rows
     return options.count * world if options.scenario in _WIDE_OUT \
         else options.count
 

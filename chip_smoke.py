@@ -214,6 +214,13 @@ What it does, in order, printing one JSON object per line:
      bound, its register form bitwise; wire capacity 640 dropping the
      oracle's tokens; kernels 5 and 6 launches against the plan; the
      layer step's ms, fused and eager, exact and int8, beside its bound;
+     then DeepSeek-V3's MoE layer step, near the end (v3_moe_phase;
+     `chip_smoke.py v3_moe` runs it alone): two layers at the published
+     widths (hidden 7168, expert width 2048, 32 held experts, W = 8, 128
+     tokens a rank) as one replay; its three kernels' launches at
+     compile, a replay and an eager step; fused against eager; each
+     kernel on the step's own tensors against its plain version; their
+     device ms beside bound, plain and library ms;
  18. mesh phase (accl_tpu_torch/parallel/ and the mesh forms of
      models/transformer.py and models/moe.py): the flagship widths in
      fp32, tokens (8, 1024), TF32 off: make_forward on dp2.sp2.tp2 (8
@@ -5690,6 +5697,212 @@ def check_applied(new, old, grads, lr: float, what: str) -> int:
     return int((diff != 0).sum())
 
 
+# DeepSeek-V3's MoE layer step at its published widths (v3_moe_phase)
+V3_CFG = dict(hidden=7168, n_group=8, topk_group=4, top_k=8,
+              routed_scaling=2.5, held_first=0, held=32, tokens=128)
+V3_WIDTH, V3_EXPERTS, V3_WORLD, V3_LAYERS = 2048, 256, 8, 2
+V3_BIAS_STD = 0.065  # the router bias's spread: a hot held expert or two
+V3_EXPERT_TOL = 1e-5  # |kernel - plain| <= tol * max|plain| (fp32 orders)
+V3_COMBINE_TOL = 1e-6  # fmaf against a multiply and an add, 8 slots
+
+
+def v3_moe_phase():
+    """DeepSeek-V3's MoE layer step (models/moe.py's V3MoEStep, the path
+    the benchmark's moe_ep_decode_t128 cell runs) on the card at its
+    published widths: hidden 7168, expert width 2048, group 0's 32 of 256
+    routed experts held over W = 8, 128 tokens a rank, V3_LAYERS layers
+    recorded as one sequence; weights and tokens from a seed, TF32 off.
+    The three kernels' launch counts are set to 0 just before the step is
+    built. Gates, each failing the run: (1) the compile (warm-up and
+    capture) launches each kernel a whole number of times a step, a
+    replay none, an eager step gate/up and down, dispatch and combine
+    once a layer; (2) the fused step within V3_EXPERT_TOL of the eager
+    step (bitwise reported: the shared expert's cuBLAS products may take
+    another algorithm under capture), and no slot dropped; (3) on the
+    step's own tensors (each layer's input and the layout its router
+    wrote in the replay) each kernel against its plain version:
+    dispatch_rows bitwise on every placed row, expert_swiglu within
+    V3_EXPERT_TOL of the per-expert cuBLAS products relative to their
+    largest magnitude, combine_rows within V3_COMBINE_TOL; and the three
+    kernels plus the shared expert within V3_EXPERT_TOL of the layer's
+    result (bitwise reported). Numbers: each kernel's device ms (host
+    held off) on layer 0, its bound (the bytes it must move over
+    3.35 TB/s; the expert's the larger of that and its flops over 67
+    TFLOP/s FP32), its plain version's ms and a library call's; the
+    fused step's device ms. Returns the launches of the checked runs."""
+    import torch
+
+    from accl_tpu_torch import ACCL
+    from accl_tpu_torch.models import moe
+    from accl_tpu_torch.ops import moe_kernels as mk
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("v3_moe: TF32 is on; fp32 products must be "
+                             "fp32")
+    kernels = {"expert_swiglu": mk.expert_swiglu,
+               "dispatch_rows": mk.dispatch_rows,
+               "combine_rows": mk.combine_rows}
+    counts, delta = launch_counter(kernels)
+    cfg = moe.V3MoEConfig(**V3_CFG)
+    W, T, D, F, H = V3_WORLD, cfg.tokens, cfg.hidden, V3_WIDTH, cfg.held
+    gen = torch.Generator(device="cuda").manual_seed(2828)
+
+    def normal(*shape, std):
+        return torch.empty(shape, device="cuda").normal_(0.0, std,
+                                                         generator=gen)
+
+    layers = [dict(router=normal(V3_EXPERTS, D, std=D ** -0.5),
+                   bias=normal(V3_EXPERTS, std=V3_BIAS_STD),
+                   w_gate=normal(H, F, D, std=D ** -0.5),
+                   w_up=normal(H, F, D, std=D ** -0.5),
+                   w_down=normal(H, D, F, std=F ** -0.5),
+                   shared_gate=normal(F, D, std=D ** -0.5),
+                   shared_up=normal(F, D, std=D ** -0.5),
+                   shared_down=normal(D, F, std=F ** -0.5))
+              for _ in range(V3_LAYERS)]
+    inputs = [normal(W, T * D, std=1.0) for _ in layers]
+
+    def build(fused):
+        accl = ACCL(world=W, torch_device="cuda")
+        xs = [accl.create_buffer(T * D) for _ in layers]
+        ys = [accl.create_buffer(T * D) for _ in layers]
+        for b, x in zip(xs, inputs):
+            b.device = x.clone()
+        return moe.V3MoEStep(accl, cfg, layers, xs, ys, fused=fused,
+                             lint="off"), ys
+
+    for k in kernels.values():
+        k.launches = 0
+    before = counts()
+    step, ys = build(fused=True)
+    compiled = delta(before)
+    before = counts()
+    step.wait(step.run())
+    torch.cuda.synchronize()
+    replayed = delta(before)
+    fused = [y.device.clone() for y in ys]
+    replay_ms = run_ms(lambda: step.wait(step.run()), count=5, repeats=3)
+    before = counts()
+    eager_step, eager_ys = build(fused=False)
+    eager_step.wait(eager_step.run())
+    torch.cuda.synchronize()
+    eager = delta(before)
+    n = len(layers)
+    per_step = {"expert_swiglu": 2 * n, "dispatch_rows": n,
+                "combine_rows": n}
+    if replayed or eager != per_step or set(compiled) != set(per_step) \
+            or any(compiled[k] % per_step[k] for k in per_step):
+        raise AssertionError(f"v3_moe: launches at compile {compiled}, a "
+                             f"replay {replayed}, eager {eager}; "
+                             f"{per_step} a step")
+    bitwise = {}
+    for l, (a, b) in enumerate(zip(fused, eager_ys)):
+        bitwise[f"eager_{l}"] = same_bits(a, b.device)
+        if not max_abs_err(a, b.device) <= V3_EXPERT_TOL * float(
+                a.abs().max()):
+            raise AssertionError(f"v3_moe: layer {l}: fused and eager "
+                                 "steps differ")
+    counters = step.counters()
+    if counters["moe_dropped"]:
+        raise AssertionError(f"v3_moe: {counters['moe_dropped']} dropped")
+    del eager_step, eager_ys
+
+    rows_per_rank = step.routings[0].rows_per_rank
+    errs, times = {}, {}
+    for l, (x, r, w) in enumerate(zip(inputs, step.routings, layers)):
+        placed = r.slot_row[r.slot_row >= 0].long()
+        mid = mk.dispatch_rows(x, r.slot_row, rows_per_rank)
+        plain_mid = mk._dispatch_rows_impl(
+            x, r.slot_row, torch.zeros_like(mid).view(-1, D))
+        if not same_bits(mid.view(-1, D)[placed], plain_mid[placed]):
+            raise AssertionError(f"v3_moe: layer {l}: dispatch_rows")
+        rows = mid.view(-1, D)
+        eo = mk.expert_swiglu(rows, r.expert_starts, r.expert_rows,
+                              w["w_gate"], w["w_up"], w["w_down"],
+                              max_rows=W * T)
+        plain_eo = mk._expert_swiglu_impl(
+            rows, r.expert_starts, r.expert_rows, w["w_gate"], w["w_up"],
+            w["w_down"], torch.zeros_like(rows))
+        scale = float(plain_eo[placed].abs().max())
+        err = max_abs_err(eo[placed], plain_eo[placed])
+        if not err <= V3_EXPERT_TOL * scale:
+            raise AssertionError(f"v3_moe: layer {l}: expert_swiglu off "
+                                 f"by {err} of {scale}")
+        eo = eo.view(W, -1)
+        back = mk.combine_rows(eo, r.slot_row, r.gate, D)
+        plain_back = mk._combine_rows_impl(
+            eo.reshape(-1, D), r.slot_row, r.gate,
+            torch.empty_like(back).view(W, T, D)).view(W, -1)
+        cerr = max_abs_err(back, plain_back)
+        cscale = float(plain_back.abs().max())
+        if not cerr <= V3_COMBINE_TOL * cscale:
+            raise AssertionError(f"v3_moe: layer {l}: combine_rows off by "
+                                 f"{cerr} of {cscale}")
+        shared = moe.v3_shared_expert(x.view(-1, D), w).view(W, -1)
+        bitwise[f"kernels_{l}"] = same_bits(shared + back, fused[l])
+        if not max_abs_err(shared + back, fused[l]) <= V3_EXPERT_TOL * \
+                float(fused[l].abs().max()):
+            raise AssertionError(f"v3_moe: layer {l}: the kernels and the "
+                                 "shared expert are not the step's result")
+        errs[l] = {"expert_rel": err / scale, "combine_rel": cerr / cscale}
+        if l:
+            continue
+        live = int((r.expert_rows > 0).sum())
+        nrows = int(r.expert_rows.sum())
+        routed = int((r.slot_row >= 0).any(-1).sum())
+        ebytes = 4.0 * (3 * live * D * F + 2 * nrows * D)
+        slot = r.slot_row.reshape(-1).long()
+        keep = slot >= 0
+        src = x.view(W, T, 1, D).expand(W, T, cfg.top_k, D).reshape(-1, D)
+        flat_eo = eo.reshape(-1, D)
+        idx = r.slot_row.clamp(min=0).long().view(W * T, -1)
+        g = torch.where(r.slot_row >= 0, r.gate, 0.0).view(W * T, 1, -1)
+        times = {
+            "expert_swiglu": {
+                "ms": device_ms(lambda: mk.expert_swiglu(
+                    rows, r.expert_starts, r.expert_rows, w["w_gate"],
+                    w["w_up"], w["w_down"], max_rows=W * T), count=10),
+                "bound_ms": 1e3 * max(ebytes / HBM_BYTES_PER_S,
+                                      6.0 * nrows * D * F / 67e12),
+                "plain_ms": median_ms(lambda: mk._expert_swiglu_impl(
+                    rows, r.expert_starts, r.expert_rows, w["w_gate"],
+                    w["w_up"], w["w_down"], torch.empty_like(rows)),
+                    reps=5),
+                "library_ms": None, "rows": nrows, "experts_live": live},
+            "dispatch_rows": {
+                "ms": device_ms(lambda: mk.dispatch_rows(
+                    x, r.slot_row, rows_per_rank)),
+                "bound_ms": 1e3 * 4.0 * D * (routed + nrows)
+                / HBM_BYTES_PER_S,
+                "plain_ms": median_ms(lambda: mk._dispatch_rows_impl(
+                    x, r.slot_row, mid.view(-1, D))),
+                "library_ms": median_ms(lambda: mid.view(-1, D).index_put_(
+                    (slot[keep],), src[keep])),
+                "tokens_routed": routed},
+            "combine_rows": {
+                "ms": device_ms(lambda: mk.combine_rows(
+                    eo, r.slot_row, r.gate, D)),
+                "bound_ms": 1e3 * 4.0 * D * (nrows + W * T)
+                / HBM_BYTES_PER_S,
+                "plain_ms": median_ms(lambda: mk._combine_rows_impl(
+                    flat_eo, r.slot_row, r.gate,
+                    torch.empty_like(back).view(W, T, D))),
+                "library_ms": median_ms(lambda: torch.bmm(g, flat_eo[idx])),
+            }}
+    emit({"phase": "v3_moe", "world": W, "tokens": T, "hidden": D,
+          "width": F, "held": H, "layers": len(layers),
+          "launches": {"compile": compiled, "replay": replayed,
+                       "eager": eager},
+          "counters": counters, "errs": errs, "bitwise": bitwise,
+          "kernels": times,
+          "replay_ms": replay_ms,
+          "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30})
+    del step, ys, layers, inputs
+    torch.cuda.empty_cache()
+    return {k: compiled[k] + eager[k] for k in kernels}
+
+
 def check_logits(got, want, what: str) -> float:
     """|got - want| <= TRAIN_TOL * max|want|; the error relative to it."""
     scale = float(want.abs().max())
@@ -8895,8 +9108,15 @@ def kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
     emit({"kernels": entries})
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    """`chip_smoke.py` runs every phase; `chip_smoke.py v3_moe` the kernels'
+    build and DeepSeek-V3's MoE phase alone."""
     import torch
+
+    only = sys.argv[1:] if argv is None else argv
+    if only not in ([], ["v3_moe"]):
+        print(f"chip_smoke: unknown arguments {only}", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -8914,12 +9134,23 @@ def main() -> int:
 
     smi = card_name()
     print(smi, flush=True)
+    if only:  # its one library builds at its first launch
+        t = time.perf_counter()
+        v3 = v3_moe_phase()
+        emit({"phase": "clock", "seconds": {
+            "v3_moe_phase": round(time.perf_counter() - t, 1)},
+            "v3_moe_launches": v3})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     t0 = time.perf_counter()
     # the native emulator's g++ build runs beside the kernels' nvcc builds
     native_build = NativeBuild()
     native_build.start()
     # the kernels, and the ipc link's CUDA IPC binding (dcn_phase)
-    sources = ("ring_allreduce", "quant_wire", "lanes", "ipc_link")
+    sources = ("ring_allreduce", "quant_wire", "lanes", "ipc_link", "moe")
     _build.load_libraries(list(sources))  # one nvcc each, started together
     ptxas = {name: sorted(set(
         line.split("info    : ")[-1].strip()
@@ -8986,7 +9217,8 @@ def main() -> int:
     paths["dcn"], paths["dcn_flat"] = timed(dcn_phase, ring, qk, L)
     paths["entry"] = timed(entry_phase, ring, qk, L)
     paths["sweep"] = timed(sweep_phase, ring, qk, L)
-    emit({"phase": "clock", "seconds": clock})
+    v3 = timed(v3_moe_phase)
+    emit({"phase": "clock", "seconds": clock, "v3_moe_launches": v3})
     kernel_line(ring, qk, errs, launches, ring_row, lane_rows, quant_rows,
                 paths)
     print(smi, flush=True)
